@@ -1,0 +1,126 @@
+"""K2 cross_caps: Cross::canPass for a batch of rows over each link's
+crosses (csrc/cross_caps.cu).
+
+Rows are (R, LK, B): R vehicle rows per link, LK = LPI * G links, B envs.
+The cross tables `tabs` are (KC, LK) (`d`, `cvalid`, `t2`, `foelpi`) and
+(LK,) (`t1`, `turn`); `foe` is the exchanged (9, KC, LK, B) foe channels:
+exists, yield, cleared, cycle, reach, distance, enter time, priority high
+and low half. Returns any_fail (bool), the first failing cross's distance
+ff_d (+inf if none) and its foe lpi ff_foe (-1 if none). Parameters are
+the subject's maxNegAcc, yield distance, length, turn speed, max speed,
+usualPosAcc and the step interval, as Python floats.
+"""
+
+import ctypes
+
+import torch
+
+from cityflow_tpu_torch.core.step import can_yield, reach_steps
+from cityflow_tpu_torch.kernels import _lib
+
+launches = 0
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "dls", "speed", "ent", "ph", "plo", "relevant", "d", "cvalid", "t2",
+        "foelpi", "t1", "turn", "foe", "any_fail", "ff_d", "ff_foe")]
+        + [(n, ctypes.c_longlong) for n in ("R", "KC", "LK", "B")]
+        + [(n, ctypes.c_float) for n in (
+            "ent_val", "maxneg", "yld", "len", "turnspd", "maxspd", "upa",
+            "dt")])
+
+
+def cross_caps_plain(dls, speed, ent, ph, plo, relevant, foe, tabs, prm):
+    """Plain PyTorch version, the JAX region's arithmetic over an explicit
+    (R, KC, LK, B) slab. prm: maxneg, yld, len, turnspd, maxspd, upa, dt
+    (Python floats, used as float32 like JAX's f(p) constants)."""
+    maxneg, yld, ln, turnspd, maxspd, upa, dt = (
+        torch.tensor(float(v), dtype=torch.float32, device=dls.device)
+        for v in prm)
+    d = tabs["d"][None, :, :, None]                        # (1, KC, LK, 1)
+    d1 = d - dls[:, None]                                  # (R, KC, LK, B)
+    self_yield = can_yield(speed[:, None], maxneg, yld, ln, d1)
+    target = torch.where(tabs["turn"], turnspd, maxspd)[None, None, :, None]
+    sr = torch.clamp_max(reach_steps(speed[:, None], d1, target, upa, dt),
+                         255)
+    f_exists, f_yield, f_cleared, f_cyc = (foe[i][None] > 0.5
+                                           for i in range(4))
+    fr, f_dist, f_ent, f_ph, f_plo = (foe[i][None] for i in range(4, 9))
+    if not torch.is_tensor(ent):
+        ent = torch.full_like(dls, ent)
+    pri_win = (ph[:, None] > f_ph) | ((ph[:, None] == f_ph)
+                                      & (plo[:, None] > f_plo))
+    one = torch.ones((), dtype=torch.int32, device=dls.device)
+    same_rank_y = torch.where(
+        fr > sr, -one, torch.where(
+            fr < sr, one, torch.where(
+                ent[:, None] == f_ent,
+                torch.where(d1 == f_dist, torch.where(pri_win, -one, one),
+                            torch.where(d1 < f_dist, -one, one)),
+                torch.where(ent[:, None] < f_ent, -one, one))))
+    f_dpos = f_dist > 0
+    t_eq = torch.where(f_dpos, same_rank_y,
+                       torch.where(f_cleared, -one, one))
+    t_lt_pre = torch.where(f_dpos, torch.where(fr > sr, -one, 0 * one),
+                           torch.where(f_cleared, -one, 0 * one))
+    t_lt = torch.where(t_lt_pre == 0, one, t_lt_pre)
+    t1 = tabs["t1"][None, None, :, None]
+    t2 = tabs["t2"][None, :, :, None]
+    y0 = torch.where(t1 > t2, -one, torch.where(t1 < t2, t_lt, t_eq))
+    y = torch.where(~f_yield, one, y0)
+    y = torch.where((y == 1) & f_cyc, -one, y)
+    passes = ~f_exists | ~self_yield | (y == -1)
+    considered = tabs["cvalid"][None, :, :, None] & (d >= dls[:, None]) \
+        & relevant[:, None]
+    fail = considered & ~passes
+    any_fail = torch.any(fail, dim=1)
+    ff_d = torch.amin(torch.where(fail, d, torch.inf), dim=1)
+    ff_foe = torch.amax(torch.where(
+        fail & (d == ff_d[:, None]), tabs["foelpi"][None, :, :, None], -one),
+        dim=1)
+    return any_fail, ff_d, ff_foe
+
+
+def cross_caps(dls, speed, ent, ph, plo, relevant, foe, tabs, prm):
+    """K2 on CUDA tensors, the plain version on CPU tensors. `ent` may be
+    a Python float (every row has the same enter time)."""
+    global launches
+    R, LK, B = dls.shape
+    KC = tabs["d"].shape[0]
+    cpu = dls.device.type == "cpu"
+    f32, i32, b8 = (torch.float32,), (torch.int32,), (torch.bool,)
+    ent_t = ent if torch.is_tensor(ent) else None
+    rows = (dls, speed, ent_t, ph, plo, relevant)
+    tb = (tabs["d"], tabs["cvalid"], tabs["t2"], tabs["foelpi"], tabs["t1"],
+          tabs["turn"])
+    _lib.check_args("cross_caps", *rows, *tb, foe,
+                    dtypes=[f32, f32, f32, f32, f32, b8, f32, b8, i32, i32,
+                            i32, b8, f32], cuda=not cpu)
+    for i, t in enumerate(rows):
+        if t is not None and tuple(t.shape) != (R, LK, B):
+            raise ValueError(f"cross_caps: row input {i} {tuple(t.shape)}"
+                             f" != {(R, LK, B)}")
+    for name in ("d", "cvalid", "t2", "foelpi"):
+        if tuple(tabs[name].shape) != (KC, LK):
+            raise ValueError(f"cross_caps: {name} {tuple(tabs[name].shape)}"
+                             f" != {(KC, LK)}")
+    if tuple(tabs["t1"].shape) != (LK,) or tuple(tabs["turn"].shape) != (LK,):
+        raise ValueError("cross_caps: t1/turn must be (LK,)")
+    if tuple(foe.shape) != (9, KC, LK, B):
+        raise ValueError(f"cross_caps: foe {tuple(foe.shape)} != "
+                         f"{(9, KC, LK, B)}")
+    if cpu:
+        return cross_caps_plain(dls, speed, ent, ph, plo, relevant, foe,
+                                tabs, prm)
+    any_fail = torch.empty((R, LK, B), dtype=torch.bool, device=dls.device)
+    ff_d = torch.empty((R, LK, B), dtype=torch.float32, device=dls.device)
+    ff_foe = torch.empty((R, LK, B), dtype=torch.int32, device=dls.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    a = _Args(*(ptr(t) for t in (*rows, *tb, foe, any_fail, ff_d, ff_foe)),
+              R, KC, LK, B, 0.0 if ent_t is not None else float(ent),
+              *(float(p) for p in prm))
+    rc = _lib.lib().cross_caps(ctypes.byref(a), _lib.stream_ptr(dls))
+    _lib.check(rc, "cross_caps")
+    launches += 1
+    return any_fail, ff_d, ff_foe
