@@ -5,25 +5,41 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the four kernels from csrc/ (nvcc, sm_90a) with its time
+            of the eight kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
             the main path's 30x30 call-site shapes (B=128) with seeded
-            numpy inputs; times, bounds and the library yardstick
+            numpy inputs; times, bounds and the library yardstick (K1 at
+            two call sites, K4 on both rings)
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
-  main      the main path (tools/bench.run_ring: p1 + p2 batched) at
-            B=128, halved on out-of-memory; asserts overflow == 0,
-            vehicles > 0, every env equal to env 0 bitwise, and every
-            kernel launched; prints ms per batched step, env-steps/s, the
-            p1/p2 split, each kernel's share and peak memory
+  main      the main path (tools/bench.run_ring: p1 + p2 batched; the
+            warm-up runs one env, copied into the batch) at B=128
+            (asserted: no halving on out-of-memory); asserts
+            overflow == 0, vehicles > 0, every env equal to env 0 bitwise,
+            and K1-K4 launched; prints ms per batched step, env-steps/s,
+            the p1/p2 split, each kernel's share and peak memory
+  agree-lc  lane change, B=1 on the card against the plain port on the
+            CPU on tests/fixtures/config_1x1s_lc.json, 80 steps: vehicles
+            keyed by (uid, shadow), drift within 2e-3, equal (changing,
+            shadow) counts, changes happen
+  lc        the lane-change path on benchmarks/config_30x30_lc.json at
+            B=128, lane slots 40 (tools/bench.run_ring_ladder, asserted not
+            halved): LC_WARMUP warm-up steps, then 40 timed; the main
+            path's asserts, plus L1-L4 and both lane-change modes launched
+            and shadows on the rings in the timed window
+  kernels   (lane change) L1-L4 and the lane-change modes of K3 / K4
+            against their plain versions on the inputs of one more step of
+            the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
+            K3 within 1e-5, their not-bitwise counts printed), timed
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -37,15 +53,37 @@ BATCH = 128                         # envs on the main path and the kernels
 STEPS = 40                          # timed main-path steps
 WARMUP = 8                          # main-path steps before the timing
 AGREE_STEPS = 20                    # card-vs-CPU agreement steps at B=1
+AGREE_LC_STEPS = 80                 # the same on the lane-change fixture
+LC_WARMUP = 1960                    # lc path steps before the timing: the
+                                    # 30x30 routes run 31 roads straight,
+                                    # and a vehicle changes lanes only on
+                                    # its last road, from step 1779 on
 REPS = 10                           # launches per kernel timing
+MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
+LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
+LC_MODES = ("car_follow@lc", "ring_commit@lc")
 REPLACES = {
     "gather_rows": "cityflow_tpu/core/ring.py:243 (_typed_mm), :300-341 "
                    "(exchanges), :881-927 (foe_perm)",
+    "gather_rows@in_src": "cityflow_tpu/core/ring.py:300-341 (_fwd_ex, "
+                          "the forward exchange)",
     "cross_caps": "cityflow_tpu/core/ring.py:936 (cross_caps)",
     "car_follow": "cityflow_tpu/core/ring.py:998 (isr_speed), :1042 "
                   "(min_chain)",
-    "ring_commit": "cityflow_tpu/core/ring.py:1691 (shift_out/append_k), "
-                   ":1838 (commit_l)",
+    "ring_commit": "cityflow_tpu/core/ring.py:1744-1907 (commit_l)",
+    "ring_commit@link": "cityflow_tpu/core/ring.py:1644-1742 "
+                        "(shift_out/append_k)",
+    "lc_signal": "cityflow_tpu/core/ring_lc.py:192-311 (lc_phase: "
+                 "neighbour rings, makeSignal, gaps; _perm :52)",
+    "lc_receive": "cityflow_tpu/core/ring_lc.py:313-367 (lc_phase: "
+                  "receiveSignal, yieldSpeed)",
+    "lc_insert": "cityflow_tpu/core/ring_lc.py:369-531 (lc_phase: winners, "
+                 "shadow inserts)",
+    "lc_partner": "cityflow_tpu/core/ring_lc.py:534-567 (partner_fetch)",
+    "car_follow@lc": "cityflow_tpu/core/ring.py:1042-1092 (min_chain under "
+                     "lane_change: v_yield, raw)",
+    "ring_commit@lc": "cityflow_tpu/core/ring.py:1815-1857 (commit_l under "
+                      "lane_change: the rank-preserving delete)",
 }
 
 
@@ -80,6 +118,24 @@ def time_cuda(fn, reps):
 # kernel checks at the 30x30 call-site shapes
 # ---------------------------------------------------------------------------
 
+def kernel_row(name, err, ms, plain_ms, nbytes, nops, lib_ms):
+    """One row of the kernel table; `name` is the kernel, or kernel@site
+    for a second call site or a mode of it. The bound is the larger of the
+    bytes over the memory rate and the operations over the f32 rate."""
+    bound = max(nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS) * 1e3
+    log(f"[kernels] {name}: max_abs_err={err} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+        f"library_ms={lib_ms}")
+    return dict(
+        name=name, route="cuda",
+        source=f"cityflow_tpu_torch/csrc/{name.split('@')[0]}.cu",
+        replaces=REPLACES[name], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes" if nbytes / H100_BYTES_PER_S
+        >= nops / H100_F32_FLOPS else "operations",
+        library_ms=lib_ms)
+
+
 def check_kernels(sim, B, reps):
     import numpy as np
     import torch
@@ -96,19 +152,7 @@ def check_kernels(sim, B, reps):
     LKp, LNp, KC, SK, SL = cfg.LKp, cfg.LNp, cfg.KC, cfg.SK, cfg.SL
     IL, G, LPI, AP = cfg.IL, cfg.G, cfg.LPI, cfg.AP
 
-    def row(name, err, ms, plain_ms, nbytes, nops, lib_ms):
-        bound = max(nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS) * 1e3
-        rows.append(dict(
-            name=name, route="cuda",
-            source=f"cityflow_tpu_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound,
-            bound_by="bytes" if nbytes / H100_BYTES_PER_S
-            >= nops / H100_F32_FLOPS else "operations",
-            library_ms=lib_ms))
-        log(f"[kernels] {name}: max_abs_err={err} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
-            f"library_ms={lib_ms}")
+    row = lambda *a: rows.append(kernel_row(*a))
 
     # ---- K1: the forward exchange (lane -> in-lane, 44 channels) and the
     #      foe exchange (9 channels), static; to_link, dynamic
@@ -139,6 +183,16 @@ def check_kernels(sim, B, reps):
     nsrc = int(torch.unique(fidx[fidx >= 0]).numel())
     nbytes = 4 * (9 * nsrc * B + 9 * fidx.numel() * B + fidx.numel())
     row("gather_rows", err, ms, plain, nbytes, 0, lib)
+    # the forward exchange (lane -> in-lane, 14 AP + 2 channels), the
+    # largest other static call site
+    ms = time_cuda(lambda: gather_rows.gather_rows(x, idx, 0.0), reps)
+    plain = time_cuda(lambda: gather_rows.gather_rows_plain(x, idx, 0.0),
+                      reps)
+    il = idx.clamp(min=0).long()
+    lib = time_cuda(lambda: x.index_select(1, il), reps)
+    nsrc = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = 4 * (C * nsrc * B + C * idx.numel() * B + idx.numel())
+    row("gather_rows@in_src", 0.0, ms, plain, nbytes, 0, lib)
 
     # ---- K2: link rows, R = SKC
     R = min(cfg.SKC, SK)
@@ -305,19 +359,32 @@ def check_kernels(sim, B, reps):
     bad = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
     log(f"[kernels] ring_commit (link): mismatches={bad}")
     assert bad == 0, "ring_commit (link) mismatch"
-    # per channel a column reads its SL - x surviving slots and writes all
-    # SL; of the candidates it reads every valid flag, the sort key of the
-    # valid ones and the entrant channels of the ones it takes
-    esz = sum(c[0].element_size() for c in chans)
-    keep = int((SL - x_l).sum())
-    nvalid = (app[:, 13] > 0.5).sum(0)
-    taken = int(nvalid.clamp(max=kw["nsel"]).sum())
-    n_app_ch = sum((c[3] >= 0) + (c[1] == "pri") for c in chans)
-    nbytes = (esz * (keep + SL * LNp * B) + 2 * LNp * B * 4
-              + 4 * (A * cfg.OL * G * B + int(nvalid.sum())
-                     + n_app_ch * taken))
+    nbytes = commit_bytes(chans, int((SL - x_l).sum()), app, kw["valid_ch"],
+                          kw["nsel"], 2 * LNp * B * 4)
     row("ring_commit", 0.0, ms, plain, nbytes, 0, None)
+    kms = time_cuda(lambda: ring_commit.ring_commit(
+        kch, x_k, n_k - x_k, ent, **kkw), reps)
+    kplain = time_cuda(lambda: ring_commit.ring_commit_plain(
+        kch, x_k, n_k - x_k, ent, **kkw), reps)
+    nbytes = commit_bytes(kch, int((SK - x_k).sum()), ent, kkw["valid_ch"],
+                          kkw["nsel"], 2 * LKp * B * 4 + B * 4)
+    row("ring_commit@link", 0.0, kms, kplain, nbytes, 0, None)
     return rows
+
+
+def commit_bytes(chans, keep, app, valid_ch, nsel, extra):
+    """K4's bytes: per channel a column reads its `keep` surviving slots
+    and writes all S; of the candidates (A, PCH, N', B) it reads every
+    valid flag, the sort key of the valid ones and the entrant channels of
+    the ones it takes; plus `extra` (counts, masks)."""
+    upd = chans[0][0]
+    esz = sum(c[0].element_size() for c in chans)
+    A, _, AC, B = app.shape
+    nvalid = (app[:, valid_ch] > 0.5).sum(0)
+    taken = int(nvalid.clamp(max=nsel).sum())
+    n_app_ch = sum((c[3] >= 0) + (c[1] == "pri") for c in chans)
+    return (esz * (keep + upd.numel()) + extra
+            + 4 * (A * AC * B + int(nvalid.sum()) + n_app_ch * taken))
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +392,10 @@ def check_kernels(sim, B, reps):
 # ---------------------------------------------------------------------------
 
 def vehicles(st):
+    """{key: (drivable, dis, speed)}; the key is the uid, or (uid, shadow)
+    with lane change, since a shadow shares its real's uid."""
     out = {}
+    sh = None if st.l_sh is None else st.l_sh.cpu().numpy()
     for pre in ("l", "k"):
         n = getattr(st, f"n_{pre}").cpu().numpy()
         uid = getattr(st, f"{pre}_uid").cpu().numpy()
@@ -333,19 +403,28 @@ def vehicles(st):
         spd = getattr(st, f"{pre}_speed").cpu().numpy()
         for p in n.nonzero()[0]:
             for s in range(int(n[p])):
-                out[int(uid[s, p])] = ((pre, int(p)), float(dis[s, p]),
-                                       float(spd[s, p]))
+                key = int(uid[s, p])
+                if sh is not None:
+                    key = (key, pre == "l" and bool(sh[s, p]))
+                out[key] = ((pre, int(p)), float(dis[s, p]),
+                            float(spd[s, p]))
     return out
 
 
-def check_agreement(net, steps):
+def check_agreement(net, steps, tag="agree", **kw):
+    """B=1 on the card (kernels) against the plain port on the CPU; with
+    lane change also the (changing, shadow) counts, and changes must
+    happen."""
     from cityflow_tpu_torch import ring_sim
-    gpu = ring_sim.build_sim(net, horizon=steps + 8, sl=40)
-    cpu = ring_sim.build_sim(net, horizon=steps + 8, sl=40, device="cpu")
-    worst = 0.0
+    gpu = ring_sim.build_sim(net, horizon=steps + 8, **kw)
+    cpu = ring_sim.build_sim(net, horizon=steps + 8, device="cpu", **kw)
+    lc = gpu.cfg.lane_change
+    worst, changes = 0.0, 0
     for i in range(1, steps + 1):
         ring_sim.step(gpu)
         ring_sim.step(cpu)
+        if lc:
+            changes += int(cpu.state.l_chg.sum())
         if i % 5 and i != steps:
             continue
         a, b = vehicles(cpu.state), vehicles(gpu.state)
@@ -355,23 +434,40 @@ def check_agreement(net, steps):
             worst = max(worst, abs(a[u][1] - b[u][1]),
                         abs(a[u][2] - b[u][2]))
         assert worst <= 2e-3, f"step {i}: worst drift {worst}"
+        if lc:
+            cnt = lambda st: (int(st.l_chg.sum()), int(st.l_sh.sum()))
+            assert cnt(cpu.state) == cnt(gpu.state), \
+                f"step {i}: (changing, shadow) {cnt(cpu.state)} vs " \
+                f"{cnt(gpu.state)}"
     assert int(cpu.state.finished_cnt) == int(gpu.state.finished_cnt)
     assert int(gpu.state.overflow) == 0
-    log(f"[agree] {steps} steps B=1: vehicles={len(a)} worst_drift={worst}")
+    msg = f"[{tag}] {steps} steps B=1: vehicles={len(a)} worst_drift={worst}"
+    if lc:
+        assert changes > 0, "no lane change happened"
+        msg += f" changing_rows_summed={changes}"
+    log(msg)
 
 
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
+def _patch_points():
+    """(module, name) of every kernel wrapper the step calls by name."""
+    from cityflow_tpu_torch.core import ring as ring_mod
+    from cityflow_tpu_torch.core import ring_lc
+    return [(ring_mod, n) for n in MAIN_KERNELS] \
+        + [(ring_lc, n) for n in LC_KERNELS]
+
+
 def kernel_shares(sim, state, nsteps):
     """Device time per kernel wrapper (CUDA events around each launch)
     and per phase over `nsteps` batched steps."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
-    names = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
-    orig = {n: getattr(ring_mod, n) for n in names}
-    events = {n: [] for n in names}
+    points = _patch_points()
+    orig = {n: getattr(m, n) for m, n in points}
+    events = {n: [] for _, n in points}
 
     def timed(n):
         def fn(*a, **k):
@@ -384,10 +480,20 @@ def kernel_shares(sim, state, nsteps):
             return out
         return fn
 
+    # one untimed step first, so the window starts in the steady state
+    # of the caching allocator; no garbage collection inside the window: a
+    # collection between an event and its launch leaves the device idle
+    # and books the pause to that kernel
+    state = ring_mod.ring_step_p2_batched(
+        sim.tables, sim.cfg, *ring_mod.ring_step_p1_batched(
+            sim.tables, sim.cfg, state, sim.q))
+    torch.cuda.synchronize()
     phase_ms = {"p1": 0.0, "p2": 0.0}
+    gc.collect()
+    gc.disable()
     try:
-        for n in names:
-            setattr(ring_mod, n, timed(n))
+        for m, n in points:
+            setattr(m, n, timed(n))
         for _ in range(nsteps):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
@@ -401,55 +507,288 @@ def kernel_shares(sim, state, nsteps):
             phase_ms["p1"] += ev[0].elapsed_time(ev[1]) / nsteps
             phase_ms["p2"] += ev[1].elapsed_time(ev[2]) / nsteps
     finally:
-        for n in names:
-            setattr(ring_mod, n, orig[n])
+        gc.enable()
+        for m, n in points:
+            setattr(m, n, orig[n])
     torch.cuda.synchronize()
-    per = {n: sum(s.elapsed_time(e) for s, e in events[n]) / nsteps
-           for n in names}
+    per = {n: sum(s.elapsed_time(e) for s, e in ev) / nsteps
+           for n, ev in events.items() if ev}
     return per, phase_ms
 
 
-def main_path(cfg_path, batch, warmup, steps):
+def check_path(tag, sim, st, launches, expect):
+    """Asserts on a driven path's final batched state and launch counts,
+    then its p1/p2 split, kernel shares and peak memory."""
+    import torch
+    log(f"[{tag}] launches={launches}")
+    assert int(st.overflow.max()) == 0, "overflow flags set"
+    for k, v in st.leaves().items():
+        assert torch.equal(v, v[..., :1].expand_as(v)), \
+            f"env columns differ in {k}"
+    for k in expect:
+        assert launches[k] > 0, f"kernel {k} was not launched on {tag}"
+    peak = torch.cuda.max_memory_allocated()
+    per, phase = kernel_shares(sim, st, 3)
+    tot = phase["p1"] + phase["p2"]
+    log(f"[{tag}] p1_ms={phase['p1']:.3f} p2_ms={phase['p2']:.3f} "
+        f"(CUDA events, 3 steps)")
+    for n, v in per.items():
+        log(f"[{tag}] kernel {n}: {v:.3f} ms/step ({100 * v / tot:.1f}% of "
+            f"the step)")
+    log(f"[{tag}] max_memory_allocated={peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    return dict(p1_ms=phase["p1"], p2_ms=phase["p2"], kernel_ms=per,
+                peak_bytes=peak)
+
+
+def run_path(tag, cfg_path, batch, warmup, steps, expect):
+    """One path through tools/bench.run_ring_ladder (`steps` consecutive
+    timed steps after the warm-up), with the launch counts set to 0 just
+    before and read just after; the batch it ran at must be `batch` (the
+    ladder halves it on out-of-memory; the warm-up runs one env and copies
+    it into the batch). On a lane-change config the shadows of env 0 are
+    summed over the timed steps on the device: the window must hold
+    some."""
     import torch
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.compiler.net import compile_scenario
     from cityflow_tpu_torch.tools import bench
 
     net = compile_scenario(cfg_path)
+    lc = bool(net.host.config.get("laneChange", False))
     args = bench.parser().parse_args(
         ["--config", cfg_path, "--batch", str(batch), "--warmup",
          str(warmup), "--window", "0", "--steps", str(steps)])
+    shadows = []
+
+    def count_shadows(s):
+        if not shadows:
+            shadows.append(torch.zeros((), dtype=torch.int64,
+                                       device=s.l_sh.device))
+        shadows[0] += s.l_sh[..., 0].sum()
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    r, B = bench.run_ring_ladder(args, net, batch)
+    t0 = time.time()
+    r, B = bench.run_ring_ladder(args, net, batch,
+                                 on_step=count_shadows if lc else None)
     launches = kernels.launch_counts()
-    st = r["state"]
     ms = r["seconds"] * 1e3 / r["steps"]
-    log(f"[main] B={B} steps={r['steps']} ms_per_batched_step={ms:.3f} "
+    c = r["sim"].cfg
+    log(f"[{tag}] B={B} steps={r['steps']} warmup={warmup} "
+        f"ms_per_batched_step={ms:.3f} "
         f"env_steps_per_s={B * r['steps'] / r['seconds']:.1f} "
         f"vehicles_per_env={r['vehicles']} overflow={r['overflow']} "
-        f"first_step_s={r['first_step_s']:.2f}")
-    log(f"[main] launches={launches}")
-    assert r["overflow"] == 0, "overflow flags set"
+        f"first_step_s={r['first_step_s']:.2f} "
+        f"wall_s={time.time() - t0:.1f} LNp={c.LNp} LKp={c.LKp} SL={c.SL} "
+        f"SK={c.SK} KOUT={c.KOUT} MAXLPR={c.MAXLPR} XK={c.XK}")
+    assert B == batch, f"the {tag} path ran at B={B}, not {batch}"
     assert r["vehicles"] > 0, "no vehicles"
-    for k, v in st.leaves().items():
-        assert torch.equal(v, v[..., :1].expand_as(v)), \
-            f"env columns differ in {k}"
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the main path"
-    peak = torch.cuda.max_memory_allocated()
-    per, phase = kernel_shares(r["sim"], st, 3)
-    tot = phase["p1"] + phase["p2"]
-    log(f"[main] p1_ms={phase['p1']:.3f} p2_ms={phase['p2']:.3f} "
-        f"(CUDA events, 3 steps)")
-    for n, v in per.items():
-        log(f"[main] kernel {n}: {v:.3f} ms/step ({100 * v / tot:.1f}% of "
-            f"the step)")
-    log(f"[main] max_memory_allocated={peak} bytes ({peak / 2**30:.2f} GiB)")
-    return launches, dict(B=B, ms_per_step=ms, p1_ms=phase["p1"],
-                          p2_ms=phase["p2"], kernel_ms=per,
-                          env_steps_per_s=B * r["steps"] / r["seconds"],
-                          peak_bytes=peak, vehicles=r["vehicles"])
+    per_step = {k: v / r["steps_run"] for k, v in launches.items()}
+    log(f"[{tag}] launches per step={per_step}")
+    res = dict(B=B, steps=r["steps"], warmup=warmup, ms_per_step=ms,
+               env_steps_per_s=B * r["steps"] / r["seconds"],
+               vehicles=r["vehicles"], launches_per_step=per_step)
+    if lc:
+        res["shadow_rows_env0"] = int(shadows[0])
+        log(f"[{tag}] shadow rows on env 0, summed over the timed steps: "
+            f"{res['shadow_rows_env0']}")
+        assert res["shadow_rows_env0"] > 0, "no shadows in the timed window"
+    res.update(check_path(tag, r["sim"], r["state"], launches, expect))
+    return launches, res, r["sim"], r["state"]
+
+
+# ---------------------------------------------------------------------------
+# lane-change kernels on the lc path's own inputs
+# ---------------------------------------------------------------------------
+
+def record_lc_calls(sim, state):
+    """One more batched step of the lc path with the lane-change wrappers
+    recording their arguments (cloned, tables by reference): every L1-L4
+    call, both K3 calls with v_yield (lane rows and approach rows) and the
+    K4 call with the delete mask."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    keep_ids = {id(v) for v in sim.tables.values()}
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x if id(x) in keep_ids else x.clone()
+        if x is sim.tables:
+            return x
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    wanted = {
+        "car_follow": lambda a, k: "v_yield" in k,
+        "ring_commit": lambda a, k: k.get("dmask") is not None}
+    points = [(m, n) for m, n in _patch_points()
+              if n in LC_KERNELS or n in wanted]
+    orig = {n: getattr(m, n) for m, n in points}
+    calls = {}
+
+    def rec(n):
+        def fn(*a, **k):
+            if n in LC_KERNELS or wanted[n](a, k):
+                calls.setdefault(n, []).append(clone((a, k)))
+            return orig[n](*a, **k)
+        return fn
+
+    try:
+        for m, n in points:
+            setattr(m, n, rec(n))
+        s, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg, state,
+                                               sim.q)
+        ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, s, mid)
+        torch.cuda.synchronize()
+    finally:
+        for m, n in points:
+            setattr(m, n, orig[n])
+    return calls
+
+
+def _flat(x):
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _flat(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
+def _compare(name, got, want, tol):
+    """(max |err|, values not bitwise); asserts equal shapes and dtypes,
+    and all values within `tol` (exact for ints and bools)."""
+    import torch
+    err, nbit = 0.0, 0
+    for g, w in zip(_flat(got), _flat(want), strict=True):
+        assert g.shape == w.shape and g.dtype == w.dtype, \
+            f"{name}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}"
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
+            if g.dtype.is_floating_point else g == w
+        nbit += int((~same).sum())
+        if g.dtype.is_floating_point:
+            d = (g.double() - w.double()).abs().nan_to_num(0.0)
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        else:
+            assert bool(same.all()), f"{name}: int / bool mismatch"
+    assert err <= tol, f"{name}: max |err| {err} > {tol}"
+    return err, nbit
+
+
+def check_lc_kernels(sim, state, reps):
+    """L1-L4 and the K3 / K4 lane-change modes on the lc path's own
+    inputs, against their plain versions, every recorded call; timed on
+    the first recorded call of each (K3's at the lane rows)."""
+    import torch
+    from cityflow_tpu_torch.kernels import (
+        car_follow, lc_insert, lc_partner, lc_receive, lc_signal,
+        ring_commit)
+    mods = {"lc_signal": lc_signal, "lc_receive": lc_receive,
+            "lc_insert": lc_insert, "lc_partner": lc_partner,
+            "car_follow": car_follow, "ring_commit": ring_commit}
+    tol = {"lc_receive": 1e-5, "car_follow": 1e-5}
+    calls = record_lc_calls(sim, state)
+    rows = []
+    for n, mod in mods.items():
+        assert calls.get(n), f"{n}: no lane-change call recorded"
+        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        err, nbit = 0.0, 0
+        for a, k in calls[n]:
+            e, nb = _compare(n, kern(*a, **k), plain(*a, **k),
+                             tol.get(n, 0.0))
+            err, nbit = max(err, e), nbit + nb
+        label = n if n in LC_KERNELS else n + "@lc"
+        log(f"[kernels] {label}: {len(calls[n])} calls checked, "
+            f"max_abs_err={err} not_bitwise={nbit}")
+        a, k = next(c for c in calls[n]
+                    if n != "car_follow" or len(c[0][2]) == 3)
+        ms = time_cuda(lambda: kern(*a, **k), reps)
+        plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        nbytes, nops = lc_work(n, a, k)
+        rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, None))
+    return rows
+
+
+def lc_work(n, a, k):
+    """Bytes (each input read once, each output written once) and
+    operations of one lane-change kernel call, from its arguments."""
+    import torch
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    if n == "lc_signal":
+        (dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow, olt_dis,
+         olt_ex, now, tabs, _) = a
+        S, N, B = dis.shape
+        M = rnrow.shape[0]
+        occ = torch.arange(S, device=dis.device)[:, None, None] < n_l[None]
+        # a signal can start only on occupied rows that are neither shadows
+        # nor changing: only there are the stale gap and the last-road flag
+        # read, and, off the last road, the neighbour lanes' route rows;
+        # the direction only on changing rows
+        start = occ & ~sh & ~chg
+        lo = tabs["ln_llocal"]
+        nrows = sum(((lo + d >= 0) & (lo + d < M)).to(torch.int64)
+                    for d in (1, -1))
+        route = int(((start & ~l_last).sum((0, 2)) * nrows).sum())
+        ins = (nb(dis, speed, n_l, sh, chg, olt_dis, olt_ex, now) + 16 * N
+               + int(start.sum()) * (4 + 1) + int((occ & chg).sum()) * 4
+               + 4 * route)
+        # plan, hsig, gval (bool), dirc, tl_slot (i32), ygap (f32)
+        outs = S * N * B * (3 + 4 + 4 + 4)
+        # a rank count over both neighbour columns' occupied slots
+        nops = 2 * int(n_l.sum()) * S
+        return ins + outs, nops
+    if n == "lc_receive":
+        plan, n_l, tabs = a[0], a[8], a[10]
+        S, N, B = plan.shape
+        occ = torch.arange(S, device=plan.device)[:, None, None] < n_l[None]
+        # plan, chg, hsig, pri and speed on occupied rows (a receiver's
+        # own; a sender is a plan row, and plan rows are occupied); dirc,
+        # tl_slot, ygap and gval on plan rows; yv and do_change in full
+        ins = (4 * N * B + 8 * N + int(occ.sum()) * (3 * 1 + 2 * 4)
+               + int(plan.sum()) * (3 * 4 + 1))
+        # an occupied receiver tests the plan rows of its neighbour columns
+        senders = plan.sum(0)                                   # (N, B)
+        tests = 0
+        for q in (tabs["inner_src"], tabs["outer_src"]):
+            has = (q >= 0)[:, None]
+            tests += int(torch.where(has, n_l * senders[q.clamp(min=0).long()],
+                                     0).sum())
+        return ins + S * N * B * (4 + 1), 2 * tests
+    if n == "lc_insert":
+        ch, do_change, dirc, yv, n_l, tabs, LCI = a
+        S, N, B = do_change.shape
+        ins = nb(*ch.values(), do_change, dirc, yv, n_l) + 12 * N
+        from cityflow_tpu_torch.kernels.lc_insert import channel_spec
+        size = {"f32": 4, "i32": 4, "bool": 1}
+        outs = sum(S * N * B * size[kind] for _, kind, _ in
+                   channel_spec(ch["rnrow"].shape[0])) + N * B * (4 + 1)
+        return ins + outs, 0
+    if n == "lc_partner":
+        uid, sh, l_dir, n_l, chg, chans, tabs = a
+        S, N, B = uid.shape
+        C = len(chans)
+        ins = nb(uid, sh, l_dir, n_l, chg) + 8 * N
+        # the channels only at the rows that find their partner
+        from cityflow_tpu_torch.kernels.lc_partner import lc_partner_plain
+        found = lc_partner_plain(uid, sh, l_dir, n_l, chg, chans, tabs)[1]
+        return ins + 4 * C * int(found.sum()) + S * N * B * (4 * C + 1), 0
+    if n == "car_follow":
+        shape = a[2]
+        elems = int(torch.tensor(shape).prod())
+        # speed gap lead_spd custom lane_left v_yield (f32), has_lead
+        # has_custom invalid (bool) in; the raw speed out; drv_maxspd
+        return elems * (6 * 4 + 3 + 4) + shape[1] * 4, elems * 80
+    if n == "ring_commit":
+        chans, _, base, app = a[:4]
+        dmask = k["dmask"]
+        S, N, B = dmask.shape
+        keep = int((~dmask).sum())
+        return commit_bytes(chans, keep, app, k["valid_ch"], k["nsel"],
+                            dmask.numel() + base.numel() * 4), 0
+    raise KeyError(n)
 
 
 def main():
@@ -493,14 +832,31 @@ def main():
     rows = check_kernels(sim, BATCH, REPS)
     del sim
     torch.cuda.empty_cache()
-    check_agreement(net, AGREE_STEPS)
-    launches, res = main_path(cfg_path, BATCH, WARMUP, STEPS)
+    check_agreement(net, AGREE_STEPS, sl=40)
+    main_launches, res = run_path("main", cfg_path, BATCH, WARMUP, STEPS,
+                                  MAIN_KERNELS)[:2]
+    log(f"[main] {json.dumps(res)}")
+    torch.cuda.empty_cache()
+
+    # the fixture's `dir` names the machine it was written on: stage it
+    check_agreement(compile_scenario(prepare(os.path.join(
+        HERE, "tests", "fixtures", "config_1x1s_lc.json"))), AGREE_LC_STEPS,
+        tag="agree-lc", sl=12, sk=6, skc=99)
+    lc_cfg = prepare(os.path.join(HERE, "benchmarks", "config_30x30_lc.json"))
+    lc_launches, lc_res, lc_sim, lc_state = run_path(
+        "lc", lc_cfg, BATCH, LC_WARMUP, STEPS,
+        MAIN_KERNELS + LC_KERNELS + LC_MODES)
+    log(f"[lc] {json.dumps(lc_res)}")
+    rows += check_lc_kernels(lc_sim, lc_state, REPS)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        name = r["name"]
+        if name in LC_KERNELS or name in LC_MODES:
+            r["launches"] = lc_launches[name]
+        else:
+            r["launches"] = main_launches[name.split("@")[0]]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    log(f"[main] {json.dumps(res)}")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

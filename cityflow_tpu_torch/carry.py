@@ -10,7 +10,8 @@ import torch
 
 from cityflow_tpu_torch.compiler.ring_net import index_tables
 from cityflow_tpu_torch.core.ring import (
-    BOOL_FIELDS, FLOAT_FIELDS, STATE_FIELDS, RingState, ring_constants)
+    BOOL_FIELDS, FLOAT_FIELDS, LC_FIELDS, STATE_FIELDS, RingState,
+    ring_constants)
 
 # one-hot operators and TPU shift plans: the port gathers through
 # index_tables instead, so these stay on the host
@@ -48,9 +49,14 @@ def tables_from_numpy(tb, device, cfg):
 def ring_state_from_numpy(leaves, device) -> RingState:
     """{field: array} of a JAX RingState (single env or trailing batch)
     -> the port's RingState, in the port's dtypes (i32 / f32 / bool; JAX
-    runs with x64 in the tests, where some scalars come back 64-bit)."""
+    runs with x64 in the tests, where some scalars come back 64-bit). The
+    lane-change leaves are taken when present and left None otherwise."""
     out = {}
     for k in STATE_FIELDS:
+        if leaves.get(k) is None:
+            if k in LC_FIELDS:
+                continue
+            raise KeyError(f"ring_state_from_numpy: no leaf {k}")
         a = np.asarray(leaves[k])
         if k in BOOL_FIELDS:
             a = a.astype(np.bool_)
@@ -67,7 +73,9 @@ MID_INT = frozenset({"k_fffoe", "ap_ffo", "ov"})
 
 
 def mid_from_numpy(mid, device):
-    """The `mid` dict of JAX's ring_step_p1 -> the port's."""
+    """The `mid` dict of JAX's ring_step_p1 -> the port's (the same keys
+    with lane change on or off; a key outside MID_BOOL / MID_INT is
+    float32)."""
     out = {}
     for k, v in mid.items():
         a = np.asarray(v)

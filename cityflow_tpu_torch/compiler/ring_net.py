@@ -600,7 +600,8 @@ def build_ring(net: CompiledNet, interval: float) -> Tuple[Dict[str, np.ndarray]
     for e, p in enumerate(entry):
         E_el[int(p), e] = 1.0
     tb["E_el"] = E_el
-    tb.update(index_tables(tb, meta.type_ranges, G, I))
+    tb.update(index_tables(tb, meta.type_ranges, G, I,
+                           lane_shifts=(meta.inn_shifts, meta.out_shifts)))
     return tb, meta
 
 
@@ -632,8 +633,44 @@ def _typed_flat(idx_t: np.ndarray, type_ranges, G: int,
     return out.reshape(-1).astype(np.int32)
 
 
+def _apply_shift_plan(rows: np.ndarray, n_out: int, shifts, gid, res_j,
+                      res_src) -> np.ndarray:
+    """The JAX ring step's _shifted_exchange on the host: masked static
+    slices at the plan's offsets, then the residual gather."""
+    lo = max(0, -min(shifts)) if shifts else 0
+    hi = max(0, (max(shifts) if shifts else 0) + n_out - len(rows))
+    rows_p = np.pad(rows, (lo, hi))
+    out = np.zeros(n_out, rows.dtype)
+    for k, o in enumerate(shifts):
+        out = np.where(np.asarray(gid) == k, rows_p[o + lo:o + lo + n_out],
+                       out)
+    res_j = np.asarray(res_j)
+    if res_j.shape[0]:
+        out[np.clip(res_j, 0, n_out - 1)] = rows[np.clip(res_src, 0, None)]
+    return out
+
+
+def _lane_neighbour_src(tb, which, shifts) -> np.ndarray:
+    """(LNp,) neighbour lane column (-1: none) of the JAX step's
+    ring_lc._perm. Row p of _perm's output is lane ln_inner[p] /
+    ln_outer[p] (0 where there is none); with the shift plan's offsets
+    given, the plan applied to the lane index must reproduce that on every
+    row, or the table is refused."""
+    src = np.asarray(tb[f"ln_{which}"], np.int32)
+    if shifts is not None:
+        pre = "inn" if which == "inner" else "out"
+        got = _apply_shift_plan(np.arange(len(src), dtype=np.int64),
+                                len(src), tuple(shifts), tb[f"{pre}_gid"],
+                                tb[f"{pre}_res_j"], tb[f"{pre}_res_src"])
+        bad = (src >= 0) & (got != src)
+        if bad.any():
+            raise ValueError(f"ln_{which}: the shift plan disagrees with the "
+                             f"neighbour column on {int(bad.sum())} rows")
+    return src
+
+
 def index_tables(tb: Dict[str, np.ndarray], type_ranges, G: int,
-                 I: int) -> Dict[str, np.ndarray]:
+                 I: int, lane_shifts=None) -> Dict[str, np.ndarray]:
     """Gather indices for every one-hot operator of the ring step, built
     from the one-hot tables themselves (so they also apply to tables built
     by the JAX package). All int32, -1 meaning "none"; each `*_src` table
@@ -651,6 +688,10 @@ def index_tables(tb: Dict[str, np.ndarray], type_ranges, G: int,
       app_src_g  (KIN, OL*G)     E_app per kin: link row (LPI*G axis)
       foe_src    (KC*LKp,)       foe_perm (or foe_gather): foe row of the
                                  (KC*LKp) notify-channel axis
+      inner_src  (LNp,)          lane change: the inner / outer neighbour
+      outer_src  (LNp,)          lane of each lane (ring_lc._perm);
+                                 `lane_shifts` = (inn_shifts, out_shifts)
+                                 checks the TPU shift plans against them
     """
     T = len(type_ranges)
     out: Dict[str, np.ndarray] = {}
@@ -679,4 +720,7 @@ def index_tables(tb: Dict[str, np.ndarray], type_ranges, G: int,
             _onehot_index(tb["foe_perm"], "foe_perm"), type_ranges, G, G)
     else:
         out["foe_src"] = np.asarray(tb["foe_gather"], np.int32).reshape(-1)
+    inn, outr = lane_shifts if lane_shifts is not None else (None, None)
+    out["inner_src"] = _lane_neighbour_src(tb, "inner", inn)
+    out["outer_src"] = _lane_neighbour_src(tb, "outer", outr)
     return out

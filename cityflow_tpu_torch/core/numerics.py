@@ -4,6 +4,8 @@
   undefined out of range and gives INT_MIN on x86 and on the card.
 * jnp.take: a negative index wraps once, an index out of range gives the
   fill (NaN for floats, INT_MIN for ints); index_select raises.
+
+Also the ring slot shift that core/ring.py and core/ring_lc.py share.
 """
 
 import torch
@@ -39,3 +41,8 @@ def jnp_take(a, idx):
     else:
         fill = torch.full_like(got, torch.iinfo(a.dtype).min)
     return torch.where(ok, got, fill)
+
+
+def shift_in(first, x):
+    """Leader view of a ring: [first, x[0], ..., x[S-2]] along the slots."""
+    return torch.cat([first, x[:-1]], dim=0)

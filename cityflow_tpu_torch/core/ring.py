@@ -1,11 +1,11 @@
 """Gen-2 ring-layout step in PyTorch: vehicle attributes stored per
 drivable, the trailing axis of every state leaf is the env batch B.
 
-A port of the JAX package's core/ring.py, main-path branches only: uniform
-vehicle parameters, no lane change, no DURATION history (ring_sim.build_sim
-refuses the others). Each phase mirrors the reference (engine.cpp /
-vehicle.cpp / roadnet.cpp) through the same formulas in the same float32
-operation order as the JAX version.
+A port of the JAX package's core/ring.py: uniform vehicle parameters, with
+or without lane change (core/ring_lc.py), no DURATION history
+(ring_sim.build_sim refuses the others). Each phase mirrors the reference
+(engine.cpp / vehicle.cpp / roadnet.cpp) through the same formulas in the
+same float32 operation order as the JAX version.
 
 Where the JAX version applies a one-hot operator with an einsum, this one
 gathers through the index tables of compiler/ring_net.index_tables (K1,
@@ -30,17 +30,19 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from cityflow_tpu_torch.core.numerics import jnp_take, xla_f32_to_i32
+from cityflow_tpu_torch.core import ring_lc
+from cityflow_tpu_torch.compiler.net import (
+    P_SPEED, P_LEN, P_MAXPOSACC, P_MAXNEGACC, P_USUALPOSACC, P_USUALNEGACC,
+    P_MINGAP, P_MAXSPEED, P_HEADWAY, P_YIELD, P_TURNSPEED)
+from cityflow_tpu_torch.core.numerics import jnp_take, shift_in, xla_f32_to_i32
 from cityflow_tpu_torch.core.state import (
     INT_MAX, OV_HOPS, OV_LINK_TABLE, OV_REMOVE, OV_SLOTS)
-from cityflow_tpu_torch.core.step import can_yield, reach_steps
+from cityflow_tpu_torch.core.step import (
+    can_yield, leader_scan_bound, reach_steps)
 from cityflow_tpu_torch.kernels.car_follow import car_follow
 from cityflow_tpu_torch.kernels.cross_caps import cross_caps
 from cityflow_tpu_torch.kernels.gather_rows import gather_rows
 from cityflow_tpu_torch.kernels.ring_commit import ring_commit
-
-P_SPEED, P_LEN, P_WIDTH, P_MAXPOSACC, P_MAXNEGACC, P_USUALPOSACC, \
-    P_USUALNEGACC, P_MINGAP, P_MAXSPEED, P_HEADWAY, P_YIELD, P_TURNSPEED = range(12)
 
 ENT_BIG = float(1 << 25)
 F32 = torch.float32
@@ -67,6 +69,9 @@ class RingConfig:
     k_cyc: int = 4
     SKC: int = 99             # link ring slots that evaluate Cross::canPass
     MAXLPR: int = 1           # route-table lanes-per-road width
+    lane_change: bool = False # the signal/shadow protocol (core/ring_lc.py)
+    LCI: int = 2              # shadow inserts per lane per step (flagged)
+    LCD: int = 2              # mid-ring finish removals per lane per step
 
 
 STATE_FIELDS = ("step", "finished_cnt", "cum_travel", "overflow",
@@ -77,10 +82,16 @@ STATE_FIELDS = ("step", "finished_cnt", "cum_travel", "overflow",
                 "k_dis", "k_speed", "k_flow", "k_route", "k_rpos",
                 "k_entll", "k_enter", "k_pri", "k_uid", "k_nxtl",
                 "k_custom", "k_hascustom")
+# lane-change leaves: None (not allocated) when cfg.lane_change is off
+LC_FIELDS = ("l_off", "l_sh", "l_chg", "l_dir", "l_gap", "l_yv", "l_rnrow",
+             "l_auxrow", "k_gap")
+STATE_FIELDS = STATE_FIELDS + LC_FIELDS
 FLOAT_FIELDS = frozenset({"cum_travel", "phase_remain", "l_dis", "l_speed",
                           "l_enter", "l_custom", "k_dis", "k_speed",
-                          "k_enter", "k_custom"})
-BOOL_FIELDS = frozenset({"l_last", "l_hascustom", "k_hascustom"})
+                          "k_enter", "k_custom", "l_off", "l_gap", "l_yv",
+                          "k_gap"})
+BOOL_FIELDS = frozenset({"l_last", "l_hascustom", "k_hascustom", "l_sh",
+                         "l_chg"})
 
 
 @dataclass
@@ -103,12 +114,24 @@ class RingState:
     k_dis: Any; k_speed: Any; k_flow: Any; k_route: Any; k_rpos: Any
     k_entll: Any; k_enter: Any; k_pri: Any; k_uid: Any; k_nxtl: Any
     k_custom: Any; k_hascustom: Any
+    # lane-change channels (None when cfg.lane_change is off)
+    l_off: Any = None         # signed lateral offset (changing reals)
+    l_sh: Any = None          # shadow flag
+    l_chg: Any = None         # changing flag (real side)
+    l_dir: Any = None         # -1/0/+1 change direction (both sides)
+    l_gap: Any = None         # Vehicle::controllerInfo.gap incl. staleness
+    l_yv: Any = None          # per-step yieldSpeed (100 = no-op)
+    l_rnrow: Any = None       # (MAXLPR, SL, LNp) route-next row bundle
+    l_auxrow: Any = None      # (MAXLPR, SL, LNp) two-hop aux row bundle
+    k_gap: Any = None         # link-side gap channel (staleness carrier)
 
     def replace_fields(self, **kw):
         return dataclasses.replace(self, **kw)
 
     def leaves(self):
-        return {k: getattr(self, k) for k in STATE_FIELDS}
+        """The allocated leaves (lane-change ones only when present)."""
+        return {k: v for k in STATE_FIELDS
+                if (v := getattr(self, k)) is not None}
 
     def map(self, fn):
         return RingState(**{k: fn(v) for k, v in self.leaves().items()})
@@ -131,6 +154,16 @@ def init_ring_state(cfg: RingConfig, net, num_entry: int,
     remain = torch.as_tensor(np.where(n_ph > 0, first, 0.0)
                              .astype(np.float32), **kw)
     scalar = lambda v, dt: torch.tensor(v, dtype=dt, **kw)
+    lc = {}
+    if cfg.lane_change:
+        bl = lambda: torch.zeros((SL, LNp), dtype=torch.bool, **kw)
+        lc = dict(
+            l_off=zl(), l_sh=bl(), l_chg=bl(), l_dir=il_(0),
+            l_gap=zl(),                      # Vehicle ctor: gap = 0
+            l_yv=torch.full((SL, LNp), 100.0, dtype=F32, **kw),
+            l_rnrow=torch.full((cfg.MAXLPR, SL, LNp), -1, dtype=I32, **kw),
+            l_auxrow=torch.full((cfg.MAXLPR, SL, LNp), -1, dtype=I32, **kw),
+            k_gap=zk())
     return RingState(
         step=scalar(0, I32), finished_cnt=scalar(0, I32),
         cum_travel=scalar(0.0, F32), overflow=scalar(0, I32),
@@ -148,7 +181,7 @@ def init_ring_state(cfg: RingConfig, net, num_entry: int,
         k_dis=zk(), k_speed=zk(), k_flow=ik(), k_route=ik(), k_rpos=ik(),
         k_entll=ik(INT_MAX), k_enter=zk(), k_pri=ik(), k_uid=ik(-1),
         k_nxtl=ik(-1), k_custom=zk(),
-        k_hascustom=torch.zeros((SK, LKp), dtype=torch.bool, **kw))
+        k_hascustom=torch.zeros((SK, LKp), dtype=torch.bool, **kw), **lc)
 
 
 def batch_ring_state(st: RingState, B: int) -> RingState:
@@ -183,11 +216,6 @@ def _sel_slot(x, n):
     ((S, N, B), (N, B) -> (N, B))."""
     got = torch.gather(x, 0, (n - 1).clamp(min=0).long()[None])[0]
     return torch.where(n > 0, got, torch.zeros_like(got))
-
-
-def _shift_in(first, x):
-    """Leader view of a ring: [first, x[0], ..., x[S-2]] along the slots."""
-    return torch.cat([first, x[:-1]], dim=0)
 
 
 def ring_constants(cfg: RingConfig, device):
@@ -258,10 +286,62 @@ def _front_views(cfg, inl):
              prih=ch(7), pril=ch(8), uid=xla_f32_to_i32(ch(9)),
              enter=ch(10), custom=ch(11), hascustom=ch(12) > 0,
              occ_raw=ch(13) > 0)
+    if cfg.lane_change:          # stale gap, yield speed
+        v["gap"], v["yv"] = ch(14), ch(15)
     NFC = (inl.shape[0] - 2) // AP
     v["il_len"] = inl[NFC * AP]
     v["il_maxspd"] = inl[NFC * AP + 1]
     return v
+
+
+def lc_front_ctx(net, cfg: RingConfig, rs: RingState, cx):
+    """Link-domain context of the lane-change phase (JAX ring.py:344-448,
+    uniform templates), on the pre-admission state: per-lane out-link ring
+    tails (olt_*, the lanechange.cpp:33-47 fallback candidates), the
+    leader-scan overlap-rule winner of each lane front (best_*), the
+    front's next-link length and end-lane tail (nlen / etd / ete), and per
+    link the end-lane tail (k_etd / k_ete) for the k_gap refresh. The
+    typed one-hots, the lane <-> in-lane exchanges and the selection by the
+    front's next link are K1 gathers; the strict-min over KOUT is plain."""
+    LKp, IL, G, KOUT = cfg.LKp, cfg.IL, cfg.G, cfg.KOUT
+    B = rs.n_l.shape[-1]
+    p_len = cfg.params[P_LEN]
+    # lane tails -> per-link end-lane tails (E_end)
+    et = gather_rows(torch.stack([_sel_slot(rs.l_dis, rs.n_l),
+                                  (rs.n_l > 0).to(F32)]), net["end_src"], 0.0)
+    etd_lk, ete_lk = et[0], et[1] > 0.5
+    # link ring tails -> per-in-lane out-link candidates (E_out)
+    oc = gather_rows(torch.stack([_sel_slot(rs.k_dis, rs.n_k),
+                                  (rs.n_k > 0).to(F32)]), net["out_src"],
+                     0.0).reshape(2, IL, KOUT, G, B)
+    oc_valid = net["out_valid_g"][..., None] > 0
+    best_ex = torch.zeros((IL, G, B), dtype=torch.bool, device=cx.dev)
+    best_raw = torch.zeros((IL, G, B), device=cx.dev)
+    for k in range(KOUT):
+        # strict-min (first wins) over dis: the leader scan's min over
+        # dis - len for uniform lengths
+        cand_ex = (oc[1, :, k] > 0.5) & oc_valid[:, k]
+        better = cand_ex & (~best_ex | (oc[0, :, k] < best_raw))
+        best_raw = torch.where(better, oc[0, :, k], best_raw)
+        best_ex = best_ex | cand_ex
+    # the front vehicle's next link: its length and end-lane tail
+    nxt_ilg = xla_f32_to_i32(gather_rows(
+        rs.l_nxt[0].to(F32)[None], net["in_src"].reshape(-1), 0.0)[0]) \
+        .reshape(IL, G, B)
+    fl = gather_rows(torch.stack([
+        net["lk_len"][:, None].expand(LKp, B), etd_lk, ete_lk.to(F32)]),
+        didx=cx.from_link_idx(cx.lpi_of(nxt_ilg)), fill=0.0)
+    # back to the lane axis
+    ch = [best_raw - p_len, best_ex.to(F32), fl[0], fl[1], fl[2]]
+    for k in range(KOUT):
+        ch.append(oc[0, :, k])
+        ch.append((oc[1, :, k] > 0.5).to(F32) * oc_valid[:, k].to(F32))
+    lane = gather_rows(torch.stack([c.reshape(IL * G, B) for c in ch]),
+                       net["in_inv"], 0.0)
+    return dict(best_val=lane[0], best_ex=lane[1] > 0.5, nlen=lane[2],
+                etd=lane[3], ete=lane[4] > 0.5,
+                olt_dis=lane[5::2][:KOUT].contiguous(),
+                olt_ex=lane[6::2] > 0.5, k_etd=etd_lk, k_ete=ete_lk)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +364,14 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
     prm = cfg.params
     p_speed0, p_len, p_una = prm[P_SPEED], prm[P_LEN], prm[P_USUALNEGACC]
     p_mingap, p_maxspd = prm[P_MINGAP], prm[P_MAXSPEED]
-    approach = p_maxspd * p_maxspd / p_una / 2 + p_maxspd * cfg.interval * 2
+    approach = leader_scan_bound(p_maxspd, p_una, cfg.interval)
+    lc = cfg.lane_change
+    if lc:
+        # stale-gap refresh on the pre-admission rings: makeSignal reads
+        # controllerInfo.gap as the end of the previous step's
+        # updateLeaderAndGap left it (engine.cpp:581)
+        fx = lc_front_ctx(net, cfg, rs, cx)
+        rs = ring_lc.refresh_gaps(net, cfg, rs, fx)
 
     # =====================================================================
     # 1. spawn + admission (Flow::nextStep + Engine::handleWaiting,
@@ -327,11 +414,35 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
 
     # spread entry-lane values to the lane axis (K1 through el_src)
     pri_h0, pri_l0 = _hilo(row["pri"])
-    sp_in = [admit.to(F32)] + [
-        torch.where(admit, v.to(F32), 0.0)
-        for v in (row["flow"], rt, nxt0, nxt3_0, pri_h0, pri_l0, row["uid"],
-                  last0, row["step"])]
-    sp = gather_rows(torch.stack(sp_in), net["el_src"], 0.0)    # (10,LNp,B)
+    sp_vals = [row["flow"], rt, nxt0, nxt3_0, pri_h0, pri_l0, row["uid"],
+               last0, row["step"]]
+    if lc:
+        # route-row bundles of (route, rpos=0), and the admission-time gap:
+        # handleWaiting runs updateLeaderAndGap with the pre-push tail
+        # (engine.cpp:510-512); an empty lane scans the entry lane's
+        # out-link ring tails, then the first link's end-lane tail within
+        # the lookahead bound
+        base = rt * (RLEN * MAXLPR)
+        aux_flat = net["route_aux"].reshape(-1)
+        sp_vals += [rn_flat[(base + c).long()] for c in range(MAXLPR)]
+        sp_vals += [aux_flat[(base + c).long()] for c in range(MAXLPR)]
+        ln_len_e = net["ln_len"][el_l][:, None]
+        nlen_e = net["lk_len"][(nxt0 - LNp).clamp(0, LKp - 1).long()]
+        end_c = end0.clamp(0, LNp - 1).long()
+        n_end = torch.gather(rs.n_l, 0, end_c)
+        etd_e = torch.gather(rs.l_dis.reshape(SL * LNp, B), 0,
+                             (n_end - 1).clamp(min=0).long() * LNp + end_c)
+        b_ex_e = fx["best_ex"][el_l]
+        f1_e = (nxt0 >= 0) & b_ex_e
+        f2_e = (nxt0 >= 0) & ~b_ex_e & (n_end > 0) \
+            & (ln_len_e + nlen_e <= approach)
+        scan_gap = torch.where(
+            f1_e, ln_len_e + fx["best_val"][el_l],
+            torch.where(f2_e, ln_len_e + nlen_e + etd_e - p_len, 0.0))
+        sp_vals.append(torch.where(n_e > 0, t_dis - p_len, scan_gap))
+    sp_in = [admit.to(F32)] + [torch.where(admit, v.to(F32), 0.0)
+                               for v in sp_vals]
+    sp = gather_rows(torch.stack(sp_in), net["el_src"], 0.0)    # (C,LNp,B)
     adm_lane = sp[0] > 0.5
     sl_idx = torch.arange(SL, device=dev)[:, None, None]
     place = adm_lane[None] & (sl_idx == rs.n_l[None])
@@ -359,7 +470,24 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
         l_custom=putc(rs.l_custom, 0.0),
         l_hascustom=putc(rs.l_hascustom, False),
         n_l=rs.n_l + adm_lane.to(I32),
-        el_cursor=rs.el_cursor + admit.to(I32))
+        el_cursor=rs.el_cursor + admit.to(I32),
+        **({} if not lc else dict(
+            l_off=putc(rs.l_off, 0.0), l_sh=putc(rs.l_sh, False),
+            l_chg=putc(rs.l_chg, False), l_dir=putc(rs.l_dir, 0),
+            l_gap=put(rs.l_gap, sp[10 + 2 * MAXLPR]),
+            l_yv=putc(rs.l_yv, 100.0),
+            l_rnrow=torch.stack([put(rs.l_rnrow[c], sp[10 + c])
+                                 for c in range(MAXLPR)]),
+            l_auxrow=torch.stack([put(rs.l_auxrow[c], sp[10 + MAXLPR + c])
+                                  for c in range(MAXLPR)]))))
+
+    # ---- lane change: signals, arbitration, shadow insertion
+    # (engine.cpp:571-575); the pre-admission link context stays valid,
+    # since admissions do not touch the link rings
+    if lc:
+        rs, lc_ov = ring_lc.lc_phase(net, cfg, rs, fx)
+        ov = ov | _flag((lc_ov & 1) > 0, OV_REMOVE) \
+            | _flag((lc_ov & 2) > 0, OV_SLOTS)
 
     # =====================================================================
     # 2. views
@@ -389,6 +517,10 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
            rs.l_uid[:AP].to(F32), rs.l_enter[:AP],
            rs.l_custom[:AP], rs.l_hascustom[:AP].to(F32),
            occ_l[:AP].to(F32)]
+    if lc:
+        # stale gap for lane -> link transfer payloads, yield speed for the
+        # link-domain front min-chain (channels 14, 15)
+        fch += [rs.l_gap[:AP], rs.l_yv[:AP]]
     NFC = len(fch)
     fwd = torch.cat([torch.stack(fch).reshape(NFC * AP, LNp, B),
                      net["ln_len"][None, :, None].expand(1, LNp, B),
@@ -410,7 +542,7 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
     avail_rows = pra[ph_row.clamp(0, pra.shape[0] - 1).long()]  # (G,B,MAXRL)
     MAXRL = pra.shape[1]
     avail_lk = gather_rows(
-        avail_rows.permute(2, 0, 1).reshape(1, MAXRL * G, B),
+        avail_rows.permute(2, 0, 1).reshape(1, MAXRL * G, B).contiguous(),
         net["rl_src"], 0.0).reshape(LPI, G, B) > 0.5
 
     lk_id = (LNp + torch.arange(LKp, dtype=I32, device=dev)) \
@@ -517,17 +649,17 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
     # ---- link ring rows: Cross::canPass (K2) + car following (K3) --------
     can_enter_k = (~end_tail_exists | (end_tail_dis > p_len + p_len)
                    | (end_tail_speed >= 2))
-    lead_dis_k = _shift_in(torch.full((1, LKp, B), 1e9, device=dev),
-                           rs.k_dis)
+    lead_dis_k = shift_in(torch.full((1, LKp, B), 1e9, device=dev),
+                          rs.k_dis)
     gap_k = (lead_dis_k - p_len - rs.k_dis).reshape(SK, LPI, G, B)
     # front: leader = end-lane tail
     fr_gap = (lk_len - kdis3[0]) + end_tail_dis - p_len
     gap_k[0] = torch.where(end_tail_exists, fr_gap, gap_k[0])
-    lead_spd_k3 = _shift_in(torch.zeros((1, LKp, B), device=dev),
-                            rs.k_speed).reshape(SK, LPI, G, B)
+    lead_spd_k3 = shift_in(torch.zeros((1, LKp, B), device=dev),
+                           rs.k_speed).reshape(SK, LPI, G, B)
     lead_spd_k3[0] = end_tail_speed
-    has_lead_k3 = _shift_in(torch.zeros((1, LKp, B), dtype=torch.bool,
-                                        device=dev), occ_k) \
+    has_lead_k3 = shift_in(torch.zeros((1, LKp, B), dtype=torch.bool,
+                                       device=dev), occ_k) \
         .reshape(SK, LPI, G, B)
     has_lead_k3[0] = end_tail_exists
 
@@ -629,39 +761,68 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
         vi.append(bk[0])
         ir.append(bk[1] > 0.5)
         ll.append(il_len - h_dis[a])
-    ap_spd, ap_dd = car_follow(
-        2, cx.prm_cf, (AP, IL, G, B), speed=h_speed, gap=torch.stack(gl),
-        lead_spd=torch.stack(lsp), has_lead=torch.stack(hl),
-        v_isr=torch.stack(vi), isr_rel=torch.stack(ir),
-        custom=h["custom"], has_custom=h["hascustom"],
-        drv_maxspd=il_maxspd, invalid=False, lane_left=torch.stack(ll))
-    ap_dis = h_dis + ap_dd
+    ap_kw = dict(speed=h_speed, gap=torch.stack(gl),
+                 lead_spd=torch.stack(lsp), has_lead=torch.stack(hl),
+                 v_isr=torch.stack(vi), isr_rel=torch.stack(ir),
+                 custom=h["custom"], has_custom=h["hascustom"],
+                 drv_maxspd=il_maxspd, invalid=False,
+                 lane_left=torch.stack(ll))
+    if lc:
+        # raw (pre-kinematics) speed: the real/shadow lockstep min runs in
+        # the lane domain before the negative-speed split
+        ap_spd = car_follow(2, cx.prm_cf, (AP, IL, G, B), raw=True,
+                            v_yield=h["yv"], **ap_kw)
+        ap_dis, ap_dd = h_dis, None
+    else:
+        ap_spd, ap_dd = car_follow(2, cx.prm_cf, (AP, IL, G, B), **ap_kw)
+        ap_dis = h_dis + ap_dd
 
     # --- lane-domain dynamics for all slots, then override fronts --------
-    lead_dis_l = _shift_in(torch.full((1, LNp, B), 1e9, device=dev),
-                           rs.l_dis)
-    lead_spd_l = _shift_in(torch.zeros((1, LNp, B), device=dev), rs.l_speed)
-    has_lead_l = _shift_in(torch.zeros((1, LNp, B), dtype=torch.bool,
-                                       device=dev), occ_l)
+    lead_dis_l = shift_in(torch.full((1, LNp, B), 1e9, device=dev),
+                          rs.l_dis)
+    lead_spd_l = shift_in(torch.zeros((1, LNp, B), device=dev), rs.l_speed)
+    has_lead_l = shift_in(torch.zeros((1, LNp, B), dtype=torch.bool,
+                                      device=dev), occ_l)
     gap_l = lead_dis_l - p_len - rs.l_dis
     lane_left_l = net["ln_len"][:, None] - rs.l_dis
     invalid_l = occ_l & (rs.l_nxt < 0) & ~rs.l_last
-    new_spd_l, delta_l = car_follow(
-        2, cx.prm_cf, (SL, LNp, B), speed=rs.l_speed, gap=gap_l,
-        lead_spd=lead_spd_l, has_lead=has_lead_l, v_isr=0.0, isr_rel=False,
-        custom=rs.l_custom, has_custom=rs.l_hascustom,
-        drv_maxspd=net["ln_maxspd"][:, None], invalid=invalid_l,
-        lane_left=lane_left_l)
-    new_dis_l = rs.l_dis + delta_l
+    lane_kw = dict(
+        speed=rs.l_speed, gap=gap_l, lead_spd=lead_spd_l,
+        has_lead=has_lead_l, v_isr=0.0, isr_rel=False, custom=rs.l_custom,
+        has_custom=rs.l_hascustom, drv_maxspd=net["ln_maxspd"][:, None],
+        invalid=invalid_l, lane_left=lane_left_l)
     ap_rel = torch.stack(mine_ilgs)
-    back = torch.stack([ap_spd, ap_dis, ap_rel.to(F32)], dim=1) \
-        .reshape(3 * AP, IL * G, B)
-    got = gather_rows(back, net["in_inv"], 0.0)                # (3AP,LNp,B)
     has_inv = (net["in_inv"] >= 0)[:, None]
-    for a in range(AP):
-        use = has_inv & (got[3 * a + 2] > 0)
-        new_spd_l[a] = torch.where(use, got[3 * a], new_spd_l[a])
-        new_dis_l[a] = torch.where(use, got[3 * a + 1], new_dis_l[a])
+    if lc:
+        vraw_l = car_follow(2, cx.prm_cf, (SL, LNp, B), raw=True,
+                            v_yield=rs.l_yv, **lane_kw)
+        back = torch.stack([ap_spd, ap_rel.to(F32)], dim=1) \
+            .reshape(2 * AP, IL * G, B)
+        got = gather_rows(back, net["in_inv"], 0.0)            # (2AP,LNp,B)
+        for a in range(AP):
+            use = has_inv & (got[2 * a + 1] > 0)
+            vraw_l[a] = torch.where(use, got[2 * a], vraw_l[a])
+        # real + shadow lockstep: the min of both raw next speeds
+        # (engine.cpp:195-210), partners through L4
+        (pv,), pf = ring_lc.partner_fetch(net, rs, [vraw_l])
+        vmin = torch.where(pf, torch.minimum(vraw_l, pv), vraw_l)
+        neg = vmin < 0
+        delta_l = torch.where(
+            neg, 0.5 * rs.l_speed * rs.l_speed / F(P_MAXNEGACC),
+            (rs.l_speed + vmin) * dt / 2)
+        new_spd_l = torch.where(neg, 0.0, vmin)
+        new_dis_l = rs.l_dis + delta_l
+    else:
+        new_spd_l, delta_l = car_follow(2, cx.prm_cf, (SL, LNp, B),
+                                        **lane_kw)
+        new_dis_l = rs.l_dis + delta_l
+        back = torch.stack([ap_spd, ap_dis, ap_rel.to(F32)], dim=1) \
+            .reshape(3 * AP, IL * G, B)
+        got = gather_rows(back, net["in_inv"], 0.0)            # (3AP,LNp,B)
+        for a in range(AP):
+            use = has_inv & (got[3 * a + 2] > 0)
+            new_spd_l[a] = torch.where(use, got[3 * a], new_spd_l[a])
+            new_dis_l[a] = torch.where(use, got[3 * a + 1], new_dis_l[a])
 
     mid = dict(
         inl=inl, nd_k3=nd_k3, ns_k3=ns_k3,
@@ -676,6 +837,45 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
                    k3_ap=(ap_spd, ap_dd), k3_lane=(new_spd_l, delta_l),
                    foe=foe)
     return rs, mid, dbg
+
+
+def _lc_pairs(net, cfg, rs, occ_l, leave_pref_l, new_spd_l, dt):
+    """The commit's real / shadow pair bookkeeping (JAX ring.py:1484-1529):
+    two partner-exchange rounds (L4) decide shadow aborts, finished
+    changes, promotions and unlinks, and the lateral offset integrates
+    (engine.cpp:223-243)."""
+    SL = cfg.SL
+    XKl = len(leave_pref_l)
+    leave_full = torch.cat([torch.stack(leave_pref_l), torch.zeros(
+        (SL - XKl,) + occ_l.shape[1:], dtype=torch.bool,
+        device=occ_l.device)])
+    sh = rs.l_sh
+    chg_real = occ_l & rs.l_chg & ~sh
+    # round 1: who transfers into a link / dies at its route end this step
+    chanA = leave_full & ~rs.l_last
+    chanB = leave_full & rs.l_last
+    (pA, pB), pf2 = ring_lc.partner_fetch(net, rs, [chanA, chanB])
+    pA, pB = pA > 0.5, pB > 0.5
+    # a shadow aborts when it or its real crosses into a link (abort wins
+    # over a same-step finish)
+    abort_sh = occ_l & sh & ~rs.l_last & (chanA | (pf2 & pA))
+    dirn = rs.l_dir.to(F32)
+    max_off = torch.where(rs.l_dir > 0, net["ln_maxoff_out"][:, None],
+                          net["ln_maxoff_in"][:, None])
+    new_off = torch.minimum(torch.abs(
+        rs.l_off + torch.clamp_min(0.2 * new_spd_l, 1.0) * dt * dirn),
+        max_off)
+    finish_pre = chg_real & (new_off >= max_off) & ~leave_full
+    # round 2: abort / finish flags across the pair
+    (pAb, pFin), pf3 = ring_lc.partner_fetch(net, rs, [abort_sh, finish_pre])
+    pAb, pFin = pAb > 0.5, pFin > 0.5
+    finish = finish_pre & ~(pf3 & pAb)
+    return dict(
+        leave_full=leave_full, abort_sh=abort_sh, new_off=new_off, dirn=dirn,
+        die_mid=finish | (abort_sh & ~leave_full),
+        promote=occ_l & sh & ~abort_sh & pf3 & pFin,
+        unlink_real=chg_real & (~pf2 | (pf3 & pAb) | pB),
+        unlink_sh=occ_l & sh & (~pf2 | pB))
 
 
 def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
@@ -729,14 +929,30 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
         deep = cross_l[cfg.XK:] & (sl_idx[cfg.XK:] < rs.n_l[None])
         ov = ov | _flag(_any_env(deep), OV_HOPS)
     XKl = len(leave_pref_l)
-    removed_l = [leave_pref_l[s] & rs.l_last[s] for s in range(XKl)]
-    exited_l = [leave_pref_l[s] & ~rs.l_last[s] & (rs.l_nxt[s] >= 0)
-                for s in range(XKl)]
+    lc = cfg.lane_change
+    if lc:
+        lcc = _lc_pairs(net, cfg, rs, occ_l, leave_pref_l, new_spd_l, dt)
+        # shadows never transfer (they abort at the lane end); an aborted
+        # shadow counts as finished (the engine.cpp:296-303 hasFinished
+        # guard passes for aborts); a finishing real is an identity swap
+        # and does not count
+        removed_l = [leave_pref_l[s] & (rs.l_last[s] | rs.l_sh[s])
+                     for s in range(XKl)]
+        exited_l = [leave_pref_l[s] & ~rs.l_last[s] & ~rs.l_sh[s]
+                    & (rs.l_nxt[s] >= 0) for s in range(XKl)]
+    else:
+        removed_l = [leave_pref_l[s] & rs.l_last[s] for s in range(XKl)]
+        exited_l = [leave_pref_l[s] & ~rs.l_last[s] & (rs.l_nxt[s] >= 0)
+                    for s in range(XKl)]
     now = rs.step.to(F32) * dt
     tt = now - rs.l_enter
     n_rm = sum(r.to(I32).sum(0, dtype=I32) for r in removed_l)
     t_rm = sum(torch.where(removed_l[s], tt[s], 0.0).sum(0)
                for s in range(XKl))
+    if lc:
+        cm = lcc["abort_sh"] & ~lcc["leave_full"]
+        n_rm = n_rm + cm.to(I32).sum((0, 1), dtype=I32)
+        t_rm = t_rm + torch.where(cm, tt, 0.0).sum((0, 1))
 
     nd_k = nd_k3.reshape(SK, LKp, B)
     ns_k = ns_k3.reshape(SK, LKp, B)
@@ -753,8 +969,11 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
 
     # ---- compact route lookups for link->lane entrants ------------------
     # per-intersection stable sort of this step's exits to the front of
-    # the (XKe * LPI) candidate axis, then a global compaction to T2 rows
-    # so the route-table gathers run on T2 indices per env
+    # the (XKe * LPI) candidate axis, so the route-table gathers run on
+    # TI rows per intersection. The JAX step compacts those once more to at
+    # most 1024 rows per env (a TPU gather budget) and flags OV_REMOVE
+    # above it, which the 30x30 grid passes at step 1043; the port gathers
+    # all TI * G rows, the same values wherever JAX does not flag.
     XKe = len(leave_pref_k)
     exit_flags = torch.stack(leave_pref_k)                      # (XKe,LKp,B)
     TI = min(cfg.TI, XKe * LPI)
@@ -772,34 +991,27 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
     gidx3 = rowb3 + endl_local.clamp(0, MAXLPR - 1) \
         .expand(XKe, LPI, G, B).reshape(NC, G, B)
     skey, perm = torch.sort(key, dim=0, stable=True)
-    s_gidx = torch.gather(gidx3, 0, perm)
-    T2 = min(1024, TI * G)
-    flat_key = torch.where(
-        skey[:TI] < NC,
-        (torch.arange(TI, dtype=I32, device=dev)[:, None] * G
-         + torch.arange(G, dtype=I32, device=dev)[None, :])[..., None],
-        TI * G).reshape(TI * G, B)
-    k2, perm2 = torch.sort(flat_key, dim=0, stable=True)
-    g2 = torch.gather(s_gidx[:TI].reshape(TI * G, B), 0, perm2)
-    v2 = k2[:T2] < TI * G
-    gi = g2[:T2].clamp(0, NR * RLEN * MAXLPR - 1).long()
-    if T2 < TI * G:
-        ov = ov | _flag(v2.all(0), OV_REMOVE)
+    perm = perm[:TI]
+    gi = torch.gather(gidx3, 0, perm).clamp(0, NR * RLEN * MAXLPR - 1).long()
     r_aux = net["route_aux"].reshape(-1)[gi]
     rvals = {"nxt": (rn.reshape(-1)[gi], -1),
              "nxt3": ((r_aux >> 1) - 2, -1),
              "last": (r_aux & 1, 0)}
-    # scatter back to the (TI, G) stage-1 grid (dump row TI*G), then to the
-    # (NC, G) candidate rows (dump row NC)
-    tgt2 = torch.where(v2, k2[:T2].clamp(0, TI * G - 1), TI * G).long()
-    c_valid = skey[:TI] < NC
-    tgt1 = torch.where(c_valid, skey[:TI], NC).long()
+    if lc:
+        # the entrant's route rows at (route, rpos + 1) for the lane-change
+        # reachability checks
+        b2 = torch.gather(rowb3, 0, perm)
+        FMAX = NR * RLEN * MAXLPR - 1
+        for c in range(MAXLPR):
+            bi = (b2 + c).clamp(0, FMAX).long()
+            rvals[f"rn{c}"] = (rn.reshape(-1)[bi], -1)
+            rvals[f"ax{c}"] = (net["route_aux"].reshape(-1)[bi], -1)
+    # scatter back to the (NC, G) candidate rows (dump row NC)
+    tgt1 = torch.where(skey[:TI] < NC, skey[:TI], NC).long()
     pays = {}
     for name, (vals, fill) in rvals.items():
-        s_grid = torch.full((TI * G + 1, B), fill, dtype=I32, device=dev) \
-            .scatter_(0, tgt2, vals.to(I32))[:-1].reshape(TI, G, B)
         pays[name] = torch.full((NC + 1, G, B), fill, dtype=I32, device=dev) \
-            .scatter_(0, tgt1, s_grid)[:-1]
+            .scatter_(0, tgt1, vals.to(I32))[:-1]
     pay_nxt = pays["nxt"].reshape(XKe, LKp, B)
     pay_nxt3 = pays["nxt3"].reshape(XKe, LKp, B)
     pay_last = (pays["last"] > 0).reshape(XKe, LKp, B)
@@ -807,17 +1019,29 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
     # ---- link ring: shift out + append entering lane fronts (K4) --------
     ex_cols = [exited_l[a].to(F32) if a < len(exited_l)
                else torch.zeros((LNp, B), device=dev) for a in range(AP)]
-    ex_in = gather_rows(torch.stack(ex_cols), in_src, 0.0)     # (AP,ILG,B)
+    if lc:
+        # the lockstep / yield min runs in the lane domain, so the final
+        # front speeds and distances live there: exchange them forward
+        for a in range(AP):
+            ex_cols += [new_dis_l[a], new_spd_l[a]]
+    ex_in = gather_rows(torch.stack(ex_cols), in_src, 0.0)     # (C,ILG,B)
     ENT_CH = ["valid", "dis", "speed", "flow", "route", "rpos", "enter",
-              "prih", "pril", "uid", "nxtl"]
+              "prih", "pril", "uid", "nxtl"] + (["gap"] if lc else [])
     ent = torch.empty((AP, len(ENT_CH), LKp, B), device=dev)
     for a in range(AP):
         ex_a = (ex_in[a] > 0).reshape(IL, G, B) & h_occ[a]
         ok = ex_a & (h_nxt[a] >= 0)
-        src = [mid["ap_dis"][a] - il_len, mid["ap_spd"][a],
-               h["flow"][a].to(F32), h["route"][a].to(F32),
-               h["rpos"][a].to(F32), h["enter"][a], h["prih"][a],
-               h["pril"][a], h["uid"][a].to(F32), h["nxt3"][a].to(F32)]
+        if lc:
+            front = [ex_in[AP + 2 * a].reshape(IL, G, B) - il_len,
+                     ex_in[AP + 2 * a + 1].reshape(IL, G, B)]
+        else:
+            front = [mid["ap_dis"][a] - il_len, mid["ap_spd"][a]]
+        src = front + [
+            h["flow"][a].to(F32), h["route"][a].to(F32),
+            h["rpos"][a].to(F32), h["enter"][a], h["prih"][a], h["pril"][a],
+            h["uid"][a].to(F32), h["nxt3"][a].to(F32)]
+        if lc:
+            src.append(h["gap"][a])           # stale controllerInfo.gap
         gather_rows(torch.stack([ok.to(F32)] + [
             torch.where(ok, x, 0.0) for x in src]).reshape(
                 len(ENT_CH), IL * G, B),
@@ -828,27 +1052,31 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
     ov = ov | _flag(_any_env(new_n_k > SK), OV_LINK_TABLE)
     new_n_k = torch.clamp_max(new_n_k, SK)
     ei = ENT_CH.index
+    kouts = ring_commit(
+        [(nd_k, "f32", 0.0, ei("dis"), 0),
+         (ns_k, "f32", 0.0, ei("speed"), 0),
+         (rs.k_flow, "i32", 0.0, ei("flow"), 0),
+         (rs.k_route, "i32", 0.0, ei("route"), 0),
+         (rs.k_rpos, "i32", 0.0, ei("rpos"), 0),
+         (rs.k_enter, "f32", 0.0, ei("enter"), 0),
+         (rs.k_pri, "pri", 0.0, ei("prih"), ei("pril")),
+         (rs.k_uid, "i32", -1.0, ei("uid"), 0),
+         (rs.k_nxtl, "i32", -1.0, ei("nxtl"), 0),
+         # entrants entered this step (engine.cpp:484-491)
+         (rs.k_entll, "i32", float(INT_MAX), -1, 0)]
+        + ([(rs.k_gap, "f32", 0.0, ei("gap"), 0)] if lc else []),
+        x_k, rs.n_k - x_k, ent, valid_ch=0, sort_ch=-1, nsel=AP,
+        XK=cfg.XK, envval=rs.step.to(F32))
     (new_k_dis, new_k_speed, new_k_flow, new_k_route, new_k_rpos,
-     new_k_enter, new_k_pri, new_k_uid, new_k_nxtl, new_k_entll) = \
-        ring_commit(
-            [(nd_k, "f32", 0.0, ei("dis"), 0),
-             (ns_k, "f32", 0.0, ei("speed"), 0),
-             (rs.k_flow, "i32", 0.0, ei("flow"), 0),
-             (rs.k_route, "i32", 0.0, ei("route"), 0),
-             (rs.k_rpos, "i32", 0.0, ei("rpos"), 0),
-             (rs.k_enter, "f32", 0.0, ei("enter"), 0),
-             (rs.k_pri, "pri", 0.0, ei("prih"), ei("pril")),
-             (rs.k_uid, "i32", -1.0, ei("uid"), 0),
-             (rs.k_nxtl, "i32", -1.0, ei("nxtl"), 0),
-             # entrants entered this step (engine.cpp:484-491)
-             (rs.k_entll, "i32", float(INT_MAX), -1, 0)],
-            x_k, rs.n_k - x_k, ent, valid_ch=0, sort_ch=-1, nsel=AP,
-            XK=cfg.XK, envval=rs.step.to(F32))
+     new_k_enter, new_k_pri, new_k_uid, new_k_nxtl, new_k_entll) = kouts[:10]
 
     # ---- lane ring: shift out + append link leavers (pushBuffer order:
     #      distance desc, engine.cpp:477-494) (K1 candidates, K4 commit) --
     PCH = ["dis", "speed", "flow", "route", "rpos", "enter", "prih", "pril",
            "uid", "nxt", "nxt3", "last", "prev", "valid"]
+    if lc:
+        PCH += ["gap", "zero"] + [f"{k}{c}" for k in ("rn", "ax")
+                                  for c in range(MAXLPR)]
     prih_k, pril_k = _hilo(rs.k_pri[:XKe])
     prev = (LNp + torch.arange(LKp, device=dev)).to(F32)[:, None] \
         .expand(LKp, B)
@@ -861,7 +1089,10 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
             (rs.k_rpos[xs] + 1).to(F32), rs.k_enter[xs], prih_k[xs],
             pril_k[xs], rs.k_uid[xs].to(F32), pay_nxt[xs].to(F32),
             pay_nxt3[xs].to(F32), pay_last[xs].to(F32), prev,
-            exit_flags[xs].to(F32)])
+            exit_flags[xs].to(F32)]
+            + ([] if not lc else [rs.k_gap[xs], torch.zeros_like(prev)]
+               + [pays[k].reshape(XKe, LKp, B)[xs].to(F32)
+                  for k in PCH[16:]]))
         for kin in range(cfg.KIN):
             gather_rows(payload, net["app_src_g"][kin], 0.0,
                         out=cands[kin * XKe + xs])
@@ -872,14 +1103,41 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
     m_l = torch.zeros((OL, cfg.I, B), dtype=I32, device=dev)
     m_l[:, :G] = m_ol.reshape(OL, G, B)
     m_l = m_l.reshape(LNp, B)
-    totdel = x_l
+    if lc:
+        # mid-ring deletions (finishing reals, aborted shadows) and the
+        # prefix leavers make one rank-preserving delete, at most
+        # XD = XK + LCD slots per lane
+        del_full = lcc["leave_full"] | lcc["die_mid"]
+        totdel = x_l + lcc["die_mid"].to(I32).sum(0, dtype=I32)
+        XD = min(cfg.XK + cfg.LCD, SL)
+        ov = ov | _flag(_any_env(totdel > XD), OV_REMOVE)
+    else:
+        totdel = x_l
     new_n_l = rs.n_l - totdel + m_l
     ov = ov | _flag(_any_env(new_n_l > SL), OV_SLOTS)
     new_n_l = torch.clamp_max(new_n_l, SL)
     pi = PCH.index
-    (new_l_dis, new_l_speed, new_l_flow, new_l_route, new_l_rpos,
-     new_l_enter, new_l_pri, new_l_uid, new_l_nxt, new_l_nxt3, new_l_last,
-     new_l_prev) = ring_commit(
+    lch = []
+    if lc:
+        # pair-state epilogue (finishChanging / abortChanging): promote
+        # finishing reals' shadows, unlink broken pairs, integrate the
+        # lateral offset of surviving changing reals
+        chg_real = occ_l & rs.l_chg & ~rs.l_sh
+        clear = lcc["unlink_real"] | lcc["promote"] | lcc["unlink_sh"]
+        off_u = torch.where(clear, 0.0, torch.where(
+            chg_real, lcc["new_off"] * lcc["dirn"], rs.l_off))
+        sh_u = rs.l_sh & ~(lcc["promote"] | lcc["unlink_sh"])
+        chg_u = rs.l_chg & ~rs.l_sh & ~lcc["unlink_real"]
+        dir_u = torch.where(sh_u | chg_u, rs.l_dir, 0).to(I32)
+        zi = pi("zero")
+        lch = ([(off_u, "f32", 0.0, zi, 0), (sh_u, "bool", 0.0, zi, 0),
+                (chg_u, "bool", 0.0, zi, 0), (dir_u, "i32", 0.0, zi, 0),
+                (rs.l_gap, "f32", 0.0, pi("gap"), 0)]
+               + [(rs.l_rnrow[c], "i32", -1.0, pi(f"rn{c}"), 0)
+                  for c in range(MAXLPR)]
+               + [(rs.l_auxrow[c], "i32", -1.0, pi(f"ax{c}"), 0)
+                  for c in range(MAXLPR)])
+    louts = ring_commit(
         [(new_dis_l, "f32", 0.0, pi("dis"), 0),
          (new_spd_l, "f32", 0.0, pi("speed"), 0),
          (rs.l_flow, "i32", 0.0, pi("flow"), 0),
@@ -891,9 +1149,20 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
          (rs.l_nxt, "i32", -1.0, pi("nxt"), 0),
          (rs.l_nxt3, "i32", -1.0, pi("nxt3"), 0),
          (rs.l_last, "bool", 0.0, pi("last"), 0),
-         (rs.l_prev, "i32", -1.0, pi("prev"), 0)],
-        x_l, rs.n_l - totdel, cands, valid_ch=pi("valid"),
-        sort_ch=pi("dis"), nsel=SAE, XK=cfg.XK, app_I=cfg.I, app_G=G)
+         (rs.l_prev, "i32", -1.0, pi("prev"), 0)] + lch,
+        None if lc else x_l, rs.n_l - totdel, cands, valid_ch=pi("valid"),
+        sort_ch=pi("dis"), nsel=SAE, XK=cfg.XK, app_I=cfg.I, app_G=G,
+        dmask=del_full if lc else None, XD=XD if lc else 0)
+    (new_l_dis, new_l_speed, new_l_flow, new_l_route, new_l_rpos,
+     new_l_enter, new_l_pri, new_l_uid, new_l_nxt, new_l_nxt3, new_l_last,
+     new_l_prev) = louts[:12]
+    lc_kw = {}
+    if lc:
+        lo = louts[12:]
+        lc_kw = dict(l_off=lo[0], l_sh=lo[1], l_chg=lo[2], l_dir=lo[3],
+                     l_gap=lo[4], l_rnrow=torch.stack(lo[5:5 + MAXLPR]),
+                     l_auxrow=torch.stack(lo[5 + MAXLPR:]),
+                     k_gap=kouts[10])
 
     # ---- blocker graph commit (front-most failing vehicle per link) -----
     blk_new = torch.full((LPI, G, B), -1, dtype=I32, device=dev)
@@ -943,7 +1212,8 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
         k_enter=new_k_enter, k_pri=new_k_pri, k_uid=new_k_uid,
         k_nxtl=new_k_nxtl,
         k_custom=torch.zeros((SK, LKp, B), device=dev),
-        k_hascustom=torch.zeros((SK, LKp, B), dtype=torch.bool, device=dev))
+        k_hascustom=torch.zeros((SK, LKp, B), dtype=torch.bool, device=dev),
+        **lc_kw)
     return new_rs, dbg
 
 

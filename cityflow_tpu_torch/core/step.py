@@ -80,3 +80,10 @@ def can_yield(speed, max_neg, yield_dist, length, d):
     min_brake = 0.5 * speed * speed / max_neg
     return (((d > 0) & (min_brake < d - yield_dist))
             | ((d < 0) & (d + length < 0)))
+
+
+def leader_scan_bound(max_speed, usual_neg, interval):
+    """How far ahead the leader scan looks past the drivable's end
+    (reference vehicle.cpp, updateLeaderAndGap / getIntersectionRelatedSpeed:
+    the brake distance at max speed plus two intervals of travel)."""
+    return max_speed * max_speed / usual_neg / 2 + max_speed * interval * 2

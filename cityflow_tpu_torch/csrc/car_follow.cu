@@ -4,7 +4,10 @@
 // Replaces isr_speed and min_chain in cityflow_tpu/core/ring.py
 // (:998-1092), applied on link rows, approach rows and lane rows
 // (:1094-1369). Mode bit 1 runs isr_speed, bit 2 runs min_chain; with both,
-// the intersection speed stays in a register.
+// the intersection speed stays in a register. The lane-change mode is
+// min_chain with the yieldSpeed input v_yield (:1081), raw on the
+// lane-change path; it is its own instantiation (YIELD = true), so the
+// one without it compiles to the same code as before.
 //
 // Every input is a (pointer, div, mod) view: element e of the output reads
 // p[(e / div) % mod], so tables broadcast over slots and envs without being
@@ -34,6 +37,7 @@ enum {
   IN_DRV_MAXSPD,
   IN_INVALID,
   IN_LANE_LEFT,
+  IN_V_YIELD,
   N_IN
 };
 
@@ -54,6 +58,7 @@ struct CarFollowArgs {
   int mode;             // 1 = isr, 2 = min_chain, 3 = both
   int raw;
   float maxspd, turnspd, upa, una, yld, maxneg, mingap, headway, maxpos, dt;
+  int with_yield;       // 1: the lane-change mode (v_yield input)
 };
 
 __device__ __forceinline__ float rd(const View& v, long long e) {
@@ -67,6 +72,7 @@ __device__ __forceinline__ bool rb(const View& v, long long e) {
   return rd(v, e) != 0.0f;
 }
 
+template <bool YIELD>
 __global__ void car_follow_kernel(const CarFollowArgs a) {
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < a.n; e += (long long)gridDim.x * blockDim.x) {
@@ -128,6 +134,7 @@ __global__ void car_follow_kernel(const CarFollowArgs a) {
     v = tmin(v, drv_maxspd);
     v = tmin(v, v_cf);
     if (isr_rel) v = tmin(v, v_isr);
+    if (YIELD) v = tmin(v, rd(a.in[IN_V_YIELD], e));
     if (invalid) {
       float v_inv = no_collision_speed(0.0f, 1.0f, speed, a.maxneg, lane_left,
                                        dt, a.mingap);
@@ -150,7 +157,11 @@ extern "C" int car_follow(const CarFollowArgs* args, void* stream) {
   int threads = 256;
   long long blocks = (args->n + threads - 1) / threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  car_follow_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      *args);
+  if (args->with_yield)
+    car_follow_kernel<true>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+  else
+    car_follow_kernel<false>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

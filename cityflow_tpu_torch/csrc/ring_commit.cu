@@ -9,12 +9,20 @@
 // thread owns one (column, env) and loops over slots and channels, so each
 // ring value is read once and written once.
 //
+// The lane-change mode (ring.py:1815-1857) takes a delete mask instead of the
+// front departures: the TPU composes prefix exits and mid-ring finishes
+// into one rank-preserving delete as XD + 1 masked shifts per channel; here
+// the thread walks its column's slots once, maps each output slot to the
+// kept slot it takes (dropping a kept slot that moves up by more than XD,
+// as the where-chain does), and runs the same channel loop.
+//
 // Bound: bytes. Per (column, env): S slots x channels read and written, plus
 // the entrant values; no arithmetic to speak of.
 #include "common.cuh"
 
-#define MAX_CH 16
+#define MAX_CH 32
 #define MAX_A 16
+#define MAX_S 128
 
 enum { K_F32 = 0, K_I32 = 1, K_BOOL = 2, K_PRI = 3 };
 
@@ -43,20 +51,36 @@ struct RingCommitArgs {
                         //     this channel descending, valid first
   int nsel;             // candidates taken
   const float* envval;  // (B,)
+  const uint8_t* dmask; // lane-change mode: (S, N, B) delete mask, else null
+  int XD;               //   at most XD slots deleted above a kept one
 };
 
 __device__ __forceinline__ int hilo_to_i32(float h, float l) {
   return (int)(((unsigned)xla_f32_to_i32(h)) << 16) | xla_f32_to_i32(l);
 }
 
+template <bool DEL>
 __global__ void ring_commit_kernel(const RingCommitArgs a) {
   long long total = a.N * a.B;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     long long b = e % a.B;
     long long n = e / a.B;
-    int x = a.x[e];
+    int x = DEL ? 0 : a.x[e];
     int base = a.base[e];
+    // DEL: the slot each output slot takes (-1: the fill)
+    short src_of[DEL ? MAX_S : 1];
+    if (DEL) {
+      int k = 0, ndel = 0;
+      for (long long t = 0; t < a.S; ++t) {
+        if (a.dmask[t * total + e]) {
+          ++ndel;
+        } else if (ndel <= a.XD) {
+          src_of[k++] = (short)t;
+        }
+      }
+      for (; k < a.S; ++k) src_of[k] = -1;
+    }
     long long ac = -1;
     if (a.app_I == 0) {
       ac = n;
@@ -104,7 +128,7 @@ __global__ void ring_commit_kernel(const RingCommitArgs a) {
     for (int ci = 0; ci < a.nch; ++ci) {
       const Chan& c = a.ch[ci];
       for (long long s = 0; s < a.S; ++s) {
-        long long src = s + x;
+        long long src = DEL ? (src_of[s] >= 0 ? src_of[s] : a.S) : s + x;
         long long o = (s * a.N + n) * a.B + b;
         long long io = (src * a.N + n) * a.B + b;
         int hit = -1;
@@ -141,10 +165,15 @@ extern "C" int ring_commit(const RingCommitArgs* args, void* stream) {
   long long total = args->N * args->B;
   if (total == 0) return 0;
   if (args->nch > MAX_CH || args->A > MAX_A || args->nsel > args->A) return -1;
+  if (args->dmask && args->S > MAX_S) return -1;
   int threads = 128;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  ring_commit_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      *args);
+  if (args->dmask)
+    ring_commit_kernel<true>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+  else
+    ring_commit_kernel<false>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -98,7 +98,8 @@ def lib():
         L.gather_rows.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll,
                                   ctypes.c_uint, vp]
         L.gather_rows.restype = ctypes.c_int
-        for name in ("cross_caps", "car_follow", "ring_commit"):
+        for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",
+                     "lc_receive", "lc_insert", "lc_partner"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int

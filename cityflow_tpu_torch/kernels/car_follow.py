@@ -3,7 +3,10 @@ Vehicle::getNextSpeed's min-rule (min_chain), fused (csrc/car_follow.cu).
 
 mode 1 runs isr_speed and returns (v_isr, red_stop); mode 2 runs min_chain
 on a given v_isr and returns (new_speed, delta), or v when raw; mode 3 runs
-both with the intersection speed kept inside.
+both with the intersection speed kept inside. The lane-change mode is
+min_chain with a `v_yield` input (the yieldSpeed term, applied after the
+intersection term; JAX ring.py:1081) and, on the lane-change path, raw: its
+own kernel instantiation, so the one without v_yield is unchanged.
 
 Inputs are keyword tensors that broadcast to `shape` under PyTorch's rules
 with their non-1 dimensions in one contiguous block (a (LPI, G, 1) table
@@ -20,11 +23,12 @@ from cityflow_tpu_torch.core.step import no_collision_speed, stop_before_speed
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
+launches_lc = 0         # of those, in the lane-change mode (v_yield)
 
 INPUTS = ("speed", "dls", "isr_lane_left", "any_fail", "ff_d", "app", "avail",
           "can_enter", "turn", "gap", "lead_spd", "has_lead", "v_isr",
           "isr_rel", "custom", "has_custom", "drv_maxspd", "invalid",
-          "lane_left")
+          "lane_left", "v_yield")
 PARAMS = ("maxspd", "turnspd", "upa", "una", "yld", "maxneg", "mingap",
           "headway", "maxpos", "dt")
 ISR_INPUTS = ("speed", "dls", "isr_lane_left", "any_fail", "ff_d", "app",
@@ -44,7 +48,8 @@ class _Args(ctypes.Structure):
                  ("out_v", ctypes.c_void_p), ("out_delta", ctypes.c_void_p),
                  ("out_red", ctypes.c_void_p), ("n", ctypes.c_longlong),
                  ("mode", ctypes.c_int), ("raw", ctypes.c_int)]
-                + [(n, ctypes.c_float) for n in PARAMS])
+                + [(n, ctypes.c_float) for n in PARAMS]
+                + [("with_yield", ctypes.c_int)])
 
 
 def _needed(mode):
@@ -100,6 +105,8 @@ def car_follow_plain(mode, prm, shape, raw=False, **inp):
     v = torch.minimum(v, g["drv_maxspd"])
     v = torch.minimum(v, v_cf)
     v = torch.where(g["isr_rel"], torch.minimum(v, v_isr), v)
+    if "v_yield" in g:
+        v = torch.minimum(v, g["v_yield"])
     v_inv = no_collision_speed(torch.zeros((), device=dev),
                                torch.ones((), device=dev), speed,
                                p["maxneg"], g["lane_left"], dt, p["mingap"])
@@ -140,8 +147,10 @@ def _view(x, shape, name):
 
 def car_follow(mode, prm, shape, raw=False, **inp):
     """K3 on CUDA tensors, the plain version on CPU tensors."""
-    global launches
+    global launches, launches_lc
     missing = _needed(mode) - set(inp)
+    if "v_yield" in inp and mode != 2:
+        raise ValueError("car_follow: v_yield goes with mode 2")
     if missing:
         raise ValueError(f"car_follow: missing inputs {sorted(missing)}")
     shape = tuple(shape)
@@ -164,11 +173,13 @@ def car_follow(mode, prm, shape, raw=False, **inp):
         out_d = torch.empty(shape, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     a = _Args((_View * len(INPUTS))(*views), out_v.data_ptr(), ptr(out_d),
-              ptr(out_r), n, mode, int(raw), *(float(prm[i])
-                                               for i in range(len(PARAMS))))
+              ptr(out_r), n, mode, int(raw),
+              *(float(prm[i]) for i in range(len(PARAMS))),
+              int("v_yield" in inp))
     rc = _lib.lib().car_follow(ctypes.byref(a), _lib.stream_ptr(out_v))
     _lib.check(rc, "car_follow")
     launches += 1
+    launches_lc += "v_yield" in inp
     if mode == 1:
         return out_v, out_r
     return out_v if raw else (out_v, out_d)

@@ -18,6 +18,13 @@ Channels are (upd, kind, fill, app_ch, app_ch2):
   "pri"  int priority; entrant = (hi << 16) | lo from channels app_ch and
          app_ch2 (the (hi, lo) f32 halves of the JAX exchange)
 app_ch = -1 takes the per-env value envval[b].
+
+The lane-change mode (the JAX lane commit under cfg.lane_change,
+ring.py:1815-1857) takes a delete mask `dmask` (S, N, B) instead of the
+front departures x: the kept slots close up in order (a rank-preserving
+delete of front exits and mid-ring finishes), a kept slot moving up by more
+than XD = min(XK + LCD, S) is dropped as the JAX where-chain drops it, and
+the entrants append at base as before.
 """
 
 import ctypes
@@ -28,8 +35,9 @@ from cityflow_tpu_torch.core.numerics import xla_f32_to_i32
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
+launches_lc = 0         # of those, in the lane-change mode (dmask)
 KINDS = {"f32": 0, "i32": 1, "bool": 2, "pri": 3}
-MAX_CH = 16
+MAX_CH = 32
 MAX_A = 16
 
 
@@ -48,7 +56,8 @@ class _Args(ctypes.Structure):
         + [(n, ctypes.c_longlong) for n in ("A", "PCH", "AC", "app_I",
                                             "app_G")] \
         + [("valid_ch", ctypes.c_int), ("sort_ch", ctypes.c_int),
-           ("nsel", ctypes.c_int), ("envval", ctypes.c_void_p)]
+           ("nsel", ctypes.c_int), ("envval", ctypes.c_void_p),
+           ("dmask", ctypes.c_void_p), ("XD", ctypes.c_int)]
 
 
 def _from_hilo(h, l):
@@ -82,12 +91,33 @@ def _app_columns(app, N, app_I, app_G):
     return torch.where((col >= 0)[None, None, :, None], got, 0.0)
 
 
+def _delete_shift(upd, dmask, XD, pad):
+    """The JAX generalized rank-preserving delete: out[s] = upd[s + x]
+    where s + x is kept and x earlier slots are deleted, x <= XD, else the
+    fill."""
+    S, N, B = upd.shape
+    dmi = dmask.to(torch.int32)
+    dex = torch.cumsum(dmi, dim=0, dtype=torch.int32) - dmi
+    del_pad = torch.cat([dmask, torch.ones((XD, N, B), dtype=torch.bool,
+                                           device=upd.device)])
+    dex_pad = torch.cat([dex, torch.full((XD, N, B), S + XD,
+                                         dtype=torch.int32,
+                                         device=upd.device)])
+    upd_pad = torch.cat([upd, pad.expand(XD, N, B).to(upd.dtype)])
+    out = pad.expand(S, N, B).to(upd.dtype)
+    for xx in range(XD + 1):
+        cond = ~del_pad[xx:xx + S] & (dex_pad[xx:xx + S] == xx)
+        out = torch.where(cond, upd_pad[xx:xx + S], out)
+    return out
+
+
 def ring_commit_plain(chans, x, base, app, valid_ch, sort_ch, nsel, XK,
-                      app_I=0, app_G=0, envval=None):
-    """Plain PyTorch version: the JAX shift_out / append, one channel at a
-    time, with torch.sort(stable=True) for the candidate order."""
+                      app_I=0, app_G=0, envval=None, dmask=None, XD=0):
+    """Plain PyTorch version: the JAX shift_out / append (or the lane-change
+    delete), one channel at a time, with torch.sort(stable=True) for the
+    candidate order."""
     S, N, B = chans[0][0].shape
-    dev = x.device
+    dev = base.device
     appn = _app_columns(app, N, app_I, app_G)
     valid = appn[:, valid_ch] > 0.5                              # (A, N, B)
     A = appn.shape[0]
@@ -104,11 +134,14 @@ def ring_commit_plain(chans, x, base, app, valid_ch, sort_ch, nsel, XK,
     s_idx = torch.arange(S, device=dev)[:, None, None]
     outs = []
     for upd, kind, fill, app_ch, app_ch2 in chans:
-        pad = _fill_of(fill, kind, dev).expand(XK, N, B)
-        upd_pad = torch.cat([upd, pad.to(upd.dtype)], dim=0)
-        out = upd_pad[:S]
-        for xx in range(1, XK + 1):
-            out = torch.where((x == xx)[None], upd_pad[xx:xx + S], out)
+        if dmask is not None:
+            out = _delete_shift(upd, dmask, XD, _fill_of(fill, kind, dev))
+        else:
+            pad = _fill_of(fill, kind, dev).expand(XK, N, B)
+            upd_pad = torch.cat([upd, pad.to(upd.dtype)], dim=0)
+            out = upd_pad[:S]
+            for xx in range(1, XK + 1):
+                out = torch.where((x == xx)[None], upd_pad[xx:xx + S], out)
         if app_ch < 0:
             vals = envval[None, None, :].expand(nsel, N, B)
         else:
@@ -125,25 +158,35 @@ def ring_commit_plain(chans, x, base, app, valid_ch, sort_ch, nsel, XK,
 
 
 def ring_commit(chans, x, base, app, valid_ch, sort_ch, nsel, XK, app_I=0,
-                app_G=0, envval=None):
+                app_G=0, envval=None, dmask=None, XD=0):
     """K4 on CUDA tensors, the plain version on CPU tensors. Returns the
-    committed ring of every channel, in order."""
-    global launches
-    cpu = x.device.type == "cpu"
+    committed ring of every channel, in order. With `dmask` (the
+    lane-change mode) x is not read and may be None."""
+    global launches, launches_lc
+    cpu = base.device.type == "cpu"
     S, N, B = chans[0][0].shape
     A, PCH, AC, B2 = app.shape
+    if dmask is None:
+        if x is None or tuple(x.shape) != (N, B):
+            raise ValueError("ring_commit: x must be (N, B)")
+    elif tuple(dmask.shape) != (S, N, B) or dmask.dtype != torch.bool \
+            or not 0 <= XD <= S:
+        raise ValueError("ring_commit: dmask must be (S, N, B) bool, "
+                         "0 <= XD <= S")
+    else:
+        x = None
     dtypes = {"f32": torch.float32, "i32": torch.int32, "bool": torch.bool,
               "pri": torch.int32}
     if len(chans) > MAX_CH or A > MAX_A or nsel > A:
         raise ValueError("ring_commit: too many channels or candidates")
-    if B2 != B or tuple(x.shape) != (N, B) or tuple(base.shape) != (N, B):
-        raise ValueError("ring_commit: x/base/app shapes do not match")
+    if B2 != B or tuple(base.shape) != (N, B):
+        raise ValueError("ring_commit: base/app shapes do not match")
     if envval is not None and tuple(envval.shape) != (B,):
         raise ValueError("ring_commit: envval must be (B,)")
-    _lib.check_args("ring_commit", x, base, app, envval,
+    _lib.check_args("ring_commit", x, base, app, envval, dmask,
                     dtypes=[(torch.int32,), (torch.int32,),
-                            (torch.float32,), (torch.float32,)],
-                    cuda=not cpu)
+                            (torch.float32,), (torch.float32,),
+                            (torch.bool,)], cuda=not cpu)
     for i, (upd, kind, fill, app_ch, app_ch2) in enumerate(chans):
         _lib.check_args("ring_commit", upd, dtypes=[(dtypes[kind],)],
                         cuda=not cpu)
@@ -155,7 +198,7 @@ def ring_commit(chans, x, base, app, valid_ch, sort_ch, nsel, XK, app_I=0,
             raise ValueError("ring_commit: app_ch -1 needs envval")
     if cpu:
         return ring_commit_plain(chans, x, base, app, valid_ch, sort_ch,
-                                 nsel, XK, app_I, app_G, envval)
+                                 nsel, XK, app_I, app_G, envval, dmask, XD)
     cs = (_Chan * MAX_CH)()
     outs = []
     for i, (upd, kind, fill, app_ch, app_ch2) in enumerate(chans):
@@ -163,10 +206,12 @@ def ring_commit(chans, x, base, app, valid_ch, sort_ch, nsel, XK, app_I=0,
         outs.append(out)
         cs[i] = _Chan(upd.data_ptr(), out.data_ptr(), KINDS[kind], app_ch,
                       app_ch2, float(fill))
-    a = _Args(cs, len(chans), XK, S, N, B, x.data_ptr(), base.data_ptr(),
+    ptr = lambda t: None if t is None else t.data_ptr()
+    a = _Args(cs, len(chans), XK, S, N, B, ptr(x), base.data_ptr(),
               app.data_ptr(), A, PCH, AC, app_I, app_G, valid_ch, sort_ch,
-              nsel, None if envval is None else envval.data_ptr())
-    rc = _lib.lib().ring_commit(ctypes.byref(a), _lib.stream_ptr(x))
+              nsel, ptr(envval), ptr(dmask), XD)
+    rc = _lib.lib().ring_commit(ctypes.byref(a), _lib.stream_ptr(base))
     _lib.check(rc, "ring_commit")
     launches += 1
+    launches_lc += dmask is not None
     return outs

@@ -62,19 +62,18 @@ def _build_queues(gen: SpawnGenerator, meta: RingMeta, horizon: int,
 
 def build_sim(net: CompiledNet, horizon: int = 512,
               sl: Optional[int] = None, skc: Optional[int] = None,
-              device=None) -> RingSim:
+              device=None, sk: Optional[int] = None) -> RingSim:
     """Tables, queues and initial state for `net` on `device` (None means
     "cuda"; pass device="cpu" for the plain PyTorch path on the CPU).
+    sl / sk override the lane / link ring slots (default: the longest
+    drivable's capacity).
 
     Branches of the JAX ring step that this port does not cover yet fail
     here rather than simulate something else."""
     dev = resolve_device(device)
     cfgj = net.host.config
     interval = float(cfgj["interval"])
-    if cfgj.get("laneChange", False):
-        raise NotImplementedError(
-            "ring lane change is not ported yet (ROADMAP.md queue 1 item 7, "
-            "queue 2 row 15)")
+    lane_change = bool(cfgj.get("laneChange", False))
     if str(cfgj.get("routerType", "LENGTH")).upper() == "DURATION":
         raise NotImplementedError(
             "the DURATION router's lane history window is not ported yet "
@@ -84,7 +83,8 @@ def build_sim(net: CompiledNet, horizon: int = 512,
         raise ValueError(f"ring layout unsupported: {meta.unsupported_reason}")
     if not meta.uniform_params:
         raise NotImplementedError(
-            "non-uniform vehicle templates are not ported yet "
+            ("lane change with " if lane_change else "")
+            + "non-uniform vehicle templates: not ported yet "
             "(ROADMAP.md queue 1 item 5)")
 
     p = meta.param_row
@@ -94,7 +94,7 @@ def build_sim(net: CompiledNet, horizon: int = 512,
     lane_cap = int(np.ceil(np.asarray(tb["ln_len"]).max() / min_len)) + 2
     link_cap = int(np.ceil(np.asarray(tb["lk_len"]).max() / min_len)) + 2
     SL = sl if sl is not None else lane_cap
-    SK = link_cap
+    SK = sk if sk is not None else link_cap
     xk = max(2, int(np.ceil(max_spd * interval / min_len)))
 
     cfg = RingConfig(
@@ -106,7 +106,8 @@ def build_sim(net: CompiledNet, horizon: int = 512,
         params=params,
         rl_traffic_light=bool(cfgj["rlTrafficLight"]),
         SKC=(skc if skc is not None else 4),
-        MAXLPR=int(np.asarray(tb["route_next"]).shape[2]))
+        MAXLPR=int(np.asarray(tb["route_next"]).shape[2]),
+        lane_change=lane_change)
 
     gen = SpawnGenerator(net, int(cfgj["seed"]), interval)
     q = _build_queues(gen, meta, horizon)

@@ -13,6 +13,8 @@ Every timed region ends in torch.cuda.synchronize(). The config's roadnet
 and flow are staged under the checkout's build/ (tools/scenario.py).
 
     python -m cityflow_tpu_torch.tools.bench --config benchmarks/config_30x30.json
+    python -m cityflow_tpu_torch.tools.bench \
+        --config benchmarks/config_30x30_lc.json --warmup 1960
 """
 
 import argparse
@@ -29,9 +31,15 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_ring(args, net, batch, device=None):
+def run_ring(args, net, batch, device=None, on_step=None):
     """Build the sim, warm up, time the batched p1 + p2 steps. Returns a
-    dict of the measurement and the final batched state."""
+    dict of the measurement and the final batched state. The warm-up runs
+    one env and the batch starts from copies of it: every env runs the
+    same scenario from the same seed, so that is the state a batched
+    warm-up reaches, at a fraction of the cost (the lane-change grid's
+    first changes come at step 1779). Its last step is batched and timed
+    as first_step_s. `on_step(state)`, when given, runs after each timed
+    step (a check that the caller wants inside the window)."""
     from cityflow_tpu_torch import ring_sim
     from cityflow_tpu_torch.core.ring import (
         batch_ring_state, ring_step_p1_batched, ring_step_p2_batched)
@@ -43,20 +51,23 @@ def run_ring(args, net, batch, device=None):
     dev = sim.device
     build_s = time.time() - t0
     B = batch
-    bstate = batch_ring_state(sim.state, B)
 
     def step_b(s):
         s, m = ring_step_p1_batched(sim.tables, sim.cfg, s, sim.q)
         return ring_step_p2_batched(sim.tables, sim.cfg, s, m)
 
     print(f"[stage] build_s={build_s:.1f}", file=sys.stderr, flush=True)
+    one = batch_ring_state(sim.state, 1)
+    steps_run = max(args.warmup, 1)
+    for _ in range(steps_run - 1):
+        one = step_b(one)
+    bstate = batch_ring_state(one.map(lambda x: x[..., 0]), B)
+    del one
+    _sync(dev)
     t0 = time.time()
     bstate = step_b(bstate)
     _sync(dev)
     first_s = time.time() - t0
-    for _ in range(max(args.warmup - 1, 1)):
-        bstate = step_b(bstate)
-    _sync(dev)
     if args.window:
         # the timed region loops the scenario's first W post-warmup steps,
         # restarting from the warm snapshot (the copy is timed in), until
@@ -71,6 +82,8 @@ def run_ring(args, net, batch, device=None):
             s = snap.map(torch.clone)
             for _ in range(W):
                 s = step_b(s)
+                if on_step is not None:
+                    on_step(s)
             _sync(dev)
             steps += W
             if time.time() - t0 >= args.min_seconds or steps >= args.steps:
@@ -83,22 +96,26 @@ def run_ring(args, net, batch, device=None):
         bstate = None
         for _ in range(steps):
             s = step_b(s)
+            if on_step is not None:
+                on_step(s)
         _sync(dev)
         dt = time.time() - t0
+        steps_run += steps
     ov = int(s.overflow.max())
     veh = int(s.n_l[:, 0].sum() + s.n_k[:, 0].sum())
     return dict(seconds=dt, overflow=ov, vehicles=veh, build_s=build_s,
-                first_step_s=first_s, steps=steps, state=s, sim=sim)
+                first_step_s=first_s, steps=steps, steps_run=steps_run,
+                state=s, sim=sim)
 
 
-def run_ring_ladder(args, net, batch=None, device=None):
+def run_ring_ladder(args, net, batch=None, device=None, on_step=None):
     """run_ring at `batch` (default args.batch), halving the batch on
     CUDA out-of-memory until it fits (floor 1). Returns (result, batch)."""
     import gc
     batch = args.batch if batch is None else batch
     while True:
         try:
-            return run_ring(args, net, batch, device), batch
+            return run_ring(args, net, batch, device, on_step), batch
         except torch.cuda.OutOfMemoryError as e:
             print(f"ring OOM at batch={batch}: {str(e)[:200]}",
                   file=sys.stderr, flush=True)
@@ -170,6 +187,8 @@ def main(argv=None):
             "unit": "env-steps/s",
             "vs_baseline": round(rate / baseline, 2),
             "layout": "ring",
+            "lane_change": bool(net.host.config.get("laneChange", False)),
+            "warmup": args.warmup,
             "batch": batch_used, "steps": r["steps"],
             "ms_per_batched_step": round(r["seconds"] * 1000 / r["steps"],
                                          2),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the batched ring step's device time goes, by operator.
 
-Runs the 30x30 main path (p1 + p2, B envs) on the card, warms up, times
-a few steps without the profiler (wall clock, synchronised), then records
+Runs the 30x30 main path (p1 + p2, B envs; or another config, e.g. the
+lane-change grid with --warmup 1960) on the card, warms up, times a few steps without the profiler (wall clock, synchronised), then records
 as many under torch.profiler and prints the operators and kernels by self
 device time, plus the device's busy share: kernel time per step over the
 unprofiled wall time per step.
@@ -40,14 +40,17 @@ def main(argv=None):
 
     sim = ring_sim.build_sim(compile_scenario(prepare(args.config)),
                              horizon=args.warmup + args.steps + 8, sl=40)
-    st = batch_ring_state(sim.state, args.batch)
+    st = batch_ring_state(sim.state, 1)
 
     def step(s):
         s, m = ring_step_p1_batched(sim.tables, sim.cfg, s, sim.q)
         return ring_step_p2_batched(sim.tables, sim.cfg, s, m)
 
-    for _ in range(args.warmup):
+    # the warm-up runs one env and the batch starts from copies of it, as
+    # in tools/bench.py
+    for _ in range(max(args.warmup, 1) - 1):
         st = step(st)
+    st = step(batch_ring_state(st.map(lambda x: x[..., 0]), args.batch))
     torch.cuda.synchronize()
     t0 = time.time()
     for _ in range(args.steps):

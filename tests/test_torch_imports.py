@@ -67,13 +67,23 @@ def test_build_sim_without_device_refuses_the_cpu():
 
 
 @pytest.mark.parametrize("config, why", [
-    ("config_2x2_lc.json", "lane change"),
+    ("config_1x1s_mixed_lc.json", "lane change with non-uniform"),
     ("config_2x2_mixed.json", "non-uniform vehicle templates"),
 ])
 def test_unported_branches_fail_at_build_sim(config, why):
     net = compile_scenario(os.path.join(HERE, "fixtures", config))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         ring_sim.build_sim(net, horizon=8, device="cpu")
+    assert why in str(e.value)
+
+
+def test_lane_change_modules_are_covered():
+    """The import rule above reaches the lane-change module and kernels."""
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("core/ring_lc.py", "kernels/_nbr.py", "kernels/lc_signal.py",
+                "kernels/lc_receive.py", "kernels/lc_insert.py",
+                "kernels/lc_partner.py"):
+        assert rel in files, rel
 
 
 def test_duration_router_fails_at_build_sim(tmp_path):

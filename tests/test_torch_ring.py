@@ -67,16 +67,22 @@ def assert_close(name, want, got, bitwise_log=None):
 
 
 def vehicles(leaves):
-    """{uid: (drivable, dis, speed)} from ring state leaves (lanes are
-    ('l', pos), links ('k', pos))."""
+    """{key: (drivable, dis, speed)} from ring state leaves (lanes are
+    ('l', pos), links ('k', pos)). The key is the uid; with lane change
+    (an l_sh leaf) it is (uid, shadow), since a shadow shares its real's
+    uid."""
     out = {}
+    sh = leaves.get("l_sh")
     for pre, n in (("l", leaves["n_l"]), ("k", leaves["n_k"])):
         uid, dis, spd = (leaves[f"{pre}_uid"], leaves[f"{pre}_dis"],
                          leaves[f"{pre}_speed"])
         for p in np.nonzero(n)[0]:
             for s in range(int(n[p])):
-                out[int(uid[s, p])] = ((pre, int(p)), float(dis[s, p]),
-                                       float(spd[s, p]))
+                key = int(uid[s, p])
+                if sh is not None:
+                    key = (key, pre == "l" and bool(sh[s, p]))
+                out[key] = ((pre, int(p)), float(dis[s, p]),
+                            float(spd[s, p]))
     return out
 
 
