@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the eight kernels from csrc/ (nvcc, sm_90a) with its time
+            of the ten kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -34,11 +34,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             against their plain versions on the inputs of one more step of
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
             K3 within 1e-5, their not-bitwise counts printed), timed
+  agree-rl  the RL env (rl/env.RingVecEnv), B=1 on the card against the
+            plain port on the CPU on tests/fixtures/config_4x4_rl.json, 60
+            steps with MaxPressure every 5: equal actions at every decision,
+            equal observations (avg_travel_time within 1e-5 relative)
+  agree-hist  the DURATION router's lane-history window, B=1 card against
+            CPU on config_2x2.json with routerType DURATION, 40 steps:
+            h_num and h_ring_num equal, the speed sums within 1e-5 relative;
+            O1's history mode launched
+  rl        RingVecEnv on benchmarks/config_30x30.json at B=128, lane slots
+            40: RL_WARMUP steps of one env under MaxPressure every 5 steps,
+            copied into the batch, then 40 timed steps of step() with
+            max_pressure_actions() every 5th (observations and controller
+            timed in); asserts overflow == 0, vehicles > 0, every env equal
+            to env 0 bitwise, O1 and O2 launched, a phase changed by the
+            controller in the window; prints O1 / O2 shares and peak memory
+  kernels   (RL) O1 lane_stats in its three modes and O2 phase_pressure in
+            its two against their plain versions on the rl path's state
+            (integer outputs exact, float sums within 1e-5 relative), timed
+  dqn       rl/ring_dqn.make_ring_dqn_split_step from the rl path's state:
+            4 iterations of 5 steps at eps 0.3; asserts a finite loss, the
+            step advanced by 20, overflow 0, O2's features mode launched
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -59,9 +81,15 @@ LC_WARMUP = 1960                    # lc path steps before the timing: the
                                     # and a vehicle changes lanes only on
                                     # its last road, from step 1779 on
 REPS = 10                           # launches per kernel timing
+AGREE_RL_STEPS = 60                 # RL env card-vs-CPU steps at B=1
+AGREE_HIST_STEPS = 40               # history window card-vs-CPU steps
+RL_WARMUP = 300                     # rl path: one env under MaxPressure
+DQN_ITERS = 4                       # learner iterations of 5 steps each
+MP_EVERY = 5                        # steps between MaxPressure decisions
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc")
+RL_KERNELS = ("lane_stats", "phase_pressure")
 REPLACES = {
     "gather_rows": "cityflow_tpu/core/ring.py:243 (_typed_mm), :300-341 "
                    "(exchanges), :881-927 (foe_perm)",
@@ -84,6 +112,15 @@ REPLACES = {
                      "lane_change: v_yield, raw)",
     "ring_commit@lc": "cityflow_tpu/core/ring.py:1815-1857 (commit_l under "
                       "lane_change: the rank-preserving delete)",
+    "lane_stats": "cityflow_tpu/core/ring_observe.py:24-27 "
+                  "(lane_waiting_ring)",
+    "lane_stats@obs": "cityflow_tpu/core/ring_observe.py:115-130 "
+                      "(observations_ring: waiting, in-flight sums)",
+    "lane_stats@hist": "cityflow_tpu/core/ring.py:210-236 (_update_history)",
+    "phase_pressure": "cityflow_tpu/core/ring_observe.py:35-65 "
+                      "(phase_pressures), :106-112 (max_pressure_phases_ring)",
+    "phase_pressure@features": "cityflow_tpu/core/ring_observe.py:68-103 "
+                               "(phase_features)",
 }
 
 
@@ -101,11 +138,15 @@ def nvidia_smi_line():
 
 def time_cuda(fn, reps):
     """Mean device time of fn() in ms over `reps` launches (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call). The device first spins for about 0.1 s, so
+    the host has queued the launches before the first one starts: a
+    kernel shorter than its launch overhead is timed on the device, not
+    at the host's launch rate."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -411,15 +452,28 @@ def vehicles(st):
     return out
 
 
+def rel_close(name, got, want, tol=1e-5):
+    """|got - want| <= tol |want| everywhere (float sums); returns (max
+    relative error, values not bitwise)."""
+    g, w = got.double().cpu(), want.double().cpu()
+    d = (g - w).abs()
+    assert bool((d <= tol * w.abs()).all()), f"{name}: beyond {tol} relative"
+    rel = float((d / w.abs().clamp_min(1e-30)).max()) if d.numel() else 0.0
+    return rel, int((d > 0).sum())
+
+
 def check_agreement(net, steps, tag="agree", **kw):
     """B=1 on the card (kernels) against the plain port on the CPU; with
     lane change also the (changing, shadow) counts, and changes must
-    happen."""
+    happen; with the history window its counts equal and its speed sums
+    within 1e-5 relative."""
+    import torch
     from cityflow_tpu_torch import ring_sim
     gpu = ring_sim.build_sim(net, horizon=steps + 8, **kw)
     cpu = ring_sim.build_sim(net, horizon=steps + 8, device="cpu", **kw)
     lc = gpu.cfg.lane_change
-    worst, changes = 0.0, 0
+    hist = gpu.cfg.track_history
+    worst, changes, hist_rel, hist_nbit = 0.0, 0, 0.0, 0
     for i in range(1, steps + 1):
         ring_sim.step(gpu)
         ring_sim.step(cpu)
@@ -439,12 +493,25 @@ def check_agreement(net, steps, tag="agree", **kw):
             assert cnt(cpu.state) == cnt(gpu.state), \
                 f"step {i}: (changing, shadow) {cnt(cpu.state)} vs " \
                 f"{cnt(gpu.state)}"
+        if hist:
+            for k in ("h_num", "h_ring_num", "h_t"):
+                assert torch.equal(getattr(gpu.state, k).cpu(),
+                                   getattr(cpu.state, k)), f"step {i}: {k}"
+            for k in ("h_ssum", "h_ring_ssum"):
+                r, nb = rel_close(f"step {i}: {k}", getattr(gpu.state, k),
+                                  getattr(cpu.state, k))
+                hist_rel, hist_nbit = max(hist_rel, r), hist_nbit + nb
     assert int(cpu.state.finished_cnt) == int(gpu.state.finished_cnt)
     assert int(gpu.state.overflow) == 0
     msg = f"[{tag}] {steps} steps B=1: vehicles={len(a)} worst_drift={worst}"
     if lc:
         assert changes > 0, "no lane change happened"
         msg += f" changing_rows_summed={changes}"
+    if hist:
+        assert int(gpu.state.h_t) == steps * (1 + lc)
+        assert float(cpu.state.h_ssum.sum()) > 0, "no speeds in the window"
+        msg += (f" h_t={int(gpu.state.h_t)} speed_sums_max_rel={hist_rel} "
+                f"speed_sums_not_bitwise={hist_nbit}")
     log(msg)
 
 
@@ -460,12 +527,13 @@ def _patch_points():
         + [(ring_lc, n) for n in LC_KERNELS]
 
 
-def kernel_shares(sim, state, nsteps):
-    """Device time per kernel wrapper (CUDA events around each launch)
-    and per phase over `nsteps` batched steps."""
+@contextlib.contextmanager
+def timed_calls(points):
+    """Replace each (module, name) by a wrapper that records CUDA events
+    around its calls; yields {name: [(start, end), ...]}. No garbage
+    collection inside: a collection between an event and its launch
+    leaves the device idle and books the pause to that call."""
     import torch
-    from cityflow_tpu_torch.core import ring as ring_mod
-    points = _patch_points()
     orig = {n: getattr(m, n) for m, n in points}
     events = {n: [] for _, n in points}
 
@@ -480,20 +548,36 @@ def kernel_shares(sim, state, nsteps):
             return out
         return fn
 
-    # one untimed step first, so the window starts in the steady state
-    # of the caching allocator; no garbage collection inside the window: a
-    # collection between an event and its launch leaves the device idle
-    # and books the pause to that kernel
-    state = ring_mod.ring_step_p2_batched(
-        sim.tables, sim.cfg, *ring_mod.ring_step_p1_batched(
-            sim.tables, sim.cfg, state, sim.q))
-    torch.cuda.synchronize()
-    phase_ms = {"p1": 0.0, "p2": 0.0}
     gc.collect()
     gc.disable()
     try:
         for m, n in points:
             setattr(m, n, timed(n))
+        yield events
+    finally:
+        gc.enable()
+        for m, n in points:
+            setattr(m, n, orig[n])
+
+
+def per_step_ms(events, nsteps):
+    return {n: sum(s.elapsed_time(e) for s, e in ev) / nsteps
+            for n, ev in events.items() if ev}
+
+
+def kernel_shares(sim, state, nsteps):
+    """Device time per kernel wrapper (CUDA events around each launch)
+    and per phase over `nsteps` batched steps."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    # one untimed step first, so the window starts in the steady state
+    # of the caching allocator
+    state = ring_mod.ring_step_p2_batched(
+        sim.tables, sim.cfg, *ring_mod.ring_step_p1_batched(
+            sim.tables, sim.cfg, state, sim.q))
+    torch.cuda.synchronize()
+    phase_ms = {"p1": 0.0, "p2": 0.0}
+    with timed_calls(_patch_points()) as events:
         for _ in range(nsteps):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
@@ -506,14 +590,8 @@ def kernel_shares(sim, state, nsteps):
             torch.cuda.synchronize()
             phase_ms["p1"] += ev[0].elapsed_time(ev[1]) / nsteps
             phase_ms["p2"] += ev[1].elapsed_time(ev[2]) / nsteps
-    finally:
-        gc.enable()
-        for m, n in points:
-            setattr(m, n, orig[n])
     torch.cuda.synchronize()
-    per = {n: sum(s.elapsed_time(e) for s, e in ev) / nsteps
-           for n, ev in events.items() if ev}
-    return per, phase_ms
+    return per_step_ms(events, nsteps), phase_ms
 
 
 def check_path(tag, sim, st, launches, expect):
@@ -791,6 +869,284 @@ def lc_work(n, a, k):
     raise KeyError(n)
 
 
+# ---------------------------------------------------------------------------
+# the RL control path: RingVecEnv, O1 / O2, the DQN learner
+# ---------------------------------------------------------------------------
+
+def check_agreement_rl(cfg_path, steps):
+    """The RL env at B=1 on the card against the plain port on the CPU,
+    each under its own MaxPressure actions every MP_EVERY steps: equal
+    actions at every decision, equal observations (avg_travel_time within
+    1e-5 relative)."""
+    import torch
+    from cityflow_tpu_torch.rl.env import RingVecEnv
+    gpu = RingVecEnv(cfg_path, batch=1, horizon=steps + 8)
+    cpu = RingVecEnv(cfg_path, batch=1, horizon=steps + 8, device="cpu")
+    gpu.reset()
+    cpu.reset()
+    ag = torch.zeros((1, gpu.num_intersections), dtype=torch.int32)
+    ac = ag.clone()
+    decisions, moved, att_rel = 0, 0, 0.0
+    for t in range(steps):
+        if t % MP_EVERY == 0 and t:
+            ag, ac = gpu.max_pressure_actions(), cpu.max_pressure_actions()
+            assert torch.equal(ag.cpu(), ac), f"step {t}: actions differ"
+            decisions += 1
+            moved += int((ac != 0).sum())
+        og, rg = gpu.step(ag)
+        oc, rc = cpu.step(ac)
+        for k, v in oc.items():
+            if k == "avg_travel_time":
+                att_rel = max(att_rel, rel_close(k, og[k], v)[0])
+            else:
+                assert torch.equal(og[k].cpu(), v), f"step {t}: {k} differs"
+        assert torch.equal(rg.cpu(), rc), f"step {t}: reward differs"
+    assert moved > 0, "MaxPressure chose phase 0 everywhere"
+    assert int(cpu.state.n_l.sum()) > 0 and float(rc.sum()) < 0, \
+        "no waiting vehicles"
+    log(f"[agree-rl] {steps} steps B=1: decisions={decisions} "
+        f"nonzero_actions={moved} waiting={int(-float(rc.sum()))} "
+        f"avg_travel_time_max_rel={att_rel}")
+
+
+def rl_shares(env, nsteps):
+    """Device time of O1 and O2 per step (CUDA events around each wrapper
+    call) and of the whole step, over `nsteps` steps with the controller
+    deciding every step. Each step starts behind a ~0.1 s device spin, so
+    the events time the device, not the host's first launches."""
+    import torch
+    from cityflow_tpu_torch.core import ring_observe
+    points = [(ring_observe, n)
+              for n in ("lane_waiting", "lane_obs", "phase_pressure")]
+    torch.cuda.synchronize()
+    total = 0.0
+    with timed_calls(points) as events:
+        for _ in range(nsteps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(200_000_000)
+            ev[0].record()
+            env.step(env.max_pressure_actions())
+            ev[1].record()
+            torch.cuda.synchronize()
+            total += ev[0].elapsed_time(ev[1]) / nsteps
+    return per_step_ms(events, nsteps), total
+
+
+def run_rl(cfg_path, batch, warmup, steps):
+    """RingVecEnv at `batch` envs: `warmup` steps of one env under
+    MaxPressure every MP_EVERY steps, copied into the batch, then `steps`
+    timed steps of step() with max_pressure_actions() every MP_EVERY-th,
+    with the launch counts set to 0 just before and read just after."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.core.ring import batch_ring_state
+    from cityflow_tpu_torch.rl.env import RingVecEnv
+    t0 = time.time()
+    env = RingVecEnv(cfg_path, batch=1,
+                     horizon=warmup + steps + 8 + 5 * DQN_ITERS + 16,
+                     lane_slots=40)
+    env.reset()
+    acts = torch.zeros((1, env.num_intersections), dtype=torch.int32,
+                       device=env.device)
+    for t in range(warmup):
+        if t % MP_EVERY == 0 and t:
+            acts = env.max_pressure_actions()
+        env.step(acts)
+    env.state = batch_ring_state(env.state.map(lambda x: x[..., 0]), batch)
+    env.batch = batch
+    acts = acts.expand(batch, -1).contiguous()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    changed = torch.zeros((), dtype=torch.int64, device=env.device)
+    kernels.reset_launches()
+    t0 = time.time()
+    for t in range(steps):
+        if t % MP_EVERY == 0:
+            acts = env.max_pressure_actions()
+            # on the device: no host sync inside the timed window
+            changed += (env.state.phase[:, 0] != acts[0]
+                        .index_select(0, env._i_ring2orig)).sum()
+        obs, reward = env.step(acts)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kernels.launch_counts()
+    st = env.state
+    changed = int(changed)
+    ms = dt * 1e3 / steps
+    veh = int(st.n_l[:, 0].sum() + st.n_k[:, 0].sum())
+    log(f"[rl] B={batch} steps={steps} warmup={warmup} "
+        f"ms_per_batched_step={ms:.3f} "
+        f"env_steps_per_s={batch * steps / dt:.1f} vehicles_per_env={veh} "
+        f"waiting_env0={int(-float(reward[0]))} "
+        f"phase_changes_by_controller={changed} warmup_s={warm_s:.1f}")
+    log(f"[rl] launches={launches}")
+    assert int(st.overflow.max()) == 0, "overflow flags set"
+    assert veh > 0, "no vehicles"
+    for k, v in st.leaves().items():
+        assert torch.equal(v, v[..., :1].expand_as(v)), \
+            f"env columns differ in {k}"
+    for k in MAIN_KERNELS + RL_KERNELS + ("lane_stats@obs",):
+        assert launches[k] > 0, f"kernel {k} was not launched on rl"
+    assert changed > 0, "the controller changed no phase in the window"
+    peak = torch.cuda.max_memory_allocated()
+    per, tot = rl_shares(env, 5)
+    for n, v in per.items():
+        log(f"[rl] {n}: {v:.3f} ms/step ({100 * v / tot:.1f}% of a "
+            f"{tot:.3f} ms step with the controller every step; CUDA "
+            f"events, 5 steps)")
+    log(f"[rl] max_memory_allocated={peak} bytes ({peak / 2**30:.2f} GiB)")
+    res = dict(B=batch, steps=steps, warmup=warmup, ms_per_step=ms,
+               env_steps_per_s=batch * steps / dt, vehicles=veh,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               o_ms_per_step=per, step_ms_with_controller=tot,
+               peak_bytes=peak)
+    return launches, res, env
+
+
+def check_rl_kernels(env, reps):
+    """O1 in its three modes and O2 in its two against their plain
+    versions on the rl path's own B=128 state; integer outputs exact, the
+    float sums within 1e-5 relative; timed."""
+    import torch
+    from cityflow_tpu_torch.kernels import lane_stats as o1
+    from cityflow_tpu_torch.kernels import phase_pressure as o2
+    st, tabs, cfg = env.state, env.sim.tables, env.sim.cfg
+    P, I = env._max_phases, cfg.I
+    SL, N, B = st.l_speed.shape
+    NK = st.n_k.shape[0]
+    occ_l = int(st.n_l.clamp(max=SL).sum())
+    occ_k = int(st.n_k.clamp(max=st.k_enter.shape[0]).sum())
+    rows = []
+    # waiting mode: the occupied speeds, the counts, the waiting counts
+    args = (st.l_speed, st.n_l)
+    assert torch.equal(o1.lane_waiting(*args), o1.lane_waiting_plain(*args))
+    ms = time_cuda(lambda: o1.lane_waiting(*args), reps)
+    plain = time_cuda(lambda: o1.lane_waiting_plain(*args), reps)
+    rows.append(kernel_row("lane_stats", 0.0, ms, plain,
+                           4 * occ_l + 8 * N * B, occ_l, None))
+    # observation mode: + the enter times of occupied lane and link slots
+    now = st.step.to(torch.float32) * tabs["ring_f32"][len(cfg.params)]
+    args = (st.l_speed, st.n_l, st.l_enter, st.k_enter, st.n_k, now)
+    got, want = o1.lane_obs(*args), o1.lane_obs_plain(*args)
+    assert torch.equal(got[0], want[0]), "lane_stats@obs waiting differs"
+    rel, nbit = rel_close("lane_stats@obs inflight", got[1], want[1])
+    err = float((got[1] - want[1]).abs().max())
+    log(f"[kernels] lane_stats@obs: inflight max_rel={rel} "
+        f"not_bitwise={nbit} of {B}")
+    ms = time_cuda(lambda: o1.lane_obs(*args), reps)
+    plain = time_cuda(lambda: o1.lane_obs_plain(*args), reps)
+    rows.append(kernel_row(
+        "lane_stats@obs", err, ms, plain,
+        8 * occ_l + 4 * occ_k + 8 * N * B + 4 * NK * B + 8 * B,
+        2 * (occ_l + occ_k) + occ_l, None))
+    # history mode on a filled window, every env at one h_t as on a path:
+    # once before the window is full and once after, where each env's
+    # ring row is read and written; timed at the second
+    H = cfg.history_len + 1
+    dev = st.l_speed.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ring_num = torch.randint(0, SL + 1, (H, N, B), generator=gen,
+                             device=dev).to(torch.float32)
+    ring_ssum = torch.rand((H, N, B), generator=gen, device=dev) * 300.0
+    h_num, h_ssum = ring_num.sum(0), ring_ssum.sum(0)
+    rk = (ring_num.clone(), ring_ssum.clone())
+    rp = (ring_num, ring_ssum)
+    err, rel, nbit = 0.0, 0.0, 0
+    for h in (5, H + 5):
+        h_t = torch.full((B,), h, dtype=torch.int32, device=dev)
+        args = lambda r: (st.l_speed, st.n_l, *r, h_num, h_ssum, h_t)
+        got = o1.lane_history(*args(rk))
+        want = o1.lane_history_plain(*args(rp))
+        assert torch.equal(got[0], want[0]), "lane_stats@hist h_num differs"
+        assert torch.equal(rk[0], rp[0]), "lane_stats@hist ring differs"
+        for name, g_, w_ in (("h_ssum", got[1], want[1]),
+                             ("h_ring_ssum", rk[1], rp[1])):
+            r_, nb = rel_close(f"lane_stats@hist {name}", g_, w_)
+            rel, nbit = max(rel, r_), nbit + nb
+            err = max(err, float((g_ - w_).abs().max()))
+    log(f"[kernels] lane_stats@hist: speed sums max_rel={rel} "
+        f"not_bitwise={nbit}")
+    ms = time_cuda(lambda: o1.lane_history(*args(rk)), reps)
+    plain = time_cuda(lambda: o1.lane_history_plain(*args(rp)), reps)
+    # occupied speeds, counts, h_t, the window sums in and out, the ring
+    # row of each env read and written
+    rows.append(kernel_row(
+        "lane_stats@hist", err, ms, plain,
+        4 * occ_l + 4 * N * B + 4 * B + 16 * N * B + 16 * N * B,
+        occ_l + 4 * N * B, None))
+    del ring_num, ring_ssum, rk, rp
+    torch.cuda.empty_cache()
+    # O2: the lanes it reads are the links' start and end lanes
+    w = o1.lane_waiting(st.l_speed, st.n_l)
+    ss = tabs["start_src"]
+    lanes = torch.cat([tabs["in_src"].reshape(-1)[ss[ss >= 0].long()],
+                       tabs["end_src"]])
+    nlanes = int(torch.unique(lanes[lanes >= 0]).numel())
+    G = tabs["g_n_phases"].shape[0]
+    LPI = ss.shape[0] // G
+    tab_bytes = sum(tabs[k].numel() * 4 for k in o2.TABLES)
+    for features, name in ((False, "phase_pressure"),
+                           (True, "phase_pressure@features")):
+        a = (w, tabs, P, I, features)
+        got, want = o2.phase_pressure(*a), o2.phase_pressure_plain(*a)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_), f"{name} differs"
+        ms = time_cuda(lambda: o2.phase_pressure(*a), reps)
+        plain = time_cuda(lambda: o2.phase_pressure_plain(*a), reps)
+        outs = sum(t.numel() * t.element_size() for t in got)
+        rows.append(kernel_row(name, 0.0, ms, plain,
+                               4 * nlanes * B + tab_bytes + outs,
+                               2 * G * B * P * LPI, None))
+    return rows
+
+
+def run_dqn(env, iters):
+    """make_ring_dqn_split_step from the rl path's state: `iters`
+    iterations of 5 steps at eps 0.3, the launch counts set to 0 just
+    before and read just after."""
+    import math
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.rl import dqn, ring_dqn
+    sim, P = env.sim, env._max_phases
+    init_fn, train_iter = ring_dqn.make_ring_dqn_split_step(
+        sim.tables, sim.cfg, P, sim_steps_per_action=5)
+    gen = torch.Generator(device=env.device).manual_seed(0)
+    params, opt = init_fn(gen, P)
+    target = dqn.copy_params(params)
+    st = env.state
+    step0 = int(st.step[0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses, ms = [], []
+    for _ in range(iters):
+        t0 = time.time()
+        params, opt, st, gen, m = train_iter(sim.tables, params, target, opt,
+                                             st, sim.q, gen, 0.3)
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.time() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    losses = [float(x) for x in losses]
+    # the first iteration also pays the learner's one-time set-up on the
+    # card (the first matmuls, autograd, Adam's state)
+    steady = sum(ms[1:]) / max(len(ms) - 1, 1)
+    log(f"[dqn] B={st.n_l.shape[-1]} iters={iters} "
+        f"ms_per_iteration={sum(ms) / iters:.3f} first_ms={ms[0]:.3f} "
+        f"later_ms_mean={steady:.3f} ms={[round(x, 3) for x in ms]} "
+        f"losses={losses} mean_reward={float(m['mean_reward'])} "
+        f"launches={launches}")
+    assert all(math.isfinite(x) for x in losses), "loss not finite"
+    assert int(st.step[0]) == step0 + 5 * iters, "steps not advanced"
+    assert int(st.overflow.max()) == 0, "overflow flags set"
+    for k in ("phase_pressure@features", "lane_stats"):
+        assert launches[k] > 0, f"kernel {k} was not launched on dqn"
+    return launches, dict(iters=iters, ms_per_iteration=sum(ms) / iters,
+                          first_ms=ms[0], later_ms_mean=steady,
+                          losses=losses)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "cityflow_tpu_torch")):
         print("chip_smoke: the cityflow_tpu_torch package is not beside "
@@ -848,9 +1204,36 @@ def main():
         MAIN_KERNELS + LC_KERNELS + LC_MODES)
     log(f"[lc] {json.dumps(lc_res)}")
     rows += check_lc_kernels(lc_sim, lc_state, REPS)
+    del lc_sim, lc_state
+    torch.cuda.empty_cache()
+
+    # the RL control path (fixtures staged like the lane-change one)
+    fix = os.path.join(HERE, "tests", "fixtures")
+    check_agreement_rl(prepare(os.path.join(fix, "config_4x4_rl.json")),
+                       AGREE_RL_STEPS)
+    from cityflow_tpu_torch import kernels
+    kernels.reset_launches()
+    check_agreement(compile_scenario(prepare(
+        os.path.join(fix, "config_2x2.json"), name="config_2x2_duration",
+        routerType="DURATION")), AGREE_HIST_STEPS, tag="agree-hist")
+    hist_launches = kernels.launch_counts()
+    log(f"[agree-hist] launches={hist_launches}")
+    assert hist_launches["lane_stats@hist"] > 0, "O1 history mode idle"
+    rl_launches, rl_res, env = run_rl(cfg_path, BATCH, RL_WARMUP, STEPS)
+    log(f"[rl] {json.dumps(rl_res)}")
+    rows += check_rl_kernels(env, REPS)
+    dqn_launches, dqn_res = run_dqn(env, DQN_ITERS)
+    log(f"[dqn] {json.dumps(dqn_res)}")
+    # each row's launches come from the path that runs it
+    path_of = {"lane_stats@hist": hist_launches,
+               "phase_pressure@features": dqn_launches}
     for r in rows:
         name = r["name"]
-        if name in LC_KERNELS or name in LC_MODES:
+        if name in path_of:
+            r["launches"] = path_of[name][name]
+        elif name.split("@")[0] in RL_KERNELS:
+            r["launches"] = rl_launches[name]
+        elif name in LC_KERNELS or name in LC_MODES:
             r["launches"] = lc_launches[name]
         else:
             r["launches"] = main_launches[name.split("@")[0]]

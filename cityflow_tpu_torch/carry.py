@@ -2,7 +2,8 @@
 
 The JAX package's RingState leaves and ring tables, given as numpy arrays
 (no JAX needed here), become the port's tensors, so a test can start the
-port from JAX's exact state and compare the next step.
+port from JAX's exact state and compare the next step; so do the DQN's
+Q-network parameters.
 """
 
 import numpy as np
@@ -10,8 +11,9 @@ import torch
 
 from cityflow_tpu_torch.compiler.ring_net import index_tables
 from cityflow_tpu_torch.core.ring import (
-    BOOL_FIELDS, FLOAT_FIELDS, LC_FIELDS, STATE_FIELDS, RingState,
+    BOOL_FIELDS, FLOAT_FIELDS, OPTIONAL_FIELDS, STATE_FIELDS, RingState,
     ring_constants)
+from cityflow_tpu_torch.rl.dqn import QParams
 
 # one-hot operators and TPU shift plans: the port gathers through
 # index_tables instead, so these stay on the host
@@ -50,11 +52,12 @@ def ring_state_from_numpy(leaves, device) -> RingState:
     """{field: array} of a JAX RingState (single env or trailing batch)
     -> the port's RingState, in the port's dtypes (i32 / f32 / bool; JAX
     runs with x64 in the tests, where some scalars come back 64-bit). The
-    lane-change leaves are taken when present and left None otherwise."""
+    lane-change and history leaves are taken when present and left None
+    otherwise."""
     out = {}
     for k in STATE_FIELDS:
         if leaves.get(k) is None:
-            if k in LC_FIELDS:
+            if k in OPTIONAL_FIELDS:
                 continue
             raise KeyError(f"ring_state_from_numpy: no leaf {k}")
         a = np.asarray(leaves[k])
@@ -66,6 +69,15 @@ def ring_state_from_numpy(leaves, device) -> RingState:
             a = a.astype(np.int32)
         out[k] = torch.as_tensor(a, device=device).contiguous()
     return RingState(**out)
+
+
+def qparams_from_numpy(params, device) -> QParams:
+    """The JAX package's QParams (w1, b1, w2, b2; numpy or anything
+    np.asarray takes) -> the port's, float32 leaf tensors that require
+    grad, in the same orientation (obs @ w1)."""
+    return QParams(*(torch.tensor(np.array(getattr(params, k), np.float32),
+                                  device=device, requires_grad=True)
+                     for k in QParams._fields))
 
 
 MID_BOOL = frozenset({"k_fail", "ap_fail", "ap_red"})

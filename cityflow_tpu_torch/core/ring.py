@@ -2,16 +2,18 @@
 drivable, the trailing axis of every state leaf is the env batch B.
 
 A port of the JAX package's core/ring.py: uniform vehicle parameters, with
-or without lane change (core/ring_lc.py), no DURATION history
-(ring_sim.build_sim refuses the others). Each phase mirrors the reference
-(engine.cpp / vehicle.cpp / roadnet.cpp) through the same formulas in the
-same float32 operation order as the JAX version.
+or without lane change (core/ring_lc.py), with or without the lane-history
+window of the DURATION router (ring_sim.build_sim refuses the others).
+Each phase mirrors the reference (engine.cpp / vehicle.cpp / roadnet.cpp)
+through the same formulas in the same float32 operation order as the JAX
+version.
 
 Where the JAX version applies a one-hot operator with an einsum, this one
 gathers through the index tables of compiler/ring_net.index_tables (K1,
 kernels/gather_rows.py). Cross::canPass runs in K2 (kernels/cross_caps.py),
-the car-following min-rule in K3 (kernels/car_follow.py), and both ring
-commits in K4 (kernels/ring_commit.py). On a CPU tensor each of those
+the car-following min-rule in K3 (kernels/car_follow.py), both ring
+commits in K4 (kernels/ring_commit.py), and the lane-history window in O1
+(kernels/lane_stats.py). On a CPU tensor each of those
 takes its plain PyTorch version; the rest of the step is plain PyTorch on
 whatever device the state lives on.
 
@@ -42,6 +44,7 @@ from cityflow_tpu_torch.core.step import (
 from cityflow_tpu_torch.kernels.car_follow import car_follow
 from cityflow_tpu_torch.kernels.cross_caps import cross_caps
 from cityflow_tpu_torch.kernels.gather_rows import gather_rows
+from cityflow_tpu_torch.kernels.lane_stats import lane_history
 from cityflow_tpu_torch.kernels.ring_commit import ring_commit
 
 ENT_BIG = float(1 << 25)
@@ -72,6 +75,9 @@ class RingConfig:
     lane_change: bool = False # the signal/shadow protocol (core/ring_lc.py)
     LCI: int = 2              # shadow inserts per lane per step (flagged)
     LCD: int = 2              # mid-ring finish removals per lane per step
+    track_history: bool = False  # Lane::updateHistory rolling window
+                              # (roadnet.cpp:900-915), RouterType::DURATION
+    history_len: int = 240    # HISTORY_LEN (roadnet.h:306)
 
 
 STATE_FIELDS = ("step", "finished_cnt", "cum_travel", "overflow",
@@ -85,11 +91,15 @@ STATE_FIELDS = ("step", "finished_cnt", "cum_travel", "overflow",
 # lane-change leaves: None (not allocated) when cfg.lane_change is off
 LC_FIELDS = ("l_off", "l_sh", "l_chg", "l_dir", "l_gap", "l_yv", "l_rnrow",
              "l_auxrow", "k_gap")
-STATE_FIELDS = STATE_FIELDS + LC_FIELDS
+# lane-history leaves: None when cfg.track_history is off
+HIST_FIELDS = ("h_ring_num", "h_ring_ssum", "h_num", "h_ssum", "h_t")
+OPTIONAL_FIELDS = LC_FIELDS + HIST_FIELDS
+STATE_FIELDS = STATE_FIELDS + OPTIONAL_FIELDS
 FLOAT_FIELDS = frozenset({"cum_travel", "phase_remain", "l_dis", "l_speed",
                           "l_enter", "l_custom", "k_dis", "k_speed",
                           "k_enter", "k_custom", "l_off", "l_gap", "l_yv",
-                          "k_gap"})
+                          "k_gap", "h_ring_num", "h_ring_ssum", "h_num",
+                          "h_ssum"})
 BOOL_FIELDS = frozenset({"l_last", "l_hascustom", "k_hascustom", "l_sh",
                          "l_chg"})
 
@@ -124,12 +134,20 @@ class RingState:
     l_rnrow: Any = None       # (MAXLPR, SL, LNp) route-next row bundle
     l_auxrow: Any = None      # (MAXLPR, SL, LNp) two-hop aux row bundle
     k_gap: Any = None         # link-side gap channel (staleness carrier)
+    # lane-history channels (None when cfg.track_history is off), speed
+    # SUMS like the JAX package's
+    h_ring_num: Any = None    # (history_len + 1, LNp) per-step lane counts
+    h_ring_ssum: Any = None   # (history_len + 1, LNp) per-step speed sums
+    h_num: Any = None         # (LNp,) window count sum
+    h_ssum: Any = None        # (LNp,) window speed sum
+    h_t: Any = None           # i32 updateHistory calls so far
 
     def replace_fields(self, **kw):
         return dataclasses.replace(self, **kw)
 
     def leaves(self):
-        """The allocated leaves (lane-change ones only when present)."""
+        """The allocated leaves (lane-change and history ones only when
+        present)."""
         return {k: v for k in STATE_FIELDS
                 if (v := getattr(self, k)) is not None}
 
@@ -164,6 +182,13 @@ def init_ring_state(cfg: RingConfig, net, num_entry: int,
             l_rnrow=torch.full((cfg.MAXLPR, SL, LNp), -1, dtype=I32, **kw),
             l_auxrow=torch.full((cfg.MAXLPR, SL, LNp), -1, dtype=I32, **kw),
             k_gap=zk())
+    if cfg.track_history:
+        HL1 = cfg.history_len + 1
+        lc.update(h_ring_num=torch.zeros((HL1, LNp), dtype=F32, **kw),
+                  h_ring_ssum=torch.zeros((HL1, LNp), dtype=F32, **kw),
+                  h_num=torch.zeros(LNp, dtype=F32, **kw),
+                  h_ssum=torch.zeros(LNp, dtype=F32, **kw),
+                  h_t=scalar(0, I32))
     return RingState(
         step=scalar(0, I32), finished_cnt=scalar(0, I32),
         cum_travel=scalar(0.0, F32), overflow=scalar(0, I32),
@@ -188,6 +213,20 @@ def batch_ring_state(st: RingState, B: int) -> RingState:
     """Replicate a single-env RingState into the trailing-batch layout
     consumed by ring_step_*_batched (leaves become shape + (B,))."""
     return st.map(lambda x: x[..., None].expand(*x.shape, B).contiguous())
+
+
+def _update_history(cfg: RingConfig, rs: RingState) -> RingState:
+    """Lane::updateHistory (roadnet.cpp:900-915; JAX ring.py:210-236) on
+    trailing-batch state, through O1's history mode: the lane count is the
+    slot occupancy n_l (shadows included), the speed sum runs over the
+    occupied slots, and ring row h_t % (history_len + 1) of each env takes
+    both. The subtraction removes exactly the stored entry, so the window
+    sums carry no drift. The ring rows are written in place, as the JAX
+    batched entries donate their state: a caller of the batched entries
+    does not reuse the state it passed in."""
+    h_num, h_ssum = lane_history(rs.l_speed, rs.n_l, rs.h_ring_num,
+                                 rs.h_ring_ssum, rs.h_num, rs.h_ssum, rs.h_t)
+    return rs.replace_fields(h_num=h_num, h_ssum=h_ssum, h_t=rs.h_t + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +527,12 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
         rs, lc_ov = ring_lc.lc_phase(net, cfg, rs, fx)
         ov = ov | _flag((lc_ov & 1) > 0, OV_REMOVE) \
             | _flag((lc_ov & 2) > 0, OV_SLOTS)
+        if cfg.track_history:
+            # the step's first updateHistory: the lane-change pipeline runs
+            # updateLeaderAndGap after the shadow inserts (engine.cpp:
+            # 571-581), so the counts see fresh shadows and the speeds are
+            # last step's
+            rs = _update_history(cfg, rs)
 
     # =====================================================================
     # 2. views
@@ -1214,6 +1259,10 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
         k_custom=torch.zeros((SK, LKp, B), device=dev),
         k_hascustom=torch.zeros((SK, LKp, B), dtype=torch.bool, device=dev),
         **lc_kw)
+    if cfg.track_history:
+        # end-of-step updateHistory on the committed state (the final
+        # threadUpdateLeaderAndGap of nextStep, engine.cpp:581)
+        new_rs = _update_history(cfg, new_rs)
     return new_rs, dbg
 
 
@@ -1225,6 +1274,17 @@ def _commit_phase(net, cfg: RingConfig, rs: RingState, mid,
 
 def _unsqueeze(x):
     return x[..., None]
+
+
+def _batch1(rs: RingState) -> RingState:
+    """One env's state as B = 1. The history ring is copied, since the
+    batched step writes its rows in place and the single-env entries leave
+    the caller's state as it was."""
+    b = rs.map(_unsqueeze)
+    if b.h_ring_num is None:
+        return b
+    return b.replace_fields(h_ring_num=b.h_ring_num.clone(),
+                            h_ring_ssum=b.h_ring_ssum.clone())
 
 
 def _squeeze(x):
@@ -1251,19 +1311,19 @@ def ring_step_batched(net, cfg: RingConfig, rs_b: RingState, q):
 
 
 def ring_step_p1(net, cfg: RingConfig, rs: RingState, q):
-    rs_b, mid_b = ring_step_p1_batched(net, cfg, rs.map(_unsqueeze), q)
+    rs_b, mid_b = ring_step_p1_batched(net, cfg, _batch1(rs), q)
     return rs_b.map(_squeeze), _map_mid(mid_b, _squeeze)
 
 
 def ring_step_p2(net, cfg: RingConfig, rs: RingState, mid):
-    return ring_step_p2_batched(net, cfg, rs.map(_unsqueeze),
+    return ring_step_p2_batched(net, cfg, _batch1(rs),
                                 _map_mid(mid, _unsqueeze)).map(_squeeze)
 
 
 def ring_step(net, cfg: RingConfig, rs: RingState, q, debug: bool = False):
     """One Engine::nextStep on one env. With debug=True also returns the
     intermediates of both phases (tests only)."""
-    rs1, mid, dbg1 = _notify_phase(net, cfg, rs.map(_unsqueeze), q, debug)
+    rs1, mid, dbg1 = _notify_phase(net, cfg, _batch1(rs), q, debug)
     new_rs, dbg2 = _commit_phase(net, cfg, rs1, mid, debug)
     new_rs = new_rs.map(_squeeze)
     if debug:

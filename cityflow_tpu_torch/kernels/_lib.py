@@ -99,7 +99,8 @@ def lib():
                                   ctypes.c_uint, vp]
         L.gather_rows.restype = ctypes.c_int
         for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",
-                     "lc_receive", "lc_insert", "lc_partner"):
+                     "lc_receive", "lc_insert", "lc_partner", "lane_stats",
+                     "phase_pressure"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int

@@ -74,10 +74,6 @@ def build_sim(net: CompiledNet, horizon: int = 512,
     cfgj = net.host.config
     interval = float(cfgj["interval"])
     lane_change = bool(cfgj.get("laneChange", False))
-    if str(cfgj.get("routerType", "LENGTH")).upper() == "DURATION":
-        raise NotImplementedError(
-            "the DURATION router's lane history window is not ported yet "
-            "(ROADMAP.md queue 1 item 6, queue 2 row 14)")
     tb, meta = build_ring(net, interval)
     if not meta.supported:
         raise ValueError(f"ring layout unsupported: {meta.unsupported_reason}")
@@ -107,7 +103,9 @@ def build_sim(net: CompiledNet, horizon: int = 512,
         rl_traffic_light=bool(cfgj["rlTrafficLight"]),
         SKC=(skc if skc is not None else 4),
         MAXLPR=int(np.asarray(tb["route_next"]).shape[2]),
-        lane_change=lane_change)
+        lane_change=lane_change,
+        track_history=(str(cfgj.get("routerType", "LENGTH")).upper()
+                       == "DURATION"))
 
     gen = SpawnGenerator(net, int(cfgj["seed"]), interval)
     q = _build_queues(gen, meta, horizon)

@@ -44,16 +44,18 @@ def _place(src, dst):
     shutil.copy(src, dst)
 
 
-def prepare(cfg_path):
-    """Stage the config's roadnet and flow under build/scenarios/ and
-    return the path of the staged config."""
+def prepare(cfg_path, name=None, **overrides):
+    """Stage the config's roadnet and flow under build/scenarios/<name>/
+    (default: the config's file name) and return the path of the staged
+    config; `overrides` replace config keys (routerType="DURATION")."""
     from cityflow_tpu_torch.tools import gridgen
     cfg_path = os.path.abspath(resolve_config(cfg_path))
     with open(cfg_path) as f:
         cfgj = json.load(f)
     here = os.path.dirname(cfg_path)
     base = os.path.join(here, cfgj.get("dir", ""))   # absolute dir wins
-    out = os.path.join(ROOT, "build", "scenarios",
+    cfgj.update(overrides)
+    out = os.path.join(ROOT, "build", "scenarios", name or
                        os.path.splitext(os.path.basename(cfg_path))[0])
     os.makedirs(out, exist_ok=True)
     rn, fl = cfgj["roadnetFile"], cfgj["flowFile"]

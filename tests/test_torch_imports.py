@@ -3,9 +3,7 @@ package, its entry points refuse to fall back to the CPU on their own, and
 the branches it does not cover yet fail at build_sim."""
 
 import ast
-import json
 import os
-import shutil
 
 import pytest
 import torch
@@ -86,15 +84,22 @@ def test_lane_change_modules_are_covered():
         assert rel in files, rel
 
 
-def test_duration_router_fails_at_build_sim(tmp_path):
-    src = os.path.join(HERE, "fixtures")
-    with open(os.path.join(src, "config_2x2.json")) as f:
-        cfgj = json.load(f)
-    for k in ("roadnetFile", "flowFile"):
-        shutil.copy(os.path.join(src, cfgj[k]), tmp_path / cfgj[k])
-    cfgj.update(dir=str(tmp_path) + "/", routerType="DURATION")
-    path = tmp_path / "config.json"
-    path.write_text(json.dumps(cfgj))
-    net = compile_scenario(str(path))
-    with pytest.raises(NotImplementedError, match="history"):
-        ring_sim.build_sim(net, horizon=8, device="cpu")
+def test_rl_and_observation_modules_are_covered():
+    """The import rule above reaches the RL modules and the O kernels."""
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("core/ring_observe.py", "kernels/lane_stats.py",
+                "kernels/phase_pressure.py", "rl/env.py", "rl/dqn.py",
+                "rl/ring_dqn.py"):
+        assert rel in files, rel
+
+
+def test_ring_vec_env_without_device_refuses_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the card")
+    from cityflow_tpu_torch.rl.env import RingVecEnv
+    path = os.path.join(HERE, "fixtures", "config_2x2.json")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RingVecEnv(path, batch=2, horizon=8)
+    env = RingVecEnv(path, batch=2, horizon=8, device="cpu")
+    env.reset()
+    assert env.state.n_l.device.type == "cpu"

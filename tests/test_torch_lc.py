@@ -284,6 +284,9 @@ def test_lc_batched_equals_single_env_bitwise():
 # ---------------------------------------------------------------------------
 
 def test_lc_with_mixed_templates_or_duration_is_refused(tmp_path):
+    """Mixed templates with lane change are still refused; lane change
+    with the DURATION router is not any more: it builds with the history
+    window on (tests/test_torch_history.py holds it against JAX)."""
     net = compile_scenario(os.path.join(FIX, "config_1x1s_mixed_lc.json"))
     with pytest.raises(NotImplementedError,
                        match="lane change with non-uniform"):
@@ -295,9 +298,11 @@ def test_lc_with_mixed_templates_or_duration_is_refused(tmp_path):
     cfgj.update(dir=str(tmp_path) + "/", routerType="DURATION")
     path = tmp_path / "config.json"
     path.write_text(json.dumps(cfgj))
-    with pytest.raises(NotImplementedError, match="history"):
-        ring_sim.build_sim(compile_scenario(str(path)), horizon=8,
-                           device="cpu")
+    sim = ring_sim.build_sim(compile_scenario(str(path)), horizon=8,
+                             device="cpu", **LC1_KW)
+    assert sim.cfg.lane_change and sim.cfg.track_history
+    assert sim.state.h_ring_num.shape == (sim.cfg.history_len + 1,
+                                          sim.cfg.LNp)
 
 
 def test_lc_leaves_absent_when_lane_change_is_off():

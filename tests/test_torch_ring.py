@@ -182,3 +182,63 @@ def test_kernel_plain_versions_match_jax_intermediates(pair40, jax_run40):
               "l_nxt", "l_nxt3", "k_dis", "k_uid", "k_pri", "k_entll",
               "k_nxtl", "n_l", "n_k"):
         assert_close(f"K4 {k}", jnew[k], new.leaves()[k].numpy())
+
+
+def test_route_rows_above_the_transfer_cap_match_a_direct_lookup():
+    """More link->lane transfers in one step than the JAX step's 1024-row
+    compaction cap (cityflow_tpu/core/ring.py:1598): every link of the 4x4
+    grid holds XK vehicles on random routes, and all of them cross the
+    link end (the notify phase's new distances are set past it). The port
+    gathers the route rows of every transfer; each lane candidate's nxt /
+    nxt3 / last payload must equal a direct numpy lookup of route_next /
+    route_aux at its vehicle's (route, rpos + 1, end lane's local index)."""
+    tsim = ring_sim.build_sim(compile_scenario(CONFIG), horizon=8,
+                              device="cpu")
+    net = tsim.tables
+    XK = min(tsim.cfg.XK, tsim.cfg.SK)
+    # no per-intersection cut either: every transfer is gathered
+    cfg = dataclasses.replace(tsim.cfg, TI=XK * tsim.cfg.LPI)
+    SK, LKp = cfg.SK, cfg.LKp
+    rn = net["route_next"].numpy()
+    aux = net["route_aux"].numpy()
+    NR, RLEN, MAXLPR = rn.shape
+    lk_len = net["lk_len"].numpy()
+    rng = np.random.default_rng(0)
+    route = np.zeros((SK, LKp), np.int32)
+    rpos = np.zeros((SK, LKp), np.int32)
+    route[:XK] = rng.integers(0, NR, (XK, LKp))
+    rpos[:XK] = rng.integers(0, RLEN - 1, (XK, LKp))
+    dis = np.zeros((SK, LKp), np.float32)
+    dis[:XK] = lk_len[None] - 1.0 - 8.0 * np.arange(XK)[:, None]
+    uid = np.full((SK, LKp), -1, np.int32)
+    uid[:XK] = np.arange(XK * LKp).reshape(XK, LKp)
+    T = lambda a: torch.as_tensor(a)[..., None].contiguous()
+    st = ring.batch_ring_state(tsim.state, 1).replace_fields(
+        n_k=T(np.full(LKp, XK, np.int32)), k_route=T(route),
+        k_rpos=T(rpos), k_dis=T(dis), k_speed=T(np.where(uid >= 0, 10.0, 0.0)
+                                               .astype(np.float32)),
+        k_uid=T(uid))
+    rs1, mid, _ = ring._notify_phase(net, cfg, st, tsim.q)
+    nd = mid["nd_k3"].reshape(SK, LKp, 1).clone()
+    nd[:XK] = torch.as_tensor(lk_len)[None, :, None] + 1.0 \
+        + torch.arange(XK, 0, -1)[:, None, None]
+    mid = dict(mid, nd_k3=nd.reshape(mid["nd_k3"].shape))
+    _, dbg = ring._commit_phase(net, cfg, rs1, mid, debug=True)
+    cands = dbg["cands"][..., 0].numpy()        # (KIN * XK, PCH, OL * G)
+    llocal = net["ln_llocal"].numpy()
+    end_local = llocal[net["lk_end_lane"].numpy()]
+    app = net["app_src_g"].numpy()
+    checked = 0
+    for kin in range(cfg.KIN):
+        for xs in range(XK):
+            c = cands[kin * XK + xs]
+            for j in np.nonzero(c[13] > 0.5)[0]:      # valid candidates
+                r = app[kin, j]
+                g = ((route[xs, r] * RLEN + min(rpos[xs, r] + 1, RLEN - 1))
+                     * MAXLPR + min(max(end_local[r], 0), MAXLPR - 1))
+                a = int(aux.reshape(-1)[g])
+                assert c[9, j] == rn.reshape(-1)[g], (kin, xs, j)
+                assert c[10, j] == (a >> 1) - 2, (kin, xs, j)
+                assert c[11, j] == (a & 1), (kin, xs, j)
+                checked += 1
+    assert checked == XK * LKp > 1024, checked
