@@ -55,6 +55,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   dqn       rl/ring_dqn.make_ring_dqn_split_step from the rl path's state:
             4 iterations of 5 steps at eps 0.3; asserts a finite loss, the
             step advanced by 20, overflow 0, O2's features mode launched
+  golden-gen1  the gen-1 exact Engine (engine.Engine, float64) on the card
+            against the reference goldens (tests/goldens, read here) at
+            atol=0: grid4x4 300 steps, grid2x2_mixed 200, grid4x4_rl 200
+            under the RL phase schedule; fixtures staged under build/
+  agree-gen1  the Engine on benchmarks/config_30x30.json, 40 steps, card
+            against CPU: every SimState leaf bitwise equal every 10 steps
+  gen1      the Engine on config_30x30.json on the card: GEN1_WARMUP
+            steps, then GEN1_STEPS timed; ms per step, vehicles, pool size
+            and growths, G1-G4 launches per step, their device time per
+            step (CUDA events) and peak memory; asserts finite state,
+            vehicles > 0 and G1-G4 launched
+  kernels   (gen-1) G1-G4 against their plain versions, bitwise, on every
+            call of one more step of the gen1 path's state, timed
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -71,6 +84,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12              # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12              # float64 outside the tensor cores
 BATCH = 128                         # envs on the main path and the kernels
 STEPS = 40                          # timed main-path steps
 WARMUP = 8                          # main-path steps before the timing
@@ -86,6 +100,14 @@ AGREE_HIST_STEPS = 40               # history window card-vs-CPU steps
 RL_WARMUP = 300                     # rl path: one env under MaxPressure
 DQN_ITERS = 4                       # learner iterations of 5 steps each
 MP_EVERY = 5                        # steps between MaxPressure decisions
+GOLDEN_GEN1 = (                     # (fixture, golden, steps, RL schedule)
+    ("config_4x4.json", "grid4x4_1000.jsonl.gz", 300, False),
+    ("config_2x2_mixed.json", "grid2x2_mixed_1000.jsonl.gz", 200, False),
+    ("config_4x4_rl.json", "grid4x4_rl_1000.jsonl.gz", 200, True))
+AGREE_GEN1_STEPS = 40               # gen-1 card-vs-CPU steps on 30x30
+GEN1_WARMUP = 300                   # gen-1 steps before the timing
+GEN1_STEPS = 100                    # timed gen-1 steps
+GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass")
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc")
@@ -121,6 +143,15 @@ REPLACES = {
                       "(phase_pressures), :106-112 (max_pressure_phases_ring)",
     "phase_pressure@features": "cityflow_tpu/core/ring_observe.py:68-103 "
                                "(phase_features)",
+    "arrange": "cityflow_tpu/core/step.py:48-115 (arrangement: the 3-key "
+               "lax.sort :64, leaders, first/last, link tables)",
+    "leader_scan": "cityflow_tpu/core/step.py:242-322 (leader_scan, exact "
+                   "branch)",
+    "notify_cross": "cityflow_tpu/core/step.py:467-594 (notify_cross: "
+                    "winner chain, one-hot einsum :557-558, foe permutation "
+                    ":586-588)",
+    "cross_pass": "cityflow_tpu/core/step.py:682-751 (get_action's cross "
+                  "loop, Cross::canPass)",
 }
 
 
@@ -159,11 +190,13 @@ def time_cuda(fn, reps):
 # kernel checks at the 30x30 call-site shapes
 # ---------------------------------------------------------------------------
 
-def kernel_row(name, err, ms, plain_ms, nbytes, nops, lib_ms):
+def kernel_row(name, err, ms, plain_ms, nbytes, nops, lib_ms,
+               flops=H100_F32_FLOPS):
     """One row of the kernel table; `name` is the kernel, or kernel@site
     for a second call site or a mode of it. The bound is the larger of the
-    bytes over the memory rate and the operations over the f32 rate."""
-    bound = max(nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS) * 1e3
+    bytes over the memory rate and the operations over `flops` (the f32
+    rate; the f64 rate for the gen-1 kernels)."""
+    bound = max(nbytes / H100_BYTES_PER_S, nops / flops) * 1e3
     log(f"[kernels] {name}: max_abs_err={err} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
         f"library_ms={lib_ms}")
@@ -173,7 +206,7 @@ def kernel_row(name, err, ms, plain_ms, nbytes, nops, lib_ms):
         replaces=REPLACES[name], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound,
         bound_by="bytes" if nbytes / H100_BYTES_PER_S
-        >= nops / H100_F32_FLOPS else "operations",
+        >= nops / flops else "operations",
         library_ms=lib_ms)
 
 
@@ -1147,7 +1180,336 @@ def run_dqn(env, iters):
                           losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# the gen-1 exact Engine: goldens, card vs CPU, the 30x30 path, G1-G4
+# ---------------------------------------------------------------------------
+
+def golden_lines(name):
+    """The reference's per-step records (tests/goldens/*.jsonl.gz); the
+    oracle prints C++ inf / nan as they are."""
+    import gzip
+    with gzip.open(os.path.join(HERE, "tests", "goldens", name), "rt") as f:
+        for line in f:
+            yield json.loads(line.replace(":inf", ":Infinity")
+                             .replace(":-inf", ":-Infinity")
+                             .replace(":nan", ":NaN"))
+
+
+def rl_phase_commands(step, inter_ids, n_phases=8, period=5):
+    """The RL phase schedule the grid4x4_rl golden was dumped under: every
+    `period` steps each real intersection gets an explicit phase."""
+    if step % period:
+        return []
+    k = step // period
+    return [(iid, (k * 7 + 3 * i) % n_phases)
+            for i, iid in enumerate(inter_ids)]
+
+
+def golden_mismatches(eng, gold, t):
+    """Running vehicles' (drivable, distance, speed) against one golden
+    record, exactly; returns the differences."""
+    import numpy as np
+    c = eng._fetch()
+    host, L = eng.net.host, eng.cfg.num_lanes
+    mine = {}
+    for s in np.nonzero(c["running"])[0]:
+        d = int(c["drv"][s])
+        mine[eng._veh_id(int(c["uid"][s]))] = (
+            host.lane_ids[d] if d < L else host.ll_ids[d - L],
+            float(c["dis"][s]), float(c["speed"][s]))
+    theirs = {v["id"]: (v["drv"], v["dis"], v["speed"])
+              for v in gold["vehicles"]}
+    if set(mine) != set(theirs):
+        return [f"t={t}: vehicle sets differ "
+                f"({sorted(set(mine) ^ set(theirs))[:5]})"]
+    return [f"t={t} {k}: {mine[k]} != {theirs[k]}" for k in mine
+            if mine[k] != theirs[k]]
+
+
+def check_golden_gen1():
+    """The card Engine against the reference goldens at atol=0."""
+    from cityflow_tpu_torch.engine import Engine
+    from cityflow_tpu_torch.tools.scenario import prepare
+    for config, golden, n, rl in GOLDEN_GEN1:
+        t0 = time.time()
+        eng = Engine(prepare(os.path.join(HERE, "tests", "fixtures", config)),
+                     spawn_horizon=n + 8)
+        ids = sorted(i.id for i in eng.net.host.net.intersections
+                     if not i.virtual)
+        gold = golden_lines(golden)
+        next(gold)
+        for t in range(n):
+            if rl:
+                for iid, ph in rl_phase_commands(t, ids):
+                    eng.set_tl_phase(iid, ph)
+            eng.next_step()
+            g = next(gold)
+            assert g["t"] == t + 1
+            bad = golden_mismatches(eng, g, t + 1)
+            assert not bad, f"[golden-gen1] {config}: " + "; ".join(bad[:5])
+        log(f"[golden-gen1] {config}: {n} steps bit-exact (atol=0) against "
+            f"{golden}; vehicles={eng.get_vehicle_count()} "
+            f"pool={eng.cfg.max_vehicles} growths={eng.growths} "
+            f"wall_s={time.time() - t0:.1f}")
+
+
+def bitwise_equal(a, b):
+    """Equal bit for bit (floats compared as integers: -0.0 != +0.0)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        it = {torch.float64: torch.int64, torch.float32: torch.int32}
+        a, b = a.view(it[a.dtype]), b.view(it[b.dtype])
+    return bool(torch.equal(a, b))
+
+
+def check_agreement_gen1(cfg_path, steps):
+    """The Engine on the card against the Engine on the CPU: every SimState
+    leaf bitwise equal every 10 steps."""
+    from cityflow_tpu_torch.engine import Engine
+    t0 = time.time()
+    gpu = Engine(cfg_path, spawn_horizon=steps + 8)
+    cpu = Engine(cfg_path, spawn_horizon=steps + 8, device="cpu")
+    for i in range(1, steps + 1):
+        gpu.next_step()
+        cpu.next_step()
+        if i % 10 and i != steps:
+            continue
+        g, c = gpu.state.leaves(), cpu.state.leaves()
+        for k in g:
+            assert bitwise_equal(g[k].cpu(), c[k]), \
+                f"[agree-gen1] step {i}: {k} differs"
+    assert gpu.get_vehicle_count() > 0
+    log(f"[agree-gen1] {steps} steps: every SimState leaf bitwise equal, "
+        f"vehicles={gpu.get_vehicle_count()} pool={gpu.cfg.max_vehicles} "
+        f"growths={gpu.growths} wall_s={time.time() - t0:.1f}")
+
+
+def _gen1_points():
+    from cityflow_tpu_torch import kernels
+    return [(kernels.MODULES[n], n) for n in GEN1_KERNELS]
+
+
+def gen1_shares(eng, nsteps):
+    """Device time of G1-G4 per step (CUDA events around each wrapper
+    call) and of whole steps, over `nsteps` steps."""
+    import torch
+    torch.cuda.synchronize()
+    total = 0.0
+    with timed_calls(_gen1_points()) as events:
+        for _ in range(nsteps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            eng.next_step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            total += ev[0].elapsed_time(ev[1]) / nsteps
+    return per_step_ms(events, nsteps), total
+
+
+def run_gen1(cfg_path, warmup, steps):
+    """The gen-1 Engine on the card: `warmup` steps, then `steps` timed
+    ones with the launch counts set to 0 just before and read just
+    after."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.engine import Engine
+    t0 = time.time()
+    eng = Engine(cfg_path, spawn_horizon=warmup + steps + 16)
+    setup_s = time.time() - t0
+    t0 = time.time()
+    for _ in range(warmup):
+        eng.next_step()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    g0 = eng.growths
+    kernels.reset_launches()
+    t0 = time.time()
+    for _ in range(steps):
+        eng.next_step()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.state
+    run = st.running
+    veh = int(run.sum())
+    assert veh > 0, "no vehicles"
+    assert bool(torch.isfinite(st.dis[run]).all()
+                and torch.isfinite(st.speed[run]).all()), "state not finite"
+    assert bool((st.dis[run] >= 0).all()), "negative distance"
+    for k in GEN1_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on gen1"
+    per_step = {k: launches[k] / steps for k in GEN1_KERNELS}
+    ms = dt * 1e3 / steps
+    log(f"[gen1] steps={steps} warmup={warmup} ms_per_step={ms:.3f} "
+        f"steps_per_s={steps / dt:.1f} vehicles={veh} "
+        f"waiting={int((st.active & ~run).sum())} "
+        f"finished={int(st.finished_cnt)} pool={eng.cfg.max_vehicles} "
+        f"growths={eng.growths} (in the window {eng.growths - g0}) "
+        f"k_link={eng.cfg.k_link} setup_s={setup_s:.1f} "
+        f"warmup_s={warm_s:.1f}")
+    log(f"[gen1] launches per step={per_step}")
+    per, tot = gen1_shares(eng, 5)
+    for n, v in per.items():
+        log(f"[gen1] kernel {n}: {v:.4f} ms/step ({100 * v / tot:.2f}% of "
+            f"a {tot:.3f} ms step; CUDA events, 5 steps)")
+    prof = gen1_profile(eng, 3, ms)
+    log(f"[gen1] max_memory_allocated={peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    return launches, dict(
+        steps=steps, warmup=warmup, ms_per_step=ms, vehicles=veh,
+        pool=eng.cfg.max_vehicles, growths=eng.growths,
+        growths_in_window=eng.growths - g0, launches_per_step=per_step,
+        kernel_ms_per_step=per, step_ms_events=tot, peak_bytes=peak,
+        **prof), eng
+
+
+def gen1_profile(eng, nsteps, wall_ms):
+    """`nsteps` steps under torch.profiler: the device's kernel time and
+    kernel count per step, its busy share of the unprofiled `wall_ms`,
+    and the operators that take the most device time."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(nsteps):
+            eng.next_step()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in ka if e.device_type == cuda]
+    dev_t = lambda e: (getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0))
+    dev_ms = sum(dev_t(e) for e in dev) / 1e3 / nsteps
+    nker = sum(e.count for e in dev) / nsteps
+    top = sorted(dev, key=dev_t, reverse=True)[:6]
+    log(f"[gen1] profiler, {nsteps} steps: device kernel time "
+        f"{dev_ms:.3f} ms/step over {nker:.0f} kernels/step; device busy "
+        f"{100 * dev_ms / wall_ms:.1f}% of the {wall_ms:.3f} ms unprofiled "
+        f"step")
+    for e in top:
+        log(f"[gen1]   {e.key[:60]}: {dev_t(e) / 1e3 / nsteps:.4f} ms/step, "
+            f"{e.count / nsteps:.0f} per step")
+    return dict(device_ms_per_step=dev_ms, kernels_per_step=nker,
+                device_busy=dev_ms / wall_ms)
+
+
+def record_gen1_calls(eng):
+    """One more step with the G1-G4 wrappers recording their arguments
+    (the step writes no tensor in place, so references stay valid)."""
+    import torch
+    points = _gen1_points()
+    orig = {n: getattr(m, n) for m, n in points}
+    calls = {n: [] for _, n in points}
+
+    def rec(n):
+        def fn(*a):
+            calls[n].append(a)
+            return orig[n](*a)
+        return fn
+    try:
+        for m, n in points:
+            setattr(m, n, rec(n))
+        eng.next_step()
+        torch.cuda.synchronize()
+    finally:
+        for m, n in points:
+            setattr(m, n, orig[n])
+    return calls
+
+
+def gen1_work(n, a, out):
+    """Bytes (each input read once, each output written once, as this
+    call's data needs them) and operations of one G kernel call."""
+    import torch
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    if n == "arrange":
+        running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs = a
+        V = running.numel()
+        run = drv[running].long()
+        nrun = int(run.numel())
+        nt = int((out["link_veh"] >= 0).sum())
+        per_row = 4 + fattrs.shape[1] * 8 + iattrs.shape[1] * 4
+        ins = V + nrun * (4 + 8 + 4) + nt * (per_row - 4)
+        outs = 8 * V + 8 * D + out["link_veh"].numel() * per_row + 1
+        # each vehicle compares itself with the others of its drivable
+        ops = int((torch.bincount(run, minlength=D) ** 2).sum())
+        return ins + outs, ops
+    if n == "leader_scan":
+        mask = a[0]
+        m = int(mask.sum())
+        # per scanning vehicle: drv, route, pos, dis, two params, then at
+        # least one hop (route entry, rear vehicle, its dis and len,
+        # the drivable's length)
+        return mask.numel() * (1 + 4 + 8) + m * (36 + 32), m * 20
+    if n == "notify_cross":
+        net, arr, veh_next, ll_avail, fattrs, iattrs, L = a
+        LL, KC = net["lnk_cross_d"].shape
+        K = arr["link_veh"].shape[1]
+        pack = fattrs.shape[1] * 8 + iattrs.shape[1] * 4
+        # the link tables' vehicle column, the distance and length of the
+        # occupied entries, per link its lanes' rear / front slots and
+        # lengths, and the packs of every vehicle that wins a cross or
+        # stands at a link's ends
+        ends = torch.cat([arr["last_of"][net["ll_end"].long()],
+                          arr["first_of"][net["ll_start"].long()],
+                          out["idx"].reshape(-1)])
+        nveh = int(torch.unique(ends[ends >= 0]).numel())
+        ins = (LL * KC * 8 + LL * K * 4 + int((arr["link_veh"] >= 0).sum())
+               * 16 + LL * (4 * 4 + 2 * 8 + 2) + nveh * (pack + 4))
+        return ins + LL * KC * (5 + 8 + 16), LL * KC * (3 * (K + 2) + 60)
+    if n == "cross_pass":
+        the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own, net = a
+        V = the_ll.numel()
+        LL = net["lnk_cross_d"].shape[0]
+        safe = the_ll.clamp(0, LL - 1).long()
+        d = net["lnk_cross_d"][safe]
+        cons = net["lnk_cross_valid"][safe] & (the_ll >= 0)[:, None] \
+            & (d >= dls[:, None])
+        any_fail, ff_d = out[1], out[2]
+        # the crosses up to the first one it must yield at
+        need = int((cons & (~any_fail[:, None] | (d <= ff_d[:, None])))
+                   .sum())
+        return V * (4 + 8 + 8 + 8 * 8 + 4 + 4 + 1 + 1 + 21) + need * 46, \
+            need * 100 + V * 30
+    raise KeyError(n)
+
+
+def check_gen1_kernels(eng, reps):
+    """G1-G4 against their plain versions on every call of one more step
+    of the gen1 path, bitwise; timed on the first call of each."""
+    from cityflow_tpu_torch import kernels
+    calls = record_gen1_calls(eng)
+    rows = []
+    for n in GEN1_KERNELS:
+        mod = kernels.MODULES[n]
+        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        assert calls[n], f"{n}: no call recorded"
+        for a in calls[n]:
+            got = [t for t in _flat(kern(*a)) if t is not None]
+            want = [t for t in _flat(plain(*a)) if t is not None]
+            assert len(got) == len(want), f"{n}: outputs differ in number"
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert bitwise_equal(g, w), f"{n}: output {i} not bitwise"
+        # timed at the larger call site: G1 with the packs (handleWaiting),
+        # G2 over every leaderless vehicle (updateLeaderAndGap)
+        a = calls[n][-1 if n == "leader_scan" else 0]
+        ms = time_cuda(lambda: kern(*a), reps)
+        plain_ms = time_cuda(lambda: plain(*a), reps)
+        nbytes, nops = gen1_work(n, a, kern(*a))
+        log(f"[kernels] {n}: {len(calls[n])} calls bitwise equal to the "
+            f"plain version")
+        rows.append(kernel_row(n, 0.0, ms, plain_ms, nbytes, nops, None,
+                               flops=H100_F64_FLOPS))
+    return rows
+
+
 def main():
+    t_start = time.time()
     if not os.path.isdir(os.path.join(HERE, "cityflow_tpu_torch")):
         print("chip_smoke: the cityflow_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -1224,6 +1586,17 @@ def main():
     rows += check_rl_kernels(env, REPS)
     dqn_launches, dqn_res = run_dqn(env, DQN_ITERS)
     log(f"[dqn] {json.dumps(dqn_res)}")
+    del env
+    torch.cuda.empty_cache()
+
+    # the gen-1 exact Engine
+    check_golden_gen1()
+    check_agreement_gen1(cfg_path, AGREE_GEN1_STEPS)
+    gen1_launches, gen1_res, eng = run_gen1(cfg_path, GEN1_WARMUP,
+                                            GEN1_STEPS)
+    log(f"[gen1] {json.dumps(gen1_res)}")
+    rows += check_gen1_kernels(eng, REPS)
+    del eng
     # each row's launches come from the path that runs it
     path_of = {"lane_stats@hist": hist_launches,
                "phase_pressure@features": dqn_launches}
@@ -1231,12 +1604,15 @@ def main():
         name = r["name"]
         if name in path_of:
             r["launches"] = path_of[name][name]
+        elif name in GEN1_KERNELS:
+            r["launches"] = gen1_launches[name]
         elif name.split("@")[0] in RL_KERNELS:
             r["launches"] = rl_launches[name]
         elif name in LC_KERNELS or name in LC_MODES:
             r["launches"] = lc_launches[name]
         else:
             r["launches"] = main_launches[name.split("@")[0]]
+    log(f"[done] wall_s={time.time() - t_start:.1f}")
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,9 +1,10 @@
 """Carry state and tables across from the JAX package.
 
-The JAX package's RingState leaves and ring tables, given as numpy arrays
-(no JAX needed here), become the port's tensors, so a test can start the
-port from JAX's exact state and compare the next step; so do the DQN's
-Q-network parameters.
+The JAX package's RingState and gen-1 SimState leaves and ring tables,
+given as numpy arrays (no JAX needed here), become the port's tensors, so
+a test can start the port from JAX's exact state and compare the next
+step; so do the DQN's Q-network parameters. `net_tensors` puts a compiled
+scenario's gen-1 tables on a device.
 """
 
 import numpy as np
@@ -13,7 +14,22 @@ from cityflow_tpu_torch.compiler.ring_net import index_tables
 from cityflow_tpu_torch.core.ring import (
     BOOL_FIELDS, FLOAT_FIELDS, OPTIONAL_FIELDS, STATE_FIELDS, RingState,
     ring_constants)
+from cityflow_tpu_torch.core.state import (
+    SIM_BOOL, SIM_FIELDS, SIM_FLOAT, SimState)
 from cityflow_tpu_torch.rl.dqn import QParams
+
+# the gen-1 step's static tables (the JAX package's _net_device_arrays)
+NET_KEYS = (
+    "drv_len", "drv_max_speed", "lane_road", "lane_local", "lane_width",
+    "road_num_lanes", "lane_out", "ll_start", "ll_end", "ll_is_turn",
+    "ll_type", "ll_inter", "ll_rl_local", "phase_offset", "n_phases",
+    "phase_time", "phase_rl_avail", "inter_virtual", "cross_dist",
+    "cross_ll", "ll_cross_idx", "ll_cross_side", "lnk_cross_d",
+    "lnk_cross_valid", "lnk_cross_selfflat", "lnk_cross_foeflat",
+    "lnk_cross_foetype", "lnk_cross_foe_pos", "cross_end_lane",
+    "cross_start_lane", "cross_type", "cross_is_turn", "route_len",
+    "route_roads", "route_next_ll", "flow_route", "flow_params",
+    "flow_interval", "flow_start", "flow_end")
 
 # one-hot operators and TPU shift plans: the port gathers through
 # index_tables instead, so these stay on the host
@@ -24,15 +40,48 @@ HOST_ONLY = frozenset({
     "out_res_j", "out_res_src"})
 
 
-def _tensor(a, device):
+def _tensor(a, device, fdtype=torch.float32):
     a = np.asarray(a)
     if a.dtype == np.bool_:
         dt = torch.bool
     elif np.issubdtype(a.dtype, np.integer):
         dt = torch.int32
     else:
-        dt = torch.float32
+        dt = fdtype
     return torch.as_tensor(a, device=device).to(dt).contiguous()
+
+
+def net_tensors(net, dtype, device):
+    """A CompiledNet's gen-1 tables on `device`: ints as int32, bools as
+    bool, floats in `dtype`; "interval" is the step interval as a 0-dim
+    tensor of `dtype` (the step divides by it on the device)."""
+    out = {k: _tensor(getattr(net, k), device, dtype) for k in NET_KEYS}
+    out["interval"] = torch.tensor(float(net.host.config["interval"]),
+                                   dtype=dtype, device=device)
+    return out
+
+
+def sim_state_from_numpy(leaves, device, dtype=torch.float64) -> SimState:
+    """{field: array} of a gen-1 SimState (the JAX package's, or a dump)
+    -> the port's SimState in its dtypes: bool, int32 (JAX under x64
+    returns some ints as int64) and `dtype` for floats."""
+    out = {}
+    for k in SIM_FIELDS:
+        a = np.asarray(leaves[k])
+        if k in SIM_BOOL:
+            a = a.astype(np.bool_)
+        elif k in SIM_FLOAT:
+            a = a.astype(np.float64)
+        else:
+            a = a.astype(np.int32)
+        t = torch.as_tensor(a, device=device)
+        out[k] = (t.to(dtype) if k in SIM_FLOAT else t).contiguous()
+    return SimState(**out)
+
+
+def sim_state_to_numpy(st: SimState):
+    """The port's SimState -> {field: numpy array}."""
+    return {k: v.cpu().numpy() for k, v in st.leaves().items()}
 
 
 def tables_from_numpy(tb, device, cfg):

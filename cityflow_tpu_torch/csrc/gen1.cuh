@@ -1,0 +1,134 @@
+// Shared device helpers of the gen-1 kernels (G1-G4), templated on the
+// float type; the gen-1 step runs them in double.
+//
+// Built with --fmad=false and without --use_fast_math: every float op
+// rounds on its own (IEEE division and square root), so the kernels repeat
+// the plain PyTorch versions op by op and reproduce the reference's double
+// arithmetic bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace gen1 {
+
+// parameter columns (compiler/net.py P_*)
+constexpr int P_LEN = 1, P_MAXNEGACC = 4, P_USUALPOSACC = 5,
+              P_USUALNEGACC = 6, P_MAXSPEED = 8, P_YIELD = 10,
+              P_TURNSPEED = 11;
+// attribute-pack columns (core/step.py A_*)
+constexpr int A_DIS = 0, A_LEN = 1, A_SPEED = 2, A_MAXNEG = 3, A_YIELD = 4,
+              A_UPA = 5, A_TURNSPD = 6, A_MAXSPD = 7, A_CYC = 8,
+              A_PREV = 9;
+
+__device__ __forceinline__ long long clampll(long long x, long long lo,
+                                             long long hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// XLA's float -> int32 conversion: saturating, NaN -> 0
+template <typename T>
+__device__ __forceinline__ int xla_to_i32(T x) {
+  if (isnan(x)) return 0;
+  if (x >= T(2147483648.0)) return 2147483647;
+  if (x < T(-2147483648.0)) return (-2147483647 - 1);
+  return (int)x;
+}
+
+// torch.minimum: NaN propagates, ties keep the first operand
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) {
+  if (isnan(a)) return a;
+  if (isnan(b)) return b;
+  return (b < a) ? b : a;
+}
+
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) {
+  if (isnan(a)) return a;
+  if (isnan(b)) return b;
+  return (a < b) ? b : a;
+}
+
+// lax.sort's total order as a signed integer key:
+// -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < NaN
+__device__ __forceinline__ long long order_key(double x) {
+  long long b = __double_as_longlong(x);
+  return b < 0 ? (b ^ 0x7FFFFFFFFFFFFFFFLL) : b;
+}
+
+__device__ __forceinline__ long long order_key(float x) {
+  int b = __float_as_int(x);
+  return (long long)(b < 0 ? (b ^ 0x7FFFFFFF) : b);
+}
+
+// ---- speed model (reference vehicle.cpp; core/step.py of the port) ------
+
+// vehicle.cpp:302-306
+template <typename T>
+__device__ __forceinline__ T brake_distance_after_accel(T speed, T acc, T dec,
+                                                        T interval) {
+  T next_speed = speed + acc * interval;
+  return (speed + next_speed) * interval / T(2) +
+         (next_speed * next_speed / dec / T(2));
+}
+
+// vehicle.cpp:240-250 (getStopBeforeSpeed)
+template <typename T>
+__device__ __forceinline__ T stop_before_speed(T speed, T usual_pos,
+                                               T usual_neg, T distance,
+                                               T interval) {
+  T bda = brake_distance_after_accel(speed, usual_pos, usual_neg, interval);
+  T ti = T(2) * distance / (speed + T(1e-8)) / interval;
+  // (int)takeInterval: C truncation; x86 cvttsd2si out of range -> INT_MIN
+  T ti_int = (fabs(ti) >= T(2147483648.0)) ? T(-2147483648.0) : trunc(ti);
+  T ge1 = speed - speed / ti_int;
+  T lt1 = speed - speed / ti;
+  T slow = (ti >= T(1)) ? ge1 : lt1;
+  return (bda < distance) ? speed + usual_pos * interval : slow;
+}
+
+// vehicle.cpp:275-282 (stage1speed adds acc/interval, as written there)
+template <typename T>
+__device__ __forceinline__ T distance_until_speed(T speed, T target, T acc,
+                                                  T interval) {
+  T s1 = floor((target - speed) / acc / interval);
+  T v1 = speed + s1 * acc / interval;
+  T d1 = (speed + v1) * (s1 * interval) / T(2);
+  T d = d1 + ((v1 < target) ? (v1 + target) * interval / T(2) : T(0));
+  return (target <= speed) ? T(0) : d;
+}
+
+// vehicle.cpp:252-268 (getReachSteps)
+template <typename T>
+__device__ __forceinline__ int reach_steps(T speed, T distance, T target,
+                                           T acc, T interval) {
+  T r_fast = ceil(distance / ((speed > T(0)) ? speed : T(1)));
+  T dts = distance_until_speed(speed, target, acc, interval);
+  T r_a = ceil((sqrt(tmax(speed * speed + T(2) * acc * distance, T(0))) -
+                speed) / acc / interval);
+  T r_b = ceil((target - speed) / acc / interval) +
+          ceil((distance - dts) / target / interval);
+  T r = (speed > target) ? r_fast : ((dts > distance) ? r_a : r_b);
+  r = (distance <= T(0)) ? T(0) : r;
+  return xla_to_i32(r);
+}
+
+// vehicle.cpp:284-287
+template <typename T>
+__device__ __forceinline__ bool can_yield(T speed, T max_neg, T yield_dist,
+                                          T length, T d) {
+  T min_brake = T(0.5) * speed * speed / max_neg;
+  return ((d > T(0)) && (min_brake < d - yield_dist)) ||
+         ((d < T(0)) && (d + length < T(0)));
+}
+
+__host__ __device__ __forceinline__ unsigned grid_blocks(long long n,
+                                                         int threads) {
+  long long b = (n + threads - 1) / threads;
+  if (b > 65535LL * 32) b = 65535LL * 32;
+  return (unsigned)(b < 1 ? 1 : b);
+}
+
+}  // namespace gen1

@@ -1,0 +1,410 @@
+"""`cityflow_tpu_torch.Engine`: the reference CityFlow Python API over the
+gen-1 exact step (core/step.py), in float64.
+
+The JAX package's `cityflow_tpu.Engine` with its default exact=True, on a
+CUDA card (device=None) or, when asked, on the CPU: scenario compilation,
+the spawn table, capacity growth, and the getters (string ids, dict
+marshalling). The step reproduces the reference engine bit for bit
+(tests/goldens). Not ported yet, each raising NotImplementedError that
+points at ROADMAP.md: exact=False (the ring engine and gen-1 fast mode),
+laneChange, the DURATION router, push_vehicle, set_vehicle_route,
+get_lane_history and replay files.
+
+State tensors are never written in place, here or in the step: a
+snapshot shares them with the engine, and the capacity-growth retry runs
+a step again from the state it started from.
+"""
+
+import copy
+from dataclasses import replace as dc_replace
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from cityflow_tpu_torch.carry import net_tensors
+from cityflow_tpu_torch.compiler.net import compile_scenario
+from cityflow_tpu_torch.compiler.spawn import SpawnGenerator
+from cityflow_tpu_torch.core import step as step_mod
+from cityflow_tpu_torch.core.state import (
+    OV_HOPS, OV_LINK_TABLE, OV_REMOVE, OV_SLOTS, SimState, StepConfig,
+    init_state, pad_state)
+from cityflow_tpu_torch.device import resolve_device
+
+GROWTH_RETRIES = 8
+FETCHED = ("active", "running", "dis", "speed", "drv", "prev_drv", "route",
+           "route_pos", "enter_time", "priority", "leader", "gap",
+           "list_seq", "uid", "is_shadow", "partner", "lc_last_dir",
+           "offset")
+
+
+def _todo(what):
+    return NotImplementedError(
+        f"cityflow_tpu_torch.Engine: {what} is not ported yet "
+        "(see ROADMAP.md)")
+
+
+class Archive:
+    """In-memory snapshot (reference: src/engine/archive.{h,cpp}). The
+    engine never writes state tensors in place, so a snapshot holds the
+    state by reference."""
+
+    def __init__(self, state: SimState, host_aux: dict):
+        self.state = state
+        self.host_aux = copy.deepcopy(host_aux)
+
+    def dump(self, path: str):
+        from cityflow_tpu_torch import serialize
+        serialize.dump_archive(self, path)
+
+
+class Engine:
+    def __init__(self, config_file: str, thread_num: int = 1,
+                 exact: bool = True, max_vehicles: int = 2048,
+                 spawn_horizon: int = 4096, backend: str = "auto",
+                 device=None):
+        """device: None means the CUDA card (a RuntimeError without one);
+        "cpu" runs every kernel's plain PyTorch version."""
+        del thread_num  # results are threadNum-independent
+        if not exact:
+            raise _todo("exact=False (the ring engine, gen-1 fast mode)")
+        if backend not in ("auto", "gen1"):
+            raise _todo(f"backend={backend!r}")
+        self.device = resolve_device(device)
+        self.net = compile_scenario(config_file)
+        cfgj = self.net.host.config
+        self.interval = float(cfgj["interval"])
+        self.seed = int(cfgj["seed"])
+        self.rl_traffic_light = bool(cfgj["rlTrafficLight"])
+        self.lane_change = bool(cfgj.get("laneChange", False))
+        if self.lane_change:
+            raise _todo("laneChange: true")
+        self.router_type = str(cfgj.get("routerType", "LENGTH")).upper()
+        if self.router_type not in ("LENGTH", "DURATION"):
+            raise ValueError(f"unknown routerType {self.router_type}")
+        if self.router_type == "DURATION":
+            raise _todo('routerType "DURATION" in the gen-1 engine')
+        if cfgj.get("saveReplay", False):
+            raise _todo("saveReplay (replay files)")
+
+        self._net_dev = net_tensors(self.net, torch.float64, self.device)
+        self._spawn_horizon = spawn_horizon
+        self._spawn = SpawnGenerator(self.net, self.seed, self.interval)
+        self._spawn.extend(spawn_horizon)
+        self._upload_spawn()
+
+        self.cfg = StepConfig(
+            interval=self.interval,
+            num_lanes=self.net.num_lanes,
+            num_drivables=self.net.num_lanes + self.net.num_links,
+            max_vehicles=max_vehicles,
+            max_spawn_per_step=self._spawn.max_per_step,
+            k_out=max(self.net.host.ko, 1), k_cross=max(self.net.host.kc, 1),
+            rl_traffic_light=self.rl_traffic_light,
+            exact=True)
+        self.growths = 0
+        self._pushed_ids: Dict[int, str] = {}
+        self._manually_pushed = 0
+        self._set_state(self._fresh_state())
+
+    # ------------------------------------------------------------------
+    # infrastructure
+    # ------------------------------------------------------------------
+    def _fresh_state(self) -> SimState:
+        return init_state(self.cfg, self.net.num_inters, self.net.phase_time,
+                          self.net.n_phases, self.net.phase_offset,
+                          self.device)
+
+    def _set_state(self, st: SimState):
+        """Install a state and read its step and overflow once: the host
+        keeps both, so stepping reads back one value per step."""
+        self.state = st
+        self._step, self._ov = int(st.step), int(st.overflow)
+        self._fetched_step = -1
+
+    def _upload_spawn(self):
+        t = self._spawn.arrays()
+        pad = max(self._spawn.max_per_step, 1)
+
+        def p(a, fill):
+            return torch.as_tensor(
+                np.concatenate([a, np.full(pad, fill, a.dtype)]),
+                device=self.device)
+        self._spawn_dev = dict(
+            step=p(t["step"], -1), flow=p(t["flow"], 0),
+            priority=p(t["priority"], 0),
+            first_drv=p(t["first_drv"], 0), route=p(t["route"], 0))
+
+    def _grow(self, bits: int):
+        cfg = self.cfg
+        if bits & OV_SLOTS:
+            cfg = dc_replace(cfg, max_vehicles=cfg.max_vehicles * 2)
+        if bits & OV_LINK_TABLE:
+            cfg = dc_replace(cfg, k_link=cfg.k_link * 2)
+        if bits & OV_HOPS:
+            cfg = dc_replace(cfg, k_hop=cfg.k_hop * 2)
+        if bits & OV_REMOVE:
+            cfg = dc_replace(cfg, max_remove=cfg.max_remove * 2)
+        self.cfg = cfg
+        self.growths += 1
+
+    def _step_once(self):
+        if self._step + 1 >= self._spawn.next_step:
+            self._spawn.extend(self._spawn.next_step * 2)
+            self._upload_spawn()
+            if self._spawn.max_per_step > self.cfg.max_spawn_per_step:
+                self.cfg = dc_replace(
+                    self.cfg, max_spawn_per_step=self._spawn.max_per_step)
+        prev = self.state
+        for _ in range(GROWTH_RETRIES):
+            new = step_mod.step(self._net_dev, self.cfg, prev,
+                                self._spawn_dev)
+            ov_all = int(new.overflow)
+            ov = ov_all & ~self._ov
+            if ov == 0:
+                self.state = new
+                self._step += 1
+                self._ov = ov_all
+                return
+            self._grow(ov)
+            prev = pad_state(prev, self.cfg.max_vehicles)
+        raise RuntimeError("simulation capacity growth failed")
+
+    def _fetch(self) -> Dict[str, np.ndarray]:
+        """The per-slot fields the getters read, as numpy arrays (one
+        device-to-host copy per step at most)."""
+        key = (self._step, self._manually_pushed)
+        if self._fetched_step != key:
+            st = self.state
+            self._cache = {n: getattr(st, n).cpu().numpy() for n in FETCHED}
+            params = st.params.cpu().numpy()
+            self._cache["len"] = params[:, 1]
+            self._cache["width"] = params[:, 2]
+            self._fetched_step = key
+            self._id_map = None       # lazy per-fetch id -> slot index
+        return self._cache
+
+    def _veh_id(self, uid: int) -> str:
+        if uid & (1 << 30):  # shadow twin (engine.cpp:814: id + "_shadow")
+            return self._veh_id(uid & ~(1 << 30)) + "_shadow"
+        if uid in self._pushed_ids:
+            return self._pushed_ids[uid]
+        t = self._spawn.arrays()
+        return f"flow_{t['flow'][uid]}_{t['cnt'][uid]}"
+
+    def _id_to_slot(self, vid: str) -> Optional[int]:
+        """O(1) id lookup through a per-fetch id -> slot map (the
+        reference keeps a std::map of the pool, engine.cpp:615-630)."""
+        c = self._fetch()
+        if self._id_map is None:
+            self._id_map = {
+                self._veh_id(int(c["uid"][slot])): int(slot)
+                for slot in np.nonzero(c["active"])[0]}
+        return self._id_map.get(vid)
+
+    def _lane_order(self, c):
+        """Front-to-back per-drivable vehicle order (distance desc,
+        list_seq)."""
+        run = np.nonzero(c["running"])[0]
+        return run[np.lexsort((c["list_seq"][run], -c["dis"][run],
+                               c["drv"][run]))]
+
+    def _pool_order(self, c):
+        slots = np.nonzero(c["running"] & ~c["is_shadow"])[0]
+        return slots[np.argsort(c["priority"][slots], kind="stable")]
+
+    # ------------------------------------------------------------------
+    # control API (reference cityflow.cpp:12-46)
+    # ------------------------------------------------------------------
+    def next_step(self):
+        self._step_once()
+
+    def reset(self, seed: bool = False):
+        """reference Engine::reset (engine.cpp:744-760): flows and state
+        reset; the mt19937 stream continues unless resetRnd."""
+        cur = self._step
+        self._pushed_ids.clear()
+        self._manually_pushed = 0
+        self._spawn.reset_flows(reseed_to=self.seed if seed else None,
+                                current_step=cur)
+        self._spawn.extend(self._spawn_horizon)
+        self._upload_spawn()
+        self._set_state(self._fresh_state())
+
+    def set_random_seed(self, seed: int):
+        """reference Engine::setRandomSeed: reseeds the stream mid-run."""
+        self.seed = int(seed)
+        cur = self._step
+        self._spawn.reseed(seed, cur)
+        self._spawn.extend(max(self._spawn_horizon, cur * 2))
+        self._upload_spawn()
+
+    def set_tl_phase(self, intersection_id: str, phase_id: int):
+        """reference engine.cpp:719-725 (guarded by rlTrafficLight)."""
+        if not self.rl_traffic_light:
+            print("please set rlTrafficLight to true to enable traffic "
+                  "light control")
+            return
+        idx = self.net.host.inter_index[intersection_id]
+        phase = self.state.phase.clone()
+        phase[idx] = int(phase_id)
+        self.state = self.state.replace_fields(phase=phase)
+
+    def set_vehicle_speed(self, vid: str, speed: float):
+        slot = self._id_to_slot(vid)
+        if slot is None:
+            raise RuntimeError(f"Vehicle '{vid}' not found")
+        st = self.state
+        custom = st.custom_speed.clone()
+        custom[slot] = float(speed)
+        has = st.has_custom.clone()
+        has[slot] = True
+        self.state = st.replace_fields(custom_speed=custom, has_custom=has)
+
+    def set_vehicle_route(self, vid: str, anchors: List[str]) -> bool:
+        raise _todo("set_vehicle_route")
+
+    def push_vehicle(self, info: dict, roads: List[str]):
+        raise _todo("push_vehicle")
+
+    def get_lane_history(self):
+        raise _todo("get_lane_history (the DURATION router's window)")
+
+    # ------------------------------------------------------------------
+    # query API
+    # ------------------------------------------------------------------
+    def get_current_time(self) -> float:
+        return self._step * self.interval
+
+    def get_vehicle_count(self) -> int:
+        return int(np.sum(self._fetch()["running"]))
+
+    def get_vehicles(self, include_waiting: bool = False) -> List[str]:
+        """Pool order = std::map<int priority> ascending
+        (engine.cpp:780-790)."""
+        c = self._fetch()
+        mask = (c["active"] if include_waiting else c["running"]) \
+            & ~c["is_shadow"]
+        slots = np.nonzero(mask)[0]
+        slots = slots[np.argsort(c["priority"][slots], kind="stable")]
+        return [self._veh_id(int(c["uid"][s])) for s in slots]
+
+    def get_lane_vehicle_count(self) -> Dict[str, int]:
+        c = self._fetch()
+        counts = np.bincount(c["drv"][c["running"]],
+                             minlength=self.cfg.num_drivables)
+        return {lid: int(counts[i])
+                for i, lid in enumerate(self.net.host.lane_ids)}
+
+    def get_lane_waiting_vehicle_count(self) -> Dict[str, int]:
+        """speed < 0.1 -> waiting (engine.cpp:641)."""
+        c = self._fetch()
+        m = c["running"] & (c["speed"] < 0.1)
+        counts = np.bincount(c["drv"][m], minlength=self.cfg.num_drivables)
+        return {lid: int(counts[i])
+                for i, lid in enumerate(self.net.host.lane_ids)}
+
+    def get_lane_vehicles(self) -> Dict[str, List[str]]:
+        c = self._fetch()
+        ids = self.net.host.lane_ids
+        ret = {lid: [] for lid in ids}
+        L = self.cfg.num_lanes
+        for slot in self._lane_order(c):
+            d = c["drv"][slot]
+            if d < L:
+                ret[ids[d]].append(self._veh_id(int(c["uid"][slot])))
+        return ret
+
+    def get_vehicle_speed(self) -> Dict[str, float]:
+        c = self._fetch()
+        return {self._veh_id(int(c["uid"][s])): float(c["speed"][s])
+                for s in self._pool_order(c)}
+
+    def get_vehicle_distance(self) -> Dict[str, float]:
+        c = self._fetch()
+        return {self._veh_id(int(c["uid"][s])): float(c["dis"][s])
+                for s in self._pool_order(c)}
+
+    def get_leader(self, vid: str) -> str:
+        c = self._fetch()
+        slot = self._id_to_slot(vid)
+        if slot is None:
+            raise RuntimeError(f"Vehicle '{vid}' not found")
+        lead = c["leader"][slot]
+        return self._veh_id(int(c["uid"][lead])) if lead >= 0 else ""
+
+    def get_average_travel_time(self) -> float:
+        """reference engine.cpp:682-691: finished cumulative + in-flight,
+        summed over the pool in priority order (float64 order kept)."""
+        c = self._fetch()
+        tt = float(self.state.cum_travel)
+        n = int(self.state.finished_cnt)
+        now = self.get_current_time()
+        slots = np.nonzero(c["active"])[0]
+        slots = slots[np.argsort(c["priority"][slots], kind="stable")]
+        for s in slots:
+            tt += now - float(c["enter_time"][s])
+            n += 1
+        return 0.0 if n == 0 else tt / n
+
+    def get_vehicle_info(self, vid: str) -> Dict[str, str]:
+        """reference vehicle.cpp:435-457 (std::to_string -> '%f' 6dp)."""
+        c = self._fetch()
+        slot = self._id_to_slot(vid)
+        if slot is None:
+            raise RuntimeError(f"Vehicle '{vid}' not found")
+        running = bool(c["running"][slot])
+        info = {"running": str(int(running))}
+        if not running:
+            return info
+        host = self.net.host
+        L = self.cfg.num_lanes
+        d = int(c["drv"][slot])
+        info["distance"] = f"{float(c['dis'][slot]):.6f}"
+        info["speed"] = f"{float(c['speed'][slot]):.6f}"
+        info["drivable"] = host.lane_ids[d] if d < L else host.ll_ids[d - L]
+        if d < L:
+            road = host.net.lanes[d].road
+            info["road"] = road.id
+            info["intersection"] = road.end_intersection.id
+        route = host.routes[int(c["route"][slot])]
+        pos = int(c["route_pos"][slot])
+        info["route"] = "".join(r.id + " " for r in route[pos:])
+        return info
+
+    # ------------------------------------------------------------------
+    # replay / archive
+    # ------------------------------------------------------------------
+    def set_save_replay(self, open_: bool):
+        raise _todo("replay files")
+
+    def set_replay_file(self, path: str):
+        raise _todo("replay files")
+
+    def snapshot(self) -> Archive:
+        """reference Archive(engine) (archive.cpp:9-37): the device state
+        and the spawn / RNG stream state."""
+        return Archive(self.state, dict(
+            pushed=self._pushed_ids, manually_pushed=self._manually_pushed,
+            spawn=self._spawn.snapshot_state()))
+
+    def load(self, archive: Archive):
+        st = archive.state
+        if st.active.shape[0] != self.cfg.max_vehicles:
+            # the archive may come from an engine whose pool had grown
+            self.cfg = dc_replace(self.cfg,
+                                  max_vehicles=st.active.shape[0])
+        self._set_state(st.map(lambda t: t.to(self.device)))
+        self._pushed_ids = copy.deepcopy(archive.host_aux["pushed"])
+        self._manually_pushed = archive.host_aux["manually_pushed"]
+        if "spawn" in archive.host_aux:
+            self._spawn.restore_state(archive.host_aux["spawn"])
+            self._spawn.extend(max(self._spawn.next_step, self._step + 2))
+            self._upload_spawn()
+            if self._spawn.max_per_step > self.cfg.max_spawn_per_step:
+                self.cfg = dc_replace(
+                    self.cfg, max_spawn_per_step=self._spawn.max_per_step)
+
+    def load_from_file(self, path: str):
+        from cityflow_tpu_torch import serialize
+        serialize.load_archive_into(self, path)

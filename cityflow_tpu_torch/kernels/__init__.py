@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels of the ring step (sources in csrc/), each with
-its wrapper, its plain PyTorch version and its launch counter:
+"""Hand-written CUDA kernels of the ring and gen-1 steps (sources in
+csrc/), each with its wrapper, its plain PyTorch version and its launch
+counter:
 
   K1 gather_rows     one-hot exchanges as exact gathers
   K2 cross_caps      Cross::canPass over each link's crosses
@@ -13,20 +14,27 @@ its wrapper, its plain PyTorch version and its launch counter:
   O1 lane_stats      per-lane waiting counts, the lane-history window, the
                      time in flight (observations)
   O2 phase_pressure  MaxPressure pressures and actions, DQN phase features
+  G1 arrange         gen-1 per-drivable order, leaders, lanelink tables
+  G2 leader_scan     gen-1 leader scan past the drivable's end
+  G3 notify_cross    gen-1 cross notifiers and their canPass terms
+  G4 cross_pass      gen-1 cross loop of getAction (canPass, first fail)
 
 A wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors; the library is built at first use (kernels/_lib.py).
 """
 
 from cityflow_tpu_torch.kernels import (
-    car_follow, cross_caps, gather_rows, lane_stats, lc_insert, lc_partner,
-    lc_receive, lc_signal, phase_pressure, ring_commit)
+    arrange, car_follow, cross_caps, cross_pass, gather_rows, lane_stats,
+    lc_insert, lc_partner, lc_receive, lc_signal, leader_scan, notify_cross,
+    phase_pressure, ring_commit)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
            "lc_signal": lc_signal, "lc_receive": lc_receive,
            "lc_insert": lc_insert, "lc_partner": lc_partner,
-           "lane_stats": lane_stats, "phase_pressure": phase_pressure}
+           "lane_stats": lane_stats, "phase_pressure": phase_pressure,
+           "arrange": arrange, "leader_scan": leader_scan,
+           "notify_cross": notify_cross, "cross_pass": cross_pass}
 
 
 # modes of a kernel counted apart as well (module, counter)

@@ -100,7 +100,8 @@ def lib():
         L.gather_rows.restype = ctypes.c_int
         for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",
                      "lc_receive", "lc_insert", "lc_partner", "lane_stats",
-                     "phase_pressure"):
+                     "phase_pressure", "arrange", "leader_scan",
+                     "notify_cross", "cross_pass"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int

@@ -93,6 +93,25 @@ def test_rl_and_observation_modules_are_covered():
         assert rel in files, rel
 
 
+def test_gen1_modules_are_covered():
+    """The import rule above reaches the gen-1 engine, step and G kernels."""
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("engine.py", "serialize.py", "core/state.py", "core/step.py",
+                "kernels/arrange.py", "kernels/leader_scan.py",
+                "kernels/notify_cross.py", "kernels/cross_pass.py"):
+        assert rel in files, rel
+
+
+def test_gen1_engine_without_device_refuses_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the card")
+    from cityflow_tpu_torch.engine import Engine
+    path = os.path.join(HERE, "fixtures", "config_2x2.json")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(path)
+    assert Engine(path, device="cpu").state.dis.device.type == "cpu"
+
+
 def test_ring_vec_env_without_device_refuses_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None means the card")
