@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the ten kernels from csrc/ (nvcc, sm_90a) with its time
+            of the fifteen kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -34,6 +34,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             against their plain versions on the inputs of one more step of
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
             K3 within 1e-5, their not-bitwise counts printed), timed
+  agree-mixed  non-uniform vehicle templates, B=1 card against CPU on
+            tests/fixtures/config_2x2_mixed.json, 200 steps, skc=99
+  mixed     the main path on the 30x30 grid with three vehicle templates
+            (benchmarks/flow_30_30.json, flow i given template i mod 3 of
+            tests/fixtures/flow_2x2_mixed.json; staged under build/) at
+            B=128, lane slots build_sim's default (the densest template's
+            capacity); [main]'s asserts, plus T1 and the template modes of
+            K2 and K3 launched
+  kernels   (templates) T1 and the template modes of K2 and K3 against
+            their plain versions on every call of one more [mixed] step
+            (T1, K2 exact; K3 within 1e-5), timed, T1 beside the library
+            gather table[:, cols][tpl]
+  agree-mixed-lc  tests/fixtures/config_1x1s_mixed_lc.json, 80 steps,
+            sl=12, sk=6, skc=99, B=1 card against CPU as [agree-lc]
+  mixed-lc  config_30x30_lc.json staged with the three templates at B=128,
+            build_sim's shadow-insert cap for such a scenario (8):
+            LC_WARMUP warm-up steps (the first step with shadows printed),
+            40 timed; [lc]'s asserts, plus T1 and the template modes of K3
+            (with and without v_yield), L1 and L2 launched
+  kernels   (templates, lane change) on every call of one more [mixed-lc]
+            step: T1, K2, L1, K4 and L3 (with the tpl channel) exact, K3
+            (template mode, with v_yield too) and L2 within 1e-5, against
+            their plain versions; L1, L2 and K3 at the v_yield lane call
+            timed
   agree-rl  the RL env (rl/env.RingVecEnv), B=1 on the card against the
             plain port on the CPU on tests/fixtures/config_4x4_rl.json, 60
             steps with MaxPressure every 5: equal actions at every decision,
@@ -111,6 +135,9 @@ GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass")
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc")
+AGREE_MIXED_STEPS = 200             # card-vs-CPU steps on the mixed fixture
+TPL_MODES = ("tpl_params", "car_follow@tpl", "cross_caps@tpl")
+TPL_LC_MODES = ("lc_signal@tpl", "lc_receive@tpl", "car_follow@tpl+lc")
 RL_KERNELS = ("lane_stats", "phase_pressure")
 REPLACES = {
     "gather_rows": "cityflow_tpu/core/ring.py:243 (_typed_mm), :300-341 "
@@ -152,6 +179,19 @@ REPLACES = {
                     ":586-588)",
     "cross_pass": "cityflow_tpu/core/step.py:682-751 (get_action's cross "
                   "loop, Cross::canPass)",
+    "tpl_params": "cityflow_tpu/core/ring.py:270-297 (_PP, the template "
+                  "one-hot einsum)",
+    "car_follow@tpl": "cityflow_tpu/core/ring.py:998-1092 (isr_speed, "
+                      "min_chain with pp / lead_pp)",
+    "car_follow@tpl+lc": "cityflow_tpu/core/ring.py:1042-1092 (min_chain "
+                         "with pp / lead_pp under lane_change: v_yield, "
+                         "raw)",
+    "cross_caps@tpl": "cityflow_tpu/core/ring.py:936-996 (cross_caps with "
+                      "pp)",
+    "lc_signal@tpl": "cityflow_tpu/core/ring_lc.py:172-311 (lc_phase under "
+                     "templates: len_s, lead_len, foll_neg, olt_len)",
+    "lc_receive@tpl": "cityflow_tpu/core/ring_lc.py:313-361 (best_sneg, "
+                      "neg_s)",
 }
 
 
@@ -296,24 +336,8 @@ def check_kernels(sim, B, reps):
     err = float((got[1] - want[1]).nan_to_num(0.0, 0.0, 0.0).abs().max())
     ms = time_cuda(lambda: cross_caps.cross_caps(*args), reps)
     plain = time_cuda(lambda: cross_caps.cross_caps_plain(*args), reps)
-    # a row reads the foe channels, t2 and foelpi only of the crosses it
-    # considers (valid, ahead of it, row relevant); count those of this data
-    tb = cx.cc_tabs
-    need = torch.zeros((KC, LKp, B), dtype=torch.bool, device=dev)
-    n_cons = 0
-    for r in range(R):
-        c_r = tb["cvalid"][..., None] & (tb["d"][..., None] >= dls[r]) \
-            & rel[r]
-        n_cons += int(c_r.sum())
-        need |= c_r
-    n = R * LKp * B
-    nbytes = (n * (5 * 4 + 1)                      # dls speed ent ph plo rel
-              + KC * LKp * (4 + 1)                 # d, cvalid
-              + int(need.any(-1).sum()) * (4 + 4)  # t2, foelpi
-              + LKp * (4 + 1)                      # t1, turn
-              + int(need.sum()) * 9 * 4            # foe channels
-              + n * (1 + 4 + 4))                   # any_fail, ff_d, ff_foe
-    row("cross_caps", err, ms, plain, nbytes, n_cons * 60, None)
+    row("cross_caps", err, ms, plain, *cross_caps_work(dls, rel, cx.cc_tabs),
+        None)
 
     # ---- K3: link rows, mode 3 (isr + min_chain)
     shp = (SK, LPI, G, B)
@@ -446,6 +470,31 @@ def check_kernels(sim, B, reps):
     return rows
 
 
+def cross_caps_work(dls, rel, tb, per_row_extra=0):
+    """K2's bytes and operations: a row reads the foe channels, t2 and
+    foelpi only of the crosses it considers (valid, ahead of it, row
+    relevant); count those of this data. `per_row_extra`: bytes more per
+    row (the template mode's index)."""
+    import torch
+    R, LKp, B = dls.shape
+    KC = tb["d"].shape[0]
+    need = torch.zeros((KC, LKp, B), dtype=torch.bool, device=dls.device)
+    n_cons = 0
+    for r in range(R):
+        c_r = tb["cvalid"][..., None] & (tb["d"][..., None] >= dls[r]) \
+            & rel[r]
+        n_cons += int(c_r.sum())
+        need |= c_r
+    n = R * LKp * B
+    nbytes = (n * (5 * 4 + 1 + per_row_extra)   # dls speed ent ph plo rel
+              + KC * LKp * (4 + 1)                 # d, cvalid
+              + int(need.any(-1).sum()) * (4 + 4)  # t2, foelpi
+              + LKp * (4 + 1)                      # t1, turn
+              + int(need.sum()) * 9 * 4            # foe channels
+              + n * (1 + 4 + 4))                   # any_fail, ff_d, ff_foe
+    return nbytes, n_cons * 60
+
+
 def commit_bytes(chans, keep, app, valid_ch, nsel, extra):
     """K4's bytes: per channel a column reads its `keep` surviving slots
     and writes all S; of the candidates (A, PCH, N', B) it reads every
@@ -557,7 +606,8 @@ def _patch_points():
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
     return [(ring_mod, n) for n in MAIN_KERNELS] \
-        + [(ring_lc, n) for n in LC_KERNELS]
+        + [(ring_lc, n) for n in LC_KERNELS] \
+        + [(ring_mod, "tpl_params"), (ring_lc, "tpl_params")]
 
 
 @contextlib.contextmanager
@@ -652,14 +702,15 @@ def check_path(tag, sim, st, launches, expect):
                 peak_bytes=peak)
 
 
-def run_path(tag, cfg_path, batch, warmup, steps, expect):
+def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
     """One path through tools/bench.run_ring_ladder (`steps` consecutive
     timed steps after the warm-up), with the launch counts set to 0 just
     before and read just after; the batch it ran at must be `batch` (the
     ladder halves it on out-of-memory; the warm-up runs one env and copies
     it into the batch). On a lane-change config the shadows of env 0 are
     summed over the timed steps on the device: the window must hold
-    some."""
+    some; the first warm-up step with shadows is printed. lane_slots 0 is
+    build_sim's default."""
     import torch
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.compiler.net import compile_scenario
@@ -669,8 +720,9 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect):
     lc = bool(net.host.config.get("laneChange", False))
     args = bench.parser().parse_args(
         ["--config", cfg_path, "--batch", str(batch), "--warmup",
-         str(warmup), "--window", "0", "--steps", str(steps)])
-    shadows = []
+         str(warmup), "--window", "0", "--steps", str(steps),
+         "--lane-slots", str(lane_slots)])
+    shadows, first = [], []
 
     def count_shadows(s):
         if not shadows:
@@ -678,11 +730,20 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect):
                                        device=s.l_sh.device))
         shadows[0] += s.l_sh[..., 0].sum()
 
+    def first_shadow(s):
+        # on the device: the first step whose state holds a shadow
+        if not first:
+            first.append(torch.full((), -1, dtype=torch.int32,
+                                    device=s.l_sh.device))
+        first[0] = torch.where((first[0] < 0) & s.l_sh.any(), s.step[0],
+                               first[0])
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.time()
     r, B = bench.run_ring_ladder(args, net, batch,
-                                 on_step=count_shadows if lc else None)
+                                 on_step=count_shadows if lc else None,
+                                 on_warmup=first_shadow if lc else None)
     launches = kernels.launch_counts()
     ms = r["seconds"] * 1e3 / r["steps"]
     c = r["sim"].cfg
@@ -692,7 +753,7 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect):
         f"vehicles_per_env={r['vehicles']} overflow={r['overflow']} "
         f"first_step_s={r['first_step_s']:.2f} "
         f"wall_s={time.time() - t0:.1f} LNp={c.LNp} LKp={c.LKp} SL={c.SL} "
-        f"SK={c.SK} KOUT={c.KOUT} MAXLPR={c.MAXLPR} XK={c.XK}")
+        f"SK={c.SK} KOUT={c.KOUT} MAXLPR={c.MAXLPR} XK={c.XK} LCI={c.LCI}")
     assert B == batch, f"the {tag} path ran at B={B}, not {batch}"
     assert r["vehicles"] > 0, "no vehicles"
     per_step = {k: v / r["steps_run"] for k, v in launches.items()}
@@ -702,8 +763,10 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect):
                vehicles=r["vehicles"], launches_per_step=per_step)
     if lc:
         res["shadow_rows_env0"] = int(shadows[0])
+        res["first_shadow_step"] = int(first[0]) if first else -1
         log(f"[{tag}] shadow rows on env 0, summed over the timed steps: "
-            f"{res['shadow_rows_env0']}")
+            f"{res['shadow_rows_env0']}; first warm-up step with a shadow: "
+            f"{res['first_shadow_step']}")
         assert res["shadow_rows_env0"] > 0, "no shadows in the timed window"
     res.update(check_path(tag, r["sim"], r["state"], launches, expect))
     return launches, res, r["sim"], r["state"]
@@ -900,6 +963,142 @@ def lc_work(n, a, k):
         return commit_bytes(chans, keep, app, k["valid_ch"], k["nsel"],
                             dmask.numel() + base.numel() * 4), 0
     raise KeyError(n)
+
+
+# ---------------------------------------------------------------------------
+# non-uniform vehicle templates: T1 and the template modes
+# ---------------------------------------------------------------------------
+
+def record_tpl_calls(sim, state, lc):
+    """One more batched step of a template path with the wrappers
+    recording their arguments (cloned, tables by reference): every T1
+    call, and every call in the template mode of K2, K3 and, with lane
+    change, L1 and L2; with lane change also every K4 and L3 call, which
+    carry the tpl channel."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    from cityflow_tpu_torch.core import ring_lc
+    keep = {id(v) for v in sim.tables.values()}
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x if id(x) in keep else x.clone()
+        if x is sim.tables:
+            return x
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    every = ["tpl_params"] + (["ring_commit", "lc_insert"] if lc else [])
+    names = every + ["cross_caps", "car_follow"] \
+        + (["lc_signal", "lc_receive"] if lc else [])
+    points = [(m, n) for m, n in _patch_points() if n in names]
+    orig = {(m, n): getattr(m, n) for m, n in points}
+    calls = {}
+
+    def rec(m, n):
+        def fn(*a, **k):
+            if n in every or k.get("tpl") is not None:
+                calls.setdefault(n, []).append(clone((a, k)))
+            return orig[(m, n)](*a, **k)
+        return fn
+
+    try:
+        for m, n in points:
+            setattr(m, n, rec(m, n))
+        st, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg, state,
+                                                sim.q)
+        ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, st, mid)
+        torch.cuda.synchronize()
+    finally:
+        for (m, n), f in orig.items():
+            setattr(m, n, f)
+    return calls
+
+
+def tpl_work(n, a, k):
+    """Bytes and operations of one call in a template mode (or of T1),
+    from its arguments: the mode's work plus its template indices and
+    table."""
+    import torch
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    if n == "tpl_params":
+        tpl, table, cols = a
+        return nb(tpl, table) + 4 * len(cols) * tpl.numel(), 0
+    if n == "cross_caps":
+        return cross_caps_work(a[0], a[5], a[7], per_row_extra=4)
+    if n == "car_follow":
+        nbytes, nops = lc_work("car_follow", a, {})
+        elems = int(torch.tensor(a[2]).prod())
+        # lc_work counts a v_yield input; the template indices (self, and
+        # the leader's with min_chain)
+        return (nbytes - 4 * elems * ("v_yield" not in k)
+                + 4 * elems * (1 + (a[0] & 2 > 0))), nops
+    if n == "lc_signal":
+        nbytes, nops = lc_work("lc_signal", a, k)
+        return nbytes + nb(k["tpl"], k["olt_len"]), nops
+    if n == "lc_receive":
+        nbytes, nops = lc_work("lc_receive", a, k)
+        return nbytes + nb(k["tpl"]), nops
+    raise KeyError(n)
+
+
+def check_tpl_kernels(sim, state, reps, lc):
+    """T1 and the template modes against their plain versions on every
+    recorded call of one more step of a template path (T1, K2, L1, K4 and
+    L3 exact; K3 and L2 within 1e-5, their not-bitwise counts printed).
+    Rows: without lane change T1, K2@tpl and K3@tpl; with it L1@tpl,
+    L2@tpl and K3@tpl+lc. Each is timed on its largest call (K3 at the
+    lane rows, with v_yield on the lane-change path), T1 beside the
+    library gather table[:, cols][tpl]."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    calls = record_tpl_calls(sim, state, lc)
+    tol = {"car_follow": 1e-5, "lc_receive": 1e-5}
+    checked = ("tpl_params", "cross_caps", "car_follow") \
+        + (("lc_signal", "lc_receive", "ring_commit", "lc_insert")
+           if lc else ())
+    timed = ("lc_signal", "lc_receive", "car_follow") if lc else \
+        ("tpl_params", "cross_caps", "car_follow")
+    rows = []
+    for n in checked:
+        assert calls.get(n), f"{n}: no template-path call recorded"
+        mod = kernels.MODULES[n]
+        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        err, nbit = 0.0, 0
+        for a, k in calls[n]:
+            e, nb_ = _compare(n, kern(*a, **k), plain(*a, **k),
+                              tol.get(n, 0.0))
+            err, nbit = max(err, e), nbit + nb_
+        label = n if n in ("tpl_params", "ring_commit", "lc_insert") \
+            else n + "@tpl"
+        yld = sum("v_yield" in k for _, k in calls[n])
+        log(f"[kernels] {label} on the {'mixed-lc' if lc else 'mixed'} "
+            f"step: {len(calls[n])} calls checked ({yld} with v_yield), "
+            f"max_abs_err={err} not_bitwise={nbit}")
+        if n not in timed:
+            continue
+        if n == "car_follow":
+            assert not lc or yld, "car_follow: no template-mode v_yield call"
+            a, k = next(c for c in calls[n] if len(c[0][2]) == 3
+                        and ("v_yield" in c[1]) == lc)
+            label += "+lc" if lc else ""
+        else:
+            a, k = max(calls[n], key=lambda c: c[0][0].numel())
+        ms = time_cuda(lambda: kern(*a, **k), reps)
+        plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        lib = None
+        if n == "tpl_params":
+            tpl, table, cols = a
+            tc, ti = table[:, list(cols)], tpl.long()
+            lib = time_cuda(lambda: tc[ti], reps)
+            log(f"[kernels] tpl_params timed at {tuple(tpl.shape)} x "
+                f"{len(cols)} columns")
+        nbytes, nops = tpl_work(n, a, k)
+        rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, lib))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1536,7 +1735,7 @@ def main():
                     log(f"[build] {line.strip()}")
 
     t0 = time.time()
-    from cityflow_tpu_torch.tools.scenario import prepare
+    from cityflow_tpu_torch.tools.scenario import mixed_templates, prepare
     cfg_path = prepare(os.path.join(HERE, "benchmarks", "config_30x30.json"))
     from cityflow_tpu_torch import ring_sim
     from cityflow_tpu_torch.compiler.net import compile_scenario
@@ -1569,8 +1768,38 @@ def main():
     del lc_sim, lc_state
     torch.cuda.empty_cache()
 
-    # the RL control path (fixtures staged like the lane-change one)
+    # non-uniform vehicle templates: the three vehicles of the mixed
+    # fixture over the 30x30 flows, with and without lane change
     fix = os.path.join(HERE, "tests", "fixtures")
+    templates = mixed_templates(os.path.join(fix, "flow_2x2_mixed.json"))
+    check_agreement(compile_scenario(prepare(os.path.join(
+        fix, "config_2x2_mixed.json"))), AGREE_MIXED_STEPS,
+        tag="agree-mixed", skc=99)
+    mixed_cfg = prepare(os.path.join(HERE, "benchmarks", "config_30x30.json"),
+                        name="config_30x30_mixed", templates=templates)
+    mixed_launches, mixed_res, m_sim, m_state = run_path(
+        "mixed", mixed_cfg, BATCH, WARMUP, STEPS, MAIN_KERNELS + TPL_MODES,
+        lane_slots=0)
+    log(f"[mixed] {json.dumps(mixed_res)}")
+    rows += check_tpl_kernels(m_sim, m_state, REPS, lc=False)
+    del m_sim, m_state
+    torch.cuda.empty_cache()
+    check_agreement(compile_scenario(prepare(os.path.join(
+        fix, "config_1x1s_mixed_lc.json"))), AGREE_LC_STEPS,
+        tag="agree-mixed-lc", sl=12, sk=6, skc=99)
+    mlc_cfg = prepare(os.path.join(HERE, "benchmarks",
+                                   "config_30x30_lc.json"),
+                      name="config_30x30_lc_mixed", templates=templates)
+    mlc_launches, mlc_res, ml_sim, ml_state = run_path(
+        "mixed-lc", mlc_cfg, BATCH, LC_WARMUP, STEPS,
+        MAIN_KERNELS + LC_KERNELS + LC_MODES + TPL_MODES + TPL_LC_MODES,
+        lane_slots=0)
+    log(f"[mixed-lc] {json.dumps(mlc_res)}")
+    rows += check_tpl_kernels(ml_sim, ml_state, REPS, lc=True)
+    del ml_sim, ml_state
+    torch.cuda.empty_cache()
+
+    # the RL control path (fixtures staged like the lane-change one)
     check_agreement_rl(prepare(os.path.join(fix, "config_4x4_rl.json")),
                        AGREE_RL_STEPS)
     from cityflow_tpu_torch import kernels
@@ -1602,7 +1831,11 @@ def main():
                "phase_pressure@features": dqn_launches}
     for r in rows:
         name = r["name"]
-        if name in path_of:
+        if name in TPL_MODES:
+            r["launches"] = mixed_launches[name]
+        elif name in TPL_LC_MODES:
+            r["launches"] = mlc_launches[name]
+        elif name in path_of:
             r["launches"] = path_of[name][name]
         elif name in GEN1_KERNELS:
             r["launches"] = gen1_launches[name]

@@ -1,5 +1,8 @@
 """Lane change in the gen-2 ring layout, PyTorch port of the JAX package's
-core/ring_lc.py (uniform vehicle templates).
+core/ring_lc.py, with uniform or non-uniform vehicle templates (the rows'
+parameters from their template index: T1 in refresh_gaps, L1's and L2's
+template modes in lc_phase, and L3 copies a real's template to its
+shadow).
 
 The reference's signal/shadow protocol (src/vehicle/lanechange.{h,cpp},
 engine.cpp:792-820) over per-lane ring slots, with the JAX version's
@@ -30,6 +33,7 @@ from cityflow_tpu_torch.kernels.lc_insert import lc_insert
 from cityflow_tpu_torch.kernels.lc_partner import lc_partner
 from cityflow_tpu_torch.kernels.lc_receive import lc_receive
 from cityflow_tpu_torch.kernels.lc_signal import lc_signal
+from cityflow_tpu_torch.kernels.tpl_params import tpl_params
 
 # lane ring leaves handed to L3, by its channel names
 _INSERT_LEAVES = {
@@ -44,16 +48,30 @@ _INSERT_LEAVES = {
 def refresh_gaps(net, cfg, rs, fx):
     """End-of-previous-step Vehicle::updateLeaderAndGap values
     (engine.cpp:581): a fresh gap where a leader exists within the scan
-    bound, the previous (stale) value otherwise. fx = ring.lc_front_ctx."""
+    bound, the previous (stale) value otherwise. fx = ring.lc_front_ctx.
+    Non-uniform templates: the leader's length, my maxSpeed and
+    usualNegAcc for the bound (JAX ring_lc.py:119-131)."""
     p = cfg.params
-    p_len = p[P_LEN]
-    bound = leader_scan_bound(p[P_MAXSPEED], p[P_USUALNEGACC], cfg.interval)
     LNp, B = rs.n_l.shape
     LKp = rs.n_k.shape[0]
     dev = rs.n_l.device
+    if cfg.uniform:
+        lead_len = klead_len = etl0 = k_etl = p[P_LEN]
+        bound = leader_scan_bound(p[P_MAXSPEED], p[P_USUALNEGACC],
+                                  cfg.interval)
+    else:
+        tp = net["tpl_params"]
+        len_l, ms_l, una_l = tpl_params(
+            rs.l_tpl, tp, (P_LEN, P_MAXSPEED, P_USUALNEGACC))
+        len_k = tpl_params(rs.k_tpl, tp, (P_LEN,))[0]
+        # the leader of slot s is slot s - 1
+        lead_len = shift_in(torch.zeros((1, LNp, B), device=dev), len_l)
+        klead_len = shift_in(torch.zeros((1, LKp, B), device=dev), len_k)
+        etl0, k_etl = fx["etl"], fx["k_etl"]
+        bound = leader_scan_bound(ms_l[0], una_l[0], cfg.interval)
     # lanes: slots > 0 always have the slot above as leader
     lead_dis = shift_in(torch.full((1, LNp, B), 1e9, device=dev), rs.l_dis)
-    fresh_mid = lead_dis - p_len - rs.l_dis
+    fresh_mid = lead_dis - lead_len - rs.l_dis
     lane_left0 = net["ln_len"][:, None] - rs.l_dis[0]
     # fronts: hop 1 = all out-link ring tails of my lane (strict-min), hop
     # 2 = my next link's end-lane tail, only within the scan bound
@@ -62,14 +80,14 @@ def refresh_gaps(net, cfg, rs, fx):
     g1 = lane_left0 + fx["best_val"]
     fresh2 = has_next & ~fx["best_ex"] & fx["ete"] \
         & (lane_left0 + fx["nlen"] <= bound)
-    g2 = lane_left0 + fx["nlen"] + fx["etd"] - p_len
+    g2 = lane_left0 + fx["nlen"] + fx["etd"] - etl0
     gap0 = torch.where(fresh1, g1, torch.where(fresh2, g2, rs.l_gap[0]))
     new_l_gap = torch.cat([gap0[None], fresh_mid[1:]])
     # links: slots > 0 fresh; the front fresh iff the end-lane tail exists
     klead = shift_in(torch.full((1, LKp, B), 1e9, device=dev), rs.k_dis)
-    kfresh = klead - p_len - rs.k_dis
+    kfresh = klead - klead_len - rs.k_dis
     kgap0 = torch.where(fx["k_ete"], (net["lk_len"][:, None] - rs.k_dis[0])
-                        + fx["k_etd"] - p_len, rs.k_gap[0])
+                        + fx["k_etd"] - k_etl, rs.k_gap[0])
     new_k_gap = torch.cat([kgap0[None], kfresh[1:]])
     return rs.replace_fields(l_gap=new_l_gap, k_gap=new_k_gap)
 
@@ -82,14 +100,18 @@ def lc_phase(net, cfg, rs, fx):
     yield speed rides in rs.l_yv (100 = no-op), moved with the inserts."""
     p = cfg.params
     now = rs.step.to(torch.float32) * net["ring_f32"][len(p)]
+    tm = {} if cfg.uniform else dict(tpl=rs.l_tpl, table=net["tpl_params"])
     plan, hsig, gval, dirc, tl_slot, ygap = lc_signal(
         rs.l_dis, rs.l_speed, rs.n_l, rs.l_sh, rs.l_chg, rs.l_dir, rs.l_gap,
         rs.l_last, rs.l_rnrow, fx["olt_dis"], fx["olt_ex"], now, net,
-        (p[P_LEN], p[P_MAXNEGACC], p[P_MAXSPEED], cfg.interval))
+        (p[P_LEN], p[P_MAXNEGACC], p[P_MAXSPEED], cfg.interval),
+        **({} if cfg.uniform else dict(tm, olt_len=fx["olt_len"])))
     yv, do_change = lc_receive(plan, dirc, tl_slot, ygap, hsig, gval,
                                rs.l_speed, rs.l_pri, rs.n_l, rs.l_chg, net,
-                               (p[P_MAXNEGACC], cfg.interval))
+                               (p[P_MAXNEGACC], cfg.interval), **tm)
     ch = {k: getattr(rs, v) for k, v in _INSERT_LEAVES.items()}
+    if not cfg.uniform:
+        ch["tpl"] = rs.l_tpl                 # a shadow copies its template
     out, n_l, ovl = lc_insert(ch, do_change, dirc, yv, rs.n_l, net, cfg.LCI)
     M = cfg.MAXLPR
     ov = (ovl & 1).amax(0).to(torch.int32) | ((ovl & 2).amax(0)
@@ -99,7 +121,8 @@ def lc_phase(net, cfg, rs, fx):
         l_rnrow=torch.stack([out[f"rn{c}"] for c in range(M)]),
         l_auxrow=torch.stack([out[f"ax{c}"] for c in range(M)]),
         **{v: out[k] for k, v in _INSERT_LEAVES.items()
-           if k not in ("rnrow", "auxrow")})
+           if k not in ("rnrow", "auxrow")},
+        **({} if cfg.uniform else dict(l_tpl=out["tpl"])))
     return rs, ov
 
 

@@ -35,6 +35,14 @@ __device__ __forceinline__ float tmax(float a, float b) {
   return (a < b) ? b : a;
 }
 
+// The reference's std::min(a, b), (b < a) ? b : a: a NaN in b leaves a.
+// The speed chain's `v = min(v, getStopBeforeSpeed(...))` (vehicle.cpp
+// getIntersectionRelatedSpeed) meets 0 / 0 = NaN there for a stopped
+// vehicle with no distance left; the reference keeps v.
+__device__ __forceinline__ float ref_min(float a, float b) {
+  return (b < a) ? b : a;
+}
+
 // ---- speed model (reference vehicle.cpp; core/step.py of the port) ------
 
 // vehicle.cpp:200-209

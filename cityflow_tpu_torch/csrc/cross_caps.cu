@@ -7,6 +7,12 @@
 // (R, KC, ...) intermediates never reach device memory and the any-fail /
 // first-fail reductions are register loops.
 //
+// The template mode (non-uniform vehicle templates, :942-954) reads each
+// row's template index `tpl` and takes the subject's maxNegAcc, yield
+// distance, length, turn speed, max speed and usualPosAcc from the (TP, 12)
+// table (an index outside [0, TP) reads zeros, like the JAX one-hot
+// einsum); its own instantiation, the uniform one unchanged.
+//
 // Bound: bytes. Per output it reads 5 row floats + the relevant flag and,
 // per cross, 9 foe channels (36 bytes) plus the cross tables; the decision
 // tree is ~60 float and integer operations per cross, far below the card's
@@ -33,8 +39,21 @@ struct CrossCapsArgs {
   long long R, KC, LK, B;
   float ent_val;
   float maxneg, yld, len, turnspd, maxspd, upa, dt;
+  const int* tpl;          // template mode: (R, LK, B), else null
+  const float* table;      //   (TP, 12)
+  int TP;
 };
 
+// parameter columns of the template table (compiler/net.py P_*)
+enum { P_LEN = 1, P_MAXNEGACC = 4, P_USUALPOSACC = 5, P_MAXSPEED = 8,
+       P_YIELD = 10, P_TURNSPEED = 11, P_N = 12 };
+
+__device__ __forceinline__ float tparam(const CrossCapsArgs& a, int t,
+                                        int col) {
+  return (t >= 0 && t < a.TP) ? __ldg(&a.table[t * P_N + col]) : 0.0f;
+}
+
+template <bool TPL>
 __global__ void cross_caps_kernel(const CrossCapsArgs a) {
   long long total = a.R * a.LK * a.B;
   long long chs = a.KC * a.LK * a.B;  // foe channel stride
@@ -48,8 +67,19 @@ __global__ void cross_caps_kernel(const CrossCapsArgs a) {
     float ph = a.ph[e];
     float plo = a.plo[e];
     bool relevant = a.relevant[e] != 0;
+    float maxneg = a.maxneg, yld = a.yld, len = a.len, turnspd = a.turnspd;
+    float maxspd = a.maxspd, upa = a.upa;
+    if (TPL) {
+      int t = a.tpl[e];
+      maxneg = tparam(a, t, P_MAXNEGACC);
+      yld = tparam(a, t, P_YIELD);
+      len = tparam(a, t, P_LEN);
+      turnspd = tparam(a, t, P_TURNSPEED);
+      maxspd = tparam(a, t, P_MAXSPEED);
+      upa = tparam(a, t, P_USUALPOSACC);
+    }
     int t1 = a.t1[col];
-    float target = a.turn[col] ? a.turnspd : a.maxspd;
+    float target = a.turn[col] ? turnspd : maxspd;
     bool any = false;
     float ffd = INFINITY;
     int ffo = -1;
@@ -69,8 +99,8 @@ __global__ void cross_caps_kernel(const CrossCapsArgs a) {
       float fent = a.foe[6 * chs + fo];
       float fph = a.foe[7 * chs + fo];
       float fplo = a.foe[8 * chs + fo];
-      bool self_yield = can_yield(speed, a.maxneg, a.yld, a.len, d1);
-      int sri = reach_steps(speed, d1, target, a.upa, a.dt);
+      bool self_yield = can_yield(speed, maxneg, yld, len, d1);
+      int sri = reach_steps(speed, d1, target, upa, a.dt);
       float sr = (float)(sri < 255 ? sri : 255);
       bool pri_win = (ph > fph) || ((ph == fph) && (plo > fplo));
       int same_rank_y =
@@ -112,7 +142,12 @@ extern "C" int cross_caps(const CrossCapsArgs* args, void* stream) {
   int threads = 128;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  cross_caps_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      *args);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (args->tpl) {
+    if (!args->table || args->TP < 1) return -1;
+    cross_caps_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(*args);
+  } else {
+    cross_caps_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(*args);
+  }
   return (int)cudaGetLastError();
 }

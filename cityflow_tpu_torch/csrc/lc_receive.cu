@@ -11,6 +11,12 @@
 // `better = cand & (~got | _pri_gt(...))`. The (hi, lo) priority halves of
 // the JAX exchange compare like the signed priority itself.
 //
+// The template mode (non-uniform vehicle templates, ring_lc.py:322-361)
+// is its own instantiation: the kept sender's maxNegAcc and the receiver's
+// come from their templates (the ring's `tpl` channel and the (TP, 12)
+// table) in noCollisionSpeed(srcSpeed, source maxNegAcc, mySpeed, my
+// maxNegAcc).
+//
 // Bound: bytes. The receiver's own row and 2 * SL sender rows (about 20
 // bytes each, shared by the SL receivers of a column through L1/L2); one
 // noCollisionSpeed per receiver, IEEE sqrt and division as in the plain
@@ -34,8 +40,20 @@ struct LcReceiveArgs {
   uint8_t* do_change;
   long long S, N, B;
   float neg, dt;
+  const int* tpl;         // template mode: (S, N, B), else null
+  const float* table;     //   (TP, 12)
+  int TP;
 };
 
+#define P_MAXNEGACC 4
+#define P_N 12
+
+__device__ __forceinline__ float tneg(const LcReceiveArgs& a, int t) {
+  return (t >= 0 && t < a.TP) ? __ldg(&a.table[t * P_N + P_MAXNEGACC])
+                              : 0.0f;
+}
+
+template <bool TPL>
 __global__ void lc_receive_kernel(const LcReceiveArgs a) {
   long long total = a.S * a.N * a.B;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -46,6 +64,7 @@ __global__ void lc_receive_kernel(const LcReceiveArgs a) {
     bool got = false, role_f = false;
     int best_pri = 0;
     float best_spd = 0.0f, best_gap = 0.0f;
+    float best_sneg = 1.0f;     // the kept sender's maxNegAcc
     for (int side = 0; side < 2; ++side) {
       int q = side == 0 ? a.inner[p] : a.outer[p];
       int want = side == 0 ? 1 : -1;
@@ -62,6 +81,7 @@ __global__ void lc_receive_kernel(const LcReceiveArgs a) {
           role_f = as_f && !as_l;
           best_spd = a.speed[f];
           best_gap = a.ygap[f];
+          if (TPL) best_sneg = tneg(a, a.tpl[f]);
         }
         got = true;
       }
@@ -69,8 +89,11 @@ __global__ void lc_receive_kernel(const LcReceiveArgs a) {
     bool occ = s < a.n_l[p * a.B + b];
     bool chv = a.chg[e], hs = a.hsig[e];
     bool received = occ && !chv && got && !(hs && !(best_pri > a.pri[e]));
-    float vy = no_collision_speed(best_spd, a.neg, a.speed[e], a.neg,
-                                  best_gap, a.dt, 0.0f);
+    float vy = TPL ? no_collision_speed(best_spd, best_sneg, a.speed[e],
+                                        tneg(a, a.tpl[e]), best_gap, a.dt,
+                                        0.0f)
+                   : no_collision_speed(best_spd, a.neg, a.speed[e], a.neg,
+                                        best_gap, a.dt, 0.0f);
     if (vy < 0.0f) vy = 100.0f;
     a.yv[e] = (received && role_f) ? vy : 100.0f;
     a.do_change[e] = a.plan[e] && hs && !received && !chv && a.gval[e] &&
@@ -84,7 +107,12 @@ extern "C" int lc_receive(const LcReceiveArgs* args, void* stream) {
   int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  lc_receive_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      *args);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (args->tpl) {
+    if (!args->table || args->TP < 1) return -1;
+    lc_receive_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(*args);
+  } else {
+    lc_receive_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(*args);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,15 @@
 // (ln_inner / ln_outer), counts its rank there and reads the leader and
 // follower slot directly.
 //
+// The template mode (non-uniform vehicle templates, ring_lc.py:173-311) is
+// its own instantiation (TPL = true): each row's own length, maxNegAcc and
+// maxSpeed come from its template (the ring's `tpl` channel and the
+// (TP, 12) table), the target leader's length and the target follower's
+// maxNegAcc from theirs, read at the neighbour slot, and each out-link
+// tail candidate subtracts its own length (`olt_len`). The thresholds are
+// float32 arithmetic on those parameters, as JAX computes them there:
+// expected = 2 len + f32(4 interval) maxSpeed, 1.5 len.
+//
 // Bound: bytes. Each thread reads its own row (about 30 bytes), the
 // neighbour rings' dis (both sides) and its route rows; the neighbour reads
 // are shared by the SL threads of a column and hit L1/L2. No float work to
@@ -44,16 +53,32 @@ struct LcSignalArgs {
   long long S, N, B;
   int M, KOUT;
   float len, neg, expected, len15, cooling;
+  const int* tpl;        // template mode: (S, N, B) template index, else null
+  const float* table;    //   (TP, 12)
+  const float* olt_len;  //   (KOUT, N, B) out-link tail lengths
+  int TP;
+  float interval4;       //   f32(4 * interval)
 };
+
+// parameter columns of the template table (compiler/net.py P_*)
+enum { P_LEN = 1, P_MAXNEGACC = 4, P_MAXSPEED = 8, P_N = 12 };
+
+__device__ __forceinline__ float tparam(const LcSignalArgs& a, int t,
+                                        int col) {
+  return (t >= 0 && t < a.TP) ? __ldg(&a.table[t * P_N + col]) : 0.0f;
+}
 
 struct Nb {
   int cnt;
   bool lead_ex, foll_ex;
   float lead_dis, foll_dis, foll_spd;
+  float lead_len, foll_neg;   // template mode: the leader's length, the
+                              // follower's maxNegAcc (0 without one)
 };
 
 // leader (slot cnt - 1) and follower (slot cnt) of distance d in column q:
 // cnt = #{occupied t: dis[t] >= d}
+template <bool TPL>
 __device__ __forceinline__ Nb probe(const LcSignalArgs& a, int q,
                                     long long b, float d) {
   Nb r;
@@ -61,6 +86,8 @@ __device__ __forceinline__ Nb probe(const LcSignalArgs& a, int q,
   r.lead_dis = 0.0f;
   r.foll_dis = 0.0f;
   r.foll_spd = 0.0f;
+  r.lead_len = 0.0f;
+  r.foll_neg = 0.0f;
   int nn = 0;
   if (q >= 0) {
     nn = a.n_l[q * a.B + b];
@@ -69,11 +96,16 @@ __device__ __forceinline__ Nb probe(const LcSignalArgs& a, int q,
   }
   r.lead_ex = r.cnt > 0;
   r.foll_ex = r.cnt < nn;
-  if (r.lead_ex) r.lead_dis = a.dis[((r.cnt - 1) * a.N + q) * a.B + b];
+  if (r.lead_ex) {
+    long long l = ((r.cnt - 1) * a.N + q) * a.B + b;
+    r.lead_dis = a.dis[l];
+    if (TPL) r.lead_len = tparam(a, a.tpl[l], P_LEN);
+  }
   if (r.foll_ex) {
     long long f = (r.cnt * a.N + q) * a.B + b;
     r.foll_dis = a.dis[f];
     r.foll_spd = a.speed[f];
+    if (TPL) r.foll_neg = tparam(a, a.tpl[f], P_MAXNEGACC);
   }
   return r;
 }
@@ -86,6 +118,7 @@ __device__ __forceinline__ int route_row(const LcSignalArgs& a, int lo,
   return a.rnrow[((lo * a.S + s) * a.N + p) * a.B + b];
 }
 
+template <bool TPL>
 __global__ void lc_signal_kernel(const LcSignalArgs a) {
   long long total = a.S * a.N * a.B;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -99,15 +132,24 @@ __global__ void lc_signal_kernel(const LcSignalArgs a) {
     bool shv = a.sh[e], chv = a.chg[e];
     float lane_left = a.ln_len[p] - d;
     int qo = a.outer[p], qi = a.inner[p];
-    Nb no = probe(a, qo, b, d);
-    Nb ni = probe(a, qi, b, d);
+    Nb no = probe<TPL>(a, qo, b, d);
+    Nb ni = probe<TPL>(a, qi, b, d);
+    // my own parameters and thresholds
+    float len = a.len, neg = a.neg, expected = a.expected, len15 = a.len15;
+    if (TPL) {
+      int t = a.tpl[e];
+      len = tparam(a, t, P_LEN);
+      neg = tparam(a, t, P_MAXNEGACC);
+      expected = 2.0f * len + a.interval4 * tparam(a, t, P_MAXSPEED);
+      len15 = 1.5f * len;
+    }
 
     // makeSignal (lanechange.cpp:151-184)
     bool mk = occ && !shv && !chv && (a.now[b] >= a.cooling);
     bool hs = mk || (occ && !shv && chv);
     float cur = a.gap[e];
-    bool want = mk && (lane_left >= 30.0f) && !(cur > a.expected) &&
-                !(cur < a.len15);
+    bool want = mk && (lane_left >= 30.0f) && !(cur > expected) &&
+                !(cur < len15);
     int lo = a.llocal[p];
     bool lastv = a.last[e];
     bool reach_out = lastv || route_row(a, lo + 1, s, p, b) >= 0;
@@ -115,12 +157,15 @@ __global__ void lc_signal_kernel(const LcSignalArgs a) {
     float len_out = qo >= 0 ? a.ln_len[qo] : 0.0f;
     float len_in = qi >= 0 ? a.ln_len[qi] : 0.0f;
     bool outer_ok = want && qo >= 0 && reach_out;
-    float est_o = no.lead_ex ? (no.lead_dis - d) - a.len : len_out - d;
+    // estimateGap (lanechange.cpp:215-220): the leader's length
+    float est_o = no.lead_ex ? (no.lead_dis - d) - (TPL ? no.lead_len : len)
+                             : len_out - d;
     float outer_est = outer_ok ? est_o : 0.0f;
-    int dir_new = (outer_ok && outer_est > cur + a.len) ? 1 : 0;
+    int dir_new = (outer_ok && outer_est > cur + len) ? 1 : 0;
     bool inner_ok = want && qi >= 0 && reach_in;
-    float inner_est = ni.lead_ex ? (ni.lead_dis - d) - a.len : len_in - d;
-    if (inner_ok && inner_est > cur + a.len && inner_est > outer_est)
+    float inner_est = ni.lead_ex
+        ? (ni.lead_dis - d) - (TPL ? ni.lead_len : len) : len_in - d;
+    if (inner_ok && inner_est > cur + len && inner_est > outer_est)
       dir_new = -1;
     int dc = chv ? a.dir[e] : dir_new;
     bool pl = occ && !shv && ((hs && dc != 0) || chv);
@@ -129,7 +174,8 @@ __global__ void lc_signal_kernel(const LcSignalArgs a) {
     bool up = dc > 0;
     const Nb& T = up ? no : ni;
     int q = up ? qo : qi;
-    float lgap = T.lead_ex ? (T.lead_dis - d) - a.len : lane_left;
+    float lgap = T.lead_ex ? (T.lead_dis - d) - (TPL ? T.lead_len : len)
+                           : lane_left;
     if (!T.lead_ex) {
       // the target lane's out-link ring tails, running strict-min
       float best = INFINITY;
@@ -137,15 +183,19 @@ __global__ void lc_signal_kernel(const LcSignalArgs a) {
         long long o = (k * a.N + (q >= 0 ? q : 0)) * a.B + b;
         float c_dis = q >= 0 ? a.olt_dis[o] : 0.0f;
         bool c_ex = q >= 0 && a.olt_ex[o];
+        // each candidate's own length (vehicle.cpp:174)
+        float c_len = TPL ? (q >= 0 ? a.olt_len[o] : 0.0f) : len;
         float cgap = c_dis + lane_left;
         bool better = c_ex && (cgap < best);
-        if (better && cgap < a.len) lgap = lane_left - (a.len - cgap);
+        if (better && cgap < c_len) lgap = lane_left - (c_len - cgap);
         if (better) best = cgap;
       }
     }
-    float fgap = T.foll_ex ? (d - T.foll_dis) - a.len : INFINITY;
-    float min_brake = 0.5f * v * v / a.neg;
-    float safe = T.foll_ex ? 0.5f * T.foll_spd * T.foll_spd / a.neg : 0.0f;
+    float fgap = T.foll_ex ? (d - T.foll_dis) - len : INFINITY;
+    float min_brake = 0.5f * v * v / neg;
+    // safeGapBefore: the follower's minBrake
+    float safe = T.foll_ex
+        ? 0.5f * T.foll_spd * T.foll_spd / (TPL ? T.foll_neg : neg) : 0.0f;
 
     a.plan[e] = pl;
     a.hsig[e] = hs;
@@ -162,7 +212,12 @@ extern "C" int lc_signal(const LcSignalArgs* args, void* stream) {
   int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  lc_signal_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      *args);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (args->tpl) {
+    if (!args->table || !args->olt_len || args->TP < 1) return -1;
+    lc_signal_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(*args);
+  } else {
+    lc_signal_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(*args);
+  }
   return (int)cudaGetLastError();
 }

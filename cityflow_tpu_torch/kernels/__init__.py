@@ -18,6 +18,12 @@ counter:
   G2 leader_scan     gen-1 leader scan past the drivable's end
   G3 notify_cross    gen-1 cross notifiers and their canPass terms
   G4 cross_pass      gen-1 cross loop of getAction (canPass, first fail)
+  T1 tpl_params      vehicle template index -> template parameters
+
+K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
+each row's parameters read from its template index and the table inside
+the kernel), counted apart as <name>@tpl; K3's calls in both its template
+and lane-change modes also as car_follow@tpl+lc.
 
 A wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors; the library is built at first use (kernels/_lib.py).
@@ -26,7 +32,7 @@ tensors; the library is built at first use (kernels/_lib.py).
 from cityflow_tpu_torch.kernels import (
     arrange, car_follow, cross_caps, cross_pass, gather_rows, lane_stats,
     lc_insert, lc_partner, lc_receive, lc_signal, leader_scan, notify_cross,
-    phase_pressure, ring_commit)
+    phase_pressure, ring_commit, tpl_params)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -34,7 +40,8 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "lc_insert": lc_insert, "lc_partner": lc_partner,
            "lane_stats": lane_stats, "phase_pressure": phase_pressure,
            "arrange": arrange, "leader_scan": leader_scan,
-           "notify_cross": notify_cross, "cross_pass": cross_pass}
+           "notify_cross": notify_cross, "cross_pass": cross_pass,
+           "tpl_params": tpl_params}
 
 
 # modes of a kernel counted apart as well (module, counter)
@@ -42,7 +49,12 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "ring_commit@lc": (ring_commit, "launches_lc"),
          "lane_stats@hist": (lane_stats, "launches_hist"),
          "lane_stats@obs": (lane_stats, "launches_obs"),
-         "phase_pressure@features": (phase_pressure, "launches_features")}
+         "phase_pressure@features": (phase_pressure, "launches_features"),
+         "cross_caps@tpl": (cross_caps, "launches_tpl"),
+         "car_follow@tpl": (car_follow, "launches_tpl"),
+         "car_follow@tpl+lc": (car_follow, "launches_tpl_lc"),
+         "lc_signal@tpl": (lc_signal, "launches_tpl"),
+         "lc_receive@tpl": (lc_receive, "launches_tpl")}
 
 
 def reset_launches():

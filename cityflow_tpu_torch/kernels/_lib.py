@@ -101,7 +101,7 @@ def lib():
         for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",
                      "lc_receive", "lc_insert", "lc_partner", "lane_stats",
                      "phase_pressure", "arrange", "leader_scan",
-                     "notify_cross", "cross_pass"):
+                     "notify_cross", "cross_pass", "tpl_params"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int

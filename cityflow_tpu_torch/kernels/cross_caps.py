@@ -9,6 +9,11 @@ and low half. Returns any_fail (bool), the first failing cross's distance
 ff_d (+inf if none) and its foe lpi ff_foe (-1 if none). Parameters are
 the subject's maxNegAcc, yield distance, length, turn speed, max speed,
 usualPosAcc and the step interval, as Python floats.
+
+The template mode (non-uniform vehicle templates; JAX ring.py:942-954)
+takes `tpl`, the (R, LK, B) int32 template index of each row, and the
+(TP, 12) table `table`: the subject's parameters come from its template;
+of `prm` only the interval is read. Its own instantiation.
 """
 
 import ctypes
@@ -16,9 +21,15 @@ import ctypes
 import torch
 
 from cityflow_tpu_torch.core.step import can_yield, reach_steps
+from cityflow_tpu_torch.compiler.net import (
+    P_LEN, P_MAXNEGACC, P_MAXSPEED, P_TURNSPEED, P_USUALPOSACC, P_YIELD)
 from cityflow_tpu_torch.kernels import _lib
+from cityflow_tpu_torch.kernels.tpl_params import tpl_params_plain
 
 launches = 0
+launches_tpl = 0        # of those, in the template mode
+TPL_COLS = (P_MAXNEGACC, P_YIELD, P_LEN, P_TURNSPEED, P_MAXSPEED,
+            P_USUALPOSACC)
 
 
 class _Args(ctypes.Structure):
@@ -28,20 +39,31 @@ class _Args(ctypes.Structure):
         + [(n, ctypes.c_longlong) for n in ("R", "KC", "LK", "B")]
         + [(n, ctypes.c_float) for n in (
             "ent_val", "maxneg", "yld", "len", "turnspd", "maxspd", "upa",
-            "dt")])
+            "dt")]
+        + [("tpl", ctypes.c_void_p), ("table", ctypes.c_void_p),
+           ("TP", ctypes.c_int)])
 
 
-def cross_caps_plain(dls, speed, ent, ph, plo, relevant, foe, tabs, prm):
+def cross_caps_plain(dls, speed, ent, ph, plo, relevant, foe, tabs, prm,
+                     tpl=None, table=None):
     """Plain PyTorch version, the JAX region's arithmetic over an explicit
     (R, KC, LK, B) slab. prm: maxneg, yld, len, turnspd, maxspd, upa, dt
-    (Python floats, used as float32 like JAX's f(p) constants)."""
+    (Python floats, used as float32 like JAX's f(p) constants); with `tpl`
+    the six parameters are the rows' templates' ((R, 1, LK, B) each)."""
     maxneg, yld, ln, turnspd, maxspd, upa, dt = (
         torch.tensor(float(v), dtype=torch.float32, device=dls.device)
         for v in prm)
     d = tabs["d"][None, :, :, None]                        # (1, KC, LK, 1)
     d1 = d - dls[:, None]                                  # (R, KC, LK, B)
+    if tpl is None:
+        target = torch.where(tabs["turn"], turnspd, maxspd)[
+            None, None, :, None]
+    else:
+        maxneg, yld, ln, turnspd, maxspd, upa = (
+            x[:, None] for x in tpl_params_plain(tpl, table, TPL_COLS))
+        target = torch.where(tabs["turn"][None, None, :, None], turnspd,
+                             maxspd)
     self_yield = can_yield(speed[:, None], maxneg, yld, ln, d1)
-    target = torch.where(tabs["turn"], turnspd, maxspd)[None, None, :, None]
     sr = torch.clamp_max(reach_steps(speed[:, None], d1, target, upa, dt),
                          255)
     f_exists, f_yield, f_cleared, f_cyc = (foe[i][None] > 0.5
@@ -82,10 +104,11 @@ def cross_caps_plain(dls, speed, ent, ph, plo, relevant, foe, tabs, prm):
     return any_fail, ff_d, ff_foe
 
 
-def cross_caps(dls, speed, ent, ph, plo, relevant, foe, tabs, prm):
+def cross_caps(dls, speed, ent, ph, plo, relevant, foe, tabs, prm,
+               tpl=None, table=None):
     """K2 on CUDA tensors, the plain version on CPU tensors. `ent` may be
     a Python float (every row has the same enter time)."""
-    global launches
+    global launches, launches_tpl
     R, LK, B = dls.shape
     KC = tabs["d"].shape[0]
     cpu = dls.device.type == "cpu"
@@ -110,17 +133,29 @@ def cross_caps(dls, speed, ent, ph, plo, relevant, foe, tabs, prm):
     if tuple(foe.shape) != (9, KC, LK, B):
         raise ValueError(f"cross_caps: foe {tuple(foe.shape)} != "
                          f"{(9, KC, LK, B)}")
+    if (tpl is None) != (table is None):
+        raise ValueError("cross_caps: the template mode takes tpl and table")
+    if tpl is not None:
+        _lib.check_args("cross_caps", tpl, table,
+                        dtypes=[(torch.int32,), (torch.float32,)],
+                        cuda=not cpu)
+        if tuple(tpl.shape) != (R, LK, B) or table.dim() != 2 \
+                or table.shape[1] != 12:
+            raise ValueError(f"cross_caps: tpl {tuple(tpl.shape)} / table "
+                             f"{tuple(table.shape)}")
     if cpu:
         return cross_caps_plain(dls, speed, ent, ph, plo, relevant, foe,
-                                tabs, prm)
+                                tabs, prm, tpl, table)
     any_fail = torch.empty((R, LK, B), dtype=torch.bool, device=dls.device)
     ff_d = torch.empty((R, LK, B), dtype=torch.float32, device=dls.device)
     ff_foe = torch.empty((R, LK, B), dtype=torch.int32, device=dls.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     a = _Args(*(ptr(t) for t in (*rows, *tb, foe, any_fail, ff_d, ff_foe)),
               R, KC, LK, B, 0.0 if ent_t is not None else float(ent),
-              *(float(p) for p in prm))
+              *(float(p) for p in prm), ptr(tpl), ptr(table),
+              0 if table is None else table.shape[0])
     rc = _lib.lib().cross_caps(ctypes.byref(a), _lib.stream_ptr(dls))
     _lib.check(rc, "cross_caps")
     launches += 1
+    launches_tpl += tpl is not None
     return any_fail, ff_d, ff_foe

@@ -68,10 +68,13 @@ class _Args(ctypes.Structure):
         + [("LCI", ctypes.c_int), ("M", ctypes.c_int)]
 
 
-def channel_spec(M):
-    """CHANNELS plus the route rows rn0..rn{M-1}, ax0..ax{M-1}."""
+def channel_spec(M, tpl=False):
+    """CHANNELS plus the route rows rn0..rn{M-1}, ax0..ax{M-1}, and with
+    non-uniform templates the template index (a shadow copies its
+    real's)."""
     return CHANNELS + tuple((f"{p}{c}", "i32", "same")
-                            for p in ("rn", "ax") for c in range(M))
+                            for p in ("rn", "ax") for c in range(M)) \
+        + ((("tpl", "i32", "same"),) if tpl else ())
 
 
 def _ring_of(ch, name):
@@ -140,7 +143,7 @@ def lc_insert_plain(ch, do_change, dirc, yv, n_l, tabs, LCI):
     sender = {"nxt": sh_nxt,
               "nxt3": torch.where(aux_t >= 0, (aux_t >> 1) - 2, -1).to(i32),
               "pri": SHBIT + ch["uid"], "dir": dirc}
-    spec = channel_spec(ch["rnrow"].shape[0])
+    spec = channel_spec(ch["rnrow"].shape[0], "tpl" in ch)
     cur = {name: {"chg": chg2, "dir": dir2, "yv": yv}.get(name)
            if name in ("chg", "dir", "yv") else _ring_of(ch, name)
            for name, _, _ in spec}
@@ -183,13 +186,14 @@ def lc_insert(ch, do_change, dirc, yv, n_l, tabs, LCI):
 
     ch: the lane ring channels by name (dis, speed, flow, route, rpos, nxt,
     nxt3, prev, enter, pri, uid, last, gap, dir, off, sh, chg, custom,
-    hascustom as (SL, LNp, B), rnrow / auxrow as (M, SL, LNp, B)); do_change
+    hascustom as (SL, LNp, B), rnrow / auxrow as (M, SL, LNp, B), and with
+    non-uniform templates tpl (SL, LNp, B) int32); do_change
     and dirc from L1 / L2, yv from L2. Returns ({name: new ring} for every
     channel of channel_spec(M), new n_l, overflow bits (LNp, B) uint8)."""
     global launches
     SL, N, B = ch["dis"].shape
     M = ch["rnrow"].shape[0]
-    spec = channel_spec(M)
+    spec = channel_spec(M, "tpl" in ch)
     if LCI > MAX_LCI or len(spec) > MAX_CH:
         raise ValueError("lc_insert: too many inserts or channels")
     cpu = n_l.device.type == "cpu"

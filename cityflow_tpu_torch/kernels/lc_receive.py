@@ -8,6 +8,11 @@ lane first, slots ascending, a tie keeps the first); only the follower role
 yields, at noCollisionSpeed(sender speed, maxNegAcc, my speed, maxNegAcc,
 sender's yield gap). Outputs yv (float32, 100 = no-op) and do_change
 (bool).
+
+The template mode (JAX ring_lc.py:322-361 under non-uniform templates)
+takes the ring's `tpl` channel and the (TP, 12) table: the kept sender's
+maxNegAcc and the receiver's come from their templates. Its own kernel
+instantiation.
 """
 
 import ctypes
@@ -15,10 +20,13 @@ import ctypes
 import torch
 
 from cityflow_tpu_torch.core.step import no_collision_speed
+from cityflow_tpu_torch.compiler.net import P_MAXNEGACC
 from cityflow_tpu_torch.kernels import _lib
 from cityflow_tpu_torch.kernels._nbr import nbcol, scalar
+from cityflow_tpu_torch.kernels.tpl_params import tpl_params_plain
 
 launches = 0
+launches_tpl = 0        # of those, in the template mode
 
 
 class _Args(ctypes.Structure):
@@ -26,14 +34,18 @@ class _Args(ctypes.Structure):
         "plan", "dirc", "tl_slot", "ygap", "hsig", "gval", "speed", "pri",
         "n_l", "chg", "inner", "outer", "yv", "do_change")] \
         + [(n, ctypes.c_longlong) for n in ("S", "N", "B")] \
-        + [("neg", ctypes.c_float), ("dt", ctypes.c_float)]
+        + [("neg", ctypes.c_float), ("dt", ctypes.c_float)] \
+        + [("tpl", ctypes.c_void_p), ("table", ctypes.c_void_p),
+           ("TP", ctypes.c_int)]
 
 
 def lc_receive_plain(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri,
-                     n_l, chg, tabs, prm):
+                     n_l, chg, tabs, prm, tpl=None, table=None):
     """Plain PyTorch version of ring_lc.lc_phase's sendSignal /
     receiveSignal and schedule (ring_lc.py:313-367)."""
     neg, dt = prm
+    neg_s = None if tpl is None else \
+        tpl_params_plain(tpl, table, (P_MAXNEGACC,))[0]
     SL = plan.shape[0]
     dev = plan.device
     my_slot = torch.arange(SL, dtype=torch.int32, device=dev)[:, None, None]
@@ -42,11 +54,13 @@ def lc_receive_plain(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri,
     role_f = torch.zeros_like(got)
     best_spd = torch.zeros(plan.shape, device=dev)
     best_gap = torch.zeros(plan.shape, device=dev)
+    best_sneg = torch.ones(plan.shape, device=dev)
     for src, want in ((tabs["inner_src"], 1), (tabs["outer_src"], -1)):
         s_pl, s_dir, s_tl = nbcol(plan, src), nbcol(dirc, src), \
             nbcol(tl_slot, src)
         s_pri, s_spd, s_gap = nbcol(pri, src), nbcol(speed, src), \
             nbcol(ygap, src)
+        s_neg = None if tpl is None else nbcol(neg_s, src)
         for t in range(SL):
             s_ok = s_pl[t] & (s_dir[t] == want)
             as_l = s_tl[t] == my_slot
@@ -57,12 +71,19 @@ def lc_receive_plain(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri,
             role_f = torch.where(better, as_f & ~as_l, role_f)
             best_spd = torch.where(better, s_spd[t], best_spd)
             best_gap = torch.where(better, s_gap[t], best_gap)
+            if tpl is not None:
+                best_sneg = torch.where(better, s_neg[t], best_sneg)
             got = got | cand
     occ = my_slot < n_l[None]
     received = occ & ~chg & got & ~(hsig & ~(best_pri > pri))
-    f_neg = scalar(neg, speed)
-    v_y = no_collision_speed(best_spd, f_neg, speed, f_neg, best_gap,
-                             scalar(dt, speed), scalar(0.0, speed))
+    if tpl is None:
+        f_neg = scalar(neg, speed)
+        v_y = no_collision_speed(best_spd, f_neg, speed, f_neg, best_gap,
+                                 scalar(dt, speed), scalar(0.0, speed))
+    else:
+        # noCollisionSpeed(srcSpeed, the source's maxNegAcc, mySpeed, mine)
+        v_y = no_collision_speed(best_spd, best_sneg, speed, neg_s, best_gap,
+                                 scalar(dt, speed), scalar(0.0, speed))
     v_y = torch.where(v_y < 0, 100.0, v_y)
     yv = torch.where(received & role_f, v_y, 100.0)
     do_change = plan & hsig & ~received & ~chg & gval & (dirc != 0)
@@ -70,10 +91,12 @@ def lc_receive_plain(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri,
 
 
 def lc_receive(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri, n_l, chg,
-               tabs, prm):
+               tabs, prm, tpl=None, table=None):
     """L2 on CUDA tensors, the plain version on CPU tensors. Rings
-    (SL, LNp, B) from L1 and the state; prm = (maxNegAcc, interval)."""
-    global launches
+    (SL, LNp, B) from L1 and the state; prm = (maxNegAcc, interval). The
+    template mode takes tpl (SL, LNp, B) int32 and the (TP, 12) table; of
+    prm only the interval is read."""
+    global launches, launches_tpl
     SL, N, B = plan.shape
     f32, i32, b8 = (torch.float32,), (torch.int32,), (torch.bool,)
     ins = (plan, dirc, tl_slot, ygap, hsig, gval, speed, pri, n_l, chg,
@@ -85,14 +108,25 @@ def lc_receive(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri, n_l, chg,
     for t in ins[:10]:
         if tuple(t.shape) != ((N, B) if t is n_l else (SL, N, B)):
             raise ValueError(f"lc_receive: shape {tuple(t.shape)}")
+    if (tpl is None) != (table is None):
+        raise ValueError("lc_receive: the template mode takes tpl and table")
+    if tpl is not None:
+        _lib.check_args("lc_receive", tpl, table, dtypes=[i32, f32],
+                        cuda=not cpu)
+        if tuple(tpl.shape) != (SL, N, B) or table.dim() != 2 \
+                or table.shape[1] != 12:
+            raise ValueError("lc_receive: template mode shapes")
     if cpu:
         return lc_receive_plain(plan, dirc, tl_slot, ygap, hsig, gval, speed,
-                                pri, n_l, chg, tabs, prm)
+                                pri, n_l, chg, tabs, prm, tpl, table)
     yv = torch.empty((SL, N, B), dtype=torch.float32, device=plan.device)
     do_change = torch.empty((SL, N, B), dtype=torch.bool, device=plan.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     a = _Args(*(t.data_ptr() for t in ins + (yv, do_change)), SL, N, B,
-              float(prm[0]), float(prm[1]))
+              float(prm[0]), float(prm[1]), ptr(tpl), ptr(table),
+              0 if table is None else table.shape[0])
     rc = _lib.lib().lc_receive(ctypes.byref(a), _lib.stream_ptr(plan))
     _lib.check(rc, "lc_receive")
     launches += 1
+    launches_tpl += tpl is not None
     return yv, do_change

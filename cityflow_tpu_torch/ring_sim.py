@@ -12,8 +12,10 @@ from cityflow_tpu_torch.compiler.net import CompiledNet
 from cityflow_tpu_torch.compiler.ring_net import build_ring, RingMeta
 from cityflow_tpu_torch.compiler.spawn import SpawnGenerator
 from cityflow_tpu_torch.core.ring import (
-    RingConfig, RingState, init_ring_state, ring_step, P_LEN, P_MINGAP)
+    RingConfig, RingState, init_ring_state, ring_step, P_LEN, P_MAXSPEED,
+    P_MINGAP)
 from cityflow_tpu_torch.device import resolve_device
+from cityflow_tpu_torch.kernels.lc_insert import MAX_LCI
 
 
 @dataclass
@@ -28,10 +30,20 @@ class RingSim:
     device: object = None
 
 
+def _flow_tpl_now(net: CompiledNet, tpl_params: np.ndarray) -> np.ndarray:
+    """Flow -> template-index map, from the flow_params rows as they are
+    now (a flow whose row matches no template maps to 0)."""
+    fp = net.flow_params.astype(np.float32)
+    eq = np.all(np.isclose(fp[:, None, :], tpl_params[None]), axis=2)
+    return np.where(eq.any(1), eq.argmax(1), 0).astype(np.int32)
+
+
 def _build_queues(gen: SpawnGenerator, meta: RingMeta, horizon: int,
-                  qcap_round: int = 256):
+                  qcap_round: int = 256, flow_tpl=None):
     """Group the host-replayed spawn rows (mt19937 stream, compiler/spawn.py)
-    into per-entry-lane FIFO queues. Row uid = global row index."""
+    into per-entry-lane FIFO queues. Row uid = global row index. With
+    `flow_tpl` (non-uniform templates) a "tpl" column holds each row's
+    template index."""
     gen.extend(horizon)
     t = gen.arrays()
     EL = len(meta.entry_lanes)
@@ -57,6 +69,11 @@ def _build_queues(gen: SpawnGenerator, meta: RingMeta, horizon: int,
             q["pri"][e, j] = t["priority"][r]
             q["route"][e, j] = t["route"][r]
             q["uid"][e, j] = r
+    if flow_tpl is not None:
+        q["tpl"] = np.where(
+            q["flow"] >= 0,
+            flow_tpl[np.clip(q["flow"], 0, len(flow_tpl) - 1)],
+            0).astype(np.int32)
     return q
 
 
@@ -66,10 +83,13 @@ def build_sim(net: CompiledNet, horizon: int = 512,
     """Tables, queues and initial state for `net` on `device` (None means
     "cuda"; pass device="cpu" for the plain PyTorch path on the CPU).
     sl / sk override the lane / link ring slots (default: the longest
-    drivable's capacity).
-
-    Branches of the JAX ring step that this port does not cover yet fail
-    here rather than simulate something else."""
+    drivable's capacity; with non-uniform templates the capacity of the
+    template that packs densest). The shadow inserts per lane per step are
+    RingConfig's 2, as in the JAX package's build_sim, but with lane
+    change and non-uniform templates the most L3 takes, 8: the mixed
+    30x30 lane-change grid sends more than 2 changers into a lane in a
+    step. Below the cap its value changes nothing; above it the step
+    flags OV_REMOVE."""
     dev = resolve_device(device)
     cfgj = net.host.config
     interval = float(cfgj["interval"])
@@ -77,16 +97,23 @@ def build_sim(net: CompiledNet, horizon: int = 512,
     tb, meta = build_ring(net, interval)
     if not meta.supported:
         raise ValueError(f"ring layout unsupported: {meta.unsupported_reason}")
-    if not meta.uniform_params:
-        raise NotImplementedError(
-            ("lane change with " if lane_change else "")
-            + "non-uniform vehicle templates: not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
-
-    p = meta.param_row
-    min_len = float(p[P_LEN]) + float(p[P_MINGAP])
-    max_spd = float(p[8])
-    params = tuple(float(v) for v in meta.param_row)
+    if meta.uniform_params:
+        p = meta.param_row
+        min_len = float(p[P_LEN]) + float(p[P_MINGAP])
+        max_spd = float(p[P_MAXSPEED])
+        params = tuple(float(v) for v in meta.param_row)
+    else:
+        # capacity and exit-hop bounds from the worst-case template; the
+        # scalar parameters are NaN, so a use site that misses the per-slot
+        # templates yields NaN instead of simulating template 0
+        used = np.asarray(tb["tpl_params"])
+        if not np.isfinite(used).all():
+            # the JAX one-hot einsum turns 0 * inf into NaN where T1 reads
+            # the entry: the two agree only on finite parameters
+            raise ValueError("vehicle template parameters must be finite")
+        min_len = float((used[:, P_LEN] + used[:, P_MINGAP]).min())
+        max_spd = float(used[:, P_MAXSPEED].max())
+        params = tuple([float("nan")] * 12)
     lane_cap = int(np.ceil(np.asarray(tb["ln_len"]).max() / min_len)) + 2
     link_cap = int(np.ceil(np.asarray(tb["lk_len"]).max() / min_len)) + 2
     SL = sl if sl is not None else lane_cap
@@ -100,15 +127,20 @@ def build_sim(net: CompiledNet, horizon: int = 512,
         SL=SL, SK=SK, AP=max(2, xk), XK=xk, SA=4,
         type_ranges=meta.type_ranges,
         params=params,
+        uniform=bool(meta.uniform_params), TP=int(meta.TP),
         rl_traffic_light=bool(cfgj["rlTrafficLight"]),
         SKC=(skc if skc is not None else 4),
         MAXLPR=int(np.asarray(tb["route_next"]).shape[2]),
         lane_change=lane_change,
+        **({} if meta.uniform_params or not lane_change
+           else dict(LCI=MAX_LCI)),
         track_history=(str(cfgj.get("routerType", "LENGTH")).upper()
                        == "DURATION"))
 
     gen = SpawnGenerator(net, int(cfgj["seed"]), interval)
-    q = _build_queues(gen, meta, horizon)
+    q = _build_queues(gen, meta, horizon,
+                      flow_tpl=None if cfg.uniform
+                      else _flow_tpl_now(net, np.asarray(tb["tpl_params"])))
     st = init_ring_state(cfg, tb, len(meta.entry_lanes), dev)
     tables = tables_from_numpy(tb, dev, cfg)
     qd = {k: torch.as_tensor(v, device=dev) for k, v in q.items()}

@@ -31,7 +31,7 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_ring(args, net, batch, device=None, on_step=None):
+def run_ring(args, net, batch, device=None, on_step=None, on_warmup=None):
     """Build the sim, warm up, time the batched p1 + p2 steps. Returns a
     dict of the measurement and the final batched state. The warm-up runs
     one env and the batch starts from copies of it: every env runs the
@@ -39,7 +39,8 @@ def run_ring(args, net, batch, device=None, on_step=None):
     warm-up reaches, at a fraction of the cost (the lane-change grid's
     first changes come at step 1779). Its last step is batched and timed
     as first_step_s. `on_step(state)`, when given, runs after each timed
-    step (a check that the caller wants inside the window)."""
+    step (a check that the caller wants inside the window);
+    `on_warmup(state)` after each single-env warm-up step."""
     from cityflow_tpu_torch import ring_sim
     from cityflow_tpu_torch.core.ring import (
         batch_ring_state, ring_step_p1_batched, ring_step_p2_batched)
@@ -47,7 +48,7 @@ def run_ring(args, net, batch, device=None, on_step=None):
     t0 = time.time()
     budget = args.window if args.window else args.steps
     sim = ring_sim.build_sim(net, horizon=args.warmup + budget + 8,
-                             sl=args.lane_slots, device=device)
+                             sl=args.lane_slots or None, device=device)
     dev = sim.device
     build_s = time.time() - t0
     B = batch
@@ -61,6 +62,8 @@ def run_ring(args, net, batch, device=None, on_step=None):
     steps_run = max(args.warmup, 1)
     for _ in range(steps_run - 1):
         one = step_b(one)
+        if on_warmup is not None:
+            on_warmup(one)
     bstate = batch_ring_state(one.map(lambda x: x[..., 0]), B)
     del one
     _sync(dev)
@@ -108,14 +111,16 @@ def run_ring(args, net, batch, device=None, on_step=None):
                 state=s, sim=sim)
 
 
-def run_ring_ladder(args, net, batch=None, device=None, on_step=None):
+def run_ring_ladder(args, net, batch=None, device=None, on_step=None,
+                    on_warmup=None):
     """run_ring at `batch` (default args.batch), halving the batch on
     CUDA out-of-memory until it fits (floor 1). Returns (result, batch)."""
     import gc
     batch = args.batch if batch is None else batch
     while True:
         try:
-            return run_ring(args, net, batch, device, on_step), batch
+            return run_ring(args, net, batch, device, on_step,
+                            on_warmup), batch
         except torch.cuda.OutOfMemoryError as e:
             print(f"ring OOM at batch={batch}: {str(e)[:200]}",
                   file=sys.stderr, flush=True)
@@ -148,7 +153,9 @@ def parser():
                     help="minimum timed wall clock with --window")
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--lane-slots", type=int, default=40,
-                    help="ring lane capacity; 40 = jam capacity")
+                    help="ring lane capacity; 40 = jam capacity, 0 = the "
+                         "longest lane's capacity for the template that "
+                         "packs densest (build_sim's default)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")

@@ -11,6 +11,14 @@ outside `build/`, so two checkouts never share a scenario.
 
     from cityflow_tpu_torch.tools.scenario import prepare
     cfg_path = prepare("benchmarks/config_30x30.json")
+
+With `templates` (a list of CityFlow `vehicle` objects) the staged flow
+file gives flow i the vehicle templates[i % len(templates)]: a mixed-
+template variant of the same traffic, e.g. the three vehicles of
+tests/fixtures/flow_2x2_mixed.json over benchmarks/flow_30_30.json:
+
+    prepare("benchmarks/config_30x30.json", name="config_30x30_mixed",
+            templates=mixed_templates("tests/fixtures/flow_2x2_mixed.json"))
 """
 
 import json
@@ -44,10 +52,23 @@ def _place(src, dst):
     shutil.copy(src, dst)
 
 
-def prepare(cfg_path, name=None, **overrides):
+def mixed_templates(flow_path):
+    """The distinct `vehicle` objects of a flow file, in their order of
+    first appearance."""
+    with open(resolve_config(flow_path)) as f:
+        flows = json.load(f)
+    out = []
+    for fl in flows:
+        if fl["vehicle"] not in out:
+            out.append(fl["vehicle"])
+    return out
+
+
+def prepare(cfg_path, name=None, templates=None, **overrides):
     """Stage the config's roadnet and flow under build/scenarios/<name>/
     (default: the config's file name) and return the path of the staged
-    config; `overrides` replace config keys (routerType="DURATION")."""
+    config; `overrides` replace config keys (routerType="DURATION"), and
+    `templates` replaces flow i's vehicle by templates[i % len]."""
     from cityflow_tpu_torch.tools import gridgen
     cfg_path = os.path.abspath(resolve_config(cfg_path))
     with open(cfg_path) as f:
@@ -66,6 +87,13 @@ def prepare(cfg_path, name=None, **overrides):
     else:
         _place(_find(rn, (here, base)), os.path.join(out, rn))
     _place(_find(fl, (here, base)), os.path.join(out, fl))
+    if templates:
+        with open(os.path.join(out, fl)) as f:
+            flows = json.load(f)
+        for i, flow in enumerate(flows):
+            flow["vehicle"] = dict(templates[i % len(templates)])
+        with open(os.path.join(out, fl), "w") as f:
+            json.dump(flows, f)
     cfgj["dir"] = out + "/"
     path = os.path.join(out, "config.json")
     with open(path, "w") as f:

@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
 package, its entry points refuse to fall back to the CPU on their own, and
-the branches it does not cover yet fail at build_sim."""
+the branches it does not cover yet are refused."""
 
 import ast
+import json
 import os
 
 import pytest
@@ -64,23 +65,36 @@ def test_build_sim_without_device_refuses_the_cpu():
     assert sim.state.l_dis.device.type == "cpu"
 
 
-@pytest.mark.parametrize("config, why", [
-    ("config_1x1s_mixed_lc.json", "lane change with non-uniform"),
-    ("config_2x2_mixed.json", "non-uniform vehicle templates"),
+@pytest.mark.parametrize("case, why", [
+    ("lane_change", "laneChange"),
+    ("duration", "DURATION"),
 ])
-def test_unported_branches_fail_at_build_sim(config, why):
-    net = compile_scenario(os.path.join(HERE, "fixtures", config))
+def test_unported_gen1_branches_are_refused(case, why, tmp_path):
+    """The gen-1 Engine refuses what it does not step yet, naming
+    ROADMAP.md: lane change (config_lc_single.json) and the DURATION
+    router (config_2x2.json with routerType DURATION)."""
+    from cityflow_tpu_torch.engine import Engine
+    fix = os.path.join(HERE, "fixtures")
+    if case == "lane_change":
+        path = os.path.join(fix, "config_lc_single.json")
+    else:
+        with open(os.path.join(fix, "config_2x2.json")) as f:
+            cfgj = json.load(f)
+        cfgj.update(dir=fix + "/", routerType="DURATION")
+        path = tmp_path / "config.json"
+        path.write_text(json.dumps(cfgj))
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        ring_sim.build_sim(net, horizon=8, device="cpu")
+        Engine(str(path), device="cpu")
     assert why in str(e.value)
 
 
 def test_lane_change_modules_are_covered():
-    """The import rule above reaches the lane-change module and kernels."""
+    """The import rule above reaches the lane-change module and kernels,
+    and the template kernel T1."""
     files = {os.path.relpath(p, PKG) for p in _port_sources()}
     for rel in ("core/ring_lc.py", "kernels/_nbr.py", "kernels/lc_signal.py",
                 "kernels/lc_receive.py", "kernels/lc_insert.py",
-                "kernels/lc_partner.py"):
+                "kernels/lc_partner.py", "kernels/tpl_params.py"):
         assert rel in files, rel
 
 

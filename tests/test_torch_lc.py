@@ -283,14 +283,15 @@ def test_lc_batched_equals_single_env_bitwise():
 # what is still refused, and lane change off
 # ---------------------------------------------------------------------------
 
-def test_lc_with_mixed_templates_or_duration_is_refused(tmp_path):
-    """Mixed templates with lane change are still refused; lane change
-    with the DURATION router is not any more: it builds with the history
-    window on (tests/test_torch_history.py holds it against JAX)."""
+def test_lc_with_mixed_templates_and_duration_builds(tmp_path):
+    """Mixed templates with lane change build with the template channels
+    (tests/test_torch_templates.py holds them against JAX), and lane
+    change with the DURATION router builds with the history window on
+    (tests/test_torch_history.py)."""
     net = compile_scenario(os.path.join(FIX, "config_1x1s_mixed_lc.json"))
-    with pytest.raises(NotImplementedError,
-                       match="lane change with non-uniform"):
-        ring_sim.build_sim(net, horizon=8, device="cpu")
+    sim = ring_sim.build_sim(net, horizon=8, device="cpu", **LC1_KW)
+    assert sim.cfg.lane_change and not sim.cfg.uniform
+    assert sim.state.l_tpl.shape == (sim.cfg.SL, sim.cfg.LNp)
     with open(LC1) as f:
         cfgj = json.load(f)
     for k in ("roadnetFile", "flowFile"):
