@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the fifteen kernels from csrc/ (nvcc, sm_90a) with its time
+            of the nineteen kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -49,10 +49,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   agree-mixed-lc  tests/fixtures/config_1x1s_mixed_lc.json, 80 steps,
             sl=12, sk=6, skc=99, B=1 card against CPU as [agree-lc]
   mixed-lc  config_30x30_lc.json staged with the three templates at B=128,
-            build_sim's shadow-insert cap for such a scenario (8):
-            LC_WARMUP warm-up steps (the first step with shadows printed),
-            40 timed; [lc]'s asserts, plus T1 and the template modes of K3
-            (with and without v_yield), L1 and L2 launched
+            build_sim's shadow-insert cap for such a scenario: LC_WARMUP
+            warm-up steps (the first step with shadows printed), 40 timed;
+            [lc]'s asserts, plus T1 and the template modes of K3 (with and
+            without v_yield), L1 and L2 launched; the most shadow inserts
+            one lane asked for in one step over all of it (printed, and
+            asserted within the cap)
   kernels   (templates, lane change) on every call of one more [mixed-lc]
             step: T1, K2, L1, K4 and L3 (with the tpl channel) exact, K3
             (template mode, with v_yield too) and L2 within 1e-5, against
@@ -80,18 +82,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             4 iterations of 5 steps at eps 0.3; asserts a finite loss, the
             step advanced by 20, overflow 0, O2's features mode launched
   golden-gen1  the gen-1 exact Engine (engine.Engine, float64) on the card
-            against the reference goldens (tests/goldens, read here) at
-            atol=0: grid4x4 300 steps, grid2x2_mixed 200, grid4x4_rl 200
-            under the RL phase schedule; fixtures staged under build/
+            against the reference goldens (tests/goldens, read here):
+            grid4x4 300 steps, grid2x2_mixed 200, grid4x4_rl 200 under the
+            RL phase schedule at atol=0; lc_single 175 steps (bitwise
+            through 150, within 1e-6 with the same change events after);
+            history_2x2_40 under routerType DURATION (window sums equal,
+            durations within 1e-9 relative); replay_2x2_60 (the replay
+            lines); fixtures staged under build/
   agree-gen1  the Engine on benchmarks/config_30x30.json, 40 steps, card
             against CPU: every SimState leaf bitwise equal every 10 steps
   gen1      the Engine on config_30x30.json on the card: GEN1_WARMUP
             steps, then GEN1_STEPS timed; ms per step, vehicles, pool size
             and growths, G1-G4 launches per step, their device time per
-            step (CUDA events) and peak memory; asserts finite state,
-            vehicles > 0 and G1-G4 launched
+            step (CUDA events), the profiler's device time and busy share,
+            peak memory; asserts finite state, vehicles > 0 and G1-G4
+            launched
   kernels   (gen-1) G1-G4 against their plain versions, bitwise, on every
             call of one more step of the gen1 path's state, timed
+  agree-gen1-lc  tests/fixtures/config_2x2_lc.json under routerType
+            DURATION, AGREE_GEN1_LC_STEPS steps, card against CPU as
+            [agree-gen1]; the steps with shadows counted (must be > 0)
+  gen1-lc   the Engine on benchmarks/config_30x30_lc.json under routerType
+            DURATION: GEN1_LC_WARMUP steps (past the first shadows), then
+            GEN1_LC_STEPS timed; [gen1]'s prints for G1-G8 and their modes,
+            shadows in the window (must be > 0)
+  kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8) against
+            their plain versions, bitwise, on every call of one more
+            [gen1-lc] step, timed; G5 beside the library's index_add_
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -132,6 +149,16 @@ AGREE_GEN1_STEPS = 40               # gen-1 card-vs-CPU steps on 30x30
 GEN1_WARMUP = 300                   # gen-1 steps before the timing
 GEN1_STEPS = 100                    # timed gen-1 steps
 GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass")
+GEN1_LC_KERNELS = ("hist_window", "lc_probe", "lc_plan", "lc_commit")
+GEN1_LC_MODES = ("lc_plan@signal", "lc_plan@receive", "lc_plan@decide",
+                 "lc_plan@yield", "lc_commit@tail", "lc_commit@commit")
+AGREE_GEN1_LC_STEPS = 200           # gen-1 lane change + DURATION card vs
+                                    # CPU on config_2x2_lc.json (shadows
+                                    # from step 70)
+GEN1_LC_WARMUP = 1960               # gen-1 lane-change steps before the
+                                    # timing (the 30x30 routes change lanes
+                                    # on their last road, from about 1777)
+GEN1_LC_STEPS = 100                 # timed gen-1 lane-change steps
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc")
@@ -179,6 +206,19 @@ REPLACES = {
                     ":586-588)",
     "cross_pass": "cityflow_tpu/core/step.py:682-751 (get_action's cross "
                   "loop, Cross::canPass)",
+    "hist_window": "cityflow_tpu/core/step.py:970-999 (update_history)",
+    "lc_probe": "cityflow_tpu/core/lanechange.py:42-96 (_probe_neighbors: "
+                "the 3V lax.sort :62, cummax / cummin fills)",
+    "lc_plan": "cityflow_tpu/core/lanechange.py:108-189 (plan_lane_change: "
+               "makeSignal, target, gaps; _estimate_gap :99-105)",
+    "lc_plan@receive": "cityflow_tpu/core/lanechange.py:191-206 (recv_for, "
+                       "two scatter-max passes)",
+    "lc_plan@decide": "cityflow_tpu/core/lanechange.py:208-226 (lc_recv, "
+                      "gap validity, do_change)",
+    "lc_plan@yield": "cityflow_tpu/core/lanechange.py:294-318 (yield_speed)",
+    "lc_commit": "cityflow_tpu/core/step.py:807-826 (get_action's "
+                 "lane-change tail)",
+    "lc_commit@commit": "cityflow_tpu/core/step.py:909-942 (lc_commit)",
     "tpl_params": "cityflow_tpu/core/ring.py:270-297 (_PP, the template "
                   "one-hot einsum)",
     "car_follow@tpl": "cityflow_tpu/core/ring.py:998-1092 (isr_speed, "
@@ -1045,14 +1085,49 @@ def tpl_work(n, a, k):
     raise KeyError(n)
 
 
-def check_tpl_kernels(sim, state, reps, lc):
+@contextlib.contextmanager
+def insert_demand():
+    """The most shadow inserts that any lane asks for in one step: the
+    winners per target lane before L3's cap (senders whose target is the
+    lane, from its inner and outer side), as L3's inputs hold them, over
+    every L3 call while the context is open (warm-up and timed steps),
+    kept on the device. Yields a dict whose "peak" is set on exit."""
+    import torch
+    from cityflow_tpu_torch.core import ring_lc
+    from cityflow_tpu_torch.kernels._nbr import nbcol
+    orig = ring_lc.lc_insert
+    peak = []
+
+    def fn(ch, do_change, dirc, yv, n_l, tabs, LCI):
+        n = 0
+        for side, want in (("inner_src", 1), ("outer_src", -1)):
+            n = n + (nbcol(do_change, tabs[side])
+                     & (nbcol(dirc, tabs[side]) == want)).to(
+                torch.int32).sum(0)
+        m = n.max()
+        if peak:
+            peak[0] = torch.maximum(peak[0], m)
+        else:
+            peak.append(m)
+        return orig(ch, do_change, dirc, yv, n_l, tabs, LCI)
+    out = {}
+    ring_lc.lc_insert = fn
+    try:
+        yield out
+    finally:
+        ring_lc.lc_insert = orig
+        out["peak"] = int(peak[0]) if peak else 0
+
+
+def check_tpl_kernels(sim, state, reps, lc, lci=None):
     """T1 and the template modes against their plain versions on every
     recorded call of one more step of a template path (T1, K2, L1, K4 and
     L3 exact; K3 and L2 within 1e-5, their not-bitwise counts printed).
     Rows: without lane change T1, K2@tpl and K3@tpl; with it L1@tpl,
     L2@tpl and K3@tpl+lc. Each is timed on its largest call (K3 at the
     lane rows, with v_yield on the lane-change path), T1 beside the
-    library gather table[:, cols][tpl]."""
+    library gather table[:, cols][tpl]. With `lci` (the measured insert
+    demand) L3 is timed on its call at that cap and at its maximum, 8."""
     import torch
     from cityflow_tpu_torch import kernels
     calls = record_tpl_calls(sim, state, lc)
@@ -1098,6 +1173,16 @@ def check_tpl_kernels(sim, state, reps, lc):
                 f"{len(cols)} columns")
         nbytes, nops = tpl_work(n, a, k)
         rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, lib))
+    if lci is not None:
+        from cityflow_tpu_torch.kernels.lc_insert import MAX_LCI, lc_insert
+        a, k = calls["lc_insert"][0]
+        at = {c: time_cuda(lambda: lc_insert(*a[:-1], c, **k), reps)
+              for c in sorted({max(lci, 1), sim.cfg.LCI, MAX_LCI})}
+        log(f"[mixed-lc] L3 lc_insert on one [mixed-lc] step's state, by "
+            f"shadow-insert cap: " + ", ".join(
+                f"LCI {c}: {v:.4f} ms" for c, v in at.items())
+            + f" (the peak demand is {lci}, build_sim's cap "
+            f"{sim.cfg.LCI})")
     return rows
 
 
@@ -1425,31 +1510,182 @@ def golden_mismatches(eng, gold, t):
             if mine[k] != theirs[k]]
 
 
+def _gen1_golden_run(eng, golden, n, ids=None, atol_after=None,
+                     exact_to=None):
+    """Step `eng` n times against a golden's records; bitwise through
+    step exact_to (all steps when None), then within atol_after with
+    shadow twins left out. Returns the lane-change events of both
+    (a drivable change within one road) in order."""
+    gold = golden_lines(golden)
+    next(gold)
+    ev_g, ev_m, prev_g, prev_m = [], [], {}, {}
+    L = eng.cfg.num_lanes
+    host = eng.net.host
+
+    def changes(prev, items, acc):
+        for vid, drv in items:
+            old = prev.get(vid)
+            if old is not None and old != drv and "_TO_" not in old \
+                    and "_TO_" not in drv \
+                    and old.rsplit("_", 1)[0] == drv.rsplit("_", 1)[0]:
+                acc.append(vid)
+            prev[vid] = drv
+    import numpy as np
+    for t in range(n):
+        if ids is not None:
+            for iid, ph in rl_phase_commands(t, ids):
+                eng.set_tl_phase(iid, ph)
+        eng.next_step()
+        g = next(gold)
+        assert g["t"] == t + 1
+        if exact_to is None or t + 1 <= exact_to:
+            bad = golden_mismatches(eng, g, t + 1)
+        else:
+            bad = golden_near(eng, g, t + 1, atol_after)
+        assert not bad, f"[golden-gen1] {golden}: " + "; ".join(bad[:5])
+        c = eng._fetch()
+        changes(prev_g, [(v["id"], v["drv"]) for v in g["vehicles"]], ev_g)
+        changes(prev_m, [
+            (eng._veh_id(int(c["uid"][s])),
+             host.lane_ids[c["drv"][s]] if c["drv"][s] < L
+             else host.ll_ids[c["drv"][s] - L])
+            for s in np.nonzero(c["running"] & ~c["is_shadow"])[0]], ev_m)
+    return ev_g, ev_m
+
+
+def golden_near(eng, gold, t, atol):
+    """Real vehicles' drivables equal, distance and speed within atol."""
+    import numpy as np
+    c = eng._fetch()
+    host, L = eng.net.host, eng.cfg.num_lanes
+    mine = {}
+    for s in np.nonzero(c["running"] & ~c["is_shadow"])[0]:
+        d = int(c["drv"][s])
+        mine[eng._veh_id(int(c["uid"][s]))] = (
+            host.lane_ids[d] if d < L else host.ll_ids[d - L],
+            float(c["dis"][s]), float(c["speed"][s]))
+    theirs = {v["id"]: (v["drv"], v["dis"], v["speed"])
+              for v in gold["vehicles"]}
+    if set(mine) != set(theirs):
+        return [f"t={t}: vehicle sets differ"]
+    return [f"t={t} {k}: {mine[k]} != {theirs[k]}" for k in mine
+            if mine[k][0] != theirs[k][0]
+            or abs(mine[k][1] - theirs[k][1]) > atol
+            or abs(mine[k][2] - theirs[k][2]) > atol]
+
+
 def check_golden_gen1():
-    """The card Engine against the reference goldens at atol=0."""
+    """The card Engine against the reference goldens: three trajectories
+    at atol=0, the single lane changer (bitwise through step 150, within
+    1e-6 with the same change events through 175), the DURATION router's
+    lane history (sums equal, durations within 1e-9 relative) and the
+    replay lines (positions within 1e-6, the rest equal)."""
     from cityflow_tpu_torch.engine import Engine
     from cityflow_tpu_torch.tools.scenario import prepare
+    fix = os.path.join(HERE, "tests", "fixtures")
     for config, golden, n, rl in GOLDEN_GEN1:
         t0 = time.time()
-        eng = Engine(prepare(os.path.join(HERE, "tests", "fixtures", config)),
-                     spawn_horizon=n + 8)
+        eng = Engine(prepare(os.path.join(fix, config)), spawn_horizon=n + 8)
         ids = sorted(i.id for i in eng.net.host.net.intersections
-                     if not i.virtual)
-        gold = golden_lines(golden)
-        next(gold)
-        for t in range(n):
-            if rl:
-                for iid, ph in rl_phase_commands(t, ids):
-                    eng.set_tl_phase(iid, ph)
-            eng.next_step()
-            g = next(gold)
-            assert g["t"] == t + 1
-            bad = golden_mismatches(eng, g, t + 1)
-            assert not bad, f"[golden-gen1] {config}: " + "; ".join(bad[:5])
+                     if not i.virtual) if rl else None
+        _gen1_golden_run(eng, golden, n, ids=ids)
         log(f"[golden-gen1] {config}: {n} steps bit-exact (atol=0) against "
             f"{golden}; vehicles={eng.get_vehicle_count()} "
             f"pool={eng.cfg.max_vehicles} growths={eng.growths} "
             f"wall_s={time.time() - t0:.1f}")
+    t0 = time.time()
+    eng = Engine(prepare(os.path.join(fix, "config_lc_single.json")))
+    ev_g, ev_m = _gen1_golden_run(eng, "lc_single_180.jsonl.gz", 175,
+                                  exact_to=150, atol_after=1e-6)
+    assert ev_g and ev_m == ev_g, f"[golden-gen1] change events {ev_m} " \
+        f"!= {ev_g}"
+    log(f"[golden-gen1] config_lc_single.json: bit-exact through step 150, "
+        f"within 1e-6 through 175, the same {len(ev_g)} change events "
+        f"({ev_g}); wall_s={time.time() - t0:.1f}")
+    check_history_golden()
+    check_replay_golden()
+
+
+def check_history_golden():
+    """config_2x2.json under routerType DURATION against history_2x2_40:
+    per road and step the window vehicle sum equal, the duration within
+    1e-9 relative (or both -1 / inf)."""
+    import gzip
+    import math
+    from cityflow_tpu_torch.engine import Engine
+    from cityflow_tpu_torch.tools.scenario import prepare
+    t0 = time.time()
+    eng = Engine(prepare(os.path.join(HERE, "tests", "fixtures",
+                                      "config_2x2.json"),
+                         name="config_2x2_duration", routerType="DURATION"))
+    with gzip.open(os.path.join(HERE, "tests", "goldens",
+                                "history_2x2_40.jsonl.gz"), "rt") as f:
+        gold = [json.loads(line) for line in f]
+    road_index = {r.id: r.index for r in eng.net.host.net.roads}
+    worst = 0.0
+    for rec in gold:
+        eng.next_step()
+        durs = eng._road_durations()
+        nums, _ = eng._lane_history_np()
+        for rid, ref_num, ref_dur in rec["roads"]:
+            road = eng.net.host.net.roads[road_index[rid]]
+            num = sum(int(nums[lane.index]) for lane in road.lanes)
+            assert num == ref_num, f"[golden-gen1] history t={rec['t']} {rid}"
+            d = durs[road.index]
+            if ref_dur < 0 or math.isinf(ref_dur):
+                assert d == ref_dur, f"[golden-gen1] duration {rid}: {d}"
+            else:
+                rel = abs(d - ref_dur) / max(abs(ref_dur), 1)
+                assert rel <= 1e-9, f"[golden-gen1] duration {rid}: {rel}"
+                worst = max(worst, rel)
+    log(f"[golden-gen1] config_2x2.json DURATION: {len(gold)} steps of "
+        f"history_2x2_40.jsonl.gz, window sums equal, durations within "
+        f"{worst:.3e} relative; wall_s={time.time() - t0:.1f}")
+
+
+def check_replay_golden():
+    """The replay lines of config_2x2.json against replay_2x2_60: the
+    same vehicles, positions and angles within 1e-6, the same lcDir,
+    length, width and signal sections."""
+    import gzip
+    from cityflow_tpu_torch.engine import Engine
+    from cityflow_tpu_torch.tools.scenario import prepare
+    t0 = time.time()
+    cfg = prepare(os.path.join(HERE, "tests", "fixtures", "config_2x2.json"),
+                  name="config_2x2_replay", saveReplay=True,
+                  roadnetLogFile="replay_roadnet.json",
+                  replayLogFile="replay.txt")
+    eng = Engine(cfg)
+    for _ in range(60):
+        eng.next_step()
+    eng.set_save_replay(False)
+    with open(os.path.join(os.path.dirname(cfg), "replay.txt")) as f:
+        mine = f.read().splitlines()
+    with gzip.open(os.path.join(HERE, "tests", "goldens",
+                                "replay_2x2_60.txt.gz"), "rt") as f:
+        ref = f.read().splitlines()
+    assert len(mine) == len(ref) == 60
+
+    def parse(line):
+        veh, road = line.split(";", 1)
+        vs = {}
+        for r in veh.split(","):
+            if r.strip():
+                x, y, ang, vid, lc, ln, w = r.split()
+                vs[vid] = (float(x), float(y), float(ang), lc, ln, w)
+        return vs, road
+    worst = 0.0
+    for t, (lm, lr) in enumerate(zip(mine, ref), 1):
+        (vm, rm), (vr, rr) = parse(lm), parse(lr)
+        assert set(vm) == set(vr) and rm == rr, f"[golden-gen1] replay t={t}"
+        for vid in vr:
+            d = max(abs(a - b) for a, b in zip(vm[vid][:3], vr[vid][:3]))
+            assert d <= 1e-6 and vm[vid][3:] == vr[vid][3:], \
+                f"[golden-gen1] replay t={t} {vid}"
+            worst = max(worst, d)
+    log(f"[golden-gen1] config_2x2.json replay: 60 lines match "
+        f"replay_2x2_60.txt.gz (positions within {worst:.3e}); "
+        f"wall_s={time.time() - t0:.1f}")
 
 
 def bitwise_equal(a, b):
@@ -1463,40 +1699,45 @@ def bitwise_equal(a, b):
     return bool(torch.equal(a, b))
 
 
-def check_agreement_gen1(cfg_path, steps):
+def check_agreement_gen1(cfg_path, steps, tag="agree-gen1"):
     """The Engine on the card against the Engine on the CPU: every SimState
-    leaf bitwise equal every 10 steps."""
+    leaf bitwise equal every 10 steps; the steps whose state holds a
+    shadow are counted."""
     from cityflow_tpu_torch.engine import Engine
     t0 = time.time()
     gpu = Engine(cfg_path, spawn_horizon=steps + 8)
     cpu = Engine(cfg_path, spawn_horizon=steps + 8, device="cpu")
+    shadow_steps = 0
     for i in range(1, steps + 1):
         gpu.next_step()
         cpu.next_step()
+        shadow_steps += bool((cpu.state.is_shadow & cpu.state.running).any())
         if i % 10 and i != steps:
             continue
         g, c = gpu.state.leaves(), cpu.state.leaves()
         for k in g:
             assert bitwise_equal(g[k].cpu(), c[k]), \
-                f"[agree-gen1] step {i}: {k} differs"
+                f"[{tag}] step {i}: {k} differs"
     assert gpu.get_vehicle_count() > 0
-    log(f"[agree-gen1] {steps} steps: every SimState leaf bitwise equal, "
+    log(f"[{tag}] {steps} steps: every SimState leaf bitwise equal, "
         f"vehicles={gpu.get_vehicle_count()} pool={gpu.cfg.max_vehicles} "
-        f"growths={gpu.growths} wall_s={time.time() - t0:.1f}")
+        f"growths={gpu.growths} steps_with_shadows={shadow_steps} "
+        f"wall_s={time.time() - t0:.1f}")
+    return shadow_steps
 
 
-def _gen1_points():
+def _gen1_points(names):
     from cityflow_tpu_torch import kernels
-    return [(kernels.MODULES[n], n) for n in GEN1_KERNELS]
+    return [(kernels.MODULES[n], n) for n in names]
 
 
-def gen1_shares(eng, nsteps):
-    """Device time of G1-G4 per step (CUDA events around each wrapper
-    call) and of whole steps, over `nsteps` steps."""
+def gen1_shares(eng, nsteps, names):
+    """Device time of the G kernels per step (CUDA events around each
+    wrapper call) and of whole steps, over `nsteps` steps."""
     import torch
     torch.cuda.synchronize()
     total = 0.0
-    with timed_calls(_gen1_points()) as events:
+    with timed_calls(_gen1_points(names)) as events:
         for _ in range(nsteps):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
@@ -1507,27 +1748,37 @@ def gen1_shares(eng, nsteps):
     return per_step_ms(events, nsteps), total
 
 
-def run_gen1(cfg_path, warmup, steps):
+def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS):
     """The gen-1 Engine on the card: `warmup` steps, then `steps` timed
     ones with the launch counts set to 0 just before and read just
-    after."""
+    after; every kernel in `names` must have launched in them. Under lane
+    change the first warm-up step with a shadow is printed and the timed
+    steps must hold shadows (counted on the device)."""
     import torch
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.engine import Engine
     t0 = time.time()
     eng = Engine(cfg_path, spawn_horizon=warmup + steps + 16)
+    lc = eng.lane_change
     setup_s = time.time() - t0
     t0 = time.time()
-    for _ in range(warmup):
+    first = None
+    for i in range(warmup):
         eng.next_step()
+        if lc and first is None and i % 10 == 9 and bool(
+                (eng.state.is_shadow & eng.state.running).any()):
+            first = i + 1
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     g0 = eng.growths
+    shadows = torch.zeros((), dtype=torch.int64, device=eng.device)
     kernels.reset_launches()
     t0 = time.time()
     for _ in range(steps):
         eng.next_step()
+        if lc:
+            shadows += (eng.state.is_shadow & eng.state.running).sum()
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = kernels.launch_counts()
@@ -1539,34 +1790,43 @@ def run_gen1(cfg_path, warmup, steps):
     assert bool(torch.isfinite(st.dis[run]).all()
                 and torch.isfinite(st.speed[run]).all()), "state not finite"
     assert bool((st.dis[run] >= 0).all()), "negative distance"
-    for k in GEN1_KERNELS:
-        assert launches[k] > 0, f"kernel {k} was not launched on gen1"
-    per_step = {k: launches[k] / steps for k in GEN1_KERNELS}
+    assert int(st.overflow) & ~eng._ov == 0
+    for k in names:
+        assert launches[k] > 0, f"kernel {k} was not launched on {tag}"
+    per_step = {k: launches[k] / steps for k in launches
+                if launches[k] and k.split("@")[0] in names}
     ms = dt * 1e3 / steps
-    log(f"[gen1] steps={steps} warmup={warmup} ms_per_step={ms:.3f} "
+    log(f"[{tag}] steps={steps} warmup={warmup} ms_per_step={ms:.3f} "
         f"steps_per_s={steps / dt:.1f} vehicles={veh} "
         f"waiting={int((st.active & ~run).sum())} "
         f"finished={int(st.finished_cnt)} pool={eng.cfg.max_vehicles} "
         f"growths={eng.growths} (in the window {eng.growths - g0}) "
         f"k_link={eng.cfg.k_link} setup_s={setup_s:.1f} "
         f"warmup_s={warm_s:.1f}")
-    log(f"[gen1] launches per step={per_step}")
-    per, tot = gen1_shares(eng, 5)
+    res = {}
+    if lc:
+        res = dict(shadow_rows_in_window=int(shadows),
+                   first_shadow_step_by_10=first)
+        log(f"[{tag}] shadows summed over the timed steps: {int(shadows)}; "
+            f"first warm-up step with a shadow (checked every 10): {first}")
+        assert int(shadows) > 0, f"no shadows in the {tag} window"
+    log(f"[{tag}] launches per step={per_step}")
+    per, tot = gen1_shares(eng, 5, names)
     for n, v in per.items():
-        log(f"[gen1] kernel {n}: {v:.4f} ms/step ({100 * v / tot:.2f}% of "
+        log(f"[{tag}] kernel {n}: {v:.4f} ms/step ({100 * v / tot:.2f}% of "
             f"a {tot:.3f} ms step; CUDA events, 5 steps)")
-    prof = gen1_profile(eng, 3, ms)
-    log(f"[gen1] max_memory_allocated={peak} bytes "
+    prof = gen1_profile(eng, 3, ms, tag)
+    log(f"[{tag}] max_memory_allocated={peak} bytes "
         f"({peak / 2**30:.3f} GiB)")
     return launches, dict(
         steps=steps, warmup=warmup, ms_per_step=ms, vehicles=veh,
         pool=eng.cfg.max_vehicles, growths=eng.growths,
         growths_in_window=eng.growths - g0, launches_per_step=per_step,
         kernel_ms_per_step=per, step_ms_events=tot, peak_bytes=peak,
-        **prof), eng
+        **res, **prof), eng
 
 
-def gen1_profile(eng, nsteps, wall_ms):
+def gen1_profile(eng, nsteps, wall_ms, tag):
     """`nsteps` steps under torch.profiler: the device's kernel time and
     kernel count per step, its busy share of the unprofiled `wall_ms`,
     and the operators that take the most device time."""
@@ -1586,29 +1846,30 @@ def gen1_profile(eng, nsteps, wall_ms):
     dev_ms = sum(dev_t(e) for e in dev) / 1e3 / nsteps
     nker = sum(e.count for e in dev) / nsteps
     top = sorted(dev, key=dev_t, reverse=True)[:6]
-    log(f"[gen1] profiler, {nsteps} steps: device kernel time "
+    log(f"[{tag}] profiler, {nsteps} steps: device kernel time "
         f"{dev_ms:.3f} ms/step over {nker:.0f} kernels/step; device busy "
         f"{100 * dev_ms / wall_ms:.1f}% of the {wall_ms:.3f} ms unprofiled "
         f"step")
     for e in top:
-        log(f"[gen1]   {e.key[:60]}: {dev_t(e) / 1e3 / nsteps:.4f} ms/step, "
+        log(f"[{tag}]   {e.key[:60]}: {dev_t(e) / 1e3 / nsteps:.4f} ms/step, "
             f"{e.count / nsteps:.0f} per step")
     return dict(device_ms_per_step=dev_ms, kernels_per_step=nker,
                 device_busy=dev_ms / wall_ms)
 
 
-def record_gen1_calls(eng):
-    """One more step with the G1-G4 wrappers recording their arguments
-    (the step writes no tensor in place, so references stay valid)."""
+def record_gen1_calls(eng, names):
+    """One more step with the wrappers of `names` recording their
+    arguments (the step writes no tensor in place, so references stay
+    valid)."""
     import torch
-    points = _gen1_points()
+    points = _gen1_points(names)
     orig = {n: getattr(m, n) for m, n in points}
     calls = {n: [] for _, n in points}
 
     def rec(n):
-        def fn(*a):
-            calls[n].append(a)
-            return orig[n](*a)
+        def fn(*a, **k):
+            calls[n].append((a, k))
+            return orig[n](*a, **k)
         return fn
     try:
         for m, n in points:
@@ -1621,9 +1882,10 @@ def record_gen1_calls(eng):
     return calls
 
 
-def gen1_work(n, a, out):
+def gen1_work(n, a, k, out):
     """Bytes (each input read once, each output written once, as this
-    call's data needs them) and operations of one G kernel call."""
+    call's data needs them) and operations of one G kernel call; `n` is
+    kernel or kernel@mode."""
     import torch
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     if n == "arrange":
@@ -1675,36 +1937,121 @@ def gen1_work(n, a, out):
                    .sum())
         return V * (4 + 8 + 8 + 8 * 8 + 4 + 4 + 1 + 1 + 21) + need * 46, \
             need * 100 + V * 30
+    if n == "hist_window":
+        last_of, leader, speed, ring_num = a[:4]
+        HL1, L = ring_num.shape
+        V = speed.numel()
+        # per lane its rear slot and the two sums in and out; both rings
+        # in and out (the function returns new rings); per running lane
+        # vehicle its leader and speed; two adds per vehicle, four per lane
+        nveh = int((lane_of(last_of, leader, L, V) < L).sum())
+        return L * (4 + 32) + 4 * HL1 * L * 8 + nveh * 12, 2 * nveh + 4 * L
+    if n == "lc_probe":
+        running, drv, dis, last_of, leader, net, L = a
+        V = dis.numel()
+        visits = sum(int(((out[s + "_lane"] < L)
+                          * torch.bincount(drv[running & (drv < L)].long(),
+                                           minlength=L + 1)
+                          [out[s + "_lane"].clamp(0, L).long()]).sum())
+                     for s in ("outer", "inner"))
+        return (V * (1 + 4 + 8 + 4) + last_of.numel() * 4 + L * 12
+                + V * 24), visits * 6 + V * 10
+    mode = n.split("@")[1] if "@" in n else None
+    V = a[1].dis.numel()
+    if n.startswith("lc_plan"):
+        st, net = a[1], a[2]
+        if mode == "signal":
+            tabs = nb(*(net[t] for t in ("drv_len", "lane_out", "lane_local",
+                                         "ll_end", "route_len",
+                                         "route_next_ll"))) \
+                + k["last_of"].numel() * 4
+            return V * (3 + 8 + 4 + 8 + 8 + 16 + 4 + 4 + 4 + 4 + 24) + tabs \
+                + V * 34, V * 60
+        if mode == "receive":
+            return V * (2 + 4 + 4 + 4) + V * 16, V * 6
+        if mode == "decide":
+            return V * 68 + V * 5, V * 12
+        return V * 36 + V * 8, V * 30
+    if n.startswith("lc_commit"):
+        if mode == "tail":
+            L = a[6]
+            return V * 48 + L * 8 + V * 11, V * 15
+        return V * 35 + V * 32, V * 10
     raise KeyError(n)
 
 
-def check_gen1_kernels(eng, reps):
-    """G1-G4 against their plain versions on every call of one more step
-    of the gen1 path, bitwise; timed on the first call of each."""
+def _gen1_label(n, a):
+    """A G kernel call's row name: the kernel, or kernel@mode for the
+    modes of G7 and G8 after the first."""
+    if n in ("lc_plan", "lc_commit"):
+        first = {"lc_plan": "signal", "lc_commit": "tail"}[n]
+        return n if a[0] == first else f"{n}@{a[0]}"
+    return n
+
+
+def check_gen1_kernels(eng, reps, names):
+    """The kernels of `names` against their plain versions on every call
+    of one more step of a gen-1 path, bitwise; timed on the first call of
+    each kernel and mode (G2 on its last: the leader update over every
+    leaderless vehicle). G5 beside the library's index_add_ of the same
+    per-lane sums."""
+    import torch
     from cityflow_tpu_torch import kernels
-    calls = record_gen1_calls(eng)
+    calls = record_gen1_calls(eng, names)
     rows = []
-    for n in GEN1_KERNELS:
+    for n in names:
         mod = kernels.MODULES[n]
         kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
         assert calls[n], f"{n}: no call recorded"
-        for a in calls[n]:
-            got = [t for t in _flat(kern(*a)) if t is not None]
-            want = [t for t in _flat(plain(*a)) if t is not None]
+        for a, k in calls[n]:
+            got = [t for t in _flat(kern(*a, **k)) if t is not None]
+            want = [t for t in _flat(plain(*a, **k)) if t is not None]
             assert len(got) == len(want), f"{n}: outputs differ in number"
             for i, (g, w) in enumerate(zip(got, want)):
                 assert bitwise_equal(g, w), f"{n}: output {i} not bitwise"
-        # timed at the larger call site: G1 with the packs (handleWaiting),
-        # G2 over every leaderless vehicle (updateLeaderAndGap)
-        a = calls[n][-1 if n == "leader_scan" else 0]
-        ms = time_cuda(lambda: kern(*a), reps)
-        plain_ms = time_cuda(lambda: plain(*a), reps)
-        nbytes, nops = gen1_work(n, a, kern(*a))
         log(f"[kernels] {n}: {len(calls[n])} calls bitwise equal to the "
             f"plain version")
-        rows.append(kernel_row(n, 0.0, ms, plain_ms, nbytes, nops, None,
-                               flops=H100_F64_FLOPS))
+        timed = {}
+        for a, k in (calls[n][-1:] if n == "leader_scan" else calls[n]):
+            timed.setdefault(_gen1_label(n, a), (a, k))
+        for label, (a, k) in timed.items():
+            ms = time_cuda(lambda: kern(*a, **k), reps)
+            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+            lib = None
+            if n == "hist_window":
+                lib = index_add_ms(a, reps)
+            nbytes, nops = gen1_work(
+                f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
+                kern(*a, **k))
+            rows.append(kernel_row(label, 0.0, ms, plain_ms, nbytes, nops,
+                                   lib, flops=H100_F64_FLOPS))
     return rows
+
+
+def lane_of(last_of, leader, L, V):
+    """Each slot's lane from G1's lane chains (L for the slots on none)."""
+    import torch
+    lane = torch.full((V,), L, dtype=torch.long, device=leader.device)
+    walk = last_of[:L]
+    lanes = torch.arange(L, device=leader.device)
+    while bool((walk >= 0).any()):
+        ok = walk >= 0
+        lane[walk[ok].long()] = lanes[ok]
+        walk = torch.where(ok, leader[walk.clamp(0).long()], -1)
+    return lane
+
+
+def index_add_ms(a, reps):
+    """One library call computing G5's per-lane sums: index_add_ of
+    (1, speed) rows into (L + 1, 2) by lane (L for the slots on no lane),
+    the lanes taken outside the timing."""
+    import torch
+    last_of, leader, speed, ring_num = a[:4]
+    L = ring_num.shape[1]
+    lane = lane_of(last_of, leader, L, speed.numel())
+    vals = torch.stack([torch.ones_like(speed), speed], dim=1)
+    out = torch.zeros((L + 1, 2), dtype=speed.dtype, device=speed.device)
+    return time_cuda(lambda: out.zero_().index_add_(0, lane, vals), reps)
 
 
 def main():
@@ -1790,12 +2137,19 @@ def main():
     mlc_cfg = prepare(os.path.join(HERE, "benchmarks",
                                    "config_30x30_lc.json"),
                       name="config_30x30_lc_mixed", templates=templates)
-    mlc_launches, mlc_res, ml_sim, ml_state = run_path(
-        "mixed-lc", mlc_cfg, BATCH, LC_WARMUP, STEPS,
-        MAIN_KERNELS + LC_KERNELS + LC_MODES + TPL_MODES + TPL_LC_MODES,
-        lane_slots=0)
+    with insert_demand() as demand:
+        mlc_launches, mlc_res, ml_sim, ml_state = run_path(
+            "mixed-lc", mlc_cfg, BATCH, LC_WARMUP, STEPS,
+            MAIN_KERNELS + LC_KERNELS + LC_MODES + TPL_MODES + TPL_LC_MODES,
+            lane_slots=0)
+    mlc_res["insert_demand_peak"] = demand["peak"]
+    log(f"[mixed-lc] the most shadow inserts one lane asked for in one "
+        f"step, warm-up and window: {demand['peak']} (cap LCI "
+        f"{ml_sim.cfg.LCI})")
+    assert demand["peak"] <= ml_sim.cfg.LCI, "insert demand above the cap"
     log(f"[mixed-lc] {json.dumps(mlc_res)}")
-    rows += check_tpl_kernels(ml_sim, ml_state, REPS, lc=True)
+    rows += check_tpl_kernels(ml_sim, ml_state, REPS, lc=True,
+                              lci=demand["peak"])
     del ml_sim, ml_state
     torch.cuda.empty_cache()
 
@@ -1824,7 +2178,24 @@ def main():
     gen1_launches, gen1_res, eng = run_gen1(cfg_path, GEN1_WARMUP,
                                             GEN1_STEPS)
     log(f"[gen1] {json.dumps(gen1_res)}")
-    rows += check_gen1_kernels(eng, REPS)
+    rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS)
+    del eng
+    torch.cuda.empty_cache()
+    # gen-1 lane change under the DURATION router
+    shadow_steps = check_agreement_gen1(
+        prepare(os.path.join(fix, "config_2x2_lc.json"),
+                name="config_2x2_lc_duration", routerType="DURATION"),
+        AGREE_GEN1_LC_STEPS, tag="agree-gen1-lc")
+    assert shadow_steps > 0, "[agree-gen1-lc] no shadows"
+    glc_cfg = prepare(os.path.join(HERE, "benchmarks",
+                                   "config_30x30_lc.json"),
+                      name="config_30x30_lc_duration",
+                      routerType="DURATION")
+    glc_launches, glc_res, eng = run_gen1(
+        glc_cfg, GEN1_LC_WARMUP, GEN1_LC_STEPS, tag="gen1-lc",
+        names=GEN1_KERNELS + GEN1_LC_KERNELS)
+    log(f"[gen1-lc] {json.dumps(glc_res)}")
+    rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS)
     del eng
     # each row's launches come from the path that runs it
     path_of = {"lane_stats@hist": hist_launches,
@@ -1839,6 +2210,12 @@ def main():
             r["launches"] = path_of[name][name]
         elif name in GEN1_KERNELS:
             r["launches"] = gen1_launches[name]
+        elif name in ("lc_plan", "lc_commit"):
+            # G7 / G8: one row per mode, the first mode's under the name
+            r["launches"] = glc_launches[
+                name + ("@signal" if name == "lc_plan" else "@tail")]
+        elif name.split("@")[0] in GEN1_LC_KERNELS:
+            r["launches"] = glc_launches[name]
         elif name.split("@")[0] in RL_KERNELS:
             r["launches"] = rl_launches[name]
         elif name in LC_KERNELS or name in LC_MODES:

@@ -89,7 +89,8 @@ class SimState:
     uid: Any                  # i32 global spawn uid (-1 free slot)
     params: Any               # (V, 12) f vehicle params (compiler/net P_*)
 
-    # lane change (carried, not yet stepped by the port: ROADMAP.md)
+    # lane change (core/lanechange.py): the real / shadow pair, the
+    # lateral offset, this step's signal, target and gaps
     partner: Any
     is_shadow: Any
     offset: Any
@@ -114,7 +115,8 @@ class SimState:
     # handleWaiting's admission before this step's arrangement
     last_of_drv: Any          # (D,) i32
 
-    # DURATION lane history: (1, 1) / (1,) dummies (ROADMAP.md)
+    # DURATION lane history (Lane::updateHistory): (HL + 1, L) ring rows,
+    # (L,) window sums, the calls so far; (1, 1) / (1,) dummies without it
     hist_ring_num: Any
     hist_ring_ssum: Any
     hist_num: Any
@@ -176,9 +178,10 @@ def init_state(cfg: StepConfig, num_inters: int, phase_time0: np.ndarray,
     first_time = phase_time0[off]
     remain = torch.as_tensor(np.where(n_phases > 0, first_time, 0.0),
                              dtype=f, device=dev)
-    if cfg.track_history:
-        raise NotImplementedError(
-            "gen-1 DURATION lane history is not ported yet (ROADMAP.md)")
+    # the DURATION router's window: (HL + 1, L) ring rows and (L,) sums,
+    # (1, 1) / (1,) dummies without it
+    HL1, L = ((cfg.history_len + 1, cfg.num_lanes) if cfg.track_history
+              else (1, 1))
     return SimState(
         step=zi(), seq_counter=zi(), spawn_cursor=zi(), finished_cnt=zi(),
         cum_travel=zf(), overflow=zi(),
@@ -195,8 +198,8 @@ def init_state(cfg: StepConfig, num_inters: int, phase_time0: np.ndarray,
         lc_lgap=zf(V), lc_fgap=zf(V), lc_last_dir=zi(V),
         phase=zi(num_inters), phase_remain=remain,
         last_of_drv=fi(-1, cfg.num_drivables),
-        hist_ring_num=zf(1, 1), hist_ring_ssum=zf(1, 1), hist_num=zf(1),
-        hist_ssum=zf(1), hist_t=zi())
+        hist_ring_num=zf(HL1, L), hist_ring_ssum=zf(HL1, L),
+        hist_num=zf(L), hist_ssum=zf(L), hist_t=zi())
 
 
 def pad_state(st: SimState, new_v: int) -> SimState:

@@ -9,10 +9,12 @@ csrc/gen1.cuh compute inside the kernels.
 The gen-1 step (JAX package core/step.py, exact mode): one
 Engine::nextStep (engine.cpp:566-594) over the slot pool of `SimState`,
 phase by phase; each phase is a Jacobi update, as the reference's
-double-buffered vehicle writes make it. Four regions run as hand-written
+double-buffered vehicle writes make it. Eight regions run as hand-written
 CUDA kernels on the card (kernels/): G1 arrange (the per-drivable order),
-G2 leader_scan, G3 notify_cross (the notifier of each cross side) and G4
-cross_pass (Cross::canPass over a vehicle's crosses). Every phase returns
+G2 leader_scan, G3 notify_cross (the notifier of each cross side), G4
+cross_pass (Cross::canPass over a vehicle's crosses), G5 hist_window (the
+DURATION router's lane history), and for lane change (core/lanechange.py)
+G6 lc_probe, G7 lc_plan and G8 lc_commit. Every phase returns
 new tensors and writes none of its inputs, so a step can be run again from
 the same state (the engine's capacity-growth retry does).
 
@@ -91,6 +93,15 @@ def stop_before_speed(speed, usual_pos, usual_neg, distance, interval):
     lt1 = speed - speed / ti
     slow = torch.where(ti >= 1, ge1, lt1)
     return torch.where(bda < distance, speed + usual_pos * interval, slow)
+
+
+def ref_min(a, b):
+    """The reference's std::min(a, b), b < a ? b : a: a NaN in b leaves a
+    (torch.minimum and the JAX step's jnp.minimum return the NaN). The
+    isr_speed mins take the stop-before speed, which is 0 / 0 for a
+    stopped vehicle with no distance left (vehicle.cpp getStopBeforeSpeed);
+    elsewhere the two agree."""
+    return torch.where(b < a, b, a)
 
 
 def distance_until_speed(speed, target, acc, interval):
@@ -404,8 +415,6 @@ def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
     """Engine::vehicleControl + Vehicle::getNextSpeed for all running
     vehicles (engine.cpp:188-251, vehicle.cpp:308-376); the cross loop
     (vehicle.cpp:357-374, Cross::canPass) is G4."""
-    if cfg.lane_change:
-        raise NotImplementedError(f"gen-1 lane change is not ported ({ROADMAP})")
     f = st.dis.dtype
     dt = net["interval"]
     p = st.params
@@ -456,7 +465,7 @@ def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
     red = next_is_ll & (~next_avail | ~can_enter)
     min_brake = 0.5 * speed * speed / p[:, P_MAXNEGACC]
     red_stop = red & ~(min_brake > lane_left)
-    v_red = torch.minimum(max_speed, stop_before_speed(
+    v_red = ref_min(max_speed, stop_before_speed(
         speed, p[:, P_USUALPOSACC], p[:, P_USUALNEGACC], lane_left, dt))
 
     # the cross loop over the relevant lanelink's crosses (G4): the turn
@@ -479,6 +488,10 @@ def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
     v = torch.minimum(v, gat(net["drv_max_speed"], st.drv))
     v = torch.minimum(v, v_cf)
     v = torch.where(isr_related, torch.minimum(v, v_isr_final), v)
+    if cfg.lane_change:
+        # laneChange->yieldSpeed (lanechange.cpp:186-206), G7; 100: no cap
+        from cityflow_tpu_torch.core.lanechange import yield_speed
+        v = torch.minimum(v, yield_speed(net, cfg, st))
     # (without laneChange no signal is received: yieldSpeed == 100)
     # invalid-lane stop (vehicle.cpp:325-328)
     invalid = (veh_next < 0) & ~on_last_road(net, cfg, st.route, st.route_pos)
@@ -486,6 +499,11 @@ def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
                                lane_left, dt, p[:, P_MINGAP])
     v = torch.where(invalid, torch.minimum(v, v_inv), v)
     v = torch.maximum(v, speed - p[:, P_MAXNEGACC] * dt)
+    if cfg.lane_change:
+        # a real and its shadow move in lockstep: the min of both next
+        # speeds (engine.cpp:195-205), symmetric, so set on both
+        v = torch.where((st.partner >= 0) & m,
+                        torch.minimum(v, gat(v, st.partner)), v)
 
     # --- kinematics (engine.cpp:212-221) ---
     neg = v < 0
@@ -512,6 +530,15 @@ def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
                speed=torch.where(m, new_speed, st.speed),
                drv=cur, route_pos=pos, changed=changed,
                end=end, blocker=new_blocker)
+    if cfg.lane_change:
+        # a shadow about to leave its lane aborts (engine.cpp:223-226; an
+        # abort wins over a same-step finish); a changing real's lateral
+        # offset grows and it finishes at (w_cur + w_tgt) / 2
+        # (engine.cpp:228-243); both end this step (G8 tail)
+        t = _kernel("lc_commit")("tail", st, cur, buf["speed"], end, net,
+                                 L)
+        buf.update(offset=t["offset"], finish=t["finish"],
+                   abort=t["abort"], end=t["end"])
     return buf, ov_hop
 
 
@@ -527,6 +554,10 @@ def update_location(net, cfg: StepConfig, st: SimState, arr, buf):
     dev = m.device
     removed = m & buf["end"]
     counted = removed
+    if cfg.lane_change:
+        # a finished change removes the real by an identity swap: not a
+        # finished trip (engine.cpp:299-303 hasFinished guard)
+        counted = removed & ~(st.lc_finished | buf["finish"])
 
     # finish stats, summed in (drivable, list-rank) order, one add at a
     # time, as the single-thread reference accumulates (engine.cpp:296-303)
@@ -588,12 +619,27 @@ def commit(net, cfg: StepConfig, st: SimState, buf, removed):
     # clear blockers pointing at vehicles removed this step
     # (engine.cpp:419-421)
     bl_removed = gat(removed, st.blocker) & (st.blocker >= 0)
-    return st.replace_fields(blocker=torch.where(bl_removed, -1, st.blocker))
+    st = st.replace_fields(blocker=torch.where(bl_removed, -1, st.blocker))
+    if cfg.lane_change:
+        st = lc_commit(cfg, st, buf, removed)
+    return st
 
 
-def update_leader_and_gap(net, cfg: StepConfig, st: SimState):
-    """Engine::threadUpdateLeaderAndGap (engine.cpp:429-442)."""
-    arr = arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
+def lc_commit(cfg: StepConfig, st: SimState, buf, removed):
+    """The lane-change epilogue of Vehicle::update, finishChanging and
+    abortChanging (lanechange.cpp:115-148, vehicle.cpp:378-381, 412-416):
+    promotion, unlinking, the offset reset and clearSignal (G8 commit)."""
+    return st.replace_fields(**_kernel("lc_commit")(
+        "commit", st, removed, buf["finish"], buf["offset"]))
+
+
+def update_leader_and_gap(net, cfg: StepConfig, st: SimState, fattrs=None,
+                          iattrs=None):
+    """Engine::threadUpdateLeaderAndGap (engine.cpp:429-442), then
+    Lane::updateHistory under the DURATION router (on every call, as the
+    reference: twice a step with lane change)."""
+    arr = arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq,
+                      fattrs, iattrs)
     in_leader = arr["leader"]
     has_in = in_leader >= 0
     ila = gat(torch.stack([st.dis, st.params[:, P_LEN]], dim=-1), in_leader)
@@ -608,9 +654,20 @@ def update_leader_and_gap(net, cfg: StepConfig, st: SimState):
                                   torch.where(sl >= 0, sg, st.gap)), st.gap)
     st = st.replace_fields(leader=leader, gap=gap, last_of_drv=arr["last_of"])
     if cfg.track_history:
-        raise NotImplementedError(
-            f"gen-1 DURATION lane history is not ported ({ROADMAP})")
+        st = update_history(cfg, st, arr)
     return st, arr
+
+
+def update_history(cfg: StepConfig, st: SimState, arr):
+    """Lane::updateHistory (roadnet.cpp:900-915): this call's per-lane
+    (vehicle count, speed sum) into the ring of history_len + 1 rows and
+    the window sums behind RouterType::DURATION road costs
+    (roadnet.cpp:719-734), G5; `arr` is this state's arrangement."""
+    n, s, ring_n, ring_s = _kernel("hist_window")(
+        arr["last_of"], arr["leader"], st.speed, st.hist_ring_num,
+        st.hist_ring_ssum, st.hist_num, st.hist_ssum, st.hist_t)
+    return st.replace_fields(hist_num=n, hist_ssum=s, hist_ring_num=ring_n,
+                             hist_ring_ssum=ring_s, hist_t=st.hist_t + 1)
 
 
 def pass_time(net, cfg: StepConfig, st: SimState):
@@ -633,22 +690,24 @@ def pass_time(net, cfg: StepConfig, st: SimState):
 # the step
 # ---------------------------------------------------------------------------
 
-def _check(cfg: StepConfig):
+def step_part1(net, cfg: StepConfig, st: SimState, spawn_tbl):
+    """Flow::nextStep + planRoute, handleWaiting, and with lane change
+    initSegments + planLaneChange + scheduleLaneChange (engine.cpp:571-575)
+    followed by a full leader / gap update, since the shadows changed the
+    lists (engine.cpp:574)."""
     if not cfg.exact:
         raise NotImplementedError(f"gen-1 fast mode is not ported ({ROADMAP})")
-    if cfg.lane_change:
-        raise NotImplementedError(f"gen-1 lane change is not ported ({ROADMAP})")
-    if cfg.track_history:
-        raise NotImplementedError(
-            f"gen-1 DURATION lane history is not ported ({ROADMAP})")
-
-
-def step_part1(net, cfg: StepConfig, st: SimState, spawn_tbl):
-    """Flow::nextStep + planRoute, then handleWaiting."""
-    _check(cfg)
     st = spawn_vehicles(net, cfg, st, spawn_tbl)
     # handleWaiting reads the end-of-previous-step lane tails
-    return admit_waiting(net, cfg, st, dict(last_of=st.last_of_drv))
+    st, arr, fattrs, iattrs = admit_waiting(net, cfg, st,
+                                            dict(last_of=st.last_of_drv))
+    if cfg.lane_change:
+        from cityflow_tpu_torch.core.lanechange import plan_lane_change
+        st = plan_lane_change(net, cfg, st, arr)
+        fattrs, iattrs = build_attr_packs(cfg, st,
+                                          blocker_cycles(cfg, st.blocker))
+        st, arr = update_leader_and_gap(net, cfg, st, fattrs, iattrs)
+    return st, arr, fattrs, iattrs
 
 
 def step_part2(net, cfg: StepConfig, st: SimState, arr, fattrs, iattrs):
@@ -673,7 +732,7 @@ def step_part3(net, cfg: StepConfig, st: SimState, arr, buf, ov_hop):
 
 
 def step(net, cfg: StepConfig, st: SimState, spawn_tbl):
-    """One Engine::nextStep (engine.cpp:566-594), laneChange disabled."""
+    """One Engine::nextStep (engine.cpp:566-594)."""
     st, arr, fattrs, iattrs = step_part1(net, cfg, st, spawn_tbl)
     buf, ov_hop = step_part2(net, cfg, st, arr, fattrs, iattrs)
     return step_part3(net, cfg, st, arr, buf, ov_hop)

@@ -112,7 +112,7 @@ __global__ void cross_pass_kernel(const CrossPassArgs a) {
     if (any) {
       T stop = stop_before_speed(speed, p[P_USUALPOSACC], p[P_USUALNEGACC],
                                  ffd - dls - p[P_YIELD], dt);
-      v_isr = tmin(v_isr, stop);
+      v_isr = ref_min(v_isr, stop);
     }
     ((T*)a.v_isr)[v] = v_isr;
     a.any_fail[v] = any;

@@ -44,6 +44,14 @@ __device__ __forceinline__ T tmin(T a, T b) {
   return (b < a) ? b : a;
 }
 
+// The reference's std::min(a, b), (b < a) ? b : a: a NaN in b leaves a.
+// getStopBeforeSpeed is 0 / 0 for a stopped vehicle with no distance left;
+// the reference keeps the other operand where torch.minimum gives NaN.
+template <typename T>
+__device__ __forceinline__ T ref_min(T a, T b) {
+  return (b < a) ? b : a;
+}
+
 template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) {
   if (isnan(a)) return a;
@@ -64,6 +72,43 @@ __device__ __forceinline__ long long order_key(float x) {
 }
 
 // ---- speed model (reference vehicle.cpp; core/step.py of the port) ------
+
+// vehicle.cpp:200-209
+template <typename T>
+__device__ __forceinline__ T no_collision_speed(T vL, T dL, T vF, T dF, T gap,
+                                                T interval, T target_gap) {
+  T c = vF * interval / T(2) + target_gap - T(0.5) * vL * vL / dL - gap;
+  T a = T(0.5) / dF;
+  T b = T(0.5) * interval;
+  T disc = b * b - T(4) * a * c;
+  T v1 = T(0.5) / a * (sqrt(tmax(disc, T(0))) - b);
+  T v2 = T(2) * vL - dL * interval + T(2) * (gap - target_gap) / interval;
+  T v = tmin(v1, v2);
+  return (b * b < T(4) * a * c) ? T(-100) : v;
+}
+
+// Router::getNextDrivable (router.cpp:49-76; core/step.py chain_step): a
+// lane's selected lanelink on the route (route_next_ll), a lanelink's end
+// lane; -1 off the route. pos advances on a lanelink.
+__device__ __forceinline__ int chain_next(const int* route_next_ll,
+                                          const int* lane_local,
+                                          const int* ll_end, long long L,
+                                          long long D, long long NR,
+                                          long long RLEN, long long MAXLPR,
+                                          int route, int pos, int cur,
+                                          int* npos) {
+  long long LL = D - L;
+  *npos = cur >= L ? pos + 1 : pos;
+  if (cur >= 0 && cur < L) {
+    long long local = lane_local[clampll(cur, 0, L - 1)];
+    long long flat = (clampll(route, 0, NR - 1) * RLEN +
+                      clampll(pos, 0, RLEN - 1)) * MAXLPR +
+                     clampll(local, 0, MAXLPR - 1);
+    return route_next_ll[flat];
+  }
+  if (cur >= L) return ll_end[clampll(cur - L, 0, LL > 0 ? LL - 1 : 0)];
+  return -1;
+}
 
 // vehicle.cpp:302-306
 template <typename T>

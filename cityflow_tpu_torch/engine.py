@@ -3,12 +3,12 @@ gen-1 exact step (core/step.py), in float64.
 
 The JAX package's `cityflow_tpu.Engine` with its default exact=True, on a
 CUDA card (device=None) or, when asked, on the CPU: scenario compilation,
-the spawn table, capacity growth, and the getters (string ids, dict
-marshalling). The step reproduces the reference engine bit for bit
-(tests/goldens). Not ported yet, each raising NotImplementedError that
-points at ROADMAP.md: exact=False (the ring engine and gen-1 fast mode),
-laneChange, the DURATION router, push_vehicle, set_vehicle_route,
-get_lane_history and replay files.
+the spawn table, capacity growth, the getters (string ids, dict
+marshalling), lane change, the DURATION router's lane history and
+reroutes, pushed vehicles, archives and replay files. The step reproduces
+the reference engine bit for bit (tests/goldens). Not ported yet, raising
+NotImplementedError that points at ROADMAP.md: exact=False (the ring
+engine and gen-1 fast mode).
 
 State tensors are never written in place, here or in the step: a
 snapshot shares them with the engine, and the capacity-growth retry runs
@@ -16,6 +16,8 @@ a step again from the state it started from.
 """
 
 import copy
+import math
+import os
 from dataclasses import replace as dc_replace
 from typing import Dict, List, Optional
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from cityflow_tpu_torch.carry import net_tensors
+from cityflow_tpu_torch.compiler import flows as flows_mod
 from cityflow_tpu_torch.compiler.net import compile_scenario
 from cityflow_tpu_torch.compiler.spawn import SpawnGenerator
 from cityflow_tpu_torch.core import step as step_mod
@@ -77,15 +80,13 @@ class Engine:
         self.seed = int(cfgj["seed"])
         self.rl_traffic_light = bool(cfgj["rlTrafficLight"])
         self.lane_change = bool(cfgj.get("laneChange", False))
-        if self.lane_change:
-            raise _todo("laneChange: true")
+        self.save_replay_in_config = bool(cfgj.get("saveReplay", False))
+        self.save_replay = self.save_replay_in_config
+        # an extension key (the reference hardcodes RouterType::LENGTH,
+        # router.h:42): "routerType": "LENGTH" | "DURATION"
         self.router_type = str(cfgj.get("routerType", "LENGTH")).upper()
         if self.router_type not in ("LENGTH", "DURATION"):
             raise ValueError(f"unknown routerType {self.router_type}")
-        if self.router_type == "DURATION":
-            raise _todo('routerType "DURATION" in the gen-1 engine')
-        if cfgj.get("saveReplay", False):
-            raise _todo("saveReplay (replay files)")
 
         self._net_dev = net_tensors(self.net, torch.float64, self.device)
         self._spawn_horizon = spawn_horizon
@@ -101,11 +102,17 @@ class Engine:
             max_spawn_per_step=self._spawn.max_per_step,
             k_out=max(self.net.host.ko, 1), k_cross=max(self.net.host.kc, 1),
             rl_traffic_light=self.rl_traffic_light,
-            exact=True)
+            lane_change=self.lane_change, exact=True,
+            track_history=self.router_type == "DURATION")
         self.growths = 0
         self._pushed_ids: Dict[int, str] = {}
         self._manually_pushed = 0
+        self._route_ids = None
         self._set_state(self._fresh_state())
+        self._replay = None
+        if self.save_replay:
+            self._open_replay(cfgj.get("roadnetLogFile"),
+                              cfgj.get("replayLogFile"))
 
     # ------------------------------------------------------------------
     # infrastructure
@@ -218,6 +225,8 @@ class Engine:
     # ------------------------------------------------------------------
     def next_step(self):
         self._step_once()
+        if self.save_replay and self._replay is not None:
+            self._write_replay_line()
 
     def reset(self, seed: bool = False):
         """reference Engine::reset (engine.cpp:744-760): flows and state
@@ -261,14 +270,163 @@ class Engine:
         has[slot] = True
         self.state = st.replace_fields(custom_speed=custom, has_custom=has)
 
+    def _register_route(self, route) -> int:
+        """Write a new road route into the route tables (they have
+        headroom) and upload them; returns its id."""
+        host = self.net.host
+        key = tuple(r.index for r in route)
+        if self._route_ids is None:
+            self._route_ids = {tuple(r.index for r in rt): i
+                               for i, rt in enumerate(host.routes)}
+        if key in self._route_ids:
+            return self._route_ids[key]
+        rid = len(host.routes)
+        net = self.net
+        if rid >= net.route_len.shape[0] or \
+                len(route) > net.route_roads.shape[1]:
+            raise RuntimeError("route table headroom exhausted; recreate the "
+                               "Engine with a larger scenario compile")
+        net.route_len[rid] = len(route)
+        L = net.num_lanes
+        for k, road in enumerate(route):
+            net.route_roads[rid, k] = road.index
+            net.route_next_ll[rid, k, :] = -1
+            for lane in road.lanes:
+                nxt = flows_mod.next_lanelink_for(route, k, lane)
+                if nxt is not None:
+                    net.route_next_ll[rid, k, lane.lane_index] = L + nxt.index
+        host.routes.append(route)
+        self._route_ids[key] = rid
+        for k in ("route_len", "route_roads", "route_next_ll"):
+            self._net_dev[k] = torch.as_tensor(
+                getattr(net, k), dtype=torch.int32, device=self.device)
+        return rid
+
+    def _lane_history_np(self):
+        """(window vehicle count, window speed sum) per lane."""
+        st = self.state
+        return st.hist_num.cpu().numpy(), st.hist_ssum.cpu().numpy()
+
+    def _road_durations(self) -> Dict[int, float]:
+        """Road::getAverageDuration per road from the lane history
+        (roadnet.cpp:719-734): the average speed weighted by the lanes'
+        window counts; -1 where the window is empty."""
+        out: Dict[int, float] = {}
+        if not self.cfg.track_history:
+            return out
+        num, ssum = self._lane_history_np()
+        for road in self.net.host.net.roads:
+            n = 0.0
+            s = 0.0
+            for lane in road.lanes:
+                n += float(num[lane.index])
+                s += float(ssum[lane.index])
+            if n <= 0:
+                out[road.index] = -1.0     # getAverageSpeed -1: no history
+            else:
+                # an all-stopped window gives inf, the reference's double
+                # division
+                avg_speed = s / n
+                out[road.index] = (
+                    math.inf if avg_speed == 0
+                    else flows_mod.road_average_length(road) / avg_speed)
+        return out
+
+    def _router_cost(self, max_speed: float):
+        if self.router_type == "DURATION":
+            return flows_mod.duration_cost_fn(self._road_durations(),
+                                              max_speed)
+        return flows_mod.length_cost
+
+    def get_lane_history(self) -> Dict[str, tuple]:
+        """Per lane (historyVehicleNum, historyAverageSpeed): the window
+        behind DURATION routing (Lane::getHistoryVehicleNum /
+        getHistoryAverageSpeed, roadnet.cpp:917-923)."""
+        if not self.cfg.track_history:
+            raise RuntimeError('lane history requires routerType "DURATION"')
+        num, ssum = self._lane_history_np()
+        ids = self.net.host.lane_ids
+        return {ids[i]: (int(num[i]),
+                         float(ssum[i] / num[i]) if num[i] else 0.0)
+                for i in range(len(ids))}
+
     def set_vehicle_route(self, vid: str, anchors: List[str]) -> bool:
-        raise _todo("set_vehicle_route")
+        """reference Engine::setRoute -> Router::setRoute
+        (engine.cpp:852-866, router.cpp:245-264)."""
+        host = self.net.host
+        slot = self._id_to_slot(vid)
+        if slot is None:
+            return False
+        drv = int(self._fetch()["drv"][slot])
+        if drv < 0 or drv >= self.cfg.num_lanes:
+            return False  # on a lanelink (router.cpp:246)
+        try:
+            anchor_roads = [host.net.road_map[a] for a in anchors]
+        except KeyError:
+            return False
+        cur_road = host.net.lanes[drv].road
+        max_spd = float(self.state.params[slot, 8])
+        route = flows_mod.update_shortest_path(
+            host.net, [cur_road] + anchor_roads,
+            cost=self._router_cost(max_spd))
+        if route is None:
+            return False
+        rid = self._register_route(route)
+        # onValidLane under the new route (router.cpp:254-257)
+        if len(route) > 1 and self.net.route_next_ll[
+                rid, 0, host.net.lanes[drv].lane_index] < 0:
+            return False
+        st = self.state
+        route_t, pos_t = st.route.clone(), st.route_pos.clone()
+        route_t[slot] = rid
+        pos_t[slot] = 0
+        self.state = st.replace_fields(route=route_t, route_pos=pos_t)
+        self._fetched_step = -1
+        return True
 
     def push_vehicle(self, info: dict, roads: List[str]):
-        raise _todo("push_vehicle")
-
-    def get_lane_history(self):
-        raise _todo("get_lane_history (the DURATION router's window)")
+        """reference Engine::pushVehicle(info, roads) (engine.cpp:693-717):
+        a vehicle with custom parameters and an anchor-road route, queued
+        for the next step's planRoute; the RNG draws replay exactly."""
+        host = self.net.host
+        tpl = flows_mod.VehicleTemplate(
+            speed=float(info.get("speed", 0.0)),
+            len=float(info.get("length", 5.0)),
+            width=float(info.get("width", 2.0)),
+            maxPosAcc=float(info.get("maxPosAcc", 4.5)),
+            maxNegAcc=float(info.get("maxNegAcc", 4.5)),
+            usualPosAcc=float(info.get("usualPosAcc", 2.5)),
+            usualNegAcc=float(info.get("usualNegAcc", 2.5)),
+            minGap=float(info.get("minGap", 2.0)),
+            maxSpeed=float(info.get("maxSpeed", 16.66667)),
+            headwayTime=float(info.get("headwayTime", 1.0)))
+        anchor_roads = [host.net.road_map[r] for r in roads]
+        route = flows_mod.update_shortest_path(
+            host.net, anchor_roads, cost=self._router_cost(tpl.maxSpeed))
+        rid = self._register_route(route) if route is not None else -1
+        # a flow row of its own for the custom parameters
+        net = self.net
+        fid = len(host.flows) + len(self._pushed_ids)
+        if fid >= net.flow_params.shape[0]:
+            raise RuntimeError("flow table headroom exhausted")
+        net.flow_params[fid] = tpl.as_list()
+        self._net_dev["flow_params"] = torch.as_tensor(
+            net.flow_params, dtype=torch.float64, device=self.device)
+        serial = self._manually_pushed
+        self._manually_pushed += 1
+        cands = (flows_mod.first_lane_candidates(route)
+                 if route is not None else [])
+        self._spawn.inject_manual(self._step, anchor_roads[0].index, fid, rid,
+                                  [l.index for l in cands], serial)
+        self._upload_spawn()
+        if self._spawn.max_per_step > self.cfg.max_spawn_per_step:
+            self.cfg = dc_replace(
+                self.cfg, max_spawn_per_step=self._spawn.max_per_step)
+        # name the row's uid
+        t = self._spawn.arrays()
+        hits = np.nonzero((t["flow"] == fid) & (t["cnt"] == serial))[0]
+        if hits.size:
+            self._pushed_ids[int(hits[0])] = f"manually_pushed_{serial}"
 
     # ------------------------------------------------------------------
     # query API
@@ -330,6 +488,11 @@ class Engine:
         slot = self._id_to_slot(vid)
         if slot is None:
             raise RuntimeError(f"Vehicle '{vid}' not found")
+        # a shadow's leader query answers through its real twin
+        # (engine.cpp:842-845)
+        if self.lane_change and c["is_shadow"][slot] and \
+                c["partner"][slot] >= 0:
+            slot = int(c["partner"][slot])
         lead = c["leader"][slot]
         return self._veh_id(int(c["uid"][lead])) if lead >= 0 else ""
 
@@ -376,10 +539,34 @@ class Engine:
     # replay / archive
     # ------------------------------------------------------------------
     def set_save_replay(self, open_: bool):
-        raise _todo("replay files")
+        if not self.save_replay_in_config:
+            print("saveReplay is not set to true in config file!")
+            return
+        self.save_replay = open_
 
     def set_replay_file(self, path: str):
-        raise _todo("replay files")
+        if not self.save_replay_in_config:
+            print("saveReplay is not set to true in config file!")
+            return
+        self._open_replay(None, path)
+
+    def _phases_np(self) -> np.ndarray:
+        """The current phase per intersection (replay lines)."""
+        return self.state.phase.cpu().numpy()
+
+    def _open_replay(self, roadnet_log, replay_log):
+        from cityflow_tpu_torch import replay
+        base = self.net.host.dir
+        if roadnet_log:
+            replay.write_roadnet_log(self.net, os.path.join(base, roadnet_log))
+        if self._replay is not None:
+            self._replay.close()
+        self._replay = open(os.path.join(base, replay_log), "w")
+
+    def _write_replay_line(self):
+        from cityflow_tpu_torch import replay
+        self._replay.write(replay.step_line(self, self._fetch()) + "\n")
+        self._replay.flush()
 
     def snapshot(self) -> Archive:
         """reference Archive(engine) (archive.cpp:9-37): the device state

@@ -18,21 +18,30 @@ counter:
   G2 leader_scan     gen-1 leader scan past the drivable's end
   G3 notify_cross    gen-1 cross notifiers and their canPass terms
   G4 cross_pass      gen-1 cross loop of getAction (canPass, first fail)
+  G5 hist_window     gen-1 DURATION lane history (Lane::updateHistory)
+  G6 lc_probe        gen-1 lane change: neighbours on the side lanes
+  G7 lc_plan         gen-1 lane change: signals, arbitration, gap validity,
+                     yieldSpeed (modes signal / receive / decide / yield)
+  G8 lc_commit       gen-1 lane change: getAction's offset tail, the
+                     commit of finished and aborted changes (modes tail /
+                     commit)
   T1 tpl_params      vehicle template index -> template parameters
 
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
 each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
-and lane-change modes also as car_follow@tpl+lc.
+and lane-change modes also as car_follow@tpl+lc. G7's and G8's modes are
+counted apart as lc_plan@<mode> and lc_commit@<mode>.
 
 A wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors; the library is built at first use (kernels/_lib.py).
 """
 
 from cityflow_tpu_torch.kernels import (
-    arrange, car_follow, cross_caps, cross_pass, gather_rows, lane_stats,
-    lc_insert, lc_partner, lc_receive, lc_signal, leader_scan, notify_cross,
-    phase_pressure, ring_commit, tpl_params)
+    arrange, car_follow, cross_caps, cross_pass, gather_rows, hist_window,
+    lane_stats, lc_commit, lc_insert, lc_partner, lc_plan, lc_probe,
+    lc_receive, lc_signal, leader_scan, notify_cross, phase_pressure,
+    ring_commit, tpl_params)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -41,7 +50,8 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "lane_stats": lane_stats, "phase_pressure": phase_pressure,
            "arrange": arrange, "leader_scan": leader_scan,
            "notify_cross": notify_cross, "cross_pass": cross_pass,
-           "tpl_params": tpl_params}
+           "tpl_params": tpl_params, "hist_window": hist_window,
+           "lc_probe": lc_probe, "lc_plan": lc_plan, "lc_commit": lc_commit}
 
 
 # modes of a kernel counted apart as well (module, counter)
@@ -54,7 +64,10 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "car_follow@tpl": (car_follow, "launches_tpl"),
          "car_follow@tpl+lc": (car_follow, "launches_tpl_lc"),
          "lc_signal@tpl": (lc_signal, "launches_tpl"),
-         "lc_receive@tpl": (lc_receive, "launches_tpl")}
+         "lc_receive@tpl": (lc_receive, "launches_tpl"),
+         **{f"lc_plan@{m}": (lc_plan, f"launches_{m}") for m in lc_plan.MODES},
+         **{f"lc_commit@{m}": (lc_commit, f"launches_{m}")
+            for m in lc_commit.MODES}}
 
 
 def reset_launches():

@@ -101,9 +101,14 @@ def lib():
         for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",
                      "lc_receive", "lc_insert", "lc_partner", "lane_stats",
                      "phase_pressure", "arrange", "leader_scan",
-                     "notify_cross", "cross_pass", "tpl_params"):
+                     "notify_cross", "cross_pass", "tpl_params",
+                     "hist_window", "lc_probe"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
+            fn.restype = ctypes.c_int
+        for name in ("lc_plan", "lc_commit"):    # (args, mode, stream)
+            fn = getattr(L, name)
+            fn.argtypes = [vp, ctypes.c_int, vp]
             fn.restype = ctypes.c_int
         _lib = L
         return _lib

@@ -26,7 +26,8 @@ import ctypes
 
 import torch
 
-from cityflow_tpu_torch.core.step import no_collision_speed, stop_before_speed
+from cityflow_tpu_torch.core.step import (
+    no_collision_speed, ref_min, stop_before_speed)
 from cityflow_tpu_torch.compiler.net import (
     P_HEADWAY, P_MAXNEGACC, P_MAXPOSACC, P_MAXSPEED, P_MINGAP, P_TURNSPEED,
     P_USUALNEGACC, P_USUALPOSACC, P_YIELD)
@@ -68,15 +69,6 @@ class _Args(ctypes.Structure):
                 + [("with_yield", ctypes.c_int), ("tpl", ctypes.c_void_p),
                    ("lead_tpl", ctypes.c_void_p), ("table", ctypes.c_void_p),
                    ("TP", ctypes.c_int)])
-
-
-def ref_min(a, b):
-    """The reference's std::min(a, b), b < a ? b : a: a NaN in b leaves a
-    (torch.minimum and the JAX step's jnp.minimum return the NaN). The
-    isr_speed mins take the stop-before speed, which is 0 / 0 for a
-    stopped vehicle with no distance left (vehicle.cpp getStopBeforeSpeed);
-    elsewhere the two agree."""
-    return torch.where(b < a, b, a)
 
 
 def _needed(mode):

@@ -21,7 +21,7 @@ import torch
 
 from cityflow_tpu_torch.core.step import (
     P_LEN, P_MAXNEGACC, P_MAXSPEED, P_TURNSPEED, P_USUALNEGACC,
-    P_USUALPOSACC, P_YIELD, can_yield, foe_view, gat, reach_steps,
+    P_USUALPOSACC, P_YIELD, can_yield, foe_view, gat, reach_steps, ref_min,
     stop_before_speed)
 from cityflow_tpu_torch.kernels import _lib
 from cityflow_tpu_torch.kernels.notify_cross import OWN
@@ -98,7 +98,7 @@ def cross_pass_plain(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok,
     v_stop = stop_before_speed(speed, p[:, P_USUALPOSACC],
                                p[:, P_USUALNEGACC],
                                ff_d - dls - p[:, P_YIELD], dt)
-    v_isr = torch.where(any_fail, torch.minimum(v_isr, v_stop), v_isr)
+    v_isr = torch.where(any_fail, ref_min(v_isr, v_stop), v_isr)
     new_blocker = torch.where(blk_ok & any_fail, ff_foe, -1)
     return v_isr, any_fail, ff_d, new_blocker
 

@@ -15,7 +15,13 @@ from cityflow_tpu_torch.core.ring import (
     RingConfig, RingState, init_ring_state, ring_step, P_LEN, P_MAXSPEED,
     P_MINGAP)
 from cityflow_tpu_torch.device import resolve_device
-from cityflow_tpu_torch.kernels.lc_insert import MAX_LCI
+
+# shadow inserts per lane and step for lane change with non-uniform
+# templates: the JAX package's 2 is too few there (the mixed 30x30
+# lane-change grid flags OV_REMOVE at 2); the most that grid asks of one
+# lane in one step, warm-up and window, is 4 (chip_smoke.py [mixed-lc]
+# measures it on every run and fails if it passes the cap)
+TEMPLATE_LCI = 4
 
 
 @dataclass
@@ -133,7 +139,7 @@ def build_sim(net: CompiledNet, horizon: int = 512,
         MAXLPR=int(np.asarray(tb["route_next"]).shape[2]),
         lane_change=lane_change,
         **({} if meta.uniform_params or not lane_change
-           else dict(LCI=MAX_LCI)),
+           else dict(LCI=TEMPLATE_LCI)),
         track_history=(str(cfgj.get("routerType", "LENGTH")).upper()
                        == "DURATION"))
 

@@ -1,7 +1,9 @@
 """The port's gen-1 Engine around its step: the getters against the JAX
 package's Engine (one run of 100 steps on config_2x2.json, its step jitted
-once), capacity growth, snapshots and archives, reset, and the parts not
-ported yet, which raise NotImplementedError naming ROADMAP.md."""
+once), pushed vehicles and reroutes against the same, capacity growth,
+snapshots and archives (after reseeds, pushes and resets too), reset, and
+the options not ported yet, which raise NotImplementedError naming
+ROADMAP.md."""
 
 import json
 import os
@@ -130,38 +132,106 @@ def _config(tmp_path, **over):
     return str(path)
 
 
-@pytest.mark.parametrize("what", [
-    "exact=False", "backend=ring", "laneChange", "DURATION", "saveReplay"])
-def test_unported_engine_options_raise(tmp_path, what):
+@pytest.mark.parametrize("what", ["exact=False", "backend=ring"])
+def test_unported_engine_options_raise(what):
     kw = dict(device="cpu")
-    path = CONFIG
     if what == "exact=False":
         kw["exact"] = False
-    elif what == "backend=ring":
-        kw["backend"] = "ring"
-    elif what == "laneChange":
-        path = os.path.join(FIX, "config_2x2_lc.json")
-    elif what == "DURATION":
-        path = _config(tmp_path, routerType="DURATION")
     else:
-        path = _config(tmp_path, saveReplay=True)
+        kw["backend"] = "ring"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Engine(path, **kw)
+        Engine(CONFIG, **kw)
 
 
-@pytest.fixture(scope="module")
-def engine():
-    return Engine(CONFIG, device="cpu")
+def _push_and_route(eng):
+    """tests/test_api.py:71-99: a pushed vehicle with its own max speed,
+    then the first compatible reroute of a vehicle on road_0_1_0; the
+    getters at each stop."""
+    out = []
+    for _ in range(5):
+        eng.next_step()
+    eng.push_vehicle({"maxSpeed": 10.0}, ["road_0_1_0", "road_1_1_0"])
+    for _ in range(8):
+        eng.next_step()
+    out.append({k: g(eng) for k, g in GETTERS.items()})
+    cands = [v for v in eng.get_vehicles()
+             if eng.get_vehicle_info(v).get("road") == "road_0_1_0"]
+    hit = None
+    for v in cands:
+        for target in ("road_1_1_0", "road_1_1_1", "road_1_1_3"):
+            if eng.set_vehicle_route(v, [target]):
+                hit = (v, target)
+                break
+        if hit:
+            break
+    out.append(dict(hit=hit, bad=eng.set_vehicle_route(hit[0],
+                                                      ["no_such_road"]),
+                    info={k: g(eng) for k, g in GETTERS.items()}["info"]))
+    for _ in range(10):
+        eng.next_step()
+    out.append({k: g(eng) for k, g in GETTERS.items()})
+    return out
 
 
-@pytest.mark.parametrize("call", [
-    lambda e: e.push_vehicle({}, ["road_0_1_0"]),
-    lambda e: e.set_vehicle_route("flow_0_0", ["road_0_1_0"]),
-    lambda e: e.get_lane_history(),
-    lambda e: e.set_save_replay(True),
-    lambda e: e.set_replay_file("replay.txt"),
-], ids=["push_vehicle", "set_vehicle_route", "get_lane_history",
-        "set_save_replay", "set_replay_file"])
-def test_unported_engine_calls_raise(engine, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(engine)
+def test_push_vehicle_and_reroute_match_jax_engine():
+    from cityflow_tpu.engine import Engine as JaxEngine
+    want = _push_and_route(JaxEngine(CONFIG))
+    got = _push_and_route(Engine(CONFIG, device="cpu"))
+    assert "manually_pushed_0" in got[0]["vehicles_waiting"]
+    info = got[0]["info"]["manually_pushed_0"]
+    assert info["route"].split() == ["road_0_1_0", "road_1_1_0"]
+    hit = got[1]["hit"]
+    assert hit is not None and got[1]["bad"] is False
+    assert got[1]["info"][hit[0]]["route"].split()[-1] == hit[1]
+    for stop, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"stop {stop} differs"
+
+
+def _metrics_run(eng, n):
+    """tests/test_archive.py's record: lane counts, average travel time,
+    vehicle count, after each of n steps."""
+    out = []
+    for _ in range(n):
+        eng.next_step()
+        out.append((eng.get_lane_vehicle_count(),
+                    eng.get_average_travel_time(), eng.get_vehicle_count()))
+    return out
+
+
+def test_cross_engine_restore_after_reseed_and_push(tmp_path):
+    """A dump taken after a mid-run set_random_seed and push_vehicle
+    restores into a fresh Engine and replays the same future
+    (tests/test_archive.py:67-94)."""
+    eng = Engine(CONFIG, device="cpu")
+    _metrics_run(eng, 20)
+    eng.set_random_seed(2023)
+    _metrics_run(eng, 10)
+    eng.push_vehicle({"maxSpeed": 12.0}, ["road_0_1_0", "road_1_1_0"])
+    _metrics_run(eng, 5)
+    path = str(tmp_path / "arch_cross.json")
+    eng.snapshot().dump(path)
+    rec1 = _metrics_run(eng, 40)
+    ids1 = eng.get_vehicles(include_waiting=True)
+    fresh = Engine(CONFIG, device="cpu")
+    fresh.load_from_file(path)
+    assert _metrics_run(fresh, 40) == rec1
+    assert fresh.get_vehicles(include_waiting=True) == ids1
+    assert "manually_pushed_0" in ids1 or eng.state.finished_cnt > 0
+
+
+def test_push_after_continuing_reset(tmp_path):
+    """push_vehicle after reset(False): the RNG stream continues across
+    the reset and the push interleaves into it; a dump round-trips
+    (tests/test_archive.py:97-119)."""
+    eng = Engine(CONFIG, device="cpu")
+    _metrics_run(eng, 25)
+    eng.reset(False)
+    eng.push_vehicle({}, ["road_0_1_0", "road_1_1_0"])
+    _metrics_run(eng, 30)
+    ids1 = eng.get_vehicles(include_waiting=True)
+    path = str(tmp_path / "arch_reset.json")
+    eng.snapshot().dump(path)
+    fresh = Engine(CONFIG, device="cpu")
+    fresh.load_from_file(path)
+    assert _metrics_run(fresh, 20) == _metrics_run(eng, 20)
+    assert "manually_pushed_0" in ids1

@@ -176,3 +176,69 @@ def test_get_action_matches_jax(recorded, case):
     for k in j:
         _eq(k, p[k], j[k])
     _eq("ov_hop", r["port"]["ov_hop"], r["jax"]["ov_hop"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_stop_before_mins_take_the_reference_min(dtype):
+    """getStopBeforeSpeed of a stopped vehicle with no distance left is
+    0 / 0: the reference's std::min(v, NaN) keeps v (ts.ref_min), where
+    torch.minimum (and JAX's jnp.minimum) give NaN. Both of the gen-1
+    step's stop-before mins take it: before a red light (get_action) and
+    before the first cross it must yield at (G4)."""
+    t = lambda x: torch.tensor(x, dtype=dtype)
+    zero, upa, una, dt = t(0.0), t(2.5), t(4.5), t(1.0)
+    stop = ts.stop_before_speed(zero, upa, una, zero, dt)
+    assert torch.isnan(stop)
+    for cap in (t(16.67), t(11.1)):
+        assert torch.isnan(torch.minimum(cap, stop))
+        assert ts.ref_min(cap, stop) == cap
+        assert ts.ref_min(cap, t(3.0)) == torch.minimum(cap, t(3.0))
+        assert ts.ref_min(t(3.0), cap) == 3.0
+
+
+def _stopped_cases(eng, st):
+    """Slot A: a running lane vehicle with no vehicle ahead, its next
+    lanelink red, moved to the lane end at speed 0."""
+    net, cfg = eng._net_dev, eng.cfg
+    L = cfg.num_lanes
+    arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
+    ll_avail = ts.lanelink_available(net, cfg, st)
+    veh_next, _ = ts.chain_step(net, L, st.route, st.route_pos, st.drv)
+    c = sim_state_to_numpy(st)
+    nxt = veh_next.numpy()
+    red = (nxt >= L) & ~ll_avail.numpy()[np.clip(nxt - L, 0, None)]
+    first = arr["leader"].numpy() < 0
+    a = int(np.nonzero(c["running"] & (c["drv"] < L) & red & first)[0][0])
+    c["dis"][a] = eng.net.drv_len[c["drv"][a]]
+    c["speed"][a] = 0.0
+    return a, c
+
+
+def test_get_action_keeps_a_finite_speed_where_jax_gives_nan():
+    """On the recorded config_2x2.json state of step 187, slot A (red
+    light, no lane left, speed 0) gets a finite speed from the port and
+    NaN from JAX; the slots B (stopped, yielding at their first failing
+    cross, which leaves them a distance > 0: canYield needs the brake
+    distance, 0, below it) and every other slot agree bitwise."""
+    from cityflow_tpu_torch.carry import sim_state_from_numpy
+    eng = Engine(os.path.join(HERE, "fixtures", "config_2x2.json"),
+                 device="cpu")
+    for _ in range(187):
+        eng.next_step()
+    st1 = ts.step_part1(eng._net_dev, eng.cfg, eng.state, eng._spawn_dev)[0]
+    a, leaves = _stopped_cases(eng, st1)
+    st = sim_state_from_numpy(leaves, "cpu")
+    port = _np(_port_regions(eng, st))["buf"]
+    jst = jstate.SimState(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    jcfg = jstate.StepConfig(**dataclasses.asdict(eng.cfg))
+    jax_buf = _np(_jax_regions(_net_device_arrays(eng.net, np.float64), jcfg,
+                               jst))["buf"]
+    assert np.isnan(jax_buf["speed"][a]) and np.isfinite(port["speed"][a])
+    assert np.isfinite(port["dis"][a])
+    b = np.nonzero((port["blocker"] >= 0) & (leaves["speed"] == 0.0))[0]
+    assert b.size >= 3
+    keep = np.arange(len(port["speed"])) != a
+    for k in jax_buf:
+        _eq(k, port[k][keep], jax_buf[k][keep])
+    assert np.isfinite(port["speed"][b]).all()

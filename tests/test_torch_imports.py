@@ -1,9 +1,8 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points refuse to fall back to the CPU on their own, and
-the branches it does not cover yet are refused."""
+package, and its entry points refuse to fall back to the CPU on their
+own."""
 
 import ast
-import json
 import os
 
 import pytest
@@ -65,29 +64,6 @@ def test_build_sim_without_device_refuses_the_cpu():
     assert sim.state.l_dis.device.type == "cpu"
 
 
-@pytest.mark.parametrize("case, why", [
-    ("lane_change", "laneChange"),
-    ("duration", "DURATION"),
-])
-def test_unported_gen1_branches_are_refused(case, why, tmp_path):
-    """The gen-1 Engine refuses what it does not step yet, naming
-    ROADMAP.md: lane change (config_lc_single.json) and the DURATION
-    router (config_2x2.json with routerType DURATION)."""
-    from cityflow_tpu_torch.engine import Engine
-    fix = os.path.join(HERE, "fixtures")
-    if case == "lane_change":
-        path = os.path.join(fix, "config_lc_single.json")
-    else:
-        with open(os.path.join(fix, "config_2x2.json")) as f:
-            cfgj = json.load(f)
-        cfgj.update(dir=fix + "/", routerType="DURATION")
-        path = tmp_path / "config.json"
-        path.write_text(json.dumps(cfgj))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        Engine(str(path), device="cpu")
-    assert why in str(e.value)
-
-
 def test_lane_change_modules_are_covered():
     """The import rule above reaches the lane-change module and kernels,
     and the template kernel T1."""
@@ -114,6 +90,29 @@ def test_gen1_modules_are_covered():
                 "kernels/arrange.py", "kernels/leader_scan.py",
                 "kernels/notify_cross.py", "kernels/cross_pass.py"):
         assert rel in files, rel
+
+
+def test_gen1_lane_change_history_and_replay_modules_are_covered():
+    """The import rule above reaches gen-1 lane change, the replay writer,
+    the run tool and the G5-G8 wrappers."""
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("core/lanechange.py", "replay.py", "tools/simple_run.py",
+                "kernels/hist_window.py", "kernels/lc_probe.py",
+                "kernels/lc_plan.py", "kernels/lc_commit.py"):
+        assert rel in files, rel
+
+
+def test_simple_run_runs_on_the_cpu_and_refuses_fast_mode(capsys):
+    """tools/simple_run.py --cpu: the reference CLI's report; --fast is
+    gen-1 fast mode, not ported, and says where it is planned."""
+    from cityflow_tpu_torch.tools import simple_run
+    eng = simple_run.main(["--configFile", os.path.join(
+        HERE, "fixtures", "config_2x2.json"), "-s", "30", "--cpu"])
+    out = capsys.readouterr().out
+    assert "Total Step: 30" in out and "steps/s" in out
+    assert eng.device.type == "cpu" and eng.get_current_time() == 30.0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        simple_run.main(["--configFile", "x.json", "--fast", "--cpu"])
 
 
 def test_gen1_engine_without_device_refuses_the_cpu():

@@ -133,10 +133,11 @@ def test_build_matches_jax(mixed_pair, lc_pair):
         for k, v in want.items():
             assert_close(f"init {k}", v, got[k])
     # the shadow-insert cap: JAX's 2, but with lane change and templates
-    # the most L3 takes (the mixed 30x30 lane-change grid sends more than
-    # 2 changers into a lane in a step)
+    # the most the mixed 30x30 lane-change grid asks of one lane in one
+    # step (more than 2), within what L3 takes
     assert mixed_pair[1].cfg.LCI == mixed_pair[0].cfg.LCI == 2
-    assert lc_pair[1].cfg.LCI == lc_insert.MAX_LCI == 8
+    assert lc_pair[1].cfg.LCI == ring_sim.TEMPLATE_LCI == 4
+    assert ring_sim.TEMPLATE_LCI <= lc_insert.MAX_LCI
 
 
 # ---------------------------------------------------------------------------
