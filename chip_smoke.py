@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the nineteen kernels from csrc/ (nvcc, sm_90a) with its time
+            of the 21 kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -35,7 +35,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
             K3 within 1e-5, their not-bitwise counts printed), timed
   agree-mixed  non-uniform vehicle templates, B=1 card against CPU on
-            tests/fixtures/config_2x2_mixed.json, 200 steps, skc=99
+            tests/fixtures/config_2x2_mixed.json, 100 steps, skc=99
   mixed     the main path on the 30x30 grid with three vehicle templates
             (benchmarks/flow_30_30.json, flow i given template i mod 3 of
             tests/fixtures/flow_2x2_mixed.json; staged under build/) at
@@ -88,17 +88,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             through 150, within 1e-6 with the same change events after);
             history_2x2_40 under routerType DURATION (window sums equal,
             durations within 1e-9 relative); replay_2x2_60 (the replay
-            lines); fixtures staged under build/
-  agree-gen1  the Engine on benchmarks/config_30x30.json, 40 steps, card
+            lines); fixtures staged under build/; G1-G10 launched in it
+  agree-gen1  the Engine on benchmarks/config_30x30.json, 20 steps, card
             against CPU: every SimState leaf bitwise equal every 10 steps
   gen1      the Engine on config_30x30.json on the card: GEN1_WARMUP
             steps, then GEN1_STEPS timed; ms per step, vehicles, pool size
-            and growths, G1-G4 launches per step, their device time per
-            step (CUDA events), the profiler's device time and busy share,
-            peak memory; asserts finite state, vehicles > 0 and G1-G4
-            launched
-  kernels   (gen-1) G1-G4 against their plain versions, bitwise, on every
-            call of one more step of the gen1 path's state, timed
+            and growths, G1-G4, G9 and G10 launches per step, their device
+            time per step (CUDA events), the profiler's device time and
+            busy share, peak memory; asserts finite state, vehicles > 0
+            and those kernels launched
+  kernels   (gen-1) G1-G4, G9 and G10 against their plain versions,
+            bitwise, on every call of one more step of the gen1 path's
+            state, timed (G10 beside torch.sort(stable=True) + torch.sum)
   agree-gen1-lc  tests/fixtures/config_2x2_lc.json under routerType
             DURATION, AGREE_GEN1_LC_STEPS steps, card against CPU as
             [agree-gen1]; the steps with shadows counted (must be > 0)
@@ -109,9 +110,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8) against
             their plain versions, bitwise, on every call of one more
             [gen1-lc] step, timed; G5 beside the library's index_add_
+  agree-fast  Engine(exact=False, backend="gen1") (float32) on
+            tests/fixtures/config_4x4.json, 200 steps, card against CPU:
+            every 10 steps the same vehicles on the same drivables, |dis|
+            and |speed| within 2e-3; the same finished count
+  gen1-fast  that Engine on config_30x30.json: [gen1]'s window and prints,
+            G1-G4 in float32, G2's fast branch, G9 and G10 in fast mode
+            launched
+  kernels   (fast mode) on every call of one more [gen1-fast] step: G1-G4
+            float32 and G2 fast bitwise, G9 fast (and exact on the same
+            blockers) bitwise, G10 fast (ints bitwise, the finish sum
+            within 1e-6 relative) and exact on the same inputs (bitwise),
+            one timed row each
+  agree-gen1-lc-fast  config_2x2_lc.json staged with routerType DURATION
+            in fast mode, 200 steps, card against CPU as [agree-fast],
+            shadows counted (must be > 0); then G5-G8 in float32 against
+            their plain versions on every call of one more step (G5's
+            speed sums within 1e-6 relative, the rest bitwise)
+  agree-ring-engine  Engine(exact=False) (the ring) on the card against
+            the gen-1 fast Engine on the card, config_4x4.json, 200 steps,
+            as [agree-fast]
+  ring-engine  Engine(exact=False) on config_30x30.json (the ring at one
+            env): RING_ENGINE_WARMUP steps, then RING_ENGINE_STEPS timed
+            with get_lane_vehicle_count() every 5th step, as an RL caller
+            reads; ms per step, the step alone, one fetch's ms, growths,
+            the device busy share; K1-K4 launched
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+The last three lines: the kernel table as JSON, the card's name and
+power limit, and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -145,10 +171,11 @@ GOLDEN_GEN1 = (                     # (fixture, golden, steps, RL schedule)
     ("config_4x4.json", "grid4x4_1000.jsonl.gz", 300, False),
     ("config_2x2_mixed.json", "grid2x2_mixed_1000.jsonl.gz", 200, False),
     ("config_4x4_rl.json", "grid4x4_rl_1000.jsonl.gz", 200, True))
-AGREE_GEN1_STEPS = 40               # gen-1 card-vs-CPU steps on 30x30
+AGREE_GEN1_STEPS = 20               # gen-1 card-vs-CPU steps on 30x30
 GEN1_WARMUP = 300                   # gen-1 steps before the timing
 GEN1_STEPS = 100                    # timed gen-1 steps
-GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass")
+GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
+                "blocker_cycles", "update_location")
 GEN1_LC_KERNELS = ("hist_window", "lc_probe", "lc_plan", "lc_commit")
 GEN1_LC_MODES = ("lc_plan@signal", "lc_plan@receive", "lc_plan@decide",
                  "lc_plan@yield", "lc_commit@tail", "lc_commit@commit")
@@ -159,10 +186,23 @@ GEN1_LC_WARMUP = 1960               # gen-1 lane-change steps before the
                                     # timing (the 30x30 routes change lanes
                                     # on their last road, from about 1777)
 GEN1_LC_STEPS = 100                 # timed gen-1 lane-change steps
+AGREE_FAST_STEPS = 200              # gen-1 fast mode card vs CPU on 4x4
+# the float32 / fast-branch modes of the gen-1 kernels on [gen1-fast] and
+# (G5-G8) on [agree-gen1-lc-fast]
+GEN1_FAST_MODES = ("arrange@f32", "leader_scan@fast", "notify_cross@f32",
+                   "cross_pass@f32", "blocker_cycles@fast",
+                   "update_location@fast")
+GEN1_LC_F32 = ("hist_window@f32", "lc_probe@f32", "lc_plan@f32",
+               "lc_commit@f32")
+FAST_BRANCH = ("leader_scan", "blocker_cycles", "update_location")
+AGREE_RING_ENGINE_STEPS = 200       # ring Engine vs gen-1 fast, card, 4x4
+RING_ENGINE_WARMUP = 300            # the ring Engine on 30x30 at one env
+RING_ENGINE_STEPS = 100
+GETTER_EVERY = 5                    # get_lane_vehicle_count every 5th step
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc")
-AGREE_MIXED_STEPS = 200             # card-vs-CPU steps on the mixed fixture
+AGREE_MIXED_STEPS = 100             # card-vs-CPU steps on the mixed fixture
 TPL_MODES = ("tpl_params", "car_follow@tpl", "cross_caps@tpl")
 TPL_LC_MODES = ("lc_signal@tpl", "lc_receive@tpl", "car_follow@tpl+lc")
 RL_KERNELS = ("lane_stats", "phase_pressure")
@@ -221,6 +261,31 @@ REPLACES = {
     "lc_commit@commit": "cityflow_tpu/core/step.py:909-942 (lc_commit)",
     "tpl_params": "cityflow_tpu/core/ring.py:270-297 (_PP, the template "
                   "one-hot einsum)",
+    "blocker_cycles": "cityflow_tpu/core/step.py:597-615 (blocker_cycles, "
+                      "exact: log2(V) pointer-doubling gathers)",
+    "blocker_cycles@fast": "cityflow_tpu/core/step.py:597-615, cap :609 "
+                           "(blocker_cycles, fast mode)",
+    "update_location": "cityflow_tpu/core/step.py:830-881 (update_location: "
+                       "nonzero + fori_loop ordered sum :848-854, argsort "
+                       ":863)",
+    "update_location@fast": "cityflow_tpu/core/step.py:855-857 "
+                            "(update_location's fast unordered sum), :863",
+    "leader_scan@fast": "cityflow_tpu/core/step.py:262-286, :311-314 "
+                        "(leader_scan fast branch: cand_pack, one gather "
+                        "per hop)",
+    "arrange@f32": "cityflow_tpu/core/step.py:48-115 (arrangement, float32)",
+    "notify_cross@f32": "cityflow_tpu/core/step.py:467-594 (notify_cross, "
+                        "float32)",
+    "cross_pass@f32": "cityflow_tpu/core/step.py:682-751 (get_action cross "
+                      "loop, float32)",
+    "hist_window@f32": "cityflow_tpu/core/step.py:970-999 (update_history, "
+                       "float32)",
+    "lc_probe@f32": "cityflow_tpu/core/lanechange.py:42-96 "
+                    "(_probe_neighbors, float32)",
+    "lc_plan@f32": "cityflow_tpu/core/lanechange.py:108-189, 191-226, "
+                   "294-318 (plan_lane_change, yield_speed, float32)",
+    "lc_commit@f32": "cityflow_tpu/core/step.py:807-826, 909-942 "
+                     "(lane-change tail, lc_commit, float32)",
     "car_follow@tpl": "cityflow_tpu/core/ring.py:998-1092 (isr_speed, "
                       "min_chain with pp / lead_pp)",
     "car_follow@tpl+lc": "cityflow_tpu/core/ring.py:1042-1092 (min_chain "
@@ -1748,17 +1813,20 @@ def gen1_shares(eng, nsteps, names):
     return per_step_ms(events, nsteps), total
 
 
-def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS):
-    """The gen-1 Engine on the card: `warmup` steps, then `steps` timed
-    ones with the launch counts set to 0 just before and read just
-    after; every kernel in `names` must have launched in them. Under lane
-    change the first warm-up step with a shadow is printed and the timed
-    steps must hold shadows (counted on the device)."""
+def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
+             exact=True, modes=()):
+    """The gen-1 Engine on the card (exact, or fast mode: float32):
+    `warmup` steps, then `steps` timed ones with the launch counts set to
+    0 just before and read just after; every kernel in `names` and every
+    mode in `modes` must have launched in them. Under lane change the
+    first warm-up step with a shadow is printed and the timed steps must
+    hold shadows (counted on the device)."""
     import torch
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.engine import Engine
     t0 = time.time()
-    eng = Engine(cfg_path, spawn_horizon=warmup + steps + 16)
+    eng = Engine(cfg_path, exact=exact, backend="gen1",
+                 spawn_horizon=warmup + steps + 16)
     lc = eng.lane_change
     setup_s = time.time() - t0
     t0 = time.time()
@@ -1791,7 +1859,7 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS):
                 and torch.isfinite(st.speed[run]).all()), "state not finite"
     assert bool((st.dis[run] >= 0).all()), "negative distance"
     assert int(st.overflow) & ~eng._ov == 0
-    for k in names:
+    for k in names + tuple(modes):
         assert launches[k] > 0, f"kernel {k} was not launched on {tag}"
     per_step = {k: launches[k] / steps for k in launches
                 if launches[k] and k.split("@")[0] in names}
@@ -1888,30 +1956,66 @@ def gen1_work(n, a, k, out):
     kernel or kernel@mode."""
     import torch
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    if n == "blocker_cycles":
+        blocker = a[0]
+        V = blocker.numel()
+        # each slot's blocker in, its flag out (a walk re-reads the same
+        # array); a compare per slot and two per blocked slot
+        return V * 5, V + 2 * int((blocker >= 0).sum())
+    if n == "update_location":
+        (running, end, changed, buf_dis, buf_drv, enter_time, list_seq,
+         ent, sorted_idx, lc_fin) = a[:10]
+        V = running.numel()
+        fs = buf_dis.element_size()
+        removed = running & end
+        trans = running & changed & ~removed
+        nt, nr = int(trans.sum()), int(removed.sum())
+        # flags in (and the lane-change flags, G1's order in exact mode),
+        # per transfer its distance and drivable, per removal its entry
+        # time; the removed flags and two ticket columns out, four scalars
+        ins = V * (3 + (4 if sorted_idx is not None else 0)
+                   + (2 if lc_fin is not None else 0) + 8) \
+            + nt * (fs + 4) + nr * fs + 3 * 4 + 2 * fs
+        outs = V * (1 + 8) + 3 * 4 + fs
+        return ins + outs, nt * nt * 3 + V * 4
     if n == "arrange":
         running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs = a
+        fs = dis.element_size()
         V = running.numel()
         run = drv[running].long()
         nrun = int(run.numel())
         nt = int((out["link_veh"] >= 0).sum())
-        per_row = 4 + fattrs.shape[1] * 8 + iattrs.shape[1] * 4
-        ins = V + nrun * (4 + 8 + 4) + nt * (per_row - 4)
+        per_row = 4 + fattrs.shape[1] * fs + iattrs.shape[1] * 4
+        ins = V + nrun * (4 + fs + 4) + nt * (per_row - 4)
         outs = 8 * V + 8 * D + out["link_veh"].numel() * per_row + 1
         # each vehicle compares itself with the others of its drivable
         ops = int((torch.bincount(run, minlength=D) ** 2).sum())
         return ins + outs, ops
     if n == "leader_scan":
-        mask = a[0]
+        mask, dis, last_of = a[0], a[4], a[6]
+        fs = dis.element_size()
         m = int(mask.sum())
+        if k.get("fast"):
+            # the table: per drivable its rear vehicle (lanes) or its
+            # start lane's outs' rear vehicles (lanelinks), dis and len,
+            # one (candidate, value) entry out; per scanning vehicle its
+            # state and two params, then per hop a route entry, a table
+            # entry and the drivable's length
+            D = last_of.numel()
+            return (D * (4 + 2 * fs) + D * (4 + fs)
+                    + mask.numel() * (1 + 4 + fs) + m * (12 + 3 * fs)
+                    + m * (8 + 2 * fs)), D * 6 + m * 20
         # per scanning vehicle: drv, route, pos, dis, two params, then at
         # least one hop (route entry, rear vehicle, its dis and len,
         # the drivable's length)
-        return mask.numel() * (1 + 4 + 8) + m * (36 + 32), m * 20
+        return (mask.numel() * (1 + 4 + fs) + m * (12 + 3 * fs)
+                + m * (8 + 3 * fs)), m * 20
     if n == "notify_cross":
         net, arr, veh_next, ll_avail, fattrs, iattrs, L = a
+        fs = fattrs.element_size()
         LL, KC = net["lnk_cross_d"].shape
         K = arr["link_veh"].shape[1]
-        pack = fattrs.shape[1] * 8 + iattrs.shape[1] * 4
+        pack = fattrs.shape[1] * fs + iattrs.shape[1] * 4
         # the link tables' vehicle column, the distance and length of the
         # occupied entries, per link its lanes' rear / front slots and
         # lengths, and the packs of every vehicle that wins a cross or
@@ -1920,11 +2024,12 @@ def gen1_work(n, a, k, out):
                           arr["first_of"][net["ll_start"].long()],
                           out["idx"].reshape(-1)])
         nveh = int(torch.unique(ends[ends >= 0]).numel())
-        ins = (LL * KC * 8 + LL * K * 4 + int((arr["link_veh"] >= 0).sum())
-               * 16 + LL * (4 * 4 + 2 * 8 + 2) + nveh * (pack + 4))
-        return ins + LL * KC * (5 + 8 + 16), LL * KC * (3 * (K + 2) + 60)
+        ins = (LL * KC * fs + LL * K * 4 + int((arr["link_veh"] >= 0).sum())
+               * 2 * fs + LL * (4 * 4 + 2 * fs + 2) + nveh * (pack + 4))
+        return ins + LL * KC * (5 + fs + 16), LL * KC * (3 * (K + 2) + 60)
     if n == "cross_pass":
         the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own, net = a
+        fs = dls.element_size()
         V = the_ll.numel()
         LL = net["lnk_cross_d"].shape[0]
         safe = the_ll.clamp(0, LL - 1).long()
@@ -1935,17 +2040,19 @@ def gen1_work(n, a, k, out):
         # the crosses up to the first one it must yield at
         need = int((cons & (~any_fail[:, None] | (d <= ff_d[:, None])))
                    .sum())
-        return V * (4 + 8 + 8 + 8 * 8 + 4 + 4 + 1 + 1 + 21) + need * 46, \
-            need * 100 + V * 30
+        return V * (4 + 10 * fs + 4 + 4 + 1 + 1 + 21) \
+            + need * (30 + 2 * fs), need * 100 + V * 30
     if n == "hist_window":
         last_of, leader, speed, ring_num = a[:4]
+        fs = speed.element_size()
         HL1, L = ring_num.shape
         V = speed.numel()
         # per lane its rear slot and the two sums in and out; both rings
         # in and out (the function returns new rings); per running lane
         # vehicle its leader and speed; two adds per vehicle, four per lane
         nveh = int((lane_of(last_of, leader, L, V) < L).sum())
-        return L * (4 + 32) + 4 * HL1 * L * 8 + nveh * 12, 2 * nveh + 4 * L
+        return L * (4 + 4 * fs) + 4 * HL1 * L * fs + nveh * (4 + fs), \
+            2 * nveh + 4 * L
     if n == "lc_probe":
         running, drv, dis, last_of, leader, net, L = a
         V = dis.numel()
@@ -1954,8 +2061,8 @@ def gen1_work(n, a, k, out):
                                            minlength=L + 1)
                           [out[s + "_lane"].clamp(0, L).long()]).sum())
                      for s in ("outer", "inner"))
-        return (V * (1 + 4 + 8 + 4) + last_of.numel() * 4 + L * 12
-                + V * 24), visits * 6 + V * 10
+        return (V * (1 + 4 + dis.element_size() + 4) + last_of.numel() * 4
+                + L * 12 + V * 24), visits * 6 + V * 10
     mode = n.split("@")[1] if "@" in n else None
     V = a[1].dis.numel()
     if n.startswith("lc_plan"):
@@ -1989,12 +2096,40 @@ def _gen1_label(n, a):
     return n
 
 
-def check_gen1_kernels(eng, reps, names):
+def _mode_label(n):
+    """A gen-1 kernel's row on a fast-mode path: its fast branch, or its
+    float32 mode."""
+    return f"{n}@{'fast' if n in FAST_BRANCH else 'f32'}"
+
+
+def _check_call(n, kern, plain, a, k, rel_tol):
+    """One recorded call of G kernel n: the kernel against its plain
+    version, every output bitwise, except float outputs within `rel_tol`
+    relative where it is not None; returns the largest absolute
+    difference."""
+    got = [t for t in _flat(kern(*a, **k)) if t is not None]
+    want = [t for t in _flat(plain(*a, **k)) if t is not None]
+    assert len(got) == len(want), f"{n}: outputs differ in number"
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if rel_tol is not None and g.dtype.is_floating_point:
+            rel_close(f"{n}: output {i}", g, w, tol=rel_tol)
+            err = max(err, float((g.double() - w.double()).abs().max())
+                      if g.numel() else 0.0)
+        else:
+            assert bitwise_equal(g, w), f"{n}: output {i} not bitwise"
+    return err
+
+
+def check_gen1_kernels(eng, reps, names, fast=False):
     """The kernels of `names` against their plain versions on every call
-    of one more step of a gen-1 path, bitwise; timed on the first call of
-    each kernel and mode (G2 on its last: the leader update over every
-    leaderless vehicle). G5 beside the library's index_add_ of the same
-    per-lane sums."""
+    of one more step of a gen-1 path, bitwise (fast mode: G10's unordered
+    finish sum and G5's speed sums within 1e-6 relative); timed on the
+    first call of each kernel and mode (G2 on its last: the leader update
+    over every leaderless vehicle). On a fast path one row per kernel,
+    its float32 or fast mode, and G9 and G10 also in exact mode on the
+    same inputs (G10 bitwise there, with G1's order of the step). G5 beside the library's index_add_ of the same per-lane
+    sums, G10 beside torch.sort(stable=True) + torch.sum."""
     import torch
     from cityflow_tpu_torch import kernels
     calls = record_gen1_calls(eng, names)
@@ -2003,29 +2138,65 @@ def check_gen1_kernels(eng, reps, names):
         mod = kernels.MODULES[n]
         kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
         assert calls[n], f"{n}: no call recorded"
-        for a, k in calls[n]:
-            got = [t for t in _flat(kern(*a, **k)) if t is not None]
-            want = [t for t in _flat(plain(*a, **k)) if t is not None]
-            assert len(got) == len(want), f"{n}: outputs differ in number"
-            for i, (g, w) in enumerate(zip(got, want)):
-                assert bitwise_equal(g, w), f"{n}: output {i} not bitwise"
-        log(f"[kernels] {n}: {len(calls[n])} calls bitwise equal to the "
-            f"plain version")
+        rel_tol = 1e-6 if fast and n in ("update_location", "hist_window") \
+            else None
+        errs = [_check_call(n, kern, plain, a, k, rel_tol)
+                for a, k in calls[n]]
+        if fast and n == "blocker_cycles":
+            for a, k in calls[n]:
+                _check_call(n, kern, plain, (a[0], True, a[2]), k, None)
+        if fast and n == "update_location":
+            # exact mode on the same inputs: G1's order of this step's
+            # first arrangement (the one the step hands to G10)
+            (ga, gk), = calls["arrange"][:1]
+            sidx = getattr(kernels.MODULES["arrange"], "arrange")(
+                *ga, **gk)["sorted_idx"]
+            for a, k in calls[n]:
+                ax = list(a)
+                ax[8], ax[19] = sidx, True
+                _check_call(n, kern, plain, tuple(ax), k, None)
+        both = (", in both modes" if fast and n in ("blocker_cycles",
+                                                   "update_location")
+                else "")
+        log(f"[kernels] {n}: {len(calls[n])} calls equal to the plain "
+            f"version ({'within 1e-6 relative' if rel_tol else 'bitwise'}"
+            f"{both})")
         timed = {}
         for a, k in (calls[n][-1:] if n == "leader_scan" else calls[n]):
-            timed.setdefault(_gen1_label(n, a), (a, k))
+            label = _mode_label(n) if fast else _gen1_label(n, a)
+            timed.setdefault(label, (a, k))
         for label, (a, k) in timed.items():
             ms = time_cuda(lambda: kern(*a, **k), reps)
             plain_ms = time_cuda(lambda: plain(*a, **k), reps)
             lib = None
             if n == "hist_window":
                 lib = index_add_ms(a, reps)
+            elif n == "update_location":
+                lib = sort_sum_ms(a, reps)
             nbytes, nops = gen1_work(
                 f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
                 kern(*a, **k))
-            rows.append(kernel_row(label, 0.0, ms, plain_ms, nbytes, nops,
-                                   lib, flops=H100_F64_FLOPS))
+            rows.append(kernel_row(
+                label, max(errs), ms, plain_ms, nbytes, nops, lib,
+                flops=H100_F32_FLOPS if fast else H100_F64_FLOPS))
     return rows
+
+
+def sort_sum_ms(a, reps):
+    """The library pair computing G10's transfer order and finish sum:
+    torch.sort(stable=True) of -dis over the transfers and torch.sum of
+    the counted travel times (the masks made outside the timing)."""
+    import torch
+    running, end, changed, buf_dis, enter_time = (a[i] for i in
+                                                  (0, 1, 2, 3, 5))
+    step, interval = a[11], a[16]
+    removed = running & end
+    trans = running & changed & ~removed
+    key = torch.where(trans, -buf_dis, torch.inf)
+    tt = torch.where(removed, step.to(buf_dis.dtype) * interval - enter_time,
+                     0.0)
+    return time_cuda(lambda: (torch.sort(key, stable=True),
+                              torch.sum(tt)), reps)
 
 
 def lane_of(last_of, leader, L, V):
@@ -2052,6 +2223,130 @@ def index_add_ms(a, reps):
     vals = torch.stack([torch.ones_like(speed), speed], dim=1)
     out = torch.zeros((L + 1, 2), dtype=speed.dtype, device=speed.device)
     return time_cuda(lambda: out.zero_().index_add_(0, lane, vals), reps)
+
+
+# ---------------------------------------------------------------------------
+# Engine(exact=False): gen-1 fast mode and the ring Engine
+# ---------------------------------------------------------------------------
+
+def engine_vehicles(eng):
+    """{uid: (drivable, dis, speed)} of an Engine's running vehicles (a
+    shadow's uid with bit 30 set), from either backend."""
+    import numpy as np
+    from cityflow_tpu_torch import ring_sim
+    if eng._ring is not None:
+        return ring_sim.fetch_vehicles(eng._ring.sim)
+    st = eng.state
+    run = st.running.cpu().numpy()
+    uid, drv = st.uid.cpu().numpy(), st.drv.cpu().numpy()
+    dis, spd = st.dis.cpu().numpy(), st.speed.cpu().numpy()
+    return {int(uid[i]): (int(drv[i]), float(dis[i]), float(spd[i]))
+            for i in np.nonzero(run)[0]}
+
+
+def engine_finished(eng):
+    if eng._ring is not None:
+        return eng._ring.stats()[1]
+    return int(eng.state.finished_cnt)
+
+
+def check_agreement_fast(tag, a, b, steps):
+    """Two fast-mode Engines stepped together (the card against the CPU,
+    or the ring against gen-1): every 10 steps the same vehicles on the
+    same drivables, |dis| and |speed| within 2e-3; the same finished
+    count at the end. The launch counts are set to 0 first and returned
+    as they stand after (the card Engine's). The steps whose state holds
+    a shadow are counted."""
+    from cityflow_tpu_torch import kernels
+    t0 = time.time()
+    kernels.reset_launches()
+    worst, shadows = 0.0, 0
+    for i in range(1, steps + 1):
+        a.next_step()
+        b.next_step()
+        if i % 10 and i != steps:
+            continue
+        va, vb = engine_vehicles(a), engine_vehicles(b)
+        assert set(va) == set(vb), f"[{tag}] step {i}: vehicle sets differ"
+        for u in va:
+            assert va[u][0] == vb[u][0], f"[{tag}] step {i}: uid {u} drivable"
+            worst = max(worst, abs(va[u][1] - vb[u][1]),
+                        abs(va[u][2] - vb[u][2]))
+        assert worst <= 2e-3, f"[{tag}] step {i}: worst drift {worst}"
+        shadows += any(u & (1 << 30) for u in va)
+    launches = kernels.launch_counts()
+    assert engine_finished(a) == engine_finished(b), f"[{tag}] finished"
+    assert len(va) > 0
+    log(f"[{tag}] {steps} steps: vehicles={len(va)} worst_drift={worst} "
+        f"finished={engine_finished(a)} checks_with_shadows={shadows} "
+        f"wall_s={time.time() - t0:.1f}")
+    return launches, shadows
+
+
+def run_ring_engine(cfg_path, warmup, steps, every):
+    """Engine(exact=False) on the card, the ring at one env: `warmup`
+    steps, then `steps` timed ones with get_lane_vehicle_count() every
+    `every`th (a fetch of the whole host view), the launch counts set to
+    0 just before and read just after (K1-K4 must have launched); the
+    ms of one fetch, the ring growths, the device busy share."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.engine import Engine
+    t0 = time.time()
+    eng = Engine(cfg_path, exact=False, spawn_horizon=warmup + steps + 16)
+    assert eng._ring is not None, "the ring was not selected"
+    setup_s = time.time() - t0
+    t0 = time.time()
+    for _ in range(warmup):
+        eng.next_step()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    g0 = eng._ring.growths
+    kernels.reset_launches()
+    counted = 0
+    t0 = time.time()
+    for i in range(steps):
+        eng.next_step()
+        if i % every == every - 1:
+            counted += sum(eng.get_lane_vehicle_count().values())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kernels.launch_counts()
+    for k in MAIN_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on ring-engine"
+    st = eng._ring.sim.state
+    assert int(st.overflow) == eng._ring._known_ov
+    veh = eng.get_vehicle_count()
+    assert veh > 0 and counted > 0, "no vehicles"
+    occ = torch.arange(st.l_dis.shape[0], device=st.l_dis.device)[:, None] \
+        < st.n_l[None, :]
+    assert bool(torch.isfinite(st.l_dis[occ]).all()), "state not finite"
+    # one fetch of the host view (the getters' cache), on the host clock
+    t1 = time.time()
+    eng._ring.fetch()
+    fetch_ms = (time.time() - t1) * 1e3
+    # the step alone, without getters
+    torch.cuda.synchronize()
+    t1 = time.time()
+    for _ in range(10):
+        eng.next_step()
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t1) * 1e2
+    ms = dt * 1e3 / steps
+    c = eng._ring.sim.cfg
+    log(f"[ring-engine] steps={steps} warmup={warmup} ms_per_step={ms:.3f} "
+        f"(get_lane_vehicle_count every {every}th) step_only_ms={step_ms:.3f}"
+        f" fetch_ms={fetch_ms:.1f} vehicles={veh} growths={eng._ring.growths}"
+        f" (in the window {eng._ring.growths - g0}) SL={c.SL} SK={c.SK} "
+        f"setup_s={setup_s:.1f} warmup_s={warm_s:.1f}")
+    log(f"[ring-engine] launches per step="
+        f"{ {k: v / steps for k, v in launches.items() if v} }")
+    prof = gen1_profile(eng, 3, step_ms, "ring-engine")
+    return launches, dict(
+        steps=steps, warmup=warmup, ms_per_step=ms, step_only_ms=step_ms,
+        fetch_ms=fetch_ms, vehicles=veh, growths=eng._ring.growths,
+        SL=c.SL, SK=c.SK, **prof)
 
 
 def main():
@@ -2172,8 +2467,13 @@ def main():
     del env
     torch.cuda.empty_cache()
 
-    # the gen-1 exact Engine
+    # the gen-1 exact Engine (G9 and G10 on its path too)
+    kernels.reset_launches()
     check_golden_gen1()
+    golden_launches = kernels.launch_counts()
+    for k in GEN1_KERNELS + GEN1_LC_KERNELS:
+        assert golden_launches[k] > 0, f"{k} idle on [golden-gen1]"
+    assert golden_launches["update_location@fast"] == 0
     check_agreement_gen1(cfg_path, AGREE_GEN1_STEPS)
     gen1_launches, gen1_res, eng = run_gen1(cfg_path, GEN1_WARMUP,
                                             GEN1_STEPS)
@@ -2197,6 +2497,46 @@ def main():
     log(f"[gen1-lc] {json.dumps(glc_res)}")
     rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS)
     del eng
+    torch.cuda.empty_cache()
+
+    # Engine(exact=False): gen-1 fast mode (float32) ...
+    from cityflow_tpu_torch.engine import Engine
+    fast = dict(exact=False, backend="gen1")
+    four = prepare(os.path.join(fix, "config_4x4.json"))
+    check_agreement_fast(
+        "agree-fast", Engine(four, spawn_horizon=AGREE_FAST_STEPS + 8, **fast),
+        Engine(four, spawn_horizon=AGREE_FAST_STEPS + 8, device="cpu",
+               **fast), AGREE_FAST_STEPS)
+    fast_launches, fast_res, eng = run_gen1(
+        cfg_path, GEN1_WARMUP, GEN1_STEPS, tag="gen1-fast", exact=False,
+        modes=GEN1_FAST_MODES)
+    log(f"[gen1-fast] {json.dumps(fast_res)}")
+    rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS, fast=True)
+    del eng
+    torch.cuda.empty_cache()
+    lcd = prepare(os.path.join(fix, "config_2x2_lc.json"),
+                  name="config_2x2_lc_duration", routerType="DURATION")
+    card = Engine(lcd, spawn_horizon=AGREE_GEN1_LC_STEPS + 16, **fast)
+    lcf_launches, shadows = check_agreement_fast(
+        "agree-gen1-lc-fast", card,
+        Engine(lcd, spawn_horizon=AGREE_GEN1_LC_STEPS + 16, device="cpu",
+               **fast), AGREE_GEN1_LC_STEPS)
+    assert shadows > 0, "[agree-gen1-lc-fast] no shadows"
+    for k in GEN1_LC_F32:
+        assert lcf_launches[k] > 0, f"{k} idle on [agree-gen1-lc-fast]"
+    rows += check_gen1_kernels(card, REPS, GEN1_LC_KERNELS, fast=True)
+    del card
+    # ... and the ring Engine
+    ring_agree_launches, _ = check_agreement_fast(
+        "agree-ring-engine",
+        Engine(four, exact=False, spawn_horizon=AGREE_RING_ENGINE_STEPS + 8),
+        Engine(four, spawn_horizon=AGREE_RING_ENGINE_STEPS + 8, **fast),
+        AGREE_RING_ENGINE_STEPS)
+    for k in MAIN_KERNELS + ("update_location@fast",):
+        assert ring_agree_launches[k] > 0, f"{k} idle on [agree-ring-engine]"
+    ring_launches, ring_res = run_ring_engine(
+        cfg_path, RING_ENGINE_WARMUP, RING_ENGINE_STEPS, GETTER_EVERY)
+    log(f"[ring-engine] {json.dumps(ring_res)}")
     # each row's launches come from the path that runs it
     path_of = {"lane_stats@hist": hist_launches,
                "phase_pressure@features": dqn_launches}
@@ -2208,6 +2548,10 @@ def main():
             r["launches"] = mlc_launches[name]
         elif name in path_of:
             r["launches"] = path_of[name][name]
+        elif name in GEN1_FAST_MODES:
+            r["launches"] = fast_launches[name]
+        elif name in GEN1_LC_F32:
+            r["launches"] = lcf_launches[name]
         elif name in GEN1_KERNELS:
             r["launches"] = gen1_launches[name]
         elif name in ("lc_plan", "lc_commit"):

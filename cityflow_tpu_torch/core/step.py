@@ -6,17 +6,23 @@ weakly typed constants do, so the ring runs them in float32 and the gen-1
 step in float64. They are the plain versions of what csrc/common.cuh and
 csrc/gen1.cuh compute inside the kernels.
 
-The gen-1 step (JAX package core/step.py, exact mode): one
-Engine::nextStep (engine.cpp:566-594) over the slot pool of `SimState`,
-phase by phase; each phase is a Jacobi update, as the reference's
-double-buffered vehicle writes make it. Eight regions run as hand-written
-CUDA kernels on the card (kernels/): G1 arrange (the per-drivable order),
-G2 leader_scan, G3 notify_cross (the notifier of each cross side), G4
+The gen-1 step (JAX package core/step.py): one Engine::nextStep
+(engine.cpp:566-594) over the slot pool of `SimState`, phase by phase;
+each phase is a Jacobi update, as the reference's double-buffered vehicle
+writes make it. Exact mode (cfg.exact) runs in float64 with the
+reference's sums in its order; fast mode in float32 with JAX's fast
+branches: the leader scan's per-drivable candidate table, the deadlock
+walk capped at 2^min(k_chase, 10) steps, the finish sum unordered. Ten
+regions run as hand-written CUDA kernels on the card (kernels/), each in
+both float types: G1 arrange (the per-drivable order), G2 leader_scan (and
+its fast branch), G3 notify_cross (the notifier of each cross side), G4
 cross_pass (Cross::canPass over a vehicle's crosses), G5 hist_window (the
-DURATION router's lane history), and for lane change (core/lanechange.py)
-G6 lc_probe, G7 lc_plan and G8 lc_commit. Every phase returns
-new tensors and writes none of its inputs, so a step can be run again from
-the same state (the engine's capacity-growth retry does).
+DURATION router's lane history), G9 blocker_cycles (the deadlock test),
+G10 update_location (finish statistics, transfer order), and for lane
+change (core/lanechange.py) G6 lc_probe, G7 lc_plan and G8 lc_commit.
+Every phase returns new tensors and writes none of its inputs, so a step
+can be run again from the same state (the engine's capacity-growth retry
+does).
 
 Float64 parity with the reference needs each float op rounded on its own
 and every sum in the reference's order: no fused ops, no reordered
@@ -31,7 +37,7 @@ import torch
 
 from cityflow_tpu_torch.core.numerics import jnp_take, xla_f32_to_i32
 from cityflow_tpu_torch.core.state import (
-    INT_MAX, OV_HOPS, OV_LINK_TABLE, OV_REMOVE, OV_SLOTS, SimState,
+    INT_MAX, OV_HOPS, OV_LINK_TABLE, OV_SLOTS, SimState,
     StepConfig)
 
 EPS = 1e-8  # reference utility.h:15
@@ -45,9 +51,6 @@ P_SPEED, P_LEN, P_WIDTH, P_MAXPOSACC, P_MAXNEGACC, P_USUALPOSACC, \
 A_DIS, A_LEN, A_SPEED, A_MAXNEG, A_YIELD, A_UPA, A_TURNSPD, A_MAXSPD, \
     A_CYC, A_PREV = range(10)
 NUM_A = 10
-
-ROADMAP = "see ROADMAP.md"
-
 
 def _t(x, like):
     return x if torch.is_tensor(x) else torch.tensor(
@@ -234,10 +237,11 @@ def arrangement(net, cfg: StepConfig, running, drv, dis, list_seq,
 
 def leader_scan(net, cfg: StepConfig, st: SimState, arr, mask):
     """Vehicle::updateLeaderAndGap's scan over the next drivables for the
-    vehicles in `mask` (G2). Returns (leader slot or -1, gap)."""
+    vehicles in `mask` (G2; fast mode: its candidate-table branch).
+    Returns (leader slot or -1, gap)."""
     return _kernel("leader_scan")(
         mask, st.drv, st.route, st.route_pos, st.dis, st.params,
-        arr["last_of"], net, cfg.num_lanes, cfg.k_scan)
+        arr["last_of"], net, cfg.num_lanes, cfg.k_scan, fast=not cfg.exact)
 
 
 def build_attr_packs(cfg: StepConfig, st: SimState, cyc):
@@ -396,18 +400,10 @@ def foe_view(net, own):
 
 def blocker_cycles(cfg: StepConfig, blocker):
     """Deadlock detection along the committed blocker chain (Cross::canPass,
-    roadnet.cpp:662-674): the blocker graph is functional, so "a cycle is
-    reachable from v" == "the walk from v is still alive after >= V steps",
-    taken by log2(V) pointer-doubling squarings, each one gather."""
-    if not cfg.exact:
-        raise NotImplementedError(f"gen-1 fast mode is not ported ({ROADMAP})")
-    V = blocker.shape[0]
-    f = blocker
-    steps = 1
-    while steps < V:
-        f = torch.where(f >= 0, gat(f, f), -1)
-        steps *= 2
-    return f >= 0
+    roadnet.cpp:662-674), G9: the blocker graph is functional, so "a cycle
+    is reachable from v" == "the walk from v is still alive after >= V
+    steps"; fast mode caps the walk at 2^min(k_chase, 10) steps."""
+    return _kernel("blocker_cycles")(blocker, cfg.exact, cfg.k_chase)
 
 
 def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
@@ -544,59 +540,23 @@ def get_action(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
 
 def update_location(net, cfg: StepConfig, st: SimState, arr, buf):
     """Engine::threadUpdateLocation + the main-stage push (engine.cpp:282-315,
-    477-494): removals (finish stats in drivable-list order) and transfers
-    (pushBuffer sorted by new distance desc)."""
-    if not cfg.exact:
-        raise NotImplementedError(f"gen-1 fast mode is not ported ({ROADMAP})")
-    f = st.dis.dtype
-    m = st.running
-    V = m.shape[0]
-    dev = m.device
-    removed = m & buf["end"]
-    counted = removed
-    if cfg.lane_change:
-        # a finished change removes the real by an identity swap: not a
-        # finished trip (engine.cpp:299-303 hasFinished guard)
-        counted = removed & ~(st.lc_finished | buf["finish"])
-
-    # finish stats, summed in (drivable, list-rank) order, one add at a
-    # time, as the single-thread reference accumulates (engine.cpp:296-303)
-    R = cfg.max_remove
-    now = st.step.to(f) * net["interval"]
-    tt = now - st.enter_time
-    s_idx = arr["sorted_idx"]
-    pos = _first_true(counted.index_select(0, s_idx), R)
-    tt_sorted = tt.index_select(0, s_idx)
-    vals = torch.where(pos >= 0, gat(tt_sorted, pos), 0.0)
-    total = torch.zeros((), dtype=f, device=dev)
-    for i in range(R):
-        total = total + vals[i]
-    n_counted = counted.sum(dtype=torch.int32)
-    ov_rm = n_counted > R
-
-    # transfers: new list order by buffered distance desc (engine.cpp:480),
-    # ties in slot order (a stable sort in lax.sort's total order)
-    trans = m & buf["changed"] & ~removed
-    neg_dis = torch.where(trans, -buf["dis"], torch.inf)
-    order = torch.sort(order_key(neg_dis), stable=True).indices
-    rank = torch.empty(V, dtype=torch.int32, device=dev).scatter_(
-        0, order, torch.arange(V, dtype=torch.int32, device=dev))
-    new_seq = torch.where(trans, st.seq_counter + rank, st.list_seq)
-    n_trans = trans.sum(dtype=torch.int32)
-
-    # enterLaneLinkTime on push (engine.cpp:484-491)
-    to_ll = buf["drv"] >= cfg.num_lanes
-    new_ent = torch.where(trans, torch.where(to_ll, st.step, INT_MAX),
-                          st.enter_ll_time)
-
-    st = st.replace_fields(
-        finished_cnt=st.finished_cnt + n_counted,
-        cum_travel=st.cum_travel + total,
-        list_seq=new_seq, enter_ll_time=new_ent,
-        seq_counter=st.seq_counter + n_trans,
-        overflow=st.overflow | torch.where(ov_rm, OV_REMOVE, 0).to(
-            torch.int32))
-    return st, removed
+    477-494), G10: removals (finish stats; exact mode in drivable-list
+    order, one add at a time, as the single-thread reference accumulates,
+    engine.cpp:296-303) and transfers (pushBuffer sorted by new distance
+    desc, engine.cpp:480, with enterLaneLinkTime, :484-491). A finished
+    lane change removes the real by an identity swap: not a finished trip
+    (engine.cpp:299-303 hasFinished guard)."""
+    lc = cfg.lane_change
+    out = _kernel("update_location")(
+        st.running, buf["end"], buf["changed"], buf["dis"], buf["drv"],
+        st.enter_time, st.list_seq, st.enter_ll_time,
+        arr["sorted_idx"] if cfg.exact else None,
+        st.lc_finished if lc else None, buf["finish"] if lc else None,
+        st.step, st.seq_counter, st.finished_cnt, st.cum_travel,
+        st.overflow, net["interval"], cfg.max_remove, cfg.num_lanes,
+        cfg.exact)
+    removed = out.pop("removed")
+    return st.replace_fields(**out), removed
 
 
 def commit(net, cfg: StepConfig, st: SimState, buf, removed):
@@ -695,8 +655,6 @@ def step_part1(net, cfg: StepConfig, st: SimState, spawn_tbl):
     initSegments + planLaneChange + scheduleLaneChange (engine.cpp:571-575)
     followed by a full leader / gap update, since the shadows changed the
     lists (engine.cpp:574)."""
-    if not cfg.exact:
-        raise NotImplementedError(f"gen-1 fast mode is not ported ({ROADMAP})")
     st = spawn_vehicles(net, cfg, st, spawn_tbl)
     # handleWaiting reads the end-of-previous-step lane tails
     st, arr, fattrs, iattrs = admit_waiting(net, cfg, st,

@@ -45,7 +45,7 @@ struct ArrangeArgs {
   void* link_fattr;        // (LLr, k_link, NA) zeroed, or null
   int* link_iattr;         // (LLr, k_link, NI) zeroed, or null
   uint8_t* overflow;       // () zeroed
-  long long V, D, L, k_link, NA, NI;
+  long long V, D, L, k_link, NA, NI, fp32;
 };
 
 struct Scratch {
@@ -65,34 +65,6 @@ __global__ void arrange_count(const ArrangeArgs a) {
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
     if (a.running[v]) atomicAdd(&s.cnt[a.drv[v]], 1);
   }
-}
-
-// One block: y[i] = x[0] + ... + x[i-1] for i in [0, n], each thread
-// summing a contiguous chunk, the chunk sums scanned in shared memory.
-template <typename X>
-__device__ void block_exclusive_scan(const X* x, int* y, long long n,
-                                     int* sh) {
-  int t = threadIdx.x, nt = blockDim.x;
-  long long chunk = (n + nt - 1) / nt;
-  long long lo = t * chunk;
-  long long hi = lo + chunk < n ? lo + chunk : n;
-  int s = 0;
-  for (long long i = lo; i < hi; ++i) s += (int)x[i];
-  sh[t] = s;
-  __syncthreads();
-  for (int o = 1; o < nt; o <<= 1) {
-    int add = (t >= o) ? sh[t - o] : 0;
-    __syncthreads();
-    sh[t] += add;
-    __syncthreads();
-  }
-  int run = sh[t] - s;
-  for (long long i = lo; i < hi; ++i) {
-    y[i] = run;
-    run += (int)x[i];
-  }
-  if (t == nt - 1) y[n] = sh[nt - 1];
-  __syncthreads();
 }
 
 __global__ void arrange_scan(const ArrangeArgs a) {
@@ -176,6 +148,6 @@ extern "C" int arrange(const ArrangeArgs* args, void* stream) {
   arrange_count<<<blocks, threads, 0, st>>>(a);
   arrange_scan<<<1, 1024, 0, st>>>(a);
   arrange_scatter<<<blocks, threads, 0, st>>>(a);
-  arrange_rank<double><<<blocks, threads, 0, st>>>(a);
+  GEN1_LAUNCH(arrange_rank, a, blocks, threads, 0, st);
   return (int)cudaGetLastError();
 }

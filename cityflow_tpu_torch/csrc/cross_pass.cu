@@ -48,7 +48,7 @@ struct CrossPassArgs {
   uint8_t* any_fail;         // (V,)
   void* ff_d;                // (V,) T
   int* new_blocker;          // (V,)
-  long long V, LL, KC, NP;
+  long long V, LL, KC, NP, fp32;
 };
 
 template <typename T>
@@ -126,7 +126,7 @@ extern "C" int cross_pass(const CrossPassArgs* args, void* stream) {
   const CrossPassArgs a = *args;
   if (a.V == 0) return 0;
   const int threads = 128;
-  cross_pass_kernel<double><<<grid_blocks(a.V, threads), threads, 0,
-                              (cudaStream_t)stream>>>(a);
+  GEN1_LAUNCH(cross_pass_kernel, a, grid_blocks(a.V, threads), threads,
+                                    0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,28 @@
-// Shared device helpers of the gen-1 kernels (G1-G4), templated on the
-// float type; the gen-1 step runs them in double.
+// Shared device helpers of the gen-1 kernels (G1-G10), templated on the
+// float type: double in exact mode, float in fast mode. Each kernel's
+// argument struct ends in `fp32` (1: its float tensors are float32) and
+// GEN1_LAUNCH picks the instantiation from it.
 //
 // Built with --fmad=false and without --use_fast_math: every float op
 // rounds on its own (IEEE division and square root), so the kernels repeat
 // the plain PyTorch versions op by op and reproduce the reference's double
-// arithmetic bit for bit.
+// arithmetic bit for bit; constants go through T(...), so a float kernel
+// never computes in double.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// KERNEL<float> or KERNEL<double>, by ARGS.fp32; the rest is the launch
+// configuration (grid, block, shared bytes, stream)
+#define GEN1_LAUNCH(KERNEL, ARGS, ...)                \
+  do {                                                \
+    if ((ARGS).fp32)                                  \
+      KERNEL<float><<<__VA_ARGS__>>>(ARGS);           \
+    else                                              \
+      KERNEL<double><<<__VA_ARGS__>>>(ARGS);          \
+  } while (0)
 
 namespace gen1 {
 
@@ -167,6 +180,35 @@ __device__ __forceinline__ bool can_yield(T speed, T max_neg, T yield_dist,
   T min_brake = T(0.5) * speed * speed / max_neg;
   return ((d > T(0)) && (min_brake < d - yield_dist)) ||
          ((d < T(0)) && (d + length < T(0)));
+}
+
+// One block: y[i] = x[0] + ... + x[i-1] for i in [0, n], each thread
+// summing a contiguous chunk, the chunk sums scanned in shared memory
+// (sh: blockDim.x ints).
+template <typename X>
+__device__ void block_exclusive_scan(const X* x, int* y, long long n,
+                                     int* sh) {
+  int t = threadIdx.x, nt = blockDim.x;
+  long long chunk = (n + nt - 1) / nt;
+  long long lo = t * chunk;
+  long long hi = lo + chunk < n ? lo + chunk : n;
+  int s = 0;
+  for (long long i = lo; i < hi; ++i) s += (int)x[i];
+  sh[t] = s;
+  __syncthreads();
+  for (int o = 1; o < nt; o <<= 1) {
+    int add = (t >= o) ? sh[t - o] : 0;
+    __syncthreads();
+    sh[t] += add;
+    __syncthreads();
+  }
+  int run = sh[t] - s;
+  for (long long i = lo; i < hi; ++i) {
+    y[i] = run;
+    run += (int)x[i];
+  }
+  if (t == nt - 1) y[n] = sh[nt - 1];
+  __syncthreads();
 }
 
 __host__ __device__ __forceinline__ unsigned grid_blocks(long long n,

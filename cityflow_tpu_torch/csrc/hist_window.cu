@@ -31,7 +31,7 @@ struct HistWindowArgs {
   void* out_ssum;           // (L,) T
   void* ring_num_out;       // (HL1, L) T copy of ring_num; row slot written
   void* ring_ssum_out;      // (HL1, L) T
-  long long L, HL1, V;
+  long long L, HL1, V, fp32;
 };
 
 template <typename T>
@@ -63,7 +63,7 @@ extern "C" int hist_window(const HistWindowArgs* args, void* stream) {
   const HistWindowArgs a = *args;
   if (a.L == 0) return 0;
   const int threads = 128;
-  hist_window_kernel<double><<<grid_blocks(a.L, threads), threads, 0,
-                               (cudaStream_t)stream>>>(a);
+  GEN1_LAUNCH(hist_window_kernel, a, grid_blocks(a.L, threads), threads,
+                                     0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -64,7 +64,7 @@ struct LcCommitArgs {
   int* lc_recv_out;
   uint8_t* lc_has_signal_out;
   int* lc_target_out;
-  long long V, L;
+  long long V, L, fp32;
 };
 
 __device__ __forceinline__ bool aborts(const LcCommitArgs& a, long long v) {
@@ -131,9 +131,9 @@ extern "C" int lc_commit(const LcCommitArgs* args, int mode, void* stream) {
   const unsigned g = grid_blocks(a.V, threads);
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == 0) {
-    tail_kernel<double><<<g, threads, 0, s>>>(a);
+    GEN1_LAUNCH(tail_kernel, a, g, threads, 0, s);
   } else if (mode == 1) {
-    commit_kernel<double><<<g, threads, 0, s>>>(a);
+    GEN1_LAUNCH(commit_kernel, a, g, threads, 0, s);
   } else {
     return -1;
   }

@@ -87,7 +87,7 @@ struct LcPlanArgs {
   const int* y_tleader;
   const int* y_tfollower;
   void* yield_v;             // T
-  long long V, L, D, KO, NR, RLEN, MAXLPR, NP;
+  long long V, L, D, KO, NR, RLEN, MAXLPR, NP, fp32;
 };
 
 constexpr int INT32_MIN_ = -2147483647 - 1;
@@ -306,17 +306,17 @@ extern "C" int lc_plan(const LcPlanArgs* args, int mode, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
-      signal_kernel<double><<<g, threads, 0, s>>>(a);
+      GEN1_LAUNCH(signal_kernel, a, g, threads, 0, s);
       break;
     case 1:
       receive_best_kernel<<<g, threads, 0, s>>>(a);
       receive_slot_kernel<<<g, threads, 0, s>>>(a);
       break;
     case 2:
-      decide_kernel<double><<<g, threads, 0, s>>>(a);
+      GEN1_LAUNCH(decide_kernel, a, g, threads, 0, s);
       break;
     case 3:
-      yield_kernel<double><<<g, threads, 0, s>>>(a);
+      GEN1_LAUNCH(yield_kernel, a, g, threads, 0, s);
       break;
     default:
       return -1;

@@ -37,7 +37,7 @@ struct LcProbeArgs {
   int* outer_follower;
   int* inner_leader;
   int* inner_follower;
-  long long V, L, R;
+  long long V, L, R, fp32;
 };
 
 template <typename T>
@@ -93,7 +93,7 @@ extern "C" int lc_probe(const LcProbeArgs* args, void* stream) {
   const LcProbeArgs a = *args;
   if (a.V == 0) return 0;
   const int threads = 128;
-  lc_probe_kernel<double><<<grid_blocks(a.V, threads), threads, 0,
-                            (cudaStream_t)stream>>>(a);
+  GEN1_LAUNCH(lc_probe_kernel, a, grid_blocks(a.V, threads), threads,
+                                  0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -11,9 +11,16 @@
 // first hit, at the route's end or past the brake bound, so the work
 // follows what the data needs.
 //
+// Fast mode replaces the fast branch of the same function (:262-286,
+// :311-314): a first kernel builds the per-drivable table (candidate,
+// dis - len) over all D drivables, one thread each (a lanelink's entry is
+// the least dis - len over the lanelinks leaving its start lane, strict
+// <); the scan kernel then reads one table entry per hop and its gap is
+// dis_rem + (dis - len). Both kernels run in one call, in stream order.
+//
 // Bound: bytes, and at these sizes launch latency: a thread reads its
 // vehicle's state and params and, per hop, a route entry and a few rear
-// vehicles' distance and length.
+// vehicles' distance and length (fast mode: one table entry).
 #include "gen1.cuh"
 
 using namespace gen1;
@@ -35,7 +42,9 @@ struct LeaderScanArgs {
   const void* interval;         // () T
   int* found;                   // (V,) leader slot or -1
   void* gap;                    // (V,) T
-  long long V, L, D, KO, NR, RLEN, MAXLPR, k_scan, NP;
+  int* cand_i;                  // (D,) fast mode: the table's candidate
+  void* cand_v;                 // (D,) T fast mode: its dis - len
+  long long V, L, D, KO, NR, RLEN, MAXLPR, k_scan, NP, fast, fp32;
 };
 
 // router.cpp:49-76 (core/step.py chain_step)
@@ -55,6 +64,40 @@ __device__ __forceinline__ void chain_step(const LeaderScanArgs& a, int route,
     *nxt = -1;
   }
   *npos = cur >= a.L ? pos + 1 : pos;
+}
+
+// fast mode: each drivable's (candidate, dis - len)
+template <typename T>
+__global__ void cand_table_kernel(const LeaderScanArgs a) {
+  const T* dis = (const T*)a.dis;
+  const T* P = (const T*)a.params;
+  T* cand_v = (T*)a.cand_v;
+  long long LL = a.D - a.L;
+  for (long long d = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       d < a.D; d += (long long)gridDim.x * blockDim.x) {
+    int bc = -1;
+    T bv = T(0);
+    if (d < a.L) {
+      bc = a.last_of[d];
+      if (bc >= 0) bv = dis[bc] - P[bc * a.NP + P_LEN];
+    } else {
+      long long sl = a.ll_start[clampll(d - a.L, 0, LL - 1)];
+      sl = clampll(sl, 0, a.L - 1);
+      for (long long k = 0; k < a.KO; ++k) {
+        int ol = a.lane_out[sl * a.KO + k];
+        if (ol < 0) continue;
+        int c = a.last_of[clampll(ol, 0, a.D - 1)];
+        if (c < 0) continue;
+        T val = dis[c] - P[c * a.NP + P_LEN];
+        if (bc < 0 || val < bv) {
+          bc = c;
+          bv = val;
+        }
+      }
+    }
+    a.cand_i[d] = bc;
+    cand_v[d] = bv;
+  }
 }
 
 template <typename T>
@@ -81,7 +124,10 @@ __global__ void leader_scan_kernel(const LeaderScanArgs a) {
         if (nd < 0) break;
         int cand = -1;
         T cgap = T(0);
-        if (nd >= a.L) {
+        if (a.fast) {
+          cand = a.cand_i[nd];
+          cgap = dis_rem + ((const T*)a.cand_v)[nd];
+        } else if (nd >= a.L) {
           // every lanelink leaving the same start lane (vehicle.cpp:170-180)
           long long sl = a.ll_start[clampll(nd - a.L, 0, LL - 1)];
           sl = clampll(sl, 0, a.L - 1);
@@ -119,7 +165,10 @@ extern "C" int leader_scan(const LeaderScanArgs* args, void* stream) {
   const LeaderScanArgs a = *args;
   if (a.V == 0) return 0;
   const int threads = 128;
-  leader_scan_kernel<double><<<grid_blocks(a.V, threads), threads, 0,
-                               (cudaStream_t)stream>>>(a);
+  if (a.fast)
+    GEN1_LAUNCH(cand_table_kernel, a, grid_blocks(a.D, threads), threads, 0,
+                (cudaStream_t)stream);
+  GEN1_LAUNCH(leader_scan_kernel, a, grid_blocks(a.V, threads), threads,
+                                     0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

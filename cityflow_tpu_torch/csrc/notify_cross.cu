@@ -45,7 +45,7 @@ struct NotifyArgs {
   int* ent;
   int* pri;
   int* idx;
-  long long LL, KC, K, NA, NI, V, L;
+  long long LL, KC, K, NA, NI, V, L, fp32;
 };
 
 template <typename T>
@@ -135,7 +135,7 @@ extern "C" int notify_cross(const NotifyArgs* args, void* stream) {
   long long total = a.LL * a.KC;
   if (total == 0) return 0;
   const int threads = 128;
-  notify_cross_kernel<double><<<grid_blocks(total, threads), threads, 0,
-                                (cudaStream_t)stream>>>(a);
+  GEN1_LAUNCH(notify_cross_kernel, a, grid_blocks(total, threads), threads,
+                                      0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,22 @@
-"""`cityflow_tpu_torch.Engine`: the reference CityFlow Python API over the
-gen-1 exact step (core/step.py), in float64.
+"""`cityflow_tpu_torch.Engine`: the reference CityFlow Python API.
 
-The JAX package's `cityflow_tpu.Engine` with its default exact=True, on a
-CUDA card (device=None) or, when asked, on the CPU: scenario compilation,
-the spawn table, capacity growth, the getters (string ids, dict
-marshalling), lane change, the DURATION router's lane history and
-reroutes, pushed vehicles, archives and replay files. The step reproduces
-the reference engine bit for bit (tests/goldens). Not ported yet, raising
-NotImplementedError that points at ROADMAP.md: exact=False (the ring
-engine and gen-1 fast mode).
+The JAX package's `cityflow_tpu.Engine`, on a CUDA card (device=None) or,
+when asked, on the CPU: scenario compilation, the spawn table, capacity
+growth, the getters (string ids, dict marshalling), lane change, the
+DURATION router's lane history and reroutes, pushed vehicles, archives
+and replay files. Three steps serve it:
 
-State tensors are never written in place, here or in the step: a
-snapshot shares them with the engine, and the capacity-growth retry runs
-a step again from the state it started from.
+- exact=True: the gen-1 step (core/step.py) in float64, the reference
+  engine bit for bit (tests/goldens);
+- exact=False, backend="gen1": the gen-1 step in float32 with its fast
+  branches;
+- exact=False, backend="auto" or "ring": the ring step at one env
+  (ring_backend.RingShell), where the scenario fits the ring layout
+  ("auto" falls back to gen-1 fast mode where it does not).
+
+State tensors are never written in place, here, in the shells or in the
+steps: a snapshot shares them with the engine, and the capacity-growth
+retry runs a step again from the state it started from.
 """
 
 import copy
@@ -41,12 +45,6 @@ FETCHED = ("active", "running", "dis", "speed", "drv", "prev_drv", "route",
            "offset")
 
 
-def _todo(what):
-    return NotImplementedError(
-        f"cityflow_tpu_torch.Engine: {what} is not ported yet "
-        "(see ROADMAP.md)")
-
-
 class Archive:
     """In-memory snapshot (reference: src/engine/archive.{h,cpp}). The
     engine never writes state tensors in place, so a snapshot holds the
@@ -67,13 +65,17 @@ class Engine:
                  spawn_horizon: int = 4096, backend: str = "auto",
                  device=None):
         """device: None means the CUDA card (a RuntimeError without one);
-        "cpu" runs every kernel's plain PyTorch version."""
+        "cpu" runs every kernel's plain PyTorch version. backend: "auto"
+        takes the ring when exact=False and the scenario fits its layout
+        (grid nets), "gen1" the slot-pool step, "ring" the ring or a
+        ValueError."""
         del thread_num  # results are threadNum-independent
-        if not exact:
-            raise _todo("exact=False (the ring engine, gen-1 fast mode)")
-        if backend not in ("auto", "gen1"):
-            raise _todo(f"backend={backend!r}")
+        if backend not in ("auto", "gen1", "ring"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if exact and backend == "ring":
+            raise ValueError("backend='ring' requires exact=False")
         self.device = resolve_device(device)
+        self._dtype = torch.float64 if exact else torch.float32
         self.net = compile_scenario(config_file)
         cfgj = self.net.host.config
         self.interval = float(cfgj["interval"])
@@ -88,7 +90,7 @@ class Engine:
         if self.router_type not in ("LENGTH", "DURATION"):
             raise ValueError(f"unknown routerType {self.router_type}")
 
-        self._net_dev = net_tensors(self.net, torch.float64, self.device)
+        self._net_dev = net_tensors(self.net, self._dtype, self.device)
         self._spawn_horizon = spawn_horizon
         self._spawn = SpawnGenerator(self.net, self.seed, self.interval)
         self._spawn.extend(spawn_horizon)
@@ -102,13 +104,24 @@ class Engine:
             max_spawn_per_step=self._spawn.max_per_step,
             k_out=max(self.net.host.ko, 1), k_cross=max(self.net.host.kc, 1),
             rl_traffic_light=self.rl_traffic_light,
-            lane_change=self.lane_change, exact=True,
+            lane_change=self.lane_change, exact=bool(exact),
             track_history=self.router_type == "DURATION")
         self.growths = 0
         self._pushed_ids: Dict[int, str] = {}
         self._manually_pushed = 0
         self._route_ids = None
-        self._set_state(self._fresh_state())
+        self._ring = None
+        if not exact and backend in ("auto", "ring"):
+            from cityflow_tpu_torch.ring_backend import RingShell
+            try:
+                self._ring = RingShell(self)
+            except ValueError:
+                if backend == "ring":
+                    raise
+        self.state = None
+        self._fetched_step = -1
+        if self._ring is None:
+            self._set_state(self._fresh_state())
         self._replay = None
         if self.save_replay:
             self._open_replay(cfgj.get("roadnetLogFile"),
@@ -155,7 +168,15 @@ class Engine:
         self.cfg = cfg
         self.growths += 1
 
+    def _now_step(self) -> int:
+        if self._ring is not None:
+            return self._ring.now_step()
+        return self._step
+
     def _step_once(self):
+        if self._ring is not None:
+            self._ring.step_once()
+            return
         if self._step + 1 >= self._spawn.next_step:
             self._spawn.extend(self._spawn.next_step * 2)
             self._upload_spawn()
@@ -179,8 +200,15 @@ class Engine:
 
     def _fetch(self) -> Dict[str, np.ndarray]:
         """The per-slot fields the getters read, as numpy arrays (one
-        device-to-host copy per step at most)."""
-        key = (self._step, self._manually_pushed)
+        device-to-host copy per step at most; on the ring, its host view
+        with one row per vehicle, ring_sim.fetch_full)."""
+        key = (self._now_step(), self._manually_pushed)
+        if self._ring is not None:
+            if self._fetched_step != key:
+                self._cache = self._ring.fetch()
+                self._fetched_step = key
+                self._id_map = None
+            return self._cache
         if self._fetched_step != key:
             st = self.state
             self._cache = {n: getattr(st, n).cpu().numpy() for n in FETCHED}
@@ -231,22 +259,29 @@ class Engine:
     def reset(self, seed: bool = False):
         """reference Engine::reset (engine.cpp:744-760): flows and state
         reset; the mt19937 stream continues unless resetRnd."""
-        cur = self._step
+        cur = self._now_step()
         self._pushed_ids.clear()
         self._manually_pushed = 0
         self._spawn.reset_flows(reseed_to=self.seed if seed else None,
                                 current_step=cur)
         self._spawn.extend(self._spawn_horizon)
         self._upload_spawn()
-        self._set_state(self._fresh_state())
+        if self._ring is not None:
+            self._ring.reset()
+            self._fetched_step = -1
+        else:
+            self._set_state(self._fresh_state())
 
     def set_random_seed(self, seed: int):
         """reference Engine::setRandomSeed: reseeds the stream mid-run."""
         self.seed = int(seed)
-        cur = self._step
+        cur = self._now_step()
         self._spawn.reseed(seed, cur)
         self._spawn.extend(max(self._spawn_horizon, cur * 2))
         self._upload_spawn()
+        if self._ring is not None:
+            self._ring.on_spawn_changed()
+            self._fetched_step = -1
 
     def set_tl_phase(self, intersection_id: str, phase_id: int):
         """reference engine.cpp:719-725 (guarded by rlTrafficLight)."""
@@ -255,6 +290,9 @@ class Engine:
                   "light control")
             return
         idx = self.net.host.inter_index[intersection_id]
+        if self._ring is not None:
+            self._ring.set_tl_phase(idx, int(phase_id))
+            return
         phase = self.state.phase.clone()
         phase[idx] = int(phase_id)
         self.state = self.state.replace_fields(phase=phase)
@@ -263,6 +301,12 @@ class Engine:
         slot = self._id_to_slot(vid)
         if slot is None:
             raise RuntimeError(f"Vehicle '{vid}' not found")
+        if self._ring is not None:
+            c = self._fetch()
+            self._ring.set_custom_speed(
+                {k: c[k][slot] for k in ("kind", "pos", "slot")}, speed)
+            self._fetched_step = -1
+            return
         st = self.state
         custom = st.custom_speed.clone()
         custom[slot] = float(speed)
@@ -303,7 +347,13 @@ class Engine:
         return rid
 
     def _lane_history_np(self):
-        """(window vehicle count, window speed sum) per lane."""
+        """(window vehicle count, window speed sum) per lane, from the
+        backend that holds the window (on the ring: its h_* channels in
+        ring lane order, read through meta.lane_pos)."""
+        if self._ring is not None:
+            st = self._ring.sim.state
+            lp = self._ring.sim.meta.lane_pos
+            return st.h_num.cpu().numpy()[lp], st.h_ssum.cpu().numpy()[lp]
         st = self.state
         return st.hist_num.cpu().numpy(), st.hist_ssum.cpu().numpy()
 
@@ -365,7 +415,10 @@ class Engine:
         except KeyError:
             return False
         cur_road = host.net.lanes[drv].road
-        max_spd = float(self.state.params[slot, 8])
+        if self._ring is not None:
+            max_spd = float(self._ring.sim.meta.param_row[8])
+        else:
+            max_spd = float(self.state.params[slot, 8])
         route = flows_mod.update_shortest_path(
             host.net, [cur_road] + anchor_roads,
             cost=self._router_cost(max_spd))
@@ -376,6 +429,13 @@ class Engine:
         if len(route) > 1 and self.net.route_next_ll[
                 rid, 0, host.net.lanes[drv].lane_index] < 0:
             return False
+        if self._ring is not None:
+            c = self._fetch()
+            ok = self._ring.set_route(
+                {k: c[k][slot] for k in ("kind", "pos", "slot", "drv")}, rid)
+            if ok:
+                self._fetched_step = -1
+            return ok
         st = self.state
         route_t, pos_t = st.route.clone(), st.route_pos.clone()
         route_t[slot] = rid
@@ -400,6 +460,12 @@ class Engine:
             minGap=float(info.get("minGap", 2.0)),
             maxSpeed=float(info.get("maxSpeed", 16.66667)),
             headwayTime=float(info.get("headwayTime", 1.0)))
+        if self._ring is not None and \
+                not self._ring.check_uniform_template(tpl.as_list()):
+            raise ValueError(
+                "the ring backend holds the scenario's vehicle templates "
+                "only; push_vehicle with other parameters needs "
+                "Engine(..., backend='gen1') (or exact=True)")
         anchor_roads = [host.net.road_map[r] for r in roads]
         route = flows_mod.update_shortest_path(
             host.net, anchor_roads, cost=self._router_cost(tpl.maxSpeed))
@@ -411,14 +477,19 @@ class Engine:
             raise RuntimeError("flow table headroom exhausted")
         net.flow_params[fid] = tpl.as_list()
         self._net_dev["flow_params"] = torch.as_tensor(
-            net.flow_params, dtype=torch.float64, device=self.device)
+            net.flow_params, device=self.device).to(self._dtype)
         serial = self._manually_pushed
         self._manually_pushed += 1
         cands = (flows_mod.first_lane_candidates(route)
                  if route is not None else [])
-        self._spawn.inject_manual(self._step, anchor_roads[0].index, fid, rid,
-                                  [l.index for l in cands], serial)
+        self._spawn.inject_manual(self._now_step(), anchor_roads[0].index,
+                                  fid, rid, [l.index for l in cands], serial)
         self._upload_spawn()
+        if self._ring is not None:
+            if rid >= 0:
+                self._ring.refresh_route_tables(rid)
+            self._ring.on_spawn_changed()
+            self._fetched_step = -1
         if self._spawn.max_per_step > self.cfg.max_spawn_per_step:
             self.cfg = dc_replace(
                 self.cfg, max_spawn_per_step=self._spawn.max_per_step)
@@ -432,7 +503,7 @@ class Engine:
     # query API
     # ------------------------------------------------------------------
     def get_current_time(self) -> float:
-        return self._step * self.interval
+        return self._now_step() * self.interval
 
     def get_vehicle_count(self) -> int:
         return int(np.sum(self._fetch()["running"]))
@@ -500,8 +571,11 @@ class Engine:
         """reference engine.cpp:682-691: finished cumulative + in-flight,
         summed over the pool in priority order (float64 order kept)."""
         c = self._fetch()
-        tt = float(self.state.cum_travel)
-        n = int(self.state.finished_cnt)
+        if self._ring is not None:
+            tt, n = self._ring.stats()
+        else:
+            tt = float(self.state.cum_travel)
+            n = int(self.state.finished_cnt)
         now = self.get_current_time()
         slots = np.nonzero(c["active"])[0]
         slots = slots[np.argsort(c["priority"][slots], kind="stable")]
@@ -551,7 +625,10 @@ class Engine:
         self._open_replay(None, path)
 
     def _phases_np(self) -> np.ndarray:
-        """The current phase per intersection (replay lines)."""
+        """The current phase per intersection, in the original order
+        (replay lines)."""
+        if self._ring is not None:
+            return self._ring.phases_np()
         return self.state.phase.cpu().numpy()
 
     def _open_replay(self, roadnet_log, replay_log):
@@ -570,12 +647,33 @@ class Engine:
 
     def snapshot(self) -> Archive:
         """reference Archive(engine) (archive.cpp:9-37): the device state
-        and the spawn / RNG stream state."""
-        return Archive(self.state, dict(
-            pushed=self._pushed_ids, manually_pushed=self._manually_pushed,
-            spawn=self._spawn.snapshot_state()))
+        and the spawn / RNG stream state (on the ring also its step count
+        and the overflow bits it has accepted)."""
+        aux = dict(pushed=self._pushed_ids,
+                   manually_pushed=self._manually_pushed,
+                   spawn=self._spawn.snapshot_state())
+        if self._ring is not None:
+            aux["ring_step"] = self._ring.step_count
+            aux["ring_ov"] = self._ring._known_ov
+            return Archive(self._ring.sim.state, aux)
+        return Archive(self.state, aux)
 
     def load(self, archive: Archive):
+        if self._ring is not None:
+            aux = archive.host_aux
+            self._ring.load(archive.state,
+                            aux.get("ring_step", int(archive.state.step)),
+                            aux.get("ring_ov", 0))
+            self._pushed_ids = copy.deepcopy(aux["pushed"])
+            self._manually_pushed = aux["manually_pushed"]
+            if "spawn" in aux:
+                self._spawn.restore_state(aux["spawn"])
+                self._spawn.extend(max(self._spawn.next_step,
+                                       self._ring.step_count + 2))
+                self._upload_spawn()
+                self._ring.on_spawn_changed()
+            self._fetched_step = -1
+            return
         st = archive.state
         if st.active.shape[0] != self.cfg.max_vehicles:
             # the archive may come from an engine whose pool had grown

@@ -25,23 +25,28 @@ counter:
   G8 lc_commit       gen-1 lane change: getAction's offset tail, the
                      commit of finished and aborted changes (modes tail /
                      commit)
+  G9 blocker_cycles  gen-1 deadlock test along the blocker chains
+  G10 update_location  gen-1 finish statistics and transfer order
   T1 tpl_params      vehicle template index -> template parameters
 
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
 each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
 and lane-change modes also as car_follow@tpl+lc. G7's and G8's modes are
-counted apart as lc_plan@<mode> and lc_commit@<mode>.
+counted apart as lc_plan@<mode> and lc_commit@<mode>. The gen-1 kernels
+G1-G10 run in float64 (exact mode) or float32 (fast mode); the float32
+launches of G1-G8 and G10 are counted apart as <name>@f32, and the fast
+branches of G2, G9 and G10 as <name>@fast.
 
 A wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors; the library is built at first use (kernels/_lib.py).
 """
 
 from cityflow_tpu_torch.kernels import (
-    arrange, car_follow, cross_caps, cross_pass, gather_rows, hist_window,
-    lane_stats, lc_commit, lc_insert, lc_partner, lc_plan, lc_probe,
-    lc_receive, lc_signal, leader_scan, notify_cross, phase_pressure,
-    ring_commit, tpl_params)
+    arrange, blocker_cycles, car_follow, cross_caps, cross_pass, gather_rows,
+    hist_window, lane_stats, lc_commit, lc_insert, lc_partner, lc_plan,
+    lc_probe, lc_receive, lc_signal, leader_scan, notify_cross,
+    phase_pressure, ring_commit, tpl_params, update_location)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -51,7 +56,15 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "arrange": arrange, "leader_scan": leader_scan,
            "notify_cross": notify_cross, "cross_pass": cross_pass,
            "tpl_params": tpl_params, "hist_window": hist_window,
-           "lc_probe": lc_probe, "lc_plan": lc_plan, "lc_commit": lc_commit}
+           "lc_probe": lc_probe, "lc_plan": lc_plan, "lc_commit": lc_commit,
+           "blocker_cycles": blocker_cycles,
+           "update_location": update_location}
+
+# the gen-1 kernels with a float32 mode, and those with a fast branch
+F32_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
+               "hist_window", "lc_probe", "lc_plan", "lc_commit",
+               "update_location")
+FAST_KERNELS = ("leader_scan", "blocker_cycles", "update_location")
 
 
 # modes of a kernel counted apart as well (module, counter)
@@ -67,7 +80,10 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "lc_receive@tpl": (lc_receive, "launches_tpl"),
          **{f"lc_plan@{m}": (lc_plan, f"launches_{m}") for m in lc_plan.MODES},
          **{f"lc_commit@{m}": (lc_commit, f"launches_{m}")
-            for m in lc_commit.MODES}}
+            for m in lc_commit.MODES},
+         **{f"{n}@f32": (MODULES[n], "launches_f32") for n in F32_KERNELS},
+         **{f"{n}@fast": (MODULES[n], "launches_fast")
+            for n in FAST_KERNELS}}
 
 
 def reset_launches():

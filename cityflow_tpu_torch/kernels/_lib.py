@@ -21,6 +21,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cityflow_tpu_torch")
@@ -102,7 +104,8 @@ def lib():
                      "lc_receive", "lc_insert", "lc_partner", "lane_stats",
                      "phase_pressure", "arrange", "leader_scan",
                      "notify_cross", "cross_pass", "tpl_params",
-                     "hist_window", "lc_probe"):
+                     "hist_window", "lc_probe", "blocker_cycles",
+                     "update_location"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int
@@ -116,8 +119,22 @@ def lib():
 
 def stream_ptr(t):
     """PyTorch's current stream on the tensor's device, as an int."""
-    import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the float dtypes of the gen-1 kernels: float64 (exact mode) and float32
+# (fast mode), one of them per call
+FLOATS = (torch.float64, torch.float32)
+
+
+def fp32(name, *tensors):
+    """1 when the floating-point tensors among `tensors` (None skipped) are
+    float32, 0 when they are float64; a call mixing the two raises."""
+    kinds = {t.dtype for t in tensors
+             if t is not None and t.dtype.is_floating_point}
+    if len(kinds) > 1:
+        raise ValueError(f"{name}: float tensors of several dtypes {kinds}")
+    return int(kinds == {torch.float32})
 
 
 def check(rc, name):
@@ -127,7 +144,8 @@ def check(rc, name):
 
 def check_args(name, *tensors, dtypes=None, cuda=True):
     """Every tensor on one device (a CUDA one unless cuda=False),
-    contiguous and of an accepted dtype (None skipped). The CPU path runs
+    contiguous and of an accepted dtype (None skipped); the tensors whose
+    accepted dtypes are FLOATS share one float dtype. The CPU path runs
     the same checks, so the tests catch what the kernel would refuse."""
     dev = None
     for i, t in enumerate(tensors):
@@ -146,3 +164,5 @@ def check_args(name, *tensors, dtypes=None, cuda=True):
                 and t.dtype not in dtypes[i]:
             raise ValueError(f"{name}: argument {i} has dtype {t.dtype}, "
                              f"expected one of {dtypes[i]}")
+    if dtypes is not None:
+        fp32(name, *(t for t, d in zip(tensors, dtypes) if d is FLOATS))

@@ -1,9 +1,10 @@
 """G1 arrange: the per-drivable vehicle order of the gen-1 step
 (csrc/arrange.cu).
 
-Inputs over the V slots: running (bool), drv (i32), dis (f64), list_seq
-(i32); D drivables, the first L of them lanes; optionally the attribute
-packs fattrs (V, NA) f64 and iattrs (V, NI) i32. Returns a dict:
+Inputs over the V slots: running (bool), drv (i32), dis (float64 in
+exact mode, float32 in fast mode), list_seq (i32); D drivables, the first
+L of them lanes; optionally the attribute packs fattrs (V, NA) in dis's
+dtype and iattrs (V, NI) i32. Returns a dict:
 
   sorted_idx     (V,) slots by (drivable, -dis, list_seq, slot), the
                  slots that are not running last, in slot order
@@ -31,6 +32,7 @@ from cityflow_tpu_torch.core.step import order_key
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
+launches_f32 = 0       # the float32 (fast-mode) launches among them
 
 
 class _Args(ctypes.Structure):
@@ -39,7 +41,7 @@ class _Args(ctypes.Structure):
         "sorted_idx", "leader", "first_of", "last_of", "link_veh",
         "link_fattr", "link_iattr", "overflow")]
         + [(n, ctypes.c_longlong) for n in ("V", "D", "L", "k_link", "NA",
-                                            "NI")])
+                                            "NI", "fp32")])
 
 
 def arrange_plain(running, drv, dis, list_seq, D, L, k_link, fattrs=None,
@@ -99,9 +101,10 @@ def arrange(running, drv, dis, list_seq, D, L, k_link, fattrs=None,
     cpu = running.device.type == "cpu"
     packs = fattrs is not None
     _lib.check_args("arrange", running, drv, dis, list_seq, fattrs, iattrs,
-                    dtypes=[(torch.bool,), (torch.int32,), (torch.float64,),
-                            (torch.int32,), (torch.float64,),
-                            (torch.int32,)], cuda=not cpu)
+                    dtypes=[(torch.bool,), (torch.int32,), _lib.FLOATS,
+                            (torch.int32,), _lib.FLOATS, (torch.int32,)],
+                    cuda=not cpu)
+    fp32 = _lib.fp32("arrange", dis, fattrs)
     V = running.shape[0]
     for i, t in enumerate((drv, dis, list_seq)):
         if tuple(t.shape) != (V,):
@@ -113,11 +116,13 @@ def arrange(running, drv, dis, list_seq, D, L, k_link, fattrs=None,
     if cpu:
         return arrange_plain(running, drv, dis, list_seq, D, L, k_link,
                              fattrs, iattrs)
-    return _launch(running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs)
+    return _launch(running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs,
+                   fp32)
 
 
-def _launch(running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs):
-    global launches
+def _launch(running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs,
+            fp32):
+    global launches, launches_f32
     V = running.shape[0]
     packs = fattrs is not None
     dev = running.device
@@ -139,10 +144,11 @@ def _launch(running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs):
     a = _Args(*(ptr(t) for t in (
         running, drv, dis, list_seq, fattrs, iattrs, scratch, sorted_idx,
         leader, first_of, last_of, link_veh, link_fattr, link_iattr,
-        overflow)), V, D, L, k_link, NA, NI)
+        overflow)), V, D, L, k_link, NA, NI, fp32)
     _lib.check(_lib.lib().arrange(ctypes.byref(a), _lib.stream_ptr(dis)),
                "arrange")
     launches += 1
+    launches_f32 += fp32
     return dict(leader=leader, first_of=first_of, last_of=last_of,
                 sorted_idx=sorted_idx, overflow_link=overflow,
                 link_veh=link_veh, link_fattr=link_fattr,

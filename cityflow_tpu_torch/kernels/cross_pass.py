@@ -13,6 +13,7 @@ Returns v_isr (f64: max speed, capped at the turn speed before a turn and
 at the stop speed before the first cross the vehicle must yield at),
 any_fail (bool), ff_d (f64: that cross's distance, the first cross's when
 none) and new_blocker (i32: that cross's notifier where blk_ok, else -1).
+In fast mode every f64 above is float32 (one float dtype per call).
 """
 
 import ctypes
@@ -27,6 +28,7 @@ from cityflow_tpu_torch.kernels import _lib
 from cityflow_tpu_torch.kernels.notify_cross import OWN
 
 launches = 0
+launches_f32 = 0       # float32 (fast-mode) launches among them
 TABLES = ("lnk_cross_d", "lnk_cross_valid", "lnk_cross_foetype",
           "lnk_cross_foe_pos", "ll_type", "ll_is_turn")
 
@@ -38,7 +40,7 @@ class _Args(ctypes.Structure):
         "ll_is_turn", "o_exists", "o_yield", "o_cleared", "o_cyc", "o_dpos",
         "o_dist", "o_reach", "o_ent", "o_pri", "o_idx", "interval", "v_isr",
         "any_fail", "ff_d", "new_blocker")]
-        + [(n, ctypes.c_longlong) for n in ("V", "LL", "KC", "NP")])
+        + [(n, ctypes.c_longlong) for n in ("V", "LL", "KC", "NP", "fp32")])
 
 
 def cross_pass_plain(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok,
@@ -107,7 +109,7 @@ def cross_pass(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own,
                net):
     """G4 on CUDA tensors, the plain version on CPU tensors."""
     cpu = the_ll.device.type == "cpu"
-    i32, f64, b8 = (torch.int32,), (torch.float64,), (torch.bool,)
+    i32, f64, b8 = (torch.int32,), _lib.FLOATS, (torch.bool,)
     tabs = [net[k] for k in TABLES]
     owns = [own[k] for k in OWN]
     _lib.check_args("cross_pass", the_ll, dls, speed, params, ent, pri,
@@ -135,7 +137,8 @@ def cross_pass(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own,
 
 def _launch(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, tabs,
             owns, interval, LL, KC):
-    global launches
+    global launches, launches_f32
+    fp32 = _lib.fp32("cross_pass", dls, speed, params, interval, *owns)
     V = the_ll.shape[0]
     dev = the_ll.device
     v_isr = torch.empty(V, dtype=dls.dtype, device=dev)
@@ -145,8 +148,9 @@ def _launch(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, tabs,
     a = _Args(*(t.data_ptr() for t in (
         the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, *tabs,
         *owns, interval, v_isr, any_fail, ff_d, new_blocker)),
-        V, LL, KC, params.shape[1])
+        V, LL, KC, params.shape[1], fp32)
     _lib.check(_lib.lib().cross_pass(ctypes.byref(a), _lib.stream_ptr(dls)),
                "cross_pass")
     launches += 1
+    launches_f32 += fp32
     return v_isr, any_fail, ff_d, new_blocker

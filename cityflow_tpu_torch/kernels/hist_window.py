@@ -4,10 +4,11 @@
 Inputs: G1's last_of (D,) and leader (V,) (i32) of the arrangement the
 call belongs to, speed (V,) f64, the ring rows ring_num / ring_ssum
 (HL1, L) f64, the window sums hist_num / hist_ssum (L,) f64 and hist_t
-(0-dim i32, the calls so far). Returns (hist_num, hist_ssum, ring_num,
-ring_ssum), new tensors: this call's per-lane vehicle count and speed sum
-go into ring row hist_t % HL1, and each window sum becomes
-sum - old row + this call's (the old row counts once the ring is full).
+(0-dim i32, the calls so far); float32 for f64 in fast mode. Returns
+(hist_num, hist_ssum, ring_num, ring_ssum), new tensors: this call's
+per-lane vehicle count and speed sum go into ring row hist_t % HL1, and
+each window sum becomes sum - old row + this call's (the old row counts
+once the ring is full).
 
 Each lane's vehicles are summed in one fixed order: G1's per-drivable
 order walked from the rear along the leader chain. The JAX package adds
@@ -23,6 +24,7 @@ from cityflow_tpu_torch.core.step import gat
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
+launches_f32 = 0       # float32 (fast-mode) launches among them
 
 
 class _Args(ctypes.Structure):
@@ -30,7 +32,7 @@ class _Args(ctypes.Structure):
         "last_of", "leader", "speed", "ring_num", "ring_ssum", "hist_num",
         "hist_ssum", "hist_t", "out_num", "out_ssum", "ring_num_out",
         "ring_ssum_out")]
-        + [(n, ctypes.c_longlong) for n in ("L", "HL1", "V")])
+        + [(n, ctypes.c_longlong) for n in ("L", "HL1", "V", "fp32")])
 
 
 def lane_sums_plain(last_of, leader, speed, L):
@@ -66,7 +68,7 @@ def hist_window(last_of, leader, speed, ring_num, ring_ssum, hist_num,
                 hist_ssum, hist_t):
     """G5 on CUDA tensors, the plain version on CPU tensors."""
     cpu = speed.device.type == "cpu"
-    i32, f64 = (torch.int32,), (torch.float64,)
+    i32, f64 = (torch.int32,), _lib.FLOATS
     _lib.check_args("hist_window", last_of, leader, speed, ring_num,
                     ring_ssum, hist_num, hist_ssum, hist_t,
                     dtypes=[i32, i32, f64, f64, f64, f64, f64, i32],
@@ -87,7 +89,9 @@ def hist_window(last_of, leader, speed, ring_num, ring_ssum, hist_num,
 
 def _launch(last_of, leader, speed, ring_num, ring_ssum, hist_num,
             hist_ssum, hist_t):
-    global launches
+    global launches, launches_f32
+    fp32 = _lib.fp32("hist_window", speed, ring_num, ring_ssum, hist_num,
+                     hist_ssum)
     HL1, L = ring_num.shape
     out_num = torch.empty_like(hist_num)
     out_ssum = torch.empty_like(hist_ssum)
@@ -96,9 +100,10 @@ def _launch(last_of, leader, speed, ring_num, ring_ssum, hist_num,
     a = _Args(*(t.data_ptr() for t in (
         last_of, leader, speed, ring_num, ring_ssum, hist_num, hist_ssum,
         hist_t, out_num, out_ssum, ring_num_out, ring_ssum_out)),
-        L, HL1, speed.shape[0])
+        L, HL1, speed.shape[0], fp32)
     _lib.check(_lib.lib().hist_window(ctypes.byref(a),
                                       _lib.stream_ptr(speed)),
                "hist_window")
     launches += 1
+    launches_f32 += fp32
     return out_num, out_ssum, ring_num_out, ring_ssum_out

@@ -11,9 +11,10 @@ Vehicle::update (csrc/lc_commit.cu), in two modes:
           reset and clearSignal; dict of the ten SimState leaves it
           writes
 
-`st` is the gen-1 SimState (float64). The kernel reads a slot's partner
-through the partner link, which the step keeps symmetric; the plain
-version scatters the promoted uids as the JAX package does.
+`st` is the gen-1 SimState (float64, or float32 in fast mode). The
+kernel reads a slot's partner through the partner link, which the step
+keeps symmetric; the plain version scatters the promoted uids as the JAX
+package does.
 """
 
 import ctypes
@@ -25,6 +26,7 @@ from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
 launches_tail = launches_commit = 0
+launches_f32 = 0       # float32 (fast-mode) launches, both modes
 MODES = ("tail", "commit")
 TAIL_IN = ("running", "is_shadow", "lc_changing", "partner", "drv")
 TAIL_OUT = ("offset", "finish", "abort", "end")
@@ -42,7 +44,7 @@ class _Args(ctypes.Structure):
         + COMMIT_IN + ("c_finish", "c_offset")
         + tuple(k + "_out" if k != "offset" else "offset_c_out"
                 for k in COMMIT_OUT))]
-        + [(n, ctypes.c_longlong) for n in ("V", "L")])
+        + [(n, ctypes.c_longlong) for n in ("V", "L", "fp32")])
 
 
 def _tail_plain(st, buf_drv, new_speed, end, net):
@@ -100,7 +102,7 @@ def lc_commit(mode, st, *args):
         raise ValueError(f"lc_commit: unknown mode {mode!r}")
     cpu = st.dis.device.type == "cpu"
     V = st.dis.shape[0]
-    i32, f64, b8 = (torch.int32,), (torch.float64,), (torch.bool,)
+    i32, f64, b8 = (torch.int32,), _lib.FLOATS, (torch.bool,)
     state = [getattr(st, k) for k in TAIL_IN + COMMIT_IN
              + ("offset", "lc_dir", "lc_target")]
     if mode == "tail":
@@ -123,7 +125,7 @@ def lc_commit(mode, st, *args):
 
 
 def _launch(mode, st, args):
-    global launches, launches_tail, launches_commit
+    global launches, launches_tail, launches_commit, launches_f32
     V = st.dis.shape[0]
     dev = st.dis.device
     e = lambda like: torch.empty_like(like)
@@ -149,10 +151,12 @@ def _launch(mode, st, args):
             P[k] for k in COMMIT_IN] + [finish.data_ptr(),
                                         offset.data_ptr()] + [
             out[k].data_ptr() for k in COMMIT_OUT]
-    a = _Args(*ptrs, V, L)
+    fp32 = int(st.dis.dtype == torch.float32)
+    a = _Args(*ptrs, V, L, fp32)
     _lib.check(_lib.lib().lc_commit(ctypes.byref(a), MODES.index(mode),
                                     _lib.stream_ptr(st.dis)), "lc_commit")
     launches += 1
+    launches_f32 += fp32
     if mode == "tail":
         launches_tail += 1
     else:

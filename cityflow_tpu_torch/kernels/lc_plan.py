@@ -13,8 +13,9 @@ four modes:
            it starts a change (gap validity)
   yield    yieldSpeed of each signal receiver, 100 for the others (f64)
 
-`st` is the gen-1 SimState (float64), `net` the step's device tables;
-every output covers every slot, as the JAX package's (V,) slabs do.
+`st` is the gen-1 SimState (float64, or float32 in fast mode), `net` the
+step's device tables; every output covers every slot, as the JAX
+package's (V,) slabs do.
 """
 
 import ctypes
@@ -28,6 +29,7 @@ from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
 launches_signal = launches_receive = launches_decide = launches_yield = 0
+launches_f32 = 0       # float32 (fast-mode) launches, every mode
 MODES = ("signal", "receive", "decide", "yield")
 COOLING_TIME = 3.0          # lanechange.h:43
 INT_MIN = -2**31
@@ -53,7 +55,7 @@ def _dtype(name):
     """The dtype the kernel reads an argument as, by name."""
     if name in BOOLS:
         return (torch.bool,)
-    return (torch.float64,) if name in F64 else (torch.int32,)
+    return _lib.FLOATS if name in F64 else (torch.int32,)
 
 
 class _Args(ctypes.Structure):
@@ -61,7 +63,7 @@ class _Args(ctypes.Structure):
         SLOTS + NB + TABLES + ("last_of", "interval") + SIG + RCV + DEC
         + tuple("y_" + k[3:] for k in YIELD_IN) + ("yield_v",))]
         + [(n, ctypes.c_longlong) for n in (
-            "V", "L", "D", "KO", "NR", "RLEN", "MAXLPR", "NP")])
+            "V", "L", "D", "KO", "NR", "RLEN", "MAXLPR", "NP", "fp32")])
 
 
 def _signal_plain(st, net, L, nb, last_of):
@@ -260,12 +262,13 @@ def lc_plan(mode, st, net, L, nb=None, last_of=None, sig=None, rcv=None):
 
 def _launch(mode, st, net, L, nb, last_of, sig, rcv):
     global launches, launches_signal, launches_receive, launches_decide, \
-        launches_yield
+        launches_yield, launches_f32
     V = st.dis.shape[0]
     dev = st.dis.device
     i32 = dict(dtype=torch.int32, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
-    f64 = dict(dtype=torch.float64, device=dev)
+    f64 = dict(dtype=st.dis.dtype, device=dev)
+    fp32 = int(st.dis.dtype == torch.float32)
     out = {}
     if mode == "signal":
         out = dict(has_signal=torch.empty(V, **b8),
@@ -300,10 +303,11 @@ def _launch(mode, st, net, L, nb, last_of, sig, rcv):
                 + [ptr(dec, k) for k in DEC] + ys
                 + [out.data_ptr() if mode == "yield" else None]),
               V, L, net["drv_len"].shape[0], net["lane_out"].shape[1],
-              *rnl.shape, st.params.shape[1])
+              *rnl.shape, st.params.shape[1], fp32)
     _lib.check(_lib.lib().lc_plan(ctypes.byref(a), MODES.index(mode),
                                   _lib.stream_ptr(st.dis)), "lc_plan")
     launches += 1
+    launches_f32 += fp32
     if mode == "signal":
         launches_signal += 1
     elif mode == "receive":

@@ -1,7 +1,8 @@
 """G6 lc_probe: the neighbour probe of gen-1 lane change
 (csrc/lc_probe.cu).
 
-Inputs over the V slots: running (bool), drv (i32), dis (f64); G1's
+Inputs over the V slots: running (bool), drv (i32), dis (f64, or f32 in
+fast mode); G1's
 last_of (D,) and leader (V,) (i32) of the same state; `net` holds
 lane_local, lane_road and road_num_lanes; L lanes. Returns a dict of (V,)
 i32: outer_lane / inner_lane (the lane at local index + 1 / - 1 of a
@@ -21,6 +22,7 @@ from cityflow_tpu_torch.core.step import gat, order_key
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
+launches_f32 = 0       # float32 (fast-mode) launches among them
 TABLES = ("lane_local", "lane_road", "road_num_lanes")
 OUT = ("outer_lane", "inner_lane", "outer_leader", "outer_follower",
        "inner_leader", "inner_follower")
@@ -29,7 +31,7 @@ OUT = ("outer_lane", "inner_lane", "outer_leader", "outer_follower",
 class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         ("running", "drv", "dis") + TABLES + ("last_of", "leader") + OUT)]
-        + [(n, ctypes.c_longlong) for n in ("V", "L", "R")])
+        + [(n, ctypes.c_longlong) for n in ("V", "L", "R", "fp32")])
 
 
 def side_lanes(running, drv, net, L):
@@ -83,7 +85,7 @@ def lc_probe(running, drv, dis, last_of, leader, net, L):
     i32 = (torch.int32,)
     tabs = [net[k] for k in TABLES]
     _lib.check_args("lc_probe", running, drv, dis, last_of, leader, *tabs,
-                    dtypes=[(torch.bool,), i32, (torch.float64,), i32, i32,
+                    dtypes=[(torch.bool,), i32, _lib.FLOATS, i32, i32,
                             i32, i32, i32], cuda=not cpu)
     V = dis.shape[0]
     if running.shape[0] != V or drv.shape[0] != V or leader.shape[0] != V:
@@ -95,14 +97,16 @@ def lc_probe(running, drv, dis, last_of, leader, net, L):
 
 
 def _launch(running, drv, dis, last_of, leader, tabs, L):
-    global launches
+    global launches, launches_f32
+    fp32 = _lib.fp32("lc_probe", dis)
     V = dis.shape[0]
     out = {k: torch.empty(V, dtype=torch.int32, device=dis.device)
            for k in OUT}
     a = _Args(*(t.data_ptr() for t in (
         running, drv, dis, *tabs, last_of, leader, *(out[k] for k in OUT))),
-        V, L, tabs[2].shape[0])
+        V, L, tabs[2].shape[0], fp32)
     _lib.check(_lib.lib().lc_probe(ctypes.byref(a), _lib.stream_ptr(dis)),
                "lc_probe")
     launches += 1
+    launches_f32 += fp32
     return out

@@ -12,7 +12,8 @@ side through the same table.
 Inputs: `net` (device tables lnk_cross_d, drv_len, ll_end, ll_start,
 ll_is_turn, cross_ll, interval), `arr` from G1 with the packs (last_of,
 first_of, link_veh, link_fattr, link_iattr), veh_next (V,) i32, ll_avail
-(LL,) bool, fattrs (V, 10) f64, iattrs (V, 2) i32, L lanes.
+(LL,) bool, fattrs (V, 10) f64, iattrs (V, 2) i32, L lanes. In fast mode
+every f64 above is float32 (one float dtype per call).
 """
 
 import ctypes
@@ -25,6 +26,7 @@ from cityflow_tpu_torch.core.step import (
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
+launches_f32 = 0       # float32 (fast-mode) launches among them
 OWN = ("exists", "yield", "cleared", "cyc", "dpos", "dist", "reach", "ent",
        "pri", "idx")
 _BOOL = ("exists", "yield", "cleared", "cyc", "dpos")
@@ -37,7 +39,7 @@ class _Args(ctypes.Structure):
         "link_fattr", "link_iattr", "interval", "exists", "yld", "cleared",
         "cyc", "dpos", "dist", "reach", "ent", "pri", "idx")]
         + [(n, ctypes.c_longlong) for n in (
-            "LL", "KC", "K", "NA", "NI", "V", "L")])
+            "LL", "KC", "K", "NA", "NI", "V", "L", "fp32")])
 
 
 def _empty(LL, KC, f, dev):
@@ -127,7 +129,7 @@ def notify_cross(net, arr, veh_next, ll_avail, fattrs, iattrs, L):
     if net["cross_ll"].shape[0] == 0:
         return _empty(LL, KC, d.dtype, dev)
     cpu = dev.type == "cpu"
-    i32, f64, b8 = (torch.int32,), (torch.float64,), (torch.bool,)
+    i32, f64, b8 = (torch.int32,), _lib.FLOATS, (torch.bool,)
     ins = (d, net["drv_len"], net["ll_end"], net["ll_start"],
            net["ll_is_turn"], arr["last_of"], arr["first_of"], veh_next,
            ll_avail, fattrs, iattrs, arr["link_veh"], arr["link_fattr"],
@@ -147,7 +149,8 @@ def notify_cross(net, arr, veh_next, ll_avail, fattrs, iattrs, L):
 
 
 def _launch(ins, LL, KC, K, fattrs, iattrs, L):
-    global launches
+    global launches, launches_f32
+    fp32 = _lib.fp32("notify_cross", *ins)
     d = ins[0]
     dev = d.device
     out = {k: torch.empty((LL, KC), dtype=torch.bool, device=dev)
@@ -157,8 +160,10 @@ def _launch(ins, LL, KC, K, fattrs, iattrs, L):
         out[k] = torch.empty((LL, KC), dtype=torch.int32, device=dev)
     a = _Args(*(t.data_ptr() for t in ins),
               *(out[k].data_ptr() for k in OWN),
-              LL, KC, K, fattrs.shape[1], iattrs.shape[1], fattrs.shape[0], L)
+              LL, KC, K, fattrs.shape[1], iattrs.shape[1], fattrs.shape[0], L,
+              fp32)
     _lib.check(_lib.lib().notify_cross(ctypes.byref(a), _lib.stream_ptr(d)),
                "notify_cross")
     launches += 1
+    launches_f32 += fp32
     return out

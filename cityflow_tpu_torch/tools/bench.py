@@ -180,8 +180,9 @@ def main(argv=None):
     ref = args.ref_steps_per_s or REF_1T.get(scen, 67.0)
     baseline = ref * 8  # 8-thread reference proxy
     if args.layout == "gen1":
-        raise NotImplementedError("the gen-1 slot-pool step is not ported "
-                                  "yet (ROADMAP.md queue 1 item 10)")
+        raise NotImplementedError("the batched gen-1 slot-pool step is not "
+                                  "ported yet (ROADMAP.md queue 1, the "
+                                  "gen-1 batched env)")
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
         else "cpu"
 

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Run a scenario through the port's gen-1 exact Engine and report the
-wall time: the reference's tools/debug/simple_run (`--configFile -s steps
--t threads`, $DATADIR prefix), on the CUDA card by default.
+"""Run a scenario through the port's Engine and report the wall time: the
+reference's tools/debug/simple_run (`--configFile -s steps -t threads`,
+$DATADIR prefix), on the CUDA card by default; the exact (float64) gen-1
+Engine, or with --fast Engine(config, exact=False): the ring where the
+scenario fits its layout, gen-1 fast mode (float32) elsewhere.
 
     python3 -m cityflow_tpu_torch.tools.simple_run --configFile cfg.json -s 100
+    python3 -m cityflow_tpu_torch.tools.simple_run ... --fast
     python3 -m cityflow_tpu_torch.tools.simple_run ... --cpu   # plain versions
 """
 
@@ -19,8 +22,10 @@ def parser():
     ap.add_argument("-t", "--threads", type=int, default=1,
                     help="accepted as the reference does; results do not "
                          "depend on it")
-    ap.add_argument("--fast", action="store_true",
-                    help="gen-1 fast mode (float32): not ported yet")
+    ap.add_argument("--exact", action="store_true", default=True,
+                    help="the exact (float64) gen-1 Engine (the default)")
+    ap.add_argument("--fast", dest="exact", action="store_false",
+                    help="Engine(config, exact=False)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (every kernel's plain PyTorch "
                          "version) instead of the card")
@@ -29,12 +34,9 @@ def parser():
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.fast:
-        raise NotImplementedError(
-            "--fast (gen-1 fast mode) is not ported yet: see ROADMAP.md")
     from cityflow_tpu_torch.engine import Engine
     config = os.environ.get("DATADIR", "") + args.configFile
-    eng = Engine(config, thread_num=args.threads,
+    eng = Engine(config, thread_num=args.threads, exact=args.exact,
                  device="cpu" if args.cpu else None)
     t0 = time.time()
     for _ in range(args.steps):

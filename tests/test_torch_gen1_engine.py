@@ -2,8 +2,7 @@
 package's Engine (one run of 100 steps on config_2x2.json, its step jitted
 once), pushed vehicles and reroutes against the same, capacity growth,
 snapshots and archives (after reseeds, pushes and resets too), reset, and
-the options not ported yet, which raise NotImplementedError naming
-ROADMAP.md."""
+the options it refuses."""
 
 import json
 import os
@@ -134,12 +133,19 @@ def _config(tmp_path, **over):
 
 @pytest.mark.parametrize("what", ["exact=False", "backend=ring"])
 def test_unported_engine_options_raise(what):
+    """The options the Engine refuses, as the JAX package's does: with
+    exact=False a backend it does not know, and backend="ring" in exact
+    mode (the ring runs float32 only). (Named for when exact=False and
+    the ring backend were not ported; both run now, in
+    test_torch_gen1_fast.py and test_torch_ring_engine.py.)"""
     kw = dict(device="cpu")
     if what == "exact=False":
-        kw["exact"] = False
+        kw.update(exact=False, backend="tpu")
+        match = "unknown backend"
     else:
         kw["backend"] = "ring"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        match = "requires exact=False"
+    with pytest.raises(ValueError, match=match):
         Engine(CONFIG, **kw)
 
 

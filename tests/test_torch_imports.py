@@ -103,16 +103,48 @@ def test_gen1_lane_change_history_and_replay_modules_are_covered():
 
 
 def test_simple_run_runs_on_the_cpu_and_refuses_fast_mode(capsys):
-    """tools/simple_run.py --cpu: the reference CLI's report; --fast is
-    gen-1 fast mode, not ported, and says where it is planned."""
+    """tools/simple_run.py --cpu: the reference CLI's report, from the
+    exact (float64) gen-1 Engine. (Named for when --fast was refused; it
+    now checks that --fast is Engine(config, exact=False), below.)"""
     from cityflow_tpu_torch.tools import simple_run
     eng = simple_run.main(["--configFile", os.path.join(
         HERE, "fixtures", "config_2x2.json"), "-s", "30", "--cpu"])
     out = capsys.readouterr().out
     assert "Total Step: 30" in out and "steps/s" in out
     assert eng.device.type == "cpu" and eng.get_current_time() == 30.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        simple_run.main(["--configFile", "x.json", "--fast", "--cpu"])
+    assert eng._ring is None and eng.state.dis.dtype == torch.float64
+
+
+def test_simple_run_fast_is_the_inexact_engine(capsys):
+    """simple_run --fast --cpu on config_2x2.json: Engine(config,
+    exact=False), the ring on a grid, the same report."""
+    from cityflow_tpu_torch.tools import simple_run
+    eng = simple_run.main(["--configFile", os.path.join(
+        HERE, "fixtures", "config_2x2.json"), "-s", "30", "--fast", "--cpu"])
+    out = capsys.readouterr().out
+    assert "Total Step: 30" in out and "steps/s" in out
+    assert eng._ring is not None and eng.get_current_time() == 30.0
+    assert eng.get_vehicle_count() > 0
+
+
+def test_fast_mode_and_ring_engine_modules_are_covered():
+    """The import rule above reaches the ring Engine's shell and the G9 /
+    G10 wrappers."""
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("ring_backend.py", "ring_sim.py",
+                "kernels/blocker_cycles.py", "kernels/update_location.py"):
+        assert rel in files, rel
+
+
+def test_fast_engines_without_device_refuse_the_cpu():
+    """Both backends of Engine(exact=False): device=None is the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the card")
+    from cityflow_tpu_torch.engine import Engine
+    path = os.path.join(HERE, "fixtures", "config_2x2.json")
+    for backend in ("auto", "gen1"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Engine(path, exact=False, backend=backend)
 
 
 def test_gen1_engine_without_device_refuses_the_cpu():
