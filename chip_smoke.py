@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the 21 kernels from csrc/ (nvcc, sm_90a) with its time
+            of the 25 kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -88,37 +88,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             through 150, within 1e-6 with the same change events after);
             history_2x2_40 under routerType DURATION (window sums equal,
             durations within 1e-9 relative); replay_2x2_60 (the replay
-            lines); fixtures staged under build/; G1-G10 launched in it
+            lines); fixtures staged under build/; G1-G12 launched in it
   agree-gen1  the Engine on benchmarks/config_30x30.json, 20 steps, card
             against CPU: every SimState leaf bitwise equal every 10 steps
   gen1      the Engine on config_30x30.json on the card: GEN1_WARMUP
             steps, then GEN1_STEPS timed; ms per step, vehicles, pool size
-            and growths, G1-G4, G9 and G10 launches per step, their device
+            and growths, G1-G4 and G9-G12 launches per step, their device
             time per step (CUDA events), the profiler's device time and
             busy share, peak memory; asserts finite state, vehicles > 0
             and those kernels launched
-  kernels   (gen-1) G1-G4, G9 and G10 against their plain versions,
+  kernels   (gen-1) G1-G4 and G9-G12 against their plain versions,
             bitwise, on every call of one more step of the gen1 path's
-            state, timed (G10 beside torch.sort(stable=True) + torch.sum)
+            state (a batch of one), timed (G10 beside
+            torch.sort(stable=True) + torch.sum, G12 beside
+            scatter_reduce("amin"))
   agree-gen1-lc  tests/fixtures/config_2x2_lc.json under routerType
             DURATION, AGREE_GEN1_LC_STEPS steps, card against CPU as
             [agree-gen1]; the steps with shadows counted (must be > 0)
   gen1-lc   the Engine on benchmarks/config_30x30_lc.json under routerType
             DURATION: GEN1_LC_WARMUP steps (past the first shadows), then
-            GEN1_LC_STEPS timed; [gen1]'s prints for G1-G8 and their modes,
-            shadows in the window (must be > 0)
-  kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8) against
-            their plain versions, bitwise, on every call of one more
-            [gen1-lc] step, timed; G5 beside the library's index_add_
+            GEN1_LC_STEPS timed; [gen1]'s prints for G1-G12 and the modes
+            of G7 and G8, shadows in the window (must be > 0)
+  kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8), G11 and
+            G12 against their plain versions, bitwise, on every call of
+            one more [gen1-lc] step; G5-G8 timed, G5 beside the library's
+            index_add_
   agree-fast  Engine(exact=False, backend="gen1") (float32) on
             tests/fixtures/config_4x4.json, 200 steps, card against CPU:
             every 10 steps the same vehicles on the same drivables, |dis|
             and |speed| within 2e-3; the same finished count
   gen1-fast  that Engine on config_30x30.json: [gen1]'s window and prints,
-            G1-G4 in float32, G2's fast branch, G9 and G10 in fast mode
-            launched
-  kernels   (fast mode) on every call of one more [gen1-fast] step: G1-G4
-            float32 and G2 fast bitwise, G9 fast (and exact on the same
+            G1-G4, G11 and G12 in float32, G2's fast branch, G9 and G10 in
+            fast mode launched
+  kernels   (fast mode) on every call of one more [gen1-fast] step: G1-G4,
+            G11 and G12 float32 and G2 fast bitwise, G9 fast (and exact on the same
             blockers) bitwise, G10 fast (ints bitwise, the finish sum
             within 1e-6 relative) and exact on the same inputs (bitwise),
             one timed row each
@@ -135,6 +138,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             with get_lane_vehicle_count() every 5th step, as an RL caller
             reads; ms per step, the step alone, one fetch's ms, growths,
             the device busy share; K1-K4 launched
+  agree-gen1-batch  parallel/batch.make_batched_step (fast mode,
+            rl_actions) at B=4 with its own phases per env every step on
+            config_4x4.json, 40 steps, card against CPU as [agree-fast]
+  agree-gen1-env  rl/env.CityFlowVecEnv at B=1 on config_4x4_rl.json, 60
+            steps with MaxPressure every 5, card against CPU as [agree-rl]
+  gen1-batch  the batched gen-1 fast step on config_30x30.json at B=128:
+            one env (the Engine, growing its pool) runs GEN1B_WARMUP +
+            GEN1B_STEPS steps, its state at GEN1B_WARMUP in that pool is
+            copied into the batch, GEN1B_STEPS batched steps are timed;
+            asserts overflow == 0, vehicles > 0, every env equal to env 0
+            bitwise and G1-G4, G9-G12 launched; prints ms per batched
+            step, env-steps/s, each kernel's share, the device busy share,
+            kernels per step and peak memory
+  kernels   (batched gen-1) on every call of one more [gen1-batch] step,
+            each asserted to span the B=128 envs: G1-G4, G9, G10 (rows
+            <name>@batch), G11 and G12 against their plain versions
+            (bitwise; G10's fast finish sum within 1e-6 relative); G13 in
+            both modes and G14 in its three on that state (counts and
+            pressures bitwise, the in-flight sum within 1e-5 relative);
+            timed, G12 beside scatter_reduce("amin"), G13 beside index_add_
+  gen1-env  CityFlowVecEnv on config_30x30.json at B=128 with
+            [gen1-batch]'s pool: GEN1B_WARMUP steps of one env under
+            MaxPressure every 5, copied into the batch, GEN1B_STEPS timed
+            steps with max_pressure_actions() every 5th; [gen1-batch]'s
+            asserts, G13 / G14 launched and a phase changed by the
+            controller
+  gen1-dqn  rl/dqn.train on config_30x30.json at B=16 from [gen1-env]'s
+            warm state (one env at step GEN1B_WARMUP under MaxPressure,
+            copied into the batch), 4 iterations of 5 steps: finite losses,
+            a reward that is not zero, overflow 0, ms per iteration after
+            the second
 
 The last three lines: the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -174,8 +208,11 @@ GOLDEN_GEN1 = (                     # (fixture, golden, steps, RL schedule)
 AGREE_GEN1_STEPS = 20               # gen-1 card-vs-CPU steps on 30x30
 GEN1_WARMUP = 300                   # gen-1 steps before the timing
 GEN1_STEPS = 100                    # timed gen-1 steps
+# the gen-1 step's kernels (each with an env axis; the Engine's one env is
+# a batch of one)
 GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
-                "blocker_cycles", "update_location")
+                "blocker_cycles", "update_location", "spawn_slots",
+                "admit_heads")
 GEN1_LC_KERNELS = ("hist_window", "lc_probe", "lc_plan", "lc_commit")
 GEN1_LC_MODES = ("lc_plan@signal", "lc_plan@receive", "lc_plan@decide",
                  "lc_plan@yield", "lc_commit@tail", "lc_commit@commit")
@@ -191,7 +228,8 @@ AGREE_FAST_STEPS = 200              # gen-1 fast mode card vs CPU on 4x4
 # (G5-G8) on [agree-gen1-lc-fast]
 GEN1_FAST_MODES = ("arrange@f32", "leader_scan@fast", "notify_cross@f32",
                    "cross_pass@f32", "blocker_cycles@fast",
-                   "update_location@fast")
+                   "update_location@fast", "spawn_slots@f32",
+                   "admit_heads@f32")
 GEN1_LC_F32 = ("hist_window@f32", "lc_probe@f32", "lc_plan@f32",
                "lc_commit@f32")
 FAST_BRANCH = ("leader_scan", "blocker_cycles", "update_location")
@@ -199,6 +237,15 @@ AGREE_RING_ENGINE_STEPS = 200       # ring Engine vs gen-1 fast, card, 4x4
 RING_ENGINE_WARMUP = 300            # the ring Engine on 30x30 at one env
 RING_ENGINE_STEPS = 100
 GETTER_EVERY = 5                    # get_lane_vehicle_count every 5th step
+AGREE_GEN1B_STEPS = 40             # batched gen-1 fast, card vs CPU, 4x4
+AGREE_GEN1B_BATCH = 4
+AGREE_GEN1_ENV_STEPS = 60           # CityFlowVecEnv B=1 card vs CPU, 4x4_rl
+GEN1B_WARMUP = 300                  # one env of the 30x30 gen-1 fast step
+GEN1B_STEPS = 40                    # timed batched gen-1 steps at BATCH
+GEN1_DQN_BATCH = 16                 # gen-1 learner (rl/dqn.train) envs
+GEN1_DQN_ITERS = 4
+# the RL kernels of the batched gen-1 step
+GEN1_RL_KERNELS = ("lane_counts", "phase_scores", "phase_scores@phases")
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc")
@@ -297,6 +344,40 @@ REPLACES = {
                      "templates: len_s, lead_len, foll_neg, olt_len)",
     "lc_receive@tpl": "cityflow_tpu/core/ring_lc.py:313-361 (best_sneg, "
                       "neg_s)",
+    "arrange@batch": "cityflow_tpu/core/step.py:48-115 (arrangement under "
+                     "vmap: parallel/batch.py:48)",
+    "leader_scan@batch": "cityflow_tpu/core/step.py:242-322 (leader_scan "
+                         "under vmap, fast branch)",
+    "notify_cross@batch": "cityflow_tpu/core/step.py:467-594 (notify_cross "
+                          "under vmap)",
+    "cross_pass@batch": "cityflow_tpu/core/step.py:682-751 (get_action's "
+                        "cross loop under vmap)",
+    "blocker_cycles@batch": "cityflow_tpu/core/step.py:597-615 "
+                            "(blocker_cycles under vmap, fast mode)",
+    "update_location@batch": "cityflow_tpu/core/step.py:830-881 "
+                             "(update_location under vmap, fast sum)",
+    "spawn_slots": "cityflow_tpu/core/step.py:329-396 (spawn_vehicles: "
+                   "dynamic_slice, nonzero(size=MS), ~40 drop scatters)",
+    "spawn_slots@f32": "cityflow_tpu/core/step.py:329-396 (spawn_vehicles, "
+                       "float32)",
+    "spawn_slots@batch": "cityflow_tpu/core/step.py:329-396 "
+                         "(spawn_vehicles under vmap, float32)",
+    "admit_heads": "cityflow_tpu/core/step.py:398-443 (admit_waiting up to "
+                   "the leader scan: scatter-min heads, lane pack)",
+    "admit_heads@f32": "cityflow_tpu/core/step.py:398-443 (admit_waiting up "
+                       "to the leader scan, float32)",
+    "admit_heads@batch": "cityflow_tpu/core/step.py:398-443 (admit_waiting "
+                         "up to the leader scan under vmap, float32)",
+    "lane_counts": "cityflow_tpu/core/observe.py:14-35, :60-67 (lane and "
+                   "waiting counts, _avg_travel_time)",
+    "lane_counts@drivables": "cityflow_tpu/core/observe.py:30-35 "
+                             "(drivable_vehicle_count)",
+    "phase_scores": "cityflow_tpu/core/observe.py:38-45 "
+                    "(intersection_pressure)",
+    "phase_scores@phases": "cityflow_tpu/rl/policies.py:15-54 "
+                           "(phase_pressures, max_pressure_phases)",
+    "phase_scores@features": "cityflow_tpu/rl/dqn.py:60-85, :143-150 "
+                             "(build_intersection_obs features, reward)",
 }
 
 
@@ -1796,9 +1877,9 @@ def _gen1_points(names):
     return [(kernels.MODULES[n], n) for n in names]
 
 
-def gen1_shares(eng, nsteps, names):
+def gen1_shares(step, nsteps, names):
     """Device time of the G kernels per step (CUDA events around each
-    wrapper call) and of whole steps, over `nsteps` steps."""
+    wrapper call) and of whole steps, over `nsteps` calls of step()."""
     import torch
     torch.cuda.synchronize()
     total = 0.0
@@ -1806,7 +1887,7 @@ def gen1_shares(eng, nsteps, names):
         for _ in range(nsteps):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            eng.next_step()
+            step()
             ev[1].record()
             torch.cuda.synchronize()
             total += ev[0].elapsed_time(ev[1]) / nsteps
@@ -1879,11 +1960,11 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
             f"first warm-up step with a shadow (checked every 10): {first}")
         assert int(shadows) > 0, f"no shadows in the {tag} window"
     log(f"[{tag}] launches per step={per_step}")
-    per, tot = gen1_shares(eng, 5, names)
+    per, tot = gen1_shares(eng.next_step, 5, names)
     for n, v in per.items():
         log(f"[{tag}] kernel {n}: {v:.4f} ms/step ({100 * v / tot:.2f}% of "
             f"a {tot:.3f} ms step; CUDA events, 5 steps)")
-    prof = gen1_profile(eng, 3, ms, tag)
+    prof = gen1_profile(eng.next_step, 3, ms, tag)
     log(f"[{tag}] max_memory_allocated={peak} bytes "
         f"({peak / 2**30:.3f} GiB)")
     return launches, dict(
@@ -1894,8 +1975,9 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
         **res, **prof), eng
 
 
-def gen1_profile(eng, nsteps, wall_ms, tag):
-    """`nsteps` steps under torch.profiler: the device's kernel time and
+def gen1_profile(step, nsteps, wall_ms, tag):
+    """`nsteps` calls of step() under torch.profiler: the device's kernel
+    time and
     kernel count per step, its busy share of the unprofiled `wall_ms`,
     and the operators that take the most device time."""
     import torch
@@ -1904,7 +1986,7 @@ def gen1_profile(eng, nsteps, wall_ms, tag):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(nsteps):
-            eng.next_step()
+            step()
         torch.cuda.synchronize()
     ka = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
@@ -1925,10 +2007,10 @@ def gen1_profile(eng, nsteps, wall_ms, tag):
                 device_busy=dev_ms / wall_ms)
 
 
-def record_gen1_calls(eng, names):
-    """One more step with the wrappers of `names` recording their
-    arguments (the step writes no tensor in place, so references stay
-    valid)."""
+def record_gen1_calls(step, names):
+    """One more call of step() with the wrappers of `names` recording
+    their arguments (the step writes no tensor in place, so references
+    stay valid)."""
     import torch
     points = _gen1_points(names)
     orig = {n: getattr(m, n) for m, n in points}
@@ -1942,7 +2024,7 @@ def record_gen1_calls(eng, names):
     try:
         for m, n in points:
             setattr(m, n, rec(n))
-        eng.next_step()
+        step()
         torch.cuda.synchronize()
     finally:
         for m, n in points:
@@ -1966,30 +2048,38 @@ def gen1_work(n, a, k, out):
         (running, end, changed, buf_dis, buf_drv, enter_time, list_seq,
          ent, sorted_idx, lc_fin) = a[:10]
         V = running.numel()
+        nenv = V // running.shape[-1]
         fs = buf_dis.element_size()
         removed = running & end
         trans = running & changed & ~removed
         nt, nr = int(trans.sum()), int(removed.sum())
+        # each env's transfers are ranked among themselves
+        nt2 = int((trans.reshape(nenv, -1).sum(-1).long() ** 2).sum())
         # flags in (and the lane-change flags, G1's order in exact mode),
         # per transfer its distance and drivable, per removal its entry
         # time; the removed flags and two ticket columns out, four scalars
+        # per env
         ins = V * (3 + (4 if sorted_idx is not None else 0)
                    + (2 if lc_fin is not None else 0) + 8) \
-            + nt * (fs + 4) + nr * fs + 3 * 4 + 2 * fs
-        outs = V * (1 + 8) + 3 * 4 + fs
-        return ins + outs, nt * nt * 3 + V * 4
+            + nt * (fs + 4) + nr * fs + nenv * (3 * 4 + fs) + fs
+        outs = V * (1 + 8) + nenv * (3 * 4 + fs)
+        return ins + outs, nt2 * 3 + V * 4
     if n == "arrange":
         running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs = a
         fs = dis.element_size()
         V = running.numel()
-        run = drv[running].long()
+        nenv = V // running.shape[-1]
+        env = torch.arange(nenv, device=drv.device).view(
+            running.shape[:-1] + (1,)) if running.dim() > 1 else 0
+        run = (drv + env * D)[running].long()
         nrun = int(run.numel())
         nt = int((out["link_veh"] >= 0).sum())
-        per_row = 4 + fattrs.shape[1] * fs + iattrs.shape[1] * 4
+        per_row = 4 + fattrs.shape[-1] * fs + iattrs.shape[-1] * 4
         ins = V + nrun * (4 + fs + 4) + nt * (per_row - 4)
-        outs = 8 * V + 8 * D + out["link_veh"].numel() * per_row + 1
+        outs = 8 * V + 8 * D * nenv + out["link_veh"].numel() * per_row \
+            + nenv
         # each vehicle compares itself with the others of its drivable
-        ops = int((torch.bincount(run, minlength=D) ** 2).sum())
+        ops = int((torch.bincount(run, minlength=D * nenv) ** 2).sum())
         return ins + outs, ops
     if n == "leader_scan":
         mask, dis, last_of = a[0], a[4], a[6]
@@ -2014,19 +2104,26 @@ def gen1_work(n, a, k, out):
         net, arr, veh_next, ll_avail, fattrs, iattrs, L = a
         fs = fattrs.element_size()
         LL, KC = net["lnk_cross_d"].shape
-        K = arr["link_veh"].shape[1]
-        pack = fattrs.shape[1] * fs + iattrs.shape[1] * 4
+        K = arr["link_veh"].shape[-1]
+        V = veh_next.shape[-1]
+        nenv = veh_next.numel() // V
+        pack = fattrs.shape[-1] * fs + iattrs.shape[-1] * 4
         # the link tables' vehicle column, the distance and length of the
         # occupied entries, per link its lanes' rear / front slots and
         # lengths, and the packs of every vehicle that wins a cross or
-        # stands at a link's ends
-        ends = torch.cat([arr["last_of"][net["ll_end"].long()],
-                          arr["first_of"][net["ll_start"].long()],
-                          out["idx"].reshape(-1)])
-        nveh = int(torch.unique(ends[ends >= 0]).numel())
-        ins = (LL * KC * fs + LL * K * 4 + int((arr["link_veh"] >= 0).sum())
-               * 2 * fs + LL * (4 * 4 + 2 * fs + 2) + nveh * (pack + 4))
-        return ins + LL * KC * (5 + fs + 16), LL * KC * (3 * (K + 2) + 60)
+        # stands at a link's ends (each env's own)
+        ends = torch.cat([
+            arr["last_of"].index_select(-1, net["ll_end"]),
+            arr["first_of"].index_select(-1, net["ll_start"]),
+            out["idx"].reshape(out["idx"].shape[:-2] + (-1,))], -1)
+        env = torch.arange(nenv, device=ends.device).view(
+            ends.shape[:-1] + (1,)) if ends.dim() > 1 else 0
+        nveh = int(torch.unique((ends + env * V)[ends >= 0]).numel())
+        ins = (LL * KC * fs + nenv * LL * K * 4
+               + int((arr["link_veh"] >= 0).sum()) * 2 * fs
+               + nenv * LL * (4 * 4 + 2 * fs + 2) + nveh * (pack + 4))
+        return ins + nenv * LL * KC * (5 + fs + 16), \
+            nenv * LL * KC * (3 * (K + 2) + 60)
     if n == "cross_pass":
         the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own, net = a
         fs = dls.element_size()
@@ -2034,11 +2131,11 @@ def gen1_work(n, a, k, out):
         LL = net["lnk_cross_d"].shape[0]
         safe = the_ll.clamp(0, LL - 1).long()
         d = net["lnk_cross_d"][safe]
-        cons = net["lnk_cross_valid"][safe] & (the_ll >= 0)[:, None] \
-            & (d >= dls[:, None])
+        cons = net["lnk_cross_valid"][safe] & (the_ll >= 0)[..., None] \
+            & (d >= dls[..., None])
         any_fail, ff_d = out[1], out[2]
         # the crosses up to the first one it must yield at
-        need = int((cons & (~any_fail[:, None] | (d <= ff_d[:, None])))
+        need = int((cons & (~any_fail[..., None] | (d <= ff_d[..., None])))
                    .sum())
         return V * (4 + 10 * fs + 4 + 4 + 1 + 1 + 21) \
             + need * (30 + 2 * fs), need * 100 + V * 30
@@ -2063,6 +2160,31 @@ def gen1_work(n, a, k, out):
                      for s in ("outer", "inner"))
         return (V * (1 + 4 + dis.element_size() + 4) + last_of.numel() * 4
                 + L * 12 + V * 24), visits * 6 + V * 10
+    if n == "spawn_slots":
+        st, tbl, flow_params, MS = a[0], a[1], a[2], a[4]
+        from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
+        nenv = st.active.numel() // st.active.shape[-1]
+        fs = st.dis.element_size()
+        # every per-slot leaf read once and written once, the free flags
+        # read once more by the scan, each env's MS spawn rows and their
+        # flow parameters; a compare per slot
+        state = sum(getattr(st, k).numel() * getattr(st, k).element_size()
+                    for k in LEAVES)
+        return 2 * state + st.active.numel() + nenv * MS * (
+            5 * 4 + flow_params.shape[1] * fs) + nenv * 16, \
+            st.active.numel()
+    if n == "admit_heads":
+        (active, running, drv, uid, dis, params, leader, gap, list_seq,
+         last_of, seq_counter, L) = a
+        V = active.numel()
+        fs = dis.element_size()
+        nenv = V // active.shape[-1]
+        nheads = int((out["head"] >= 0).sum())
+        # per slot its flags, lane, uid, leader, ticket, distance and gap
+        # in, running / leader / gap / ticket / scan flag out; per lane its
+        # rear vehicle and head; the heads' minGap and the rears' dis, len
+        return V * (2 + 16 + 2 * fs) + V * (10 + fs) + nenv * L * 8 \
+            + nenv * 4 + nheads * 3 * fs, 4 * V
     mode = n.split("@")[1] if "@" in n else None
     V = a[1].dis.numel()
     if n.startswith("lc_plan"):
@@ -2121,18 +2243,20 @@ def _check_call(n, kern, plain, a, k, rel_tol):
     return err
 
 
-def check_gen1_kernels(eng, reps, names, fast=False):
-    """The kernels of `names` against their plain versions on every call
-    of one more step of a gen-1 path, bitwise (fast mode: G10's unordered
-    finish sum and G5's speed sums within 1e-6 relative); timed on the
-    first call of each kernel and mode (G2 on its last: the leader update
-    over every leaderless vehicle). On a fast path one row per kernel,
+def check_gen1_kernels(eng, reps, names, fast=False, untimed=()):
+    """The kernels of `names` and `untimed` against their plain versions on
+    every call of one more step of a gen-1 path, bitwise (fast mode: G10's
+    unordered finish sum and G5's speed sums within 1e-6 relative); those
+    of `names` timed on the first call of each kernel and mode (G2 on its
+    last: the leader update over every leaderless vehicle). On a fast path one row per kernel,
     its float32 or fast mode, and G9 and G10 also in exact mode on the
-    same inputs (G10 bitwise there, with G1's order of the step). G5 beside the library's index_add_ of the same per-lane
-    sums, G10 beside torch.sort(stable=True) + torch.sum."""
-    import torch
+    same inputs (G10 bitwise there, with G1's order of the step). G5
+    beside the library's index_add_ of the same per-lane sums, G10 beside
+    torch.sort(stable=True) + torch.sum, G12 beside
+    scatter_reduce("amin")."""
     from cityflow_tpu_torch import kernels
-    calls = record_gen1_calls(eng, names)
+    names = tuple(names) + tuple(untimed)
+    calls = record_gen1_calls(eng.next_step, names)
     rows = []
     for n in names:
         mod = kernels.MODULES[n]
@@ -2161,6 +2285,8 @@ def check_gen1_kernels(eng, reps, names, fast=False):
         log(f"[kernels] {n}: {len(calls[n])} calls equal to the plain "
             f"version ({'within 1e-6 relative' if rel_tol else 'bitwise'}"
             f"{both})")
+        if n in untimed:
+            continue
         timed = {}
         for a, k in (calls[n][-1:] if n == "leader_scan" else calls[n]):
             label = _mode_label(n) if fast else _gen1_label(n, a)
@@ -2173,6 +2299,8 @@ def check_gen1_kernels(eng, reps, names, fast=False):
                 lib = index_add_ms(a, reps)
             elif n == "update_location":
                 lib = sort_sum_ms(a, reps)
+            elif n == "admit_heads":
+                lib = heads_amin_ms(a, reps)
             nbytes, nops = gen1_work(
                 f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
                 kern(*a, **k))
@@ -2193,10 +2321,10 @@ def sort_sum_ms(a, reps):
     removed = running & end
     trans = running & changed & ~removed
     key = torch.where(trans, -buf_dis, torch.inf)
-    tt = torch.where(removed, step.to(buf_dis.dtype) * interval - enter_time,
-                     0.0)
-    return time_cuda(lambda: (torch.sort(key, stable=True),
-                              torch.sum(tt)), reps)
+    tt = torch.where(removed, (step.to(buf_dis.dtype) * interval)[..., None]
+                     - enter_time, 0.0)
+    return time_cuda(lambda: (torch.sort(key, dim=-1, stable=True),
+                              torch.sum(tt, -1)), reps)
 
 
 def lane_of(last_of, leader, L, V):
@@ -2342,11 +2470,468 @@ def run_ring_engine(cfg_path, warmup, steps, every):
         f"setup_s={setup_s:.1f} warmup_s={warm_s:.1f}")
     log(f"[ring-engine] launches per step="
         f"{ {k: v / steps for k, v in launches.items() if v} }")
-    prof = gen1_profile(eng, 3, step_ms, "ring-engine")
+    prof = gen1_profile(eng.next_step, 3, step_ms, "ring-engine")
     return launches, dict(
         steps=steps, warmup=warmup, ms_per_step=ms, step_only_ms=step_ms,
         fetch_ms=fetch_ms, vehicles=veh, growths=eng._ring.growths,
         SL=c.SL, SK=c.SK, **prof)
+
+
+# ---------------------------------------------------------------------------
+# the batched gen-1 step (leading env axis) and its RL surface
+# ---------------------------------------------------------------------------
+
+def batch_vehicles(st, b):
+    """{uid: (drivable, dis, speed)} of env b's running vehicles."""
+    import numpy as np
+    run = st.running[b].cpu().numpy()
+    uid, drv = st.uid[b].cpu().numpy(), st.drv[b].cpu().numpy()
+    dis, spd = st.dis[b].cpu().numpy(), st.speed[b].cpu().numpy()
+    return {int(uid[i]): (int(drv[i]), float(dis[i]), float(spd[i]))
+            for i in np.nonzero(run)[0]}
+
+
+def envs_equal(st):
+    """Every leaf of a batched state equal to env 0's, bit for bit."""
+    for k, v in st.leaves().items():
+        assert bitwise_equal(v, v[:1].expand_as(v).contiguous()), \
+            f"env rows differ in {k}"
+
+
+def check_agreement_gen1_batch(cfg_path, steps, batch):
+    """parallel/batch.make_batched_step (fast mode, rl_actions) at `batch`
+    envs, each with its own phases every step, on the card against the
+    plain port on the CPU: every 10 steps in every env the same vehicles
+    on the same drivables, |dis| and |speed| within 2e-3 ([agree-fast]'s
+    yardstick), equal finished counts at the end; the launch counts of the
+    card's run are returned."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.engine import Engine
+    from cityflow_tpu_torch.parallel.batch import (
+        init_batch_state, make_batched_step)
+    t0 = time.time()
+    sides = []
+    for dev in (None, "cpu"):
+        e = Engine(cfg_path, exact=False, backend="gen1", device=dev,
+                   spawn_horizon=steps + 8)
+        cfg = dataclasses.replace(e.cfg, rl_traffic_light=True)
+        sides.append([e, make_batched_step(e._net_dev, cfg, with_obs=False,
+                                           rl_actions=True),
+                      init_batch_state(cfg, e.state, batch)])
+    n = np.maximum(sides[0][0].net.n_phases, 1)
+    rng = np.random.default_rng(0)
+    kernels.reset_launches()
+    worst = 0.0
+    for i in range(1, steps + 1):
+        ph = torch.as_tensor((rng.integers(0, 1 << 20, (batch, n.size))
+                              % n).astype(np.int32))
+        for side in sides:
+            e, step_b, st = side
+            side[2] = step_b(st, e._spawn_dev, ph.to(e.device))[0]
+        if i % 10 and i != steps:
+            continue
+        for b in range(batch):
+            va, vb = (batch_vehicles(side[2], b) for side in sides)
+            assert set(va) == set(vb), \
+                f"[agree-gen1-batch] step {i} env {b}: vehicle sets differ"
+            for u in va:
+                assert va[u][0] == vb[u][0], \
+                    f"[agree-gen1-batch] step {i} env {b}: uid {u} drivable"
+                worst = max(worst, abs(va[u][1] - vb[u][1]),
+                            abs(va[u][2] - vb[u][2]))
+        assert worst <= 2e-3, f"[agree-gen1-batch] step {i}: drift {worst}"
+    launches = kernels.launch_counts()
+    g, c = sides[0][2], sides[1][2]
+    assert torch.equal(g.finished_cnt.cpu(), c.finished_cnt), "finished"
+    assert int(g.overflow.max()) == 0 and int(c.overflow.max()) == 0
+    assert not torch.equal(c.dis[0], c.dis[1]), "the envs did not differ"
+    for k in GEN1_KERNELS:
+        assert launches[k] > 0, f"{k} idle on [agree-gen1-batch]"
+    log(f"[agree-gen1-batch] {steps} steps B={batch}, per-env phases: "
+        f"vehicles per env={[len(batch_vehicles(g, b)) for b in range(batch)]}"
+        f" worst_drift={worst} finished={c.finished_cnt.tolist()} "
+        f"wall_s={time.time() - t0:.1f}")
+    return launches
+
+
+def check_agreement_gen1_env(cfg_path, steps):
+    """rl/env.CityFlowVecEnv at B=1 on the card against the plain port on
+    the CPU, each under its own MaxPressure actions every MP_EVERY steps
+    ([agree-rl]'s pattern): equal actions at every decision, equal counts,
+    pressures, times and rewards, avg_travel_time within 1e-5 relative."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.rl.env import CityFlowVecEnv
+    t0 = time.time()
+    gpu = CityFlowVecEnv(cfg_path, batch=1, horizon=steps + 8)
+    cpu = CityFlowVecEnv(cfg_path, batch=1, horizon=steps + 8, device="cpu")
+    gpu.reset()
+    cpu.reset()
+    kernels.reset_launches()
+    ag = torch.zeros((1, gpu.num_intersections), dtype=torch.int32)
+    ac = ag.clone()
+    decisions, moved, att_rel = 0, 0, 0.0
+    for t in range(steps):
+        if t % MP_EVERY == 0 and t:
+            ag, ac = gpu.max_pressure_actions(), cpu.max_pressure_actions()
+            assert torch.equal(ag.cpu(), ac), f"step {t}: actions differ"
+            decisions += 1
+            moved += int((ac != 0).sum())
+        og, rg = gpu.step(ag)
+        oc, rc = cpu.step(ac)
+        for k, v in oc.items():
+            if k == "avg_travel_time":
+                att_rel = max(att_rel, rel_close(k, og[k], v)[0])
+            else:
+                assert torch.equal(og[k].cpu(), v), f"step {t}: {k} differs"
+        assert torch.equal(rg.cpu(), rc), f"step {t}: reward differs"
+    launches = kernels.launch_counts()
+    assert moved > 0, "MaxPressure chose phase 0 everywhere"
+    assert float(rc.sum()) < 0, "no waiting vehicles"
+    for k in GEN1_KERNELS + GEN1_RL_KERNELS:
+        assert launches[k] > 0, f"{k} idle on [agree-gen1-env]"
+    log(f"[agree-gen1-env] {steps} steps B=1: decisions={decisions} "
+        f"nonzero_actions={moved} vehicles={int(oc['vehicle_count'][0])} "
+        f"waiting={int(-float(rc.sum()))} avg_travel_time_max_rel={att_rel} "
+        f"wall_s={time.time() - t0:.1f}")
+
+
+def _gen1_batch_report(tag, step, launches, steps, batch, dt, names):
+    """The prints and numbers of a batched gen-1 window: ms per batched
+    step, env-steps/s, each kernel's share (CUDA events, 3 more steps),
+    the device busy share and kernels per step (profiler, 3 more steps),
+    peak memory."""
+    import torch
+    ms = dt * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    per_launch = {k: v / steps for k, v in launches.items()
+                  if v and k.split("@")[0] in names}
+    log(f"[{tag}] launches per step={per_launch}")
+    per, tot = gen1_shares(step, 3, names)
+    for n, v in per.items():
+        log(f"[{tag}] kernel {n}: {v:.4f} ms/step ({100 * v / tot:.2f}% of "
+            f"a {tot:.3f} ms step; CUDA events, 3 steps)")
+    prof = gen1_profile(step, 3, ms, tag)
+    log(f"[{tag}] max_memory_allocated={peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    return dict(B=batch, steps=steps, ms_per_step=ms,
+                env_steps_per_s=batch * steps / dt,
+                launches_per_step=per_launch, kernel_ms_per_step=per,
+                step_ms_events=tot, peak_bytes=peak, **prof)
+
+
+def run_gen1_batch(cfg_path, batch, warmup, steps):
+    """The batched gen-1 fast step on `cfg_path` at `batch` envs: one env
+    (the Engine, which grows its pool on overflow) runs warmup + steps
+    steps, so its pool is the smallest power of two with no overflow
+    through the window; its state after `warmup` steps, in that pool, is
+    copied into the batch, and `steps` batched steps of
+    parallel/batch.make_batched_step are timed, the launch counts set to
+    0 just before and read just after."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.core.state import pad_state
+    from cityflow_tpu_torch.engine import Engine
+    from cityflow_tpu_torch.parallel.batch import (
+        init_batch_state, make_batched_step)
+    t0 = time.time()
+    eng = Engine(cfg_path, exact=False, backend="gen1",
+                 spawn_horizon=warmup + steps + 16)
+    snap = None
+    for i in range(warmup + steps):
+        eng.next_step()
+        if i + 1 == warmup:
+            snap = eng.state
+    cfg, net, spawn = eng.cfg, eng._net_dev, eng._spawn_dev
+    assert not cfg.rl_traffic_light, "[gen1-batch] expects fixed-time lights"
+    stb = init_batch_state(cfg, pad_state(snap, cfg.max_vehicles), batch)
+    del snap, eng
+    step_b = make_batched_step(net, cfg, with_obs=False)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    for _ in range(steps):
+        stb = step_b(stb, spawn)[0]
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kernels.launch_counts()
+    veh = int(stb.running[0].sum())
+    log(f"[gen1-batch] B={batch} steps={steps} warmup={warmup} "
+        f"ms_per_batched_step={dt * 1e3 / steps:.3f} "
+        f"env_steps_per_s={batch * steps / dt:.1f} vehicles_per_env={veh} "
+        f"waiting_per_env={int((stb.active[0] & ~stb.running[0]).sum())} "
+        f"pool={cfg.max_vehicles} k_link={cfg.k_link} "
+        f"overflow={int(stb.overflow.max())} warmup_s={warm_s:.1f}")
+    assert int(stb.overflow.max()) == 0, "overflow flags set"
+    assert veh > 0, "no vehicles"
+    envs_equal(stb)
+    for k in GEN1_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on gen1-batch"
+    holder = [stb]
+
+    def one():
+        holder[0] = step_b(holder[0], spawn)[0]
+    res = _gen1_batch_report("gen1-batch", one, launches, steps, batch, dt,
+                             GEN1_KERNELS)
+    res.update(warmup=warmup, vehicles=veh, pool=cfg.max_vehicles)
+    return launches, res, (net, cfg, spawn, holder)
+
+
+def _batch_args_ok(n, a, k, batch):
+    """The recorded call ran over the whole batch (env axis `batch`)."""
+    if n == "notify_cross":
+        t = a[2]
+    elif n == "spawn_slots":
+        t = a[0].active
+    else:
+        t = a[0]
+    assert t.dim() == 2 and t.shape[0] == batch, \
+        f"{n}: called with {tuple(t.shape)}, not ({batch}, V)"
+
+
+def check_gen1_batch_kernels(ctx, reps, batch):
+    """On every call of one more [gen1-batch] step: G1-G4, G9, G10, G11
+    and G12 against their plain versions, bitwise (G10's fast finish sum
+    within 1e-6 relative), each call asserted to cover all `batch` envs;
+    then G13 in both modes and G14 in its three on that state (integer
+    outputs and the pressures bitwise, the in-flight sum within 1e-5
+    relative). Timed, with the library yardsticks: torch.sort + torch.sum
+    for G10, one scatter_reduce("amin") for G12's heads, one index_add_
+    for G13's counts."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.core import observe
+    from cityflow_tpu_torch.core import step as step_mod
+    net, cfg, spawn, holder = ctx
+
+    def one():
+        holder[0] = step_mod.step(net, cfg, holder[0], spawn)
+    calls = record_gen1_calls(one, GEN1_KERNELS)
+    rows = []
+    for n in GEN1_KERNELS:
+        mod = kernels.MODULES[n]
+        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        assert calls[n], f"{n}: no call recorded"
+        rel_tol = 1e-6 if n == "update_location" else None
+        errs = []
+        for a, k in calls[n]:
+            _batch_args_ok(n, a, k, batch)
+            errs.append(_check_call(n, kern, plain, a, k, rel_tol))
+        how = "within 1e-6 relative" if rel_tol else "bitwise"
+        log(f"[kernels] {n}: {len(calls[n])} calls at B={batch} equal to the "
+            f"plain version ({how})")
+        a, k = calls[n][-1] if n == "leader_scan" else calls[n][0]
+        ms = time_cuda(lambda: kern(*a, **k), reps)
+        plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        lib = None
+        if n == "update_location":
+            lib = sort_sum_ms(a, reps)
+        elif n == "admit_heads":
+            lib = heads_amin_ms(a, reps)
+        nbytes, nops = gen1_work(n, a, k, kern(*a, **k))
+        label = f"{n}@batch"
+        rows.append(kernel_row(label, max(errs), ms, plain_ms, nbytes, nops,
+                               lib))
+    st = holder[0]
+    L, D = cfg.num_lanes, cfg.num_drivables
+    g13, g14 = kernels.MODULES["lane_counts"], kernels.MODULES["phase_scores"]
+    for label, d in (("lane_counts@drivables", D), ("lane_counts", None)):
+        a = (st.running, st.active, st.drv, st.speed, st.enter_time, st.step,
+             net["interval"], L, d)
+        got, want = g13.lane_counts(*a), g13.lane_counts_plain(*a)
+        for key in got:
+            if key == "inflight":
+                rel, nbit = rel_close(f"{label} inflight", got[key],
+                                      want[key])
+                err = float((got[key] - want[key]).abs().max())
+            elif got[key] is not None:
+                assert torch.equal(got[key], want[key]), f"{label} {key}"
+        log(f"[kernels] {label}: counts equal, inflight max_rel={rel} "
+            f"not_bitwise={nbit} of {batch}")
+        if d is not None:
+            # drivable_vehicle_count: no path of the step calls it
+            continue
+        ms = time_cuda(lambda: g13.lane_counts(*a), reps)
+        plain_ms = time_cuda(lambda: g13.lane_counts_plain(*a), reps)
+        V = st.running.numel()
+        fs = st.speed.element_size()
+        outs = batch * (2 * L + (d or 0)) * 4 + batch * (8 + fs)
+        rows.append(kernel_row(label, err, ms, plain_ms,
+                               V * (2 + 4 + 2 * fs) + outs, 4 * V,
+                               lane_index_add_ms(st, L, reps)))
+    w = observe.lane_waiting_vehicle_count(cfg, st)
+    P = int(net["n_phases"].max())
+    LL = net["ll_start"].shape[0]
+    tab = sum(net[t].numel() * net[t].element_size() for t in g14.TABLES)
+    for mode, label in (("pressure", "phase_scores"),
+                        ("phases", "phase_scores@phases"),
+                        ("features", "phase_scores@features")):
+        a = (w, net, P, mode)
+        got, want = g14.phase_scores(*a), g14.phase_scores_plain(*a)
+        for g_, w_ in zip(_flat(got), _flat(want)):
+            assert bitwise_equal(g_, w_), f"{label} differs"
+        ms = time_cuda(lambda: g14.phase_scores(*a), reps)
+        plain_ms = time_cuda(lambda: g14.phase_scores_plain(*a), reps)
+        outs = sum(t.numel() * t.element_size() for t in _flat(got))
+        rows.append(kernel_row(label, 0.0, ms, plain_ms,
+                               w.numel() * 4 + tab + outs,
+                               batch * LL * (P if mode != "pressure" else 1),
+                               None))
+    return rows
+
+
+def heads_amin_ms(a, reps):
+    """One library call computing G12's lane heads' first pass: the
+    scatter_reduce("amin") of the waiting uids into (B, L + 1) by lane
+    (the keys made outside the timing)."""
+    import torch
+    active, running, drv, uid = a[:4]
+    L = a[11]
+    waiting = active & ~running
+    seq = torch.where(waiting, uid, 2**31 - 1)
+    idx = torch.where(waiting, drv, L).long()
+    out = torch.empty((uid.shape[0], L + 1), dtype=torch.int32,
+                      device=uid.device)
+    return time_cuda(lambda: out.fill_(2**31 - 1).scatter_reduce_(
+        -1, idx, seq, "amin"), reps)
+
+
+def lane_index_add_ms(st, L, reps):
+    """One library call computing G13's lane counts: index_add_ of ones
+    into the (B, L + 1) bins by each running vehicle's lane (L for the
+    rest), the bins made outside the timing."""
+    import torch
+    B, V = st.running.shape
+    on = st.running & (st.drv >= 0) & (st.drv < L)
+    idx = (torch.where(on, st.drv, L).long()
+           + (L + 1) * torch.arange(B, device=st.drv.device)[:, None])
+    ones = torch.ones(B * V, dtype=torch.int32, device=st.drv.device)
+    out = torch.zeros(B * (L + 1), dtype=torch.int32, device=st.drv.device)
+    return time_cuda(lambda: out.zero_().index_add_(0, idx.reshape(-1),
+                                                    ones), reps)
+
+
+def run_gen1_env(cfg_path, batch, warmup, steps, pool):
+    """rl/env.CityFlowVecEnv at `batch` envs with a pool of `pool` slots:
+    `warmup` steps of one env under MaxPressure every MP_EVERY steps,
+    copied into the batch, then `steps` timed steps of step() with
+    max_pressure_actions() every MP_EVERY-th, the launch counts set to 0
+    just before and read just after. Returns the launches, the report and
+    the warm one-env state (a batch of one)."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.parallel.batch import init_batch_state
+    from cityflow_tpu_torch.rl.env import CityFlowVecEnv
+    t0 = time.time()
+    env = CityFlowVecEnv(cfg_path, batch=1, max_vehicles=pool,
+                         horizon=warmup + steps + 16)
+    env.reset()
+    acts = torch.zeros((1, env.num_intersections), dtype=torch.int32,
+                       device=env.device)
+    for t in range(warmup):
+        if t % MP_EVERY == 0 and t:
+            acts = env.max_pressure_actions()
+        env.step(acts)
+    assert int(env.state.overflow.max()) == 0, "overflow in the warm-up"
+    warm = env.state
+    env.state = init_batch_state(env.cfg, env.state.map(lambda x: x[0]),
+                                 batch)
+    env.batch = batch
+    acts = acts.expand(batch, -1).contiguous()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    changed = torch.zeros((), dtype=torch.int64, device=env.device)
+    kernels.reset_launches()
+    t0 = time.time()
+    for t in range(steps):
+        if t % MP_EVERY == 0:
+            acts = env.max_pressure_actions()
+            # on the device: no host sync inside the timed window
+            changed += (env.state.phase[0] != acts[0]).sum()
+        obs, reward = env.step(acts)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kernels.launch_counts()
+    st = env.state
+    veh = int(obs["vehicle_count"][0])
+    changed = int(changed)
+    log(f"[gen1-env] B={batch} steps={steps} warmup={warmup} "
+        f"ms_per_batched_step={dt * 1e3 / steps:.3f} "
+        f"env_steps_per_s={batch * steps / dt:.1f} vehicles_per_env={veh} "
+        f"waiting_env0={int(-float(reward[0]))} "
+        f"phase_changes_by_controller={changed} pool={pool} "
+        f"warmup_s={warm_s:.1f}")
+    assert int(st.overflow.max()) == 0, "overflow flags set"
+    assert veh > 0, "no vehicles"
+    envs_equal(st)
+    for k in GEN1_KERNELS + GEN1_RL_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on gen1-env"
+    assert changed > 0, "the controller changed no phase in the window"
+
+    def one():
+        env.step(env.max_pressure_actions())
+    res = _gen1_batch_report("gen1-env", one, launches, steps, batch, dt,
+                             GEN1_KERNELS + ("lane_counts", "phase_scores"))
+    res.update(warmup=warmup, vehicles=veh, pool=pool,
+               phase_changes=changed)
+    return launches, res, warm
+
+
+def run_gen1_dqn(cfg_path, batch, iters, warm):
+    """rl/dqn.train on `cfg_path` at `batch` envs for `iters` iterations
+    (5 steps each) from the warm one-env state `warm` copied into the
+    batch, the launch counts set to 0 just before and read just after;
+    the ms of each iteration after the first (the first also pays train's
+    set-up), and the mean of those after the second. Some iteration's
+    reward must not be zero (vehicles wait)."""
+    import math
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.parallel.batch import init_batch_state
+    from cityflow_tpu_torch.rl import dqn
+    start = int(warm.step[0])
+    state = init_batch_state(None, warm.map(lambda x: x[0]), batch)
+    stamps, last = [], {}
+
+    def on_iter(i, metrics, state):
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        last["state"] = state
+    kernels.reset_launches()
+    t0 = time.time()
+    hist = dqn.train(cfg_path, iters=iters, on_iter=on_iter, state=state)
+    wall = time.time() - t0
+    launches = kernels.launch_counts()
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    steady = sum(ms[1:]) / max(len(ms) - 1, 1)
+    losses = [h["loss"] for h in hist]
+    st = last["state"]
+    rewards = [h["mean_reward"] for h in hist]
+    log(f"[gen1-dqn] B={batch} iters={iters} from step {start} "
+        f"pool={warm.active.shape[-1]} ms_per_iteration_after_the_"
+        f"second={steady:.3f} ms_after_the_first={[round(x, 3) for x in ms]}"
+        f" losses={losses} mean_rewards={rewards} "
+        f"vehicles_env0={int(st.running[0].sum())} wall_s={wall:.1f}")
+    assert all(math.isfinite(x) for x in losses), "loss not finite"
+    assert any(r != 0.0 for r in rewards), "the reward is zero throughout"
+    assert int(st.step[0]) == start + 5 * iters, "steps not advanced"
+    assert int(st.overflow.max()) == 0, "overflow flags set"
+    for k in GEN1_KERNELS + ("phase_scores@features",):
+        assert launches[k] > 0, f"kernel {k} was not launched on gen1-dqn"
+    return launches, dict(B=batch, iters=iters, start_step=start,
+                          pool=warm.active.shape[-1], ms_after_the_first=ms,
+                          ms_per_iteration=steady, losses=losses,
+                          mean_rewards=rewards)
 
 
 def main():
@@ -2495,7 +3080,8 @@ def main():
         glc_cfg, GEN1_LC_WARMUP, GEN1_LC_STEPS, tag="gen1-lc",
         names=GEN1_KERNELS + GEN1_LC_KERNELS)
     log(f"[gen1-lc] {json.dumps(glc_res)}")
-    rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS)
+    rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS,
+                               untimed=("spawn_slots", "admit_heads"))
     del eng
     torch.cuda.empty_cache()
 
@@ -2537,12 +3123,46 @@ def main():
     ring_launches, ring_res = run_ring_engine(
         cfg_path, RING_ENGINE_WARMUP, RING_ENGINE_STEPS, GETTER_EVERY)
     log(f"[ring-engine] {json.dumps(ring_res)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the batched gen-1 step (a leading env axis) and its RL surface
+    check_agreement_gen1_batch(four, AGREE_GEN1B_STEPS, AGREE_GEN1B_BATCH)
+    check_agreement_gen1_env(prepare(os.path.join(fix, "config_4x4_rl.json")),
+                             AGREE_GEN1_ENV_STEPS)
+    gb_launches, gb_res, ctx = run_gen1_batch(cfg_path, BATCH, GEN1B_WARMUP,
+                                              GEN1B_STEPS)
+    log(f"[gen1-batch] {json.dumps(gb_res)}")
+    rows += check_gen1_batch_kernels(ctx, REPS, BATCH)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    env_launches, env_res, warm = run_gen1_env(
+        cfg_path, BATCH, GEN1B_WARMUP, GEN1B_STEPS, gb_res["pool"])
+    log(f"[gen1-env] {json.dumps(env_res)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gdqn_launches, gdqn_res = run_gen1_dqn(cfg_path, GEN1_DQN_BATCH,
+                                           GEN1_DQN_ITERS, warm)
+    del warm
+    log(f"[gen1-dqn] {json.dumps(gdqn_res)}")
     # each row's launches come from the path that runs it
     path_of = {"lane_stats@hist": hist_launches,
                "phase_pressure@features": dqn_launches}
     for r in rows:
         name = r["name"]
-        if name in TPL_MODES:
+        if name.endswith("@batch"):
+            r["launches"] = gb_launches[name.split("@")[0]]
+        elif name == "phase_scores":
+            # the pressure mode: the calls in no other mode
+            r["launches"] = (env_launches[name]
+                             - env_launches["phase_scores@phases"]
+                             - env_launches["phase_scores@features"])
+        elif name == "phase_scores@features":
+            r["launches"] = gdqn_launches[name]
+        elif name.split("@")[0] in ("lane_counts", "phase_scores"):
+            r["launches"] = env_launches[name]
+        elif name in TPL_MODES:
             r["launches"] = mixed_launches[name]
         elif name in TPL_LC_MODES:
             r["launches"] = mlc_launches[name]

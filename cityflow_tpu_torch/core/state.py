@@ -8,6 +8,11 @@ Vehicles live in a slot pool of capacity `cfg.max_vehicles`; a slot is
 onto its first lane (reference Engine::handleWaiting, engine.cpp:502-516).
 Scalars are 0-dim tensors on the state's device, so a step never reads
 one back to the host.
+
+A batch of B envs (parallel/batch.py) is the same dataclass with a
+leading env axis on every leaf, the JAX package's vmapped layout: per-slot
+leaves (B, V) (params (B, V, 12)), the scalars (B,), the lights (B, I),
+last_of_drv (B, D); slot indices stay local to their env.
 """
 
 import dataclasses

@@ -19,6 +19,10 @@
 // The key is a total order with the slot as its last term, so the result
 // is the sort's whatever order the atomics left inside a bucket.
 //
+// B envs at once: every kernel takes its env from blockIdx.y and shifts
+// each per-env pointer to that env's rows (at_env), so slot indices stay
+// local to their env; the scan is one block per env.
+//
 // Bound: bytes. A step reads each slot's flag, drivable, distance and
 // ticket and writes the sorted index, the leader and the tables; step 4
 // does (bucket size) compares per vehicle, a few tens on a jammed lane, so
@@ -27,6 +31,7 @@
 
 using namespace gen1;
 
+// every array below is per env: B of them back to back
 struct ArrangeArgs {
   const uint8_t* running;  // (V,)
   const int* drv;          // (V,)
@@ -45,8 +50,35 @@ struct ArrangeArgs {
   void* link_fattr;        // (LLr, k_link, NA) zeroed, or null
   int* link_iattr;         // (LLr, k_link, NI) zeroed, or null
   uint8_t* overflow;       // () zeroed
-  long long V, D, L, k_link, NA, NI, fp32;
+  long long B, V, D, L, k_link, NA, NI, fp32;
 };
+
+// the arguments of env b: every pointer moved to that env's rows
+__device__ ArrangeArgs at_env(ArrangeArgs a, long long b) {
+  long long V = a.V, D = a.D, LLr = a.D - a.L > 0 ? a.D - a.L : 1;
+  long long fs = a.fp32 ? 4 : 8;
+  long long rows = LLr * a.k_link;
+  a.running += b * V;
+  a.drv += b * V;
+  a.dis = (const char*)a.dis + b * V * fs;
+  a.list_seq += b * V;
+  if (a.fattrs != nullptr) {
+    a.fattrs = (const char*)a.fattrs + b * V * a.NA * fs;
+    a.iattrs += b * V * a.NI;
+  }
+  a.scratch += b * (3 * (D + 2) + 2 * V + 1);
+  a.sorted_idx += b * V;
+  a.leader += b * V;
+  a.first_of += b * D;
+  a.last_of += b * D;
+  if (a.link_veh != nullptr) {
+    a.link_veh += b * rows;
+    a.link_fattr = (char*)a.link_fattr + b * rows * a.NA * fs;
+    a.link_iattr += b * rows * a.NI;
+  }
+  a.overflow += b;
+  return a;
+}
 
 struct Scratch {
   int *cnt, *cursor, *off, *bucket, *nrb;
@@ -59,7 +91,8 @@ struct Scratch {
   }
 };
 
-__global__ void arrange_count(const ArrangeArgs a) {
+__global__ void arrange_count(const ArrangeArgs a0) {
+  const ArrangeArgs a = at_env(a0, blockIdx.y);
   Scratch s(a);
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
@@ -67,14 +100,16 @@ __global__ void arrange_count(const ArrangeArgs a) {
   }
 }
 
-__global__ void arrange_scan(const ArrangeArgs a) {
+__global__ void arrange_scan(const ArrangeArgs a0) {
+  const ArrangeArgs a = at_env(a0, blockIdx.y);
   __shared__ int sh[1024];
   Scratch s(a);
   block_exclusive_scan(s.cnt, s.off, a.D, sh);
   block_exclusive_scan(a.running, s.nrb, a.V, sh);
 }
 
-__global__ void arrange_scatter(const ArrangeArgs a) {
+__global__ void arrange_scatter(const ArrangeArgs a0) {
+  const ArrangeArgs a = at_env(a0, blockIdx.y);
   Scratch s(a);
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
@@ -86,7 +121,8 @@ __global__ void arrange_scatter(const ArrangeArgs a) {
 }
 
 template <typename T>
-__global__ void arrange_rank(const ArrangeArgs a) {
+__global__ void arrange_rank(const ArrangeArgs a0) {
+  const ArrangeArgs a = at_env(a0, blockIdx.y);
   Scratch s(a);
   const T* dis = (const T*)a.dis;
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -141,12 +177,12 @@ __global__ void arrange_rank(const ArrangeArgs a) {
 
 extern "C" int arrange(const ArrangeArgs* args, void* stream) {
   const ArrangeArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
-  unsigned blocks = grid_blocks(a.V, threads);
+  dim3 blocks(grid_blocks(a.V, threads), (unsigned)a.B);
   arrange_count<<<blocks, threads, 0, st>>>(a);
-  arrange_scan<<<1, 1024, 0, st>>>(a);
+  arrange_scan<<<dim3(1, (unsigned)a.B), 1024, 0, st>>>(a);
   arrange_scatter<<<blocks, threads, 0, st>>>(a);
   GEN1_LAUNCH(arrange_rank, a, blocks, threads, 0, st);
   return (int)cudaGetLastError();

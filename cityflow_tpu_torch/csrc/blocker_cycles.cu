@@ -16,6 +16,9 @@
 //          mu + lambda hops (tail plus cycle length) instead of S.
 // One launch, where the doubling takes log2(S) gathers over all V slots.
 //
+// B envs at once: the env is blockIdx.y, and each env's walk stays in its
+// own row of V slots.
+//
 // Bound: bytes. A thread reads one blocker per hop and writes one flag;
 // the hops follow the data (most slots have no blocker: one read).
 #include "gen1.cuh"
@@ -23,10 +26,12 @@
 struct BlockerCyclesArgs {
   const int* blocker;   // (V,) the blocking slot, -1 for none
   uint8_t* out;         // (V,) a cycle is reachable (alive after S hops)
-  long long V, S, exact;
+  long long B, V, S, exact;
 };
 
-__global__ void blocker_cycles_kernel(const BlockerCyclesArgs a) {
+__global__ void blocker_cycles_kernel(BlockerCyclesArgs a) {
+  a.blocker += blockIdx.y * a.V;
+  a.out += blockIdx.y * a.V;
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
     bool alive;
@@ -56,9 +61,10 @@ __global__ void blocker_cycles_kernel(const BlockerCyclesArgs a) {
 
 extern "C" int blocker_cycles(const BlockerCyclesArgs* args, void* stream) {
   const BlockerCyclesArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   const int threads = 128;
-  blocker_cycles_kernel<<<gen1::grid_blocks(a.V, threads), threads, 0,
+  blocker_cycles_kernel<<<dim3(gen1::grid_blocks(a.V, threads),
+                               (unsigned)a.B), threads, 0,
                           (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

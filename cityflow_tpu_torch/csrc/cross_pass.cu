@@ -11,6 +11,9 @@
 // tables through lnk_cross_foe_pos, and stops at the first failure, so the
 // (V, KC) intermediates never reach device memory.
 //
+// B envs at once: the env is blockIdx.y; at_env moves the per-vehicle
+// arrays and G3's tables to that env's rows, the cross tables are shared.
+//
 // Bound: bytes. Per considered cross a thread reads the cross tables and
 // 10 foe terms (about 40 bytes) and does ~100 double operations; per
 // vehicle it reads its state and params and writes 4 values.
@@ -48,11 +51,40 @@ struct CrossPassArgs {
   uint8_t* any_fail;         // (V,)
   void* ff_d;                // (V,) T
   int* new_blocker;          // (V,)
-  long long V, LL, KC, NP, fp32;
+  long long B, V, LL, KC, NP, fp32;
 };
 
+// the arguments of env b: the per-env arrays moved to that env's rows
+__device__ CrossPassArgs at_env(CrossPassArgs a, long long b) {
+  long long fs = a.fp32 ? 4 : 8, V = a.V, E = a.LL * a.KC;
+  a.the_ll += b * V;
+  a.dls = (const char*)a.dls + b * V * fs;
+  a.speed = (const char*)a.speed + b * V * fs;
+  a.params = (const char*)a.params + b * V * a.NP * fs;
+  a.ent += b * V;
+  a.pri += b * V;
+  a.next_turn += b * V;
+  a.blk_ok += b * V;
+  a.o_exists += b * E;
+  a.o_yield += b * E;
+  a.o_cleared += b * E;
+  a.o_cyc += b * E;
+  a.o_dpos += b * E;
+  a.o_dist = (const char*)a.o_dist + b * E * fs;
+  a.o_reach += b * E;
+  a.o_ent += b * E;
+  a.o_pri += b * E;
+  a.o_idx += b * E;
+  a.v_isr = (char*)a.v_isr + b * V * fs;
+  a.any_fail += b * V;
+  a.ff_d = (char*)a.ff_d + b * V * fs;
+  a.new_blocker += b * V;
+  return a;
+}
+
 template <typename T>
-__global__ void cross_pass_kernel(const CrossPassArgs a) {
+__global__ void cross_pass_kernel(const CrossPassArgs a0) {
+  const CrossPassArgs a = at_env(a0, blockIdx.y);
   const T* dls_ = (const T*)a.dls;
   const T* speed_ = (const T*)a.speed;
   const T* P = (const T*)a.params;
@@ -124,9 +156,10 @@ __global__ void cross_pass_kernel(const CrossPassArgs a) {
 
 extern "C" int cross_pass(const CrossPassArgs* args, void* stream) {
   const CrossPassArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   const int threads = 128;
-  GEN1_LAUNCH(cross_pass_kernel, a, grid_blocks(a.V, threads), threads,
-                                    0, (cudaStream_t)stream);
+  GEN1_LAUNCH(cross_pass_kernel, a,
+              dim3(grid_blocks(a.V, threads), (unsigned)a.B), threads, 0,
+              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

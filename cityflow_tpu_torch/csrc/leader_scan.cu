@@ -18,6 +18,10 @@
 // <); the scan kernel then reads one table entry per hop and its gap is
 // dis_rem + (dis - len). Both kernels run in one call, in stream order.
 //
+// B envs at once: the env is blockIdx.y, and at_env moves every per-env
+// pointer (the slots, last_of, the table) to that env's rows; the net
+// tables are shared.
+//
 // Bound: bytes, and at these sizes launch latency: a thread reads its
 // vehicle's state and params and, per hop, a route entry and a few rear
 // vehicles' distance and length (fast mode: one table entry).
@@ -44,8 +48,27 @@ struct LeaderScanArgs {
   void* gap;                    // (V,) T
   int* cand_i;                  // (D,) fast mode: the table's candidate
   void* cand_v;                 // (D,) T fast mode: its dis - len
-  long long V, L, D, KO, NR, RLEN, MAXLPR, k_scan, NP, fast, fp32;
+  long long B, V, L, D, KO, NR, RLEN, MAXLPR, k_scan, NP, fast, fp32;
 };
+
+// the arguments of env b: the per-env arrays moved to that env's rows
+__device__ LeaderScanArgs at_env(LeaderScanArgs a, long long b) {
+  long long fs = a.fp32 ? 4 : 8, V = a.V;
+  a.mask += b * V;
+  a.drv += b * V;
+  a.route += b * V;
+  a.route_pos += b * V;
+  a.dis = (const char*)a.dis + b * V * fs;
+  a.params = (const char*)a.params + b * V * a.NP * fs;
+  a.last_of += b * a.D;
+  a.found += b * V;
+  a.gap = (char*)a.gap + b * V * fs;
+  if (a.fast) {
+    a.cand_i += b * a.D;
+    a.cand_v = (char*)a.cand_v + b * a.D * fs;
+  }
+  return a;
+}
 
 // router.cpp:49-76 (core/step.py chain_step)
 __device__ __forceinline__ void chain_step(const LeaderScanArgs& a, int route,
@@ -68,7 +91,8 @@ __device__ __forceinline__ void chain_step(const LeaderScanArgs& a, int route,
 
 // fast mode: each drivable's (candidate, dis - len)
 template <typename T>
-__global__ void cand_table_kernel(const LeaderScanArgs a) {
+__global__ void cand_table_kernel(const LeaderScanArgs a0) {
+  const LeaderScanArgs a = at_env(a0, blockIdx.y);
   const T* dis = (const T*)a.dis;
   const T* P = (const T*)a.params;
   T* cand_v = (T*)a.cand_v;
@@ -101,7 +125,8 @@ __global__ void cand_table_kernel(const LeaderScanArgs a) {
 }
 
 template <typename T>
-__global__ void leader_scan_kernel(const LeaderScanArgs a) {
+__global__ void leader_scan_kernel(const LeaderScanArgs a0) {
+  const LeaderScanArgs a = at_env(a0, blockIdx.y);
   const T* dis = (const T*)a.dis;
   const T* P = (const T*)a.params;
   const T* drv_len = (const T*)a.drv_len;
@@ -163,12 +188,14 @@ __global__ void leader_scan_kernel(const LeaderScanArgs a) {
 
 extern "C" int leader_scan(const LeaderScanArgs* args, void* stream) {
   const LeaderScanArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   const int threads = 128;
   if (a.fast)
-    GEN1_LAUNCH(cand_table_kernel, a, grid_blocks(a.D, threads), threads, 0,
+    GEN1_LAUNCH(cand_table_kernel, a,
+                dim3(grid_blocks(a.D, threads), (unsigned)a.B), threads, 0,
                 (cudaStream_t)stream);
-  GEN1_LAUNCH(leader_scan_kernel, a, grid_blocks(a.V, threads), threads,
-                                     0, (cudaStream_t)stream);
+  GEN1_LAUNCH(leader_scan_kernel, a,
+              dim3(grid_blocks(a.V, threads), (unsigned)a.B), threads, 0,
+              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

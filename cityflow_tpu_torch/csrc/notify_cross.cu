@@ -13,6 +13,10 @@
 // winner's channels directly and writes the own-side row. No permutation
 // pass runs: G4 reads the foe side through lnk_cross_foe_pos.
 //
+// B envs at once: the env is blockIdx.y; at_env moves the per-env arrays
+// (last_of, first_of, veh_next, ll_avail, the packs, G1's link tables and
+// the outputs) to that env's rows, the net tables are shared.
+//
 // Bound: bytes. A thread reads its cross distance, the link's table row
 // (k_link x 12 values) and two vehicles' packs, and writes 10 values.
 #include "gen1.cuh"
@@ -45,11 +49,37 @@ struct NotifyArgs {
   int* ent;
   int* pri;
   int* idx;
-  long long LL, KC, K, NA, NI, V, L, fp32;
+  long long B, LL, KC, K, NA, NI, V, L, D, fp32;
 };
 
+// the arguments of env b: the per-env arrays moved to that env's rows
+__device__ NotifyArgs at_env(NotifyArgs a, long long b) {
+  long long fs = a.fp32 ? 4 : 8, D = a.D, E = a.LL * a.KC;
+  a.last_of += b * D;
+  a.first_of += b * D;
+  a.veh_next += b * a.V;
+  a.ll_avail += b * a.LL;
+  a.fattrs = (const char*)a.fattrs + b * a.V * a.NA * fs;
+  a.iattrs += b * a.V * a.NI;
+  a.link_veh += b * a.LL * a.K;
+  a.link_fattr = (const char*)a.link_fattr + b * a.LL * a.K * a.NA * fs;
+  a.link_iattr += b * a.LL * a.K * a.NI;
+  a.exists += b * E;
+  a.yld += b * E;
+  a.cleared += b * E;
+  a.cyc += b * E;
+  a.dpos += b * E;
+  a.dist = (char*)a.dist + b * E * fs;
+  a.reach += b * E;
+  a.ent += b * E;
+  a.pri += b * E;
+  a.idx += b * E;
+  return a;
+}
+
 template <typename T>
-__global__ void notify_cross_kernel(const NotifyArgs a) {
+__global__ void notify_cross_kernel(const NotifyArgs a0) {
+  const NotifyArgs a = at_env(a0, blockIdx.y);
   const T* D = (const T*)a.d;
   const T* drv_len = (const T*)a.drv_len;
   const T* fattrs = (const T*)a.fattrs;
@@ -133,9 +163,10 @@ __global__ void notify_cross_kernel(const NotifyArgs a) {
 extern "C" int notify_cross(const NotifyArgs* args, void* stream) {
   const NotifyArgs a = *args;
   long long total = a.LL * a.KC;
-  if (total == 0) return 0;
+  if (total == 0 || a.B == 0) return 0;
   const int threads = 128;
-  GEN1_LAUNCH(notify_cross_kernel, a, grid_blocks(total, threads), threads,
-                                      0, (cudaStream_t)stream);
+  GEN1_LAUNCH(notify_cross_kernel, a,
+              dim3(grid_blocks(total, threads), (unsigned)a.B), threads, 0,
+              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,10 @@
 //      list ticket seq_counter + rank and its entry time (the step on a
 //      lanelink, INT_MAX on a lane); the rest keep theirs.
 //
+// B envs at once: the env is blockIdx.y (step 2: one block per env);
+// at_env moves the per-slot arrays, the per-env scalars and the scratch to
+// that env's rows.
+//
 // Bound: bytes. The flags read each slot's running / end / changed /
 // distance / drivable once (and the lane-change flags); the outputs are
 // the removed flags, two int32 columns and four scalars. The rank
@@ -68,8 +72,42 @@ struct UpdateLocationArgs {
   uint8_t* flags;
   int* iscratch;
   void* vals;
-  long long V, R, L, exact, fp32;
+  long long B, V, R, L, exact, fp32;
 };
+
+// the arguments of env b: the per-env arrays moved to that env's rows
+__device__ UpdateLocationArgs at_env(UpdateLocationArgs a, long long b) {
+  long long fs = a.fp32 ? 4 : 8, V = a.V;
+  a.running += b * V;
+  a.end += b * V;
+  a.changed += b * V;
+  a.buf_dis = (const char*)a.buf_dis + b * V * fs;
+  a.buf_drv += b * V;
+  a.enter_time = (const char*)a.enter_time + b * V * fs;
+  a.list_seq += b * V;
+  a.enter_ll_time += b * V;
+  if (a.sorted_idx != nullptr) a.sorted_idx += b * V;
+  if (a.lc_finished != nullptr) {
+    a.lc_finished += b * V;
+    a.finish += b * V;
+  }
+  a.step += b;
+  a.seq_counter += b;
+  a.finished_cnt += b;
+  a.cum_travel = (const char*)a.cum_travel + b * fs;
+  a.overflow += b;
+  a.removed += b * V;
+  a.list_seq_out += b * V;
+  a.enter_ll_out += b * V;
+  a.finished_out += b;
+  a.cum_out = (char*)a.cum_out + b * fs;
+  a.seq_out += b;
+  a.overflow_out += b;
+  a.flags += b * 2 * V;
+  a.iscratch += b * (3 * V + 2);
+  a.vals = (char*)a.vals + b * (a.R > 1 ? a.R : 1) * fs;
+  return a;
+}
 
 constexpr int INT_MAX_ = 2147483647;
 constexpr int OV_REMOVE_ = 8;
@@ -89,7 +127,8 @@ __device__ __forceinline__ long long rank_key(T x) {
   return order_key(x == T(0) ? T(0) : x);
 }
 
-__global__ void ul_flags(const UpdateLocationArgs a) {
+__global__ void ul_flags(const UpdateLocationArgs a0) {
+  const UpdateLocationArgs a = at_env(a0, blockIdx.y);
   uint8_t* trans = a.flags;
   uint8_t* csorted = a.flags + a.V;
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -102,7 +141,8 @@ __global__ void ul_flags(const UpdateLocationArgs a) {
 }
 
 template <typename T>
-__global__ void ul_reduce(const UpdateLocationArgs a) {
+__global__ void ul_reduce(const UpdateLocationArgs a0) {
+  const UpdateLocationArgs a = at_env(a0, blockIdx.y);
   __shared__ int sh[1024];
   __shared__ __align__(8) unsigned char red_raw[1024 * sizeof(double)];
   T* red = (T*)red_raw;
@@ -168,7 +208,8 @@ __global__ void ul_reduce(const UpdateLocationArgs a) {
 }
 
 template <typename T>
-__global__ void ul_rank(const UpdateLocationArgs a) {
+__global__ void ul_rank(const UpdateLocationArgs a0) {
+  const UpdateLocationArgs a = at_env(a0, blockIdx.y);
   const uint8_t* trans = a.flags;
   const int* tpos = a.iscratch;
   const int* tlist = tpos + 2 * (a.V + 1);
@@ -196,12 +237,12 @@ __global__ void ul_rank(const UpdateLocationArgs a) {
 extern "C" int update_location(const UpdateLocationArgs* args,
                                void* stream) {
   const UpdateLocationArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
-  unsigned blocks = grid_blocks(a.V, threads);
+  dim3 blocks(grid_blocks(a.V, threads), (unsigned)a.B);
   ul_flags<<<blocks, threads, 0, st>>>(a);
-  GEN1_LAUNCH(ul_reduce, a, 1, 1024, 0, st);
+  GEN1_LAUNCH(ul_reduce, a, dim3(1, (unsigned)a.B), 1024, 0, st);
   GEN1_LAUNCH(ul_rank, a, blocks, threads, 0, st);
   return (int)cudaGetLastError();
 }

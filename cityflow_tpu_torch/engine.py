@@ -37,6 +37,7 @@ from cityflow_tpu_torch.core.state import (
     OV_HOPS, OV_LINK_TABLE, OV_REMOVE, OV_SLOTS, SimState, StepConfig,
     init_state, pad_state)
 from cityflow_tpu_torch.device import resolve_device
+from cityflow_tpu_torch.parallel.batch import spawn_table
 
 GROWTH_RETRIES = 8
 FETCHED = ("active", "running", "dis", "speed", "drv", "prev_drv", "route",
@@ -143,17 +144,7 @@ class Engine:
         self._fetched_step = -1
 
     def _upload_spawn(self):
-        t = self._spawn.arrays()
-        pad = max(self._spawn.max_per_step, 1)
-
-        def p(a, fill):
-            return torch.as_tensor(
-                np.concatenate([a, np.full(pad, fill, a.dtype)]),
-                device=self.device)
-        self._spawn_dev = dict(
-            step=p(t["step"], -1), flow=p(t["flow"], 0),
-            priority=p(t["priority"], 0),
-            first_drv=p(t["first_drv"], 0), route=p(t["route"], 0))
+        self._spawn_dev = spawn_table(self._spawn, self.device)
 
     def _grow(self, bits: int):
         cfg = self.cfg
@@ -185,8 +176,10 @@ class Engine:
                     self.cfg, max_spawn_per_step=self._spawn.max_per_step)
         prev = self.state
         for _ in range(GROWTH_RETRIES):
-            new = step_mod.step(self._net_dev, self.cfg, prev,
-                                self._spawn_dev)
+            # the step takes a batch: this env is a batch of one
+            new = step_mod.squeeze(step_mod.step(
+                self._net_dev, self.cfg, step_mod.lift(prev),
+                self._spawn_dev))
             ov_all = int(new.overflow)
             ov = ov_all & ~self._ov
             if ov == 0:

@@ -27,6 +27,14 @@ counter:
                      commit)
   G9 blocker_cycles  gen-1 deadlock test along the blocker chains
   G10 update_location  gen-1 finish statistics and transfer order
+  G11 spawn_slots    gen-1 spawn: the due spawn rows into each env's first
+                     free slots, every per-slot leaf written
+  G12 admit_heads    gen-1 handleWaiting: each lane's FIFO head, its
+                     admission, its leader and gap behind the rear vehicle
+  G13 lane_counts    gen-1 observations: per-lane counts and waiting, per-
+                     drivable counts, the in-flight travel-time sum
+  G14 phase_scores   gen-1 intersection pressure, MaxPressure phase
+                     pressures and choice, the DQN's per-phase features
   T1 tpl_params      vehicle template index -> template parameters
 
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
@@ -34,19 +42,24 @@ each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
 and lane-change modes also as car_follow@tpl+lc. G7's and G8's modes are
 counted apart as lc_plan@<mode> and lc_commit@<mode>. The gen-1 kernels
-G1-G10 run in float64 (exact mode) or float32 (fast mode); the float32
-launches of G1-G8 and G10 are counted apart as <name>@f32, and the fast
-branches of G2, G9 and G10 as <name>@fast.
+G1-G12 run in float64 (exact mode) or float32 (fast mode); the float32
+launches of G1-G8 and G10-G12 are counted apart as <name>@f32, and the
+fast branches of G2, G9 and G10 as <name>@fast. G1-G4 and G9-G14 take B
+envs' slot pools at once (a leading env axis, the env on the kernel's
+grid); one env is a batch of one. G13's calls with the per-drivable
+counts count apart as lane_counts@drivables, G14's modes as
+phase_scores@phases and phase_scores@features.
 
 A wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors; the library is built at first use (kernels/_lib.py).
 """
 
 from cityflow_tpu_torch.kernels import (
-    arrange, blocker_cycles, car_follow, cross_caps, cross_pass, gather_rows,
-    hist_window, lane_stats, lc_commit, lc_insert, lc_partner, lc_plan,
-    lc_probe, lc_receive, lc_signal, leader_scan, notify_cross,
-    phase_pressure, ring_commit, tpl_params, update_location)
+    admit_heads, arrange, blocker_cycles, car_follow, cross_caps, cross_pass,
+    gather_rows, hist_window, lane_counts, lane_stats, lc_commit, lc_insert,
+    lc_partner, lc_plan, lc_probe, lc_receive, lc_signal, leader_scan,
+    notify_cross, phase_pressure, phase_scores, ring_commit, spawn_slots,
+    tpl_params, update_location)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -58,12 +71,14 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "tpl_params": tpl_params, "hist_window": hist_window,
            "lc_probe": lc_probe, "lc_plan": lc_plan, "lc_commit": lc_commit,
            "blocker_cycles": blocker_cycles,
-           "update_location": update_location}
+           "update_location": update_location, "spawn_slots": spawn_slots,
+           "admit_heads": admit_heads, "lane_counts": lane_counts,
+           "phase_scores": phase_scores}
 
 # the gen-1 kernels with a float32 mode, and those with a fast branch
 F32_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
                "hist_window", "lc_probe", "lc_plan", "lc_commit",
-               "update_location")
+               "update_location", "spawn_slots", "admit_heads")
 FAST_KERNELS = ("leader_scan", "blocker_cycles", "update_location")
 
 
@@ -83,7 +98,10 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
             for m in lc_commit.MODES},
          **{f"{n}@f32": (MODULES[n], "launches_f32") for n in F32_KERNELS},
          **{f"{n}@fast": (MODULES[n], "launches_fast")
-            for n in FAST_KERNELS}}
+            for n in FAST_KERNELS},
+         "lane_counts@drivables": (lane_counts, "launches_drivables"),
+         "phase_scores@phases": (phase_scores, "launches_phases"),
+         "phase_scores@features": (phase_scores, "launches_features")}
 
 
 def reset_launches():

@@ -105,7 +105,8 @@ def lib():
                      "phase_pressure", "arrange", "leader_scan",
                      "notify_cross", "cross_pass", "tpl_params",
                      "hist_window", "lc_probe", "blocker_cycles",
-                     "update_location"):
+                     "update_location", "spawn_slots", "admit_heads",
+                     "lane_counts", "phase_scores"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int

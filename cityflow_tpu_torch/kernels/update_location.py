@@ -2,15 +2,17 @@
 the gen-1 step (csrc/update_location.cu), Engine::threadUpdateLocation and
 the main-stage push (engine.cpp:282-315, 477-494).
 
-Per slot (V,): running, end, changed (bool), buf_dis, enter_time (float),
-buf_drv, list_seq, enter_ll_time (i32); G1's sorted_idx (V,) i32 (exact
-mode only, else None); lc_finished and finish (bool, under lane change,
-else None). 0-dim: step, seq_counter, finished_cnt, overflow (i32),
-cum_travel, interval (float). Floats are float64 (exact) or float32
+For B envs at once (one env is B = 1): per-slot inputs (B, V), the
+per-env scalars (B,), and so the outputs. Per slot: running,
+end, changed (bool), buf_dis, enter_time (float), buf_drv, list_seq,
+enter_ll_time (i32); G1's sorted_idx i32 (exact mode only, else None);
+lc_finished and finish (bool, under lane change, else None). Per env:
+step, seq_counter, finished_cnt, overflow (i32), cum_travel (float); the
+interval 0-dim (float). Floats are float64 (exact) or float32
 (fast), one dtype per call.
 
-Returns dict(removed (V,) bool, list_seq, enter_ll_time (V,) i32,
-finished_cnt, cum_travel, seq_counter, overflow (0-dim)):
+Returns dict(removed (B, V) bool, list_seq, enter_ll_time (B, V) i32,
+finished_cnt, cum_travel, seq_counter, overflow (B,)):
 
 - removed = running & end; the counted removals leave out a finished lane
   change (an identity swap, engine.cpp:299-303). Exact: the travel times
@@ -50,7 +52,7 @@ class _Args(ctypes.Structure):
         SLOTS + SCALARS + ("removed", "list_seq_out", "enter_ll_out",
                            "finished_out", "cum_out", "seq_out",
                            "overflow_out", "flags", "iscratch", "vals"))]
-        + [(n, ctypes.c_longlong) for n in ("V", "R", "L", "exact",
+        + [(n, ctypes.c_longlong) for n in ("B", "V", "R", "L", "exact",
                                             "fp32")])
 
 
@@ -60,42 +62,46 @@ def update_location_plain(running, end, changed, buf_dis, buf_drv,
                           finished_cnt, cum_travel, overflow, interval,
                           max_remove, L, exact):
     """Plain PyTorch version: the JAX package's function, the exact sum as
-    an explicit loop, the transfer order as a stable torch.sort."""
+    an explicit loop, the transfer order as a stable torch.sort, each env
+    along its own row."""
     f = buf_dis.dtype
-    V = running.shape[0]
+    B, V = running.shape
     dev = running.device
     removed = running & end
     counted = removed
     if lc_finished is not None:
         counted = removed & ~(lc_finished | finish)
     tt = step.to(f) * interval
-    tt = tt - enter_time
-    n_counted = counted.sum(dtype=torch.int32)
+    tt = tt[:, None] - enter_time
+    n_counted = counted.sum(-1, dtype=torch.int32)
     if exact:
-        pos = _first_true(counted.index_select(0, sorted_idx), max_remove)
-        tt_sorted = tt.index_select(0, sorted_idx)
-        vals = torch.where(pos >= 0, tt_sorted.index_select(
-            0, pos.clamp(0, max(V - 1, 0))), 0.0)
-        total = torch.zeros((), dtype=f, device=dev)
+        sidx = sorted_idx.long()
+        pos = _first_true(counted.gather(-1, sidx), max_remove)
+        tt_sorted = tt.gather(-1, sidx)
+        vals = torch.where(pos >= 0, tt_sorted.gather(
+            -1, pos.clamp(0, max(V - 1, 0)).long()), 0.0)
+        total = torch.zeros(B, dtype=f, device=dev)
         for i in range(max_remove):
-            total = total + vals[i]
+            total = total + vals[:, i]
         ov = torch.where(n_counted > max_remove, OV_REMOVE, 0)
     else:
-        total = torch.sum(torch.where(counted, tt, 0.0))
-        ov = torch.zeros((), dtype=torch.int32, device=dev)
+        total = torch.sum(torch.where(counted, tt, 0.0), -1)
+        ov = torch.zeros(B, dtype=torch.int32, device=dev)
     trans = running & changed & ~removed
-    order = torch.sort(torch.where(trans, -buf_dis, torch.inf),
+    order = torch.sort(torch.where(trans, -buf_dis, torch.inf), dim=-1,
                        stable=True).indices
-    rank = torch.empty(V, dtype=torch.int32, device=dev).scatter_(
-        0, order, torch.arange(V, dtype=torch.int32, device=dev))
+    rank = torch.empty((B, V), dtype=torch.int32, device=dev).scatter_(
+        -1, order, torch.arange(V, dtype=torch.int32,
+                                device=dev).expand(B, V))
     return dict(
         removed=removed,
-        list_seq=torch.where(trans, seq_counter + rank, list_seq),
-        enter_ll_time=torch.where(trans, torch.where(buf_drv >= L, step,
-                                                     INT_MAX), enter_ll_time),
+        list_seq=torch.where(trans, seq_counter[:, None] + rank, list_seq),
+        enter_ll_time=torch.where(
+            trans, torch.where(buf_drv >= L, step[:, None], INT_MAX),
+            enter_ll_time),
         finished_cnt=finished_cnt + n_counted,
         cum_travel=cum_travel + total,
-        seq_counter=seq_counter + trans.sum(dtype=torch.int32),
+        seq_counter=seq_counter + trans.sum(-1, dtype=torch.int32),
         overflow=overflow | ov.to(torch.int32))
 
 
@@ -112,11 +118,15 @@ def update_location(running, end, changed, buf_dis, buf_drv, enter_time,
     _lib.check_args("update_location", *args,
                     dtypes=[b8, b8, b8, f, i32, f, i32, i32, i32, b8, b8,
                             i32, i32, i32, f, i32, f], cuda=not cpu)
-    V = running.shape[0]
-    if any(t is not None and tuple(t.shape) != (V,) for t in args[:11]) \
-            or any(t.dim() != 0 for t in args[11:]):
-        raise ValueError(f"update_location: per-slot inputs must be ({V},)"
-                         " and the scalars 0-dim")
+    lead = tuple(running.shape)
+    if len(lead) != 2 \
+            or any(t is not None and tuple(t.shape) != lead
+                   for t in args[:11]) \
+            or any(tuple(t.shape) != lead[:-1] for t in args[11:16]) \
+            or interval.dim() != 0:
+        raise ValueError(f"update_location: per-slot inputs must be {lead}"
+                         f" (B, V), the per-env scalars "
+                         f"{lead[:-1]} and the interval 0-dim")
     if exact and sorted_idx is None:
         raise ValueError("update_location: exact mode needs sorted_idx")
     if (lc_finished is None) != (finish is None):
@@ -130,24 +140,25 @@ def update_location(running, end, changed, buf_dis, buf_drv, enter_time,
 def _launch(args, max_remove, L, exact):
     global launches, launches_fast, launches_f32
     running, buf_dis = args[0], args[3]
-    V = running.shape[0]
+    B, V = running.shape
     dev = running.device
     fp32 = _lib.fp32("update_location", *args)
     i32 = dict(dtype=torch.int32, device=dev)
-    out = dict(removed=torch.empty(V, dtype=torch.bool, device=dev),
-               list_seq=torch.empty(V, **i32),
-               enter_ll_time=torch.empty(V, **i32),
-               finished_cnt=torch.empty((), **i32),
-               cum_travel=torch.empty((), dtype=buf_dis.dtype, device=dev),
-               seq_counter=torch.empty((), **i32),
-               overflow=torch.empty((), **i32))
-    flags = torch.empty(2 * V, dtype=torch.uint8, device=dev)
-    iscratch = torch.empty(3 * V + 2, **i32)
-    vals = torch.empty(max(max_remove, 1), dtype=buf_dis.dtype, device=dev)
+    out = dict(removed=torch.empty((B, V), dtype=torch.bool, device=dev),
+               list_seq=torch.empty((B, V), **i32),
+               enter_ll_time=torch.empty((B, V), **i32),
+               finished_cnt=torch.empty(B, **i32),
+               cum_travel=torch.empty(B, dtype=buf_dis.dtype, device=dev),
+               seq_counter=torch.empty(B, **i32),
+               overflow=torch.empty(B, **i32))
+    flags = torch.empty((B, 2 * V), dtype=torch.uint8, device=dev)
+    iscratch = torch.empty((B, 3 * V + 2), **i32)
+    vals = torch.empty((B, max(max_remove, 1)), dtype=buf_dis.dtype,
+                       device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     a = _Args(*(ptr(t) for t in args), *(out[k].data_ptr() for k in OUT),
               flags.data_ptr(), iscratch.data_ptr(), vals.data_ptr(),
-              V, max_remove, L, int(bool(exact)), fp32)
+              B, V, max_remove, L, int(bool(exact)), fp32)
     _lib.check(_lib.lib().update_location(ctypes.byref(a),
                                           _lib.stream_ptr(running)),
                "update_location")

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Benchmark: aggregate env-steps/s of the batched PyTorch ring simulator.
+"""Benchmark: aggregate env-steps/s of the batched PyTorch simulator.
 
 The metric of record: the 30x30 grid, gen-2 ring layout, float32, B envs
-in the trailing-batch layout, on one CUDA device. Prints ONE JSON line:
+in the trailing-batch layout, on one CUDA device. --layout gen1 times the
+gen-1 slot-pool step in fast mode (float32) with a leading env axis
+instead (parallel/batch.py), the layout of non-grid nets; --layout auto
+takes the ring and falls back to gen-1 where the ring cannot express the
+scenario. Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
 
 Baseline: the reference C++ engine, 1 thread, scaled by 8 for an 8-thread
@@ -15,6 +19,8 @@ and flow are staged under the checkout's build/ (tools/scenario.py).
     python -m cityflow_tpu_torch.tools.bench --config benchmarks/config_30x30.json
     python -m cityflow_tpu_torch.tools.bench \
         --config benchmarks/config_30x30_lc.json --warmup 1960
+    python -m cityflow_tpu_torch.tools.bench --layout gen1 \
+        --max-vehicles 32768
 """
 
 import argparse
@@ -71,14 +77,92 @@ def run_ring(args, net, batch, device=None, on_step=None, on_warmup=None):
     bstate = step_b(bstate)
     _sync(dev)
     first_s = time.time() - t0
+    held, bstate = [bstate], None
+    s, steps, dt, steps_run = _timed(args, held, step_b, on_step, dev,
+                                     steps_run)
+    ov = int(s.overflow.max())
+    veh = int(s.n_l[:, 0].sum() + s.n_k[:, 0].sum())
+    return dict(seconds=dt, overflow=ov, vehicles=veh, build_s=build_s,
+                first_step_s=first_s, steps=steps, steps_run=steps_run,
+                state=s, sim=sim)
+
+
+def run_gen1(args, net, batch, device=None, on_step=None):
+    """The batched gen-1 fast step (float32, leading env axis): one env is
+    stepped through the warm-up and copied into the batch (the envs run
+    the same scenario from the same seed), then the window is timed as
+    run_ring times it. Returns the same dict as run_ring (vehicles: the
+    active vehicles of env 0, as the JAX bench counts them)."""
+    from cityflow_tpu_torch.carry import net_tensors
+    from cityflow_tpu_torch.compiler.spawn import SpawnGenerator
+    from cityflow_tpu_torch.core import step as step_mod
+    from cityflow_tpu_torch.core.state import StepConfig, init_state
+    from cityflow_tpu_torch.device import resolve_device
+    from cityflow_tpu_torch.parallel.batch import (
+        init_batch_state, spawn_table)
+    from cityflow_tpu_torch.rl.env import gen1_k_link
+
+    t0 = time.time()
+    dev = resolve_device(device)
+    cfgj = net.host.config
+    interval = float(cfgj["interval"])
+    gen = SpawnGenerator(net, int(cfgj["seed"]), interval)
+    budget = args.window if args.window else args.steps
+    gen.extend(args.warmup + budget + 8)
+    spawn = spawn_table(gen, dev)
+    cfg = StepConfig(
+        interval=interval, num_lanes=net.num_lanes,
+        num_drivables=net.num_lanes + net.num_links,
+        max_vehicles=args.max_vehicles,
+        max_spawn_per_step=gen.max_per_step,
+        k_link=gen1_k_link(net), k_scan=6, k_hop=4,
+        k_out=max(net.host.ko, 1), k_cross=max(net.host.kc, 1),
+        rl_traffic_light=bool(cfgj["rlTrafficLight"]),
+        lane_change=bool(cfgj.get("laneChange", False)),
+        exact=False)
+    net_dev = net_tensors(net, torch.float32, dev)
+    st0 = init_state(cfg, net.num_inters, net.phase_time, net.n_phases,
+                     net.phase_offset, dev)
+    build_s = time.time() - t0
+
+    # The JAX bench splits the step in four jitted parts above 2000
+    # lanelinks to keep each XLA compile within budget; eager PyTorch
+    # compiles nothing, so the port runs the monolithic step everywhere.
+    def step_b(s):
+        return step_mod.step(net_dev, cfg, s, spawn)
+
+    print(f"[stage] build_s={build_s:.1f}", file=sys.stderr, flush=True)
+    one = init_batch_state(cfg, st0, 1)
+    steps_run = max(args.warmup, 1)
+    for _ in range(steps_run - 1):
+        one = step_b(one)
+    bstate = init_batch_state(cfg, one.map(lambda x: x[0]), batch)
+    del one
+    _sync(dev)
+    t0 = time.time()
+    bstate = step_b(bstate)
+    _sync(dev)
+    first_s = time.time() - t0
+    held, bstate = [bstate], None
+    s, steps, dt, steps_run = _timed(args, held, step_b, on_step, dev,
+                                     steps_run)
+    return dict(seconds=dt, overflow=int(s.overflow.max()),
+                vehicles=int(s.active[0].sum()), build_s=build_s,
+                first_step_s=first_s, steps=steps, steps_run=steps_run,
+                state=s, net=net_dev, cfg=cfg, spawn=spawn)
+
+
+def _timed(args, held, step_b, on_step, dev, steps_run):
+    """The timed region of a bench run from the warm batched state (the
+    one entry of `held`, taken out so the caller keeps no reference): with
+    --window, the scenario's first W post-warm-up steps looped from the
+    warm snapshot (the copy is timed in) until --min-seconds of wall
+    clock; else --steps consecutive steps. Returns (state, steps, seconds,
+    steps run in all)."""
+    bstate = held.pop()
     if args.window:
-        # the timed region loops the scenario's first W post-warmup steps,
-        # restarting from the warm snapshot (the copy is timed in), until
-        # --min-seconds of wall clock: a long measurement at the
-        # benchmark's real density
         W = int(args.window)
-        snap = bstate
-        bstate = None
+        snap, bstate = bstate, None
         steps = 0
         t0 = time.time()
         while True:
@@ -91,24 +175,16 @@ def run_ring(args, net, batch, device=None, on_step=None, on_warmup=None):
             steps += W
             if time.time() - t0 >= args.min_seconds or steps >= args.steps:
                 break
-        dt = time.time() - t0
-    else:
-        steps = int(args.steps)
-        t0 = time.time()
-        s = bstate
-        bstate = None
-        for _ in range(steps):
-            s = step_b(s)
-            if on_step is not None:
-                on_step(s)
-        _sync(dev)
-        dt = time.time() - t0
-        steps_run += steps
-    ov = int(s.overflow.max())
-    veh = int(s.n_l[:, 0].sum() + s.n_k[:, 0].sum())
-    return dict(seconds=dt, overflow=ov, vehicles=veh, build_s=build_s,
-                first_step_s=first_s, steps=steps, steps_run=steps_run,
-                state=s, sim=sim)
+        return s, steps, time.time() - t0, steps_run
+    steps = int(args.steps)
+    t0 = time.time()
+    s, bstate = bstate, None
+    for _ in range(steps):
+        s = step_b(s)
+        if on_step is not None:
+            on_step(s)
+    _sync(dev)
+    return s, steps, time.time() - t0, steps_run + steps
 
 
 def run_ring_ladder(args, net, batch=None, device=None, on_step=None,
@@ -137,7 +213,8 @@ def parser():
     ap.add_argument("--config", default="benchmarks/config_30x30.json")
     ap.add_argument("--layout", choices=["ring", "gen1", "auto"],
                     default="auto",
-                    help="gen-2 ring (the port's path); gen1 is not ported")
+                    help="gen-2 ring (the fast path) or the gen-1 slot "
+                         "pool; auto: the ring where the scenario fits it")
     ap.add_argument("--batch", type=int, default=128,
                     help="env batch (trailing axis of every state leaf)")
     ap.add_argument("--steps", type=int, default=6144,
@@ -156,6 +233,8 @@ def parser():
                     help="ring lane capacity; 40 = jam capacity, 0 = the "
                          "longest lane's capacity for the template that "
                          "packs densest (build_sim's default)")
+    ap.add_argument("--max-vehicles", type=int, default=4096,
+                    help="gen-1 slot pool per env")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")
@@ -179,22 +258,29 @@ def main(argv=None):
     scen = next((k for k in REF_1T if k in args.config), "other")
     ref = args.ref_steps_per_s or REF_1T.get(scen, 67.0)
     baseline = ref * 8  # 8-thread reference proxy
-    if args.layout == "gen1":
-        raise NotImplementedError("the batched gen-1 slot-pool step is not "
-                                  "ported yet (ROADMAP.md queue 1, the "
-                                  "gen-1 batched env)")
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
         else "cpu"
 
     def run_once(batch):
-        r, batch_used = run_ring_ladder(args, net, batch, dev)
+        layout, batch_used = args.layout, batch
+        if layout in ("ring", "auto"):
+            try:
+                r, batch_used = run_ring_ladder(args, net, batch, dev)
+                layout = "ring"
+            except ValueError:
+                # the ring layout cannot express this scenario
+                if layout == "ring":
+                    raise
+                layout = "gen1"
+        if layout == "gen1":
+            r = run_gen1(args, net, batch, dev)
         rate = batch_used * r["steps"] / r["seconds"]
         return {
             "metric": f"env_steps_per_sec_{scen}",
             "value": round(rate, 1),
             "unit": "env-steps/s",
             "vs_baseline": round(rate / baseline, 2),
-            "layout": "ring",
+            "layout": layout,
             "lane_change": bool(net.host.config.get("laneChange", False)),
             "warmup": args.warmup,
             "batch": batch_used, "steps": r["steps"],

@@ -89,7 +89,7 @@ def test_q_values_loss_and_gradients_match_jax(warm):
         atol=1e-6)
     want = np.asarray(jax.vmap(lambda o: jax_ring_dqn._masked_q(
         jp, o, jnp.asarray(n_ph)))(jnp.asarray(obs)))
-    got = _np(ring_dqn._masked_q(tp, T(obs), T(n_ph)))
+    got = _np(dqn.masked_q(tp, T(obs), T(n_ph)))
     assert np.array_equal(np.isinf(want), np.isinf(got))
     assert np.isinf(want).any() and np.isfinite(want).any()
     np.testing.assert_allclose(got[np.isfinite(got)], want[np.isfinite(want)],
@@ -97,8 +97,8 @@ def test_q_values_loss_and_gradients_match_jax(warm):
     jl, jg = jax.value_and_grad(jax_ring_dqn._td_loss)(
         jp, target_j, jnp.asarray(obs), jnp.asarray(actions),
         jnp.asarray(rewards), jnp.asarray(obs_next), jnp.asarray(n_ph), 0.9)
-    tl = ring_dqn._td_loss(tp, tt, T(obs), T(actions), T(rewards),
-                           T(obs_next), T(n_ph), 0.9)
+    tl = dqn.td_loss(tp, tt, T(obs), T(actions), T(rewards),
+                     T(obs_next), T(n_ph), 0.9)
     tg = torch.autograd.grad(tl, list(tp))
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=REL)
     for k, g in zip(dqn.QParams._fields, tg):
@@ -127,14 +127,14 @@ def test_clipped_adam_update_matches_optax(warm, scale, clipped):
     for gs in grads:
         jg = jax_dqn.QParams(*(jnp.asarray(g) for g in gs))
         clip_j, _ = optax.clip_by_global_norm(5.0).update(jg, None)
-        clip_t = ring_dqn.clip_by_global_norm([torch.as_tensor(g)
-                                               for g in gs])
+        clip_t = dqn.clip_by_global_norm([torch.as_tensor(g)
+                                          for g in gs])
         for a, b in zip(clip_j, clip_t):
             np.testing.assert_allclose(_np(b), np.asarray(a), rtol=1e-6,
                                        atol=0)
         upd, jstate = tx.update(jg, jstate, jparams)
         jparams = optax.apply_updates(jparams, upd)
-        ring_dqn.apply_update(tp, opt, [torch.as_tensor(g) for g in gs])
+        dqn.apply_update(tp, opt, [torch.as_tensor(g) for g in gs])
     for k, t in zip(dqn.QParams._fields, tp):
         w = np.asarray(getattr(jparams, k))
         np.testing.assert_allclose(_np(t), w, rtol=1e-6, atol=1e-8,
@@ -147,7 +147,7 @@ def test_clip_is_not_clip_grad_norm():
     which the learner does not use."""
     g = torch.full((4,), 5.0)
     want = (g / 10.0) * 5.0
-    got = ring_dqn.clip_by_global_norm([g])[0]
+    got = dqn.clip_by_global_norm([g])[0]
     assert torch.equal(got, want)
     p = torch.zeros(4, requires_grad=True)
     p.grad = g.clone()

@@ -74,8 +74,8 @@ def test_hist_window_matches_jax_update_history(duration_config, hist_t):
              hist_ssum=ssum.sum(0), hist_t=np.int32(hist_t))
     st = sim_state_from_numpy(c, "cpu")
     assert int(st.running.sum()) > 80
-    arr = ts.arrangement(eng._net_dev, eng.cfg, st.running, st.drv, st.dis,
-                         st.list_seq)
+    arr = ts.squeeze(ts.arrangement(eng._net_dev, eng.cfg, *ts.lift((
+        st.running, st.drv, st.dis, st.list_seq))))
     got = sim_state_to_numpy(ts.update_history(eng.cfg, st, arr))
     jst = jstate.SimState(**{k: jnp.asarray(v) for k, v in c.items()})
     jcfg = jstate.StepConfig(**dataclasses.asdict(eng.cfg))

@@ -112,11 +112,12 @@ def test_leader_scan_fast_matches_jax(fast_4x4, t):
     leaves = fast_4x4["states"][t]
     eng = fast_4x4["eng"]
     jf, jg = _jax_scan(fast_4x4["jnet"], fast_4x4["jcfg"], _jstate(leaves))
-    st = sim_state_from_numpy(leaves, "cpu", torch.float32)
+    st = ts.lift(sim_state_from_numpy(leaves, "cpu", torch.float32))
     cfg = eng.cfg
     arr = ts.arrangement(eng._net_dev, cfg, st.running, st.drv, st.dis,
                          st.list_seq)
-    pf, pg = ts.leader_scan(eng._net_dev, cfg, st, arr, st.running)
+    pf, pg = ts.squeeze(ts.leader_scan(eng._net_dev, cfg, st, arr,
+                                       st.running))
     assert pg.dtype == torch.float32
     np.testing.assert_array_equal(pf.numpy(), np.asarray(jf))
     assert int((pf >= 0).sum()) > 5
@@ -130,7 +131,7 @@ def test_leader_scan_fast_is_jax_fast_branch_not_exact(fast_4x4):
     version follows JAX's fast branch, not the exact one."""
     leaves = fast_4x4["states"][SCAN_STEPS[-1]]
     eng = fast_4x4["eng"]
-    st = sim_state_from_numpy(leaves, "cpu", torch.float32)
+    st = ts.lift(sim_state_from_numpy(leaves, "cpu", torch.float32))
     cfg = eng.cfg
     arr = ts.arrangement(eng._net_dev, cfg, st.running, st.drv, st.dis,
                          st.list_seq)
@@ -206,7 +207,8 @@ def test_blocker_cycles_matches_jax(seed, V, k_chase, exact):
     cfg = jstate.StepConfig(interval=1.0, num_lanes=1, num_drivables=1,
                             max_vehicles=V, k_chase=k_chase, exact=exact)
     want = np.asarray(_jax_cycles(cfg, jnp.asarray(b)))
-    got = blocker_cycles_plain(torch.as_tensor(b), exact, k_chase).numpy()
+    got = blocker_cycles_plain(torch.as_tensor(b)[None], exact,
+                               k_chase)[0].numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(_walk_reference(b, exact, k_chase), want)
     assert 0 < want.sum() < V
@@ -225,7 +227,7 @@ def _jax_update_location(net, cfg, st, arr, buf):
 def _ul_inputs(config, exact, steps):
     """The port's engine run to each of `steps`; at each, the state after
     this step's part 1 and the arrangement and buffers of part 2 (the
-    inputs update_location gets)."""
+    inputs update_location gets), as a batch of one."""
     eng = Engine(os.path.join(FIX, config), exact=exact, backend="gen1",
                  device="cpu")
     out = []
@@ -233,7 +235,8 @@ def _ul_inputs(config, exact, steps):
         eng.next_step()
         if t in steps:
             st, arr, fa, ia = ts.step_part1(eng._net_dev, eng.cfg,
-                                            eng.state, eng._spawn_dev)
+                                            ts.lift(eng.state),
+                                            eng._spawn_dev)
             buf, _ = ts.step_part2(eng._net_dev, eng.cfg, st, arr, fa, ia)
             out.append((eng, st, arr, buf))
     return out
@@ -252,12 +255,13 @@ def ul_recorded():
             jnet = _net_device_arrays(
                 eng.net, np.float64 if exact else np.float32)
             jcfg = jstate.StepConfig(**dataclasses.asdict(eng.cfg))
+            pnew, prm = ts.squeeze(ts.update_location(
+                eng._net_dev, eng.cfg, st, arr, buf))
+            st, arr, buf = ts.squeeze((st, arr, buf))
             jst = _jstate(sim_state_to_numpy(st))
             jbuf = {k: jnp.asarray(v.numpy()) for k, v in buf.items()}
             jarr = dict(sorted_idx=jnp.asarray(arr["sorted_idx"].numpy()))
             jnew, jrm = _jax_update_location(jnet, jcfg, jst, jarr, jbuf)
-            pnew, prm = ts.update_location(eng._net_dev, eng.cfg, st, arr,
-                                           buf)
             out.setdefault((config, exact), []).append(dict(
                 jax=(_leaves(jnew), np.asarray(jrm)),
                 port=(sim_state_to_numpy(pnew), prm.numpy()),
@@ -332,7 +336,8 @@ def test_update_location_ranks_ties_like_jax(exact):
                dis=torch.as_tensor(dis), drv=torch.as_tensor(drv))
     arr = dict(sorted_idx=torch.as_tensor(order))
     net = dict(interval=torch.tensor(1.0, dtype=st.dis.dtype))
-    pnew, prm = ts.update_location(net, cfg, st, arr, buf)
+    pnew, prm = ts.squeeze(ts.update_location(net, cfg, ts.lift(st),
+                                              ts.lift(arr), ts.lift(buf)))
     jnet = dict(interval=jnp.asarray(f(1.0)))
     jnew, jrm = _jax_update_location(
         jnet, jstate.StepConfig(**dataclasses.asdict(cfg)),

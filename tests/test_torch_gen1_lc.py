@@ -180,8 +180,9 @@ def recorded():
         eng.next_step()
         if t not in STEPS:
             continue
-        s0 = ts.spawn_vehicles(net, cfg, eng.state, eng._spawn_dev)
-        s1 = ts.admit_waiting(net, cfg, s0, dict(last_of=s0.last_of_drv))[0]
+        s0 = ts.spawn_vehicles(net, cfg, ts.lift(eng.state), eng._spawn_dev)
+        s1 = ts.squeeze(ts.admit_waiting(net, cfg, s0,
+                                         dict(last_of=s0.last_of_drv))[0])
         for variant in ("natural", "ties"):
             st = s1 if variant == "natural" else _with_ties(
                 s1, cfg.num_lanes, t)
@@ -198,11 +199,13 @@ def _port_state(leaves):
 
 
 def _arr(eng, st):
+    """G1 with the packs on one env's state (run as a batch of one)."""
+    st = ts.lift(st)
     cyc = ts.blocker_cycles(eng.cfg, st.blocker)
     fattrs, iattrs = ts.build_attr_packs(eng.cfg, st, cyc)
     arr = ts.arrangement(eng._net_dev, eng.cfg, st.running, st.drv, st.dis,
                          st.list_seq, fattrs, iattrs)
-    return arr, fattrs, iattrs
+    return ts.squeeze((arr, fattrs, iattrs))
 
 
 def test_recorded_states_reach_every_branch(recorded):
@@ -310,9 +313,9 @@ def test_lc_yield_and_get_action_tail_match_jax(recorded, case):
     ll_avail = ts.lanelink_available(net, cfg, st3)
     veh_next, _ = ts.chain_step(net, cfg.num_lanes, st3.route,
                                 st3.route_pos, st3.drv)
-    own = ts.notify_cross(net, cfg, st3, arr, veh_next, ll_avail, fattrs,
-                          iattrs)
-    buf, ov_hop = ts.get_action(net, cfg, st3, arr, veh_next, ll_avail, own)
+    b = ts.lift((st3, arr, veh_next, ll_avail))
+    own = ts.notify_cross(net, cfg, *b, *ts.lift((fattrs, iattrs)))
+    buf, ov_hop = ts.squeeze(ts.get_action(net, cfg, *b, own))
     assert set(buf) == set(j["buf"])
     _eq_state("buf", _np(buf), j["buf"])
     _eq("ov_hop", ov_hop.numpy(), j["ov_hop"])
@@ -331,11 +334,12 @@ def test_lc_commit_matches_jax(recorded, case):
     buf = {k: torch.as_tensor(np.array(v, np.int32 if v.dtype.kind == "i"
                                        else v.dtype))
            for k, v in j["buf"].items()}
-    st4, removed = ts.update_location(net, cfg, st3, arr, buf)
+    st4, removed = ts.squeeze(ts.update_location(net, cfg,
+                                                 *ts.lift((st3, arr, buf))))
     _eq("removed", removed.numpy(), j["removed"])
     _eq_state("st4", sim_state_to_numpy(st4), j["st4"])
-    st5 = ts.commit(net, cfg, _port_state(j["st4"]), buf,
-                    torch.as_tensor(j["removed"]))
+    st5 = ts.squeeze(ts.commit(net, cfg, *ts.lift((
+        _port_state(j["st4"]), buf, torch.as_tensor(j["removed"])))))
     _eq_state("st5", sim_state_to_numpy(st5), j["st5"])
 
 

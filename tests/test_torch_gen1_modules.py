@@ -52,7 +52,9 @@ def _jax_regions(net, cfg, st):
 
 
 def _port_regions(eng, st):
+    """The port's regions on one env's state, run as a batch of one."""
     net, cfg = eng._net_dev, eng.cfg
+    st = ts.lift(st)
     cyc = ts.blocker_cycles(cfg, st.blocker)
     fattrs, iattrs = ts.build_attr_packs(cfg, st, cyc)
     arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq,
@@ -66,8 +68,9 @@ def _port_regions(eng, st):
                           iattrs)
     buf, ov_hop = ts.get_action(net, cfg, st, arr, veh_next, ll_avail, own)
     scan = ts.leader_scan(net, cfg, st, arr, st.running)
-    return dict(arr=arr, arr_bare=arr_bare, foe=ts.foe_view(net, own),
-                buf=buf, ov_hop=ov_hop, scan=scan)
+    return ts.squeeze(dict(arr=arr, arr_bare=arr_bare,
+                           foe=ts.foe_view(net, own), buf=buf, ov_hop=ov_hop,
+                           scan=scan))
 
 
 def _np(tree):
@@ -93,8 +96,9 @@ def recorded():
             eng.next_step()
             if t not in steps:
                 continue
-            st1 = ts.step_part1(eng._net_dev, eng.cfg, eng.state,
-                                eng._spawn_dev)[0]
+            st1 = ts.squeeze(ts.step_part1(eng._net_dev, eng.cfg,
+                                           ts.lift(eng.state),
+                                           eng._spawn_dev)[0])
             leaves = sim_state_to_numpy(st1)
             jst = jstate.SimState(**{k: jnp.asarray(v)
                                      for k, v in leaves.items()})
@@ -202,7 +206,8 @@ def _stopped_cases(eng, st):
     lanelink red, moved to the lane end at speed 0."""
     net, cfg = eng._net_dev, eng.cfg
     L = cfg.num_lanes
-    arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
+    arr = ts.squeeze(ts.arrangement(net, cfg, *ts.lift((
+        st.running, st.drv, st.dis, st.list_seq))))
     ll_avail = ts.lanelink_available(net, cfg, st)
     veh_next, _ = ts.chain_step(net, L, st.route, st.route_pos, st.drv)
     c = sim_state_to_numpy(st)
@@ -226,7 +231,8 @@ def test_get_action_keeps_a_finite_speed_where_jax_gives_nan():
                  device="cpu")
     for _ in range(187):
         eng.next_step()
-    st1 = ts.step_part1(eng._net_dev, eng.cfg, eng.state, eng._spawn_dev)[0]
+    st1 = ts.squeeze(ts.step_part1(eng._net_dev, eng.cfg, ts.lift(eng.state),
+                                   eng._spawn_dev)[0])
     a, leaves = _stopped_cases(eng, st1)
     st = sim_state_from_numpy(leaves, "cpu")
     port = _np(_port_regions(eng, st))["buf"]

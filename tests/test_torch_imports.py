@@ -167,3 +167,50 @@ def test_ring_vec_env_without_device_refuses_the_cpu():
     env = RingVecEnv(path, batch=2, horizon=8, device="cpu")
     env.reset()
     assert env.state.n_l.device.type == "cpu"
+
+
+def test_gen1_batch_and_rl_modules_are_covered():
+    """The import rule above reaches the batched gen-1 step, its RL surface
+    and the G11-G14 wrappers."""
+    files = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("parallel/batch.py", "core/observe.py", "rl/policies.py",
+                "rl/env.py", "rl/dqn.py", "kernels/spawn_slots.py",
+                "kernels/admit_heads.py", "kernels/lane_counts.py",
+                "kernels/phase_scores.py"):
+        assert rel in files, rel
+
+
+def test_city_flow_vec_env_and_dqn_train_without_device_refuse_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means the card")
+    from cityflow_tpu_torch.rl import dqn
+    from cityflow_tpu_torch.rl.env import CityFlowVecEnv
+    path = os.path.join(HERE, "fixtures", "config_2x2.json")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CityFlowVecEnv(path, batch=2, horizon=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dqn.train(path, batch=2, iters=1)
+    env = CityFlowVecEnv(path, batch=2, max_vehicles=64, horizon=8,
+                         device="cpu")
+    obs = env.reset()
+    assert env.state.dis.device.type == "cpu"
+    assert obs["lane_count"].shape == (2, env.cfg.num_lanes)
+
+
+def test_bench_gen1_layout_runs_on_the_cpu(capsys):
+    """tools/bench.py --layout gen1 at a tiny size prints the JAX bench's
+    keys, with the batched gen-1 step's numbers."""
+    import json
+    from cityflow_tpu_torch.tools import bench
+    bench.main(["--layout", "gen1", "--config",
+                os.path.join(HERE, "fixtures", "config_2x2.json"),
+                "--batch", "2", "--window", "0", "--steps", "3",
+                "--warmup", "4", "--max-vehicles", "256", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k in ("metric", "value", "unit", "vs_baseline", "layout", "batch",
+              "steps", "ms_per_batched_step", "compile_s", "device",
+              "overflow_flags", "vehicles_per_env", "seconds", "window"):
+        assert k in line, k
+    assert line["layout"] == "gen1" and line["batch"] == 2
+    assert line["steps"] == 3 and line["overflow_flags"] == 0
+    assert line["vehicles_per_env"] > 0 and line["value"] > 0
