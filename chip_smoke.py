@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the 25 kernels from csrc/ (nvcc, sm_90a) with its time
+            of the 26 kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -109,10 +109,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             DURATION: GEN1_LC_WARMUP steps (past the first shadows), then
             GEN1_LC_STEPS timed; [gen1]'s prints for G1-G12 and the modes
             of G7 and G8, shadows in the window (must be > 0)
-  kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8), G11 and
-            G12 against their plain versions, bitwise, on every call of
-            one more [gen1-lc] step; G5-G8 timed, G5 beside the library's
-            index_add_
+  kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8), G15,
+            G11 and G12 against their plain versions, bitwise, on every
+            call of one more [gen1-lc] step; G5-G8 and G15 timed, G5
+            beside the library's index_add_
   agree-fast  Engine(exact=False, backend="gen1") (float32) on
             tests/fixtures/config_4x4.json, 200 steps, card against CPU:
             every 10 steps the same vehicles on the same drivables, |dis|
@@ -169,6 +169,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             copied into the batch), 4 iterations of 5 steps: finite losses,
             a reward that is not zero, overflow 0, ms per iteration after
             the second
+  agree-gen1-lc-batch  make_batched_step with lane change and the
+            DURATION history on tests/fixtures/config_2x2_lc.json at B=4:
+            one Engine's states at steps AGREE_GEN1_LCB_AT (past the first
+            shadows, so the envs differ) stacked, 60 steps on the card
+            against the same batch on the CPU and each env stepped alone
+            on the card, in exact mode (everything bitwise) and fast mode
+            (batched == alone bitwise, card vs CPU as [agree-fast]); the
+            env-steps with shadows must be > 0
+  gen1-lc-batch  the batched gen-1 fast step with lane change and DURATION
+            on config_30x30_lc.json at B=128 (halved, with the reason
+            printed, only if the card's memory runs out): [gen1-lc]'s
+            state after its warm-up (step 1960, f64, in the pool [gen1-lc]
+            ended with) cast to f32 through carry and copied into the
+            batch, GEN1_LCB_STEPS timed steps; asserts overflow == 0,
+            shadows in the window, every env equal to env 0 bitwise, G1-G12,
+            G5-G8 and G15 launched; [gen1-batch]'s prints
+  kernels   (batched lane change) on every call of one more [gen1-lc-batch]
+            step, each asserted to span the batch: G5-G8 (every mode) and
+            G15 against their plain versions (bitwise; G5's speed sums
+            within 1e-6 relative), timed (rows <name>@lcbatch), G5 beside
+            index_add_; G15 is also checked and timed at one env on
+            [gen1-lc] (f64) and [agree-gen1-lc-fast] (f32)
 
 The last three lines: the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -213,7 +235,8 @@ GEN1_STEPS = 100                    # timed gen-1 steps
 GEN1_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
                 "blocker_cycles", "update_location", "spawn_slots",
                 "admit_heads")
-GEN1_LC_KERNELS = ("hist_window", "lc_probe", "lc_plan", "lc_commit")
+GEN1_LC_KERNELS = ("hist_window", "lc_probe", "lc_plan", "lc_commit",
+                   "shadow_insert")
 GEN1_LC_MODES = ("lc_plan@signal", "lc_plan@receive", "lc_plan@decide",
                  "lc_plan@yield", "lc_commit@tail", "lc_commit@commit")
 AGREE_GEN1_LC_STEPS = 200           # gen-1 lane change + DURATION card vs
@@ -231,7 +254,7 @@ GEN1_FAST_MODES = ("arrange@f32", "leader_scan@fast", "notify_cross@f32",
                    "update_location@fast", "spawn_slots@f32",
                    "admit_heads@f32")
 GEN1_LC_F32 = ("hist_window@f32", "lc_probe@f32", "lc_plan@f32",
-               "lc_commit@f32")
+               "lc_commit@f32", "shadow_insert@f32")
 FAST_BRANCH = ("leader_scan", "blocker_cycles", "update_location")
 AGREE_RING_ENGINE_STEPS = 200       # ring Engine vs gen-1 fast, card, 4x4
 RING_ENGINE_WARMUP = 300            # the ring Engine on 30x30 at one env
@@ -244,6 +267,13 @@ GEN1B_WARMUP = 300                  # one env of the 30x30 gen-1 fast step
 GEN1B_STEPS = 40                    # timed batched gen-1 steps at BATCH
 GEN1_DQN_BATCH = 16                 # gen-1 learner (rl/dqn.train) envs
 GEN1_DQN_ITERS = 4
+AGREE_GEN1_LCB_STEPS = 60           # batched lane change + DURATION, 2x2_lc
+AGREE_GEN1_LCB_AT = (80, 95, 110, 125)  # the Engine steps (past the first
+                                    # shadows, about step 70) stacked into
+                                    # the B = 4 batch
+AGREE_GEN1_LCB_POOL = 2048          # its pool (the batch does not grow)
+GEN1_LCB_STEPS = 40                 # timed batched steps of 30x30_lc at
+                                    # BATCH from [gen1-lc]'s step-1960 state
 # the RL kernels of the batched gen-1 step
 GEN1_RL_KERNELS = ("lane_counts", "phase_scores", "phase_scores@phases")
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
@@ -378,7 +408,18 @@ REPLACES = {
                            "(phase_pressures, max_pressure_phases)",
     "phase_scores@features": "cityflow_tpu/rl/dqn.py:60-85, :143-150 "
                              "(build_intersection_obs features, reward)",
+    "shadow_insert": "cityflow_tpu/core/lanechange.py:228-291 (the shadow "
+                     "insert: nonzero(size=MS) x2, ~40 drop scatters)",
+    "shadow_insert@f32": "cityflow_tpu/core/lanechange.py:228-291 (the "
+                         "shadow insert, float32)",
 }
+# the batched lane-change rows ([gen1-lc-batch], float32): the same
+# regions under vmap (parallel/batch.py:48)
+GEN1_LCB_ROWS = ("hist_window", "lc_probe", "lc_plan", "lc_plan@receive",
+                 "lc_plan@decide", "lc_plan@yield", "lc_commit",
+                 "lc_commit@commit", "shadow_insert")
+REPLACES.update({f"{n}@lcbatch": REPLACES[n] + " under vmap "
+                 "(parallel/batch.py:48), float32" for n in GEN1_LCB_ROWS})
 
 
 def log(*a):
@@ -1901,7 +1942,8 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
     0 just before and read just after; every kernel in `names` and every
     mode in `modes` must have launched in them. Under lane change the
     first warm-up step with a shadow is printed and the timed steps must
-    hold shadows (counted on the device)."""
+    hold shadows (counted on the device). Returns the launches, the
+    report, the Engine and its state after the warm-up."""
     import torch
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.engine import Engine
@@ -1919,6 +1961,7 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
             first = i + 1
     torch.cuda.synchronize()
     warm_s = time.time() - t0
+    warm = eng.state    # the step writes no tensor of its input state
     torch.cuda.reset_peak_memory_stats()
     g0 = eng.growths
     shadows = torch.zeros((), dtype=torch.int64, device=eng.device)
@@ -1972,7 +2015,7 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
         pool=eng.cfg.max_vehicles, growths=eng.growths,
         growths_in_window=eng.growths - g0, launches_per_step=per_step,
         kernel_ms_per_step=per, step_ms_events=tot, peak_bytes=peak,
-        **res, **prof), eng
+        **res, **prof), eng, warm
 
 
 def gen1_profile(step, nsteps, wall_ms, tag):
@@ -2142,24 +2185,41 @@ def gen1_work(n, a, k, out):
     if n == "hist_window":
         last_of, leader, speed, ring_num = a[:4]
         fs = speed.element_size()
-        HL1, L = ring_num.shape
-        V = speed.numel()
-        # per lane its rear slot and the two sums in and out; both rings
-        # in and out (the function returns new rings); per running lane
-        # vehicle its leader and speed; two adds per vehicle, four per lane
-        nveh = int((lane_of(last_of, leader, L, V) < L).sum())
-        return L * (4 + 4 * fs) + 4 * HL1 * L * fs + nveh * (4 + fs), \
-            2 * nveh + 4 * L
+        B, HL1, L = ring_num.shape
+        # per env and lane its rear slot and the two sums in and out; both
+        # rings in and out (the function returns new rings); per running
+        # lane vehicle its leader and speed; two adds per vehicle, four per
+        # lane
+        nveh = int((lane_of(last_of, leader, L) < L).sum())
+        return B * L * (4 + 4 * fs) + 4 * B * HL1 * L * fs \
+            + nveh * (4 + fs), 2 * nveh + 4 * B * L
     if n == "lc_probe":
         running, drv, dis, last_of, leader, net, L = a
+        B = dis.shape[0]
         V = dis.numel()
-        visits = sum(int(((out[s + "_lane"] < L)
-                          * torch.bincount(drv[running & (drv < L)].long(),
-                                           minlength=L + 1)
-                          [out[s + "_lane"].clamp(0, L).long()]).sum())
-                     for s in ("outer", "inner"))
+        # each side lane's walk visits the lane's vehicles (per env)
+        on = running & (drv >= 0) & (drv < L)
+        env = torch.arange(B, device=drv.device)[:, None] * (L + 1)
+        cnt = torch.bincount((torch.where(on, drv, L) + env).reshape(-1)
+                             .long(), minlength=B * (L + 1)).view(B, L + 1)
+        visits = sum(int(((out[s + "_lane"] < L) * cnt.gather(
+            1, out[s + "_lane"].clamp(0, L).long())).sum())
+            for s in ("outer", "inner"))
         return (V * (1 + 4 + dis.element_size() + 4) + last_of.numel() * 4
                 + L * 12 + V * 24), visits * 6 + V * 10
+    if n == "shadow_insert":
+        st, st2, do_change, target, MS = a
+        from cityflow_tpu_torch.kernels.shadow_insert import LEAVES
+        # every per-slot leaf read once and written once (the insert
+        # returns a new state), the change and active flags read by the
+        # scan, each pair's target, uid and the env's ticket; a compare per
+        # slot and flag
+        state = sum(getattr(st2, k).numel() * getattr(st2, k).element_size()
+                    for k in LEAVES)
+        npair = int((out["is_shadow"] & ~st2.is_shadow).sum())
+        B = do_change.shape[0]
+        return 2 * state + 2 * do_change.numel() + npair * 8 + B * 16, \
+            2 * do_change.numel()
     if n == "spawn_slots":
         st, tbl, flow_params, MS = a[0], a[1], a[2], a[4]
         from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
@@ -2186,26 +2246,44 @@ def gen1_work(n, a, k, out):
         return V * (2 + 16 + 2 * fs) + V * (10 + fs) + nenv * L * 8 \
             + nenv * 4 + nheads * 3 * fs, 4 * V
     mode = n.split("@")[1] if "@" in n else None
-    V = a[1].dis.numel()
+    st = a[1]
+    V = st.dis.numel()
+    fs = st.dis.element_size()
     if n.startswith("lc_plan"):
-        st, net = a[1], a[2]
+        net = a[2]
         if mode == "signal":
+            # per slot three flags, the cooldown time, drv, dis, gap, two
+            # params, route and position, lc_target and G6's six
+            # neighbours in; the eight signal fields out; the tables
             tabs = nb(*(net[t] for t in ("drv_len", "lane_out", "lane_local",
                                          "ll_end", "route_len",
                                          "route_next_ll"))) \
                 + k["last_of"].numel() * 4
-            return V * (3 + 8 + 4 + 8 + 8 + 16 + 4 + 4 + 4 + 4 + 24) + tabs \
-                + V * 34, V * 60
+            return V * (3 + 4 + 8 + 4 + 24 + 5 * fs) + tabs \
+                + V * (18 + 2 * fs), V * 60
         if mode == "receive":
             return V * (2 + 4 + 4 + 4) + V * 16, V * 6
         if mode == "decide":
-            return V * 68 + V * 5, V * 12
-        return V * 36 + V * 8, V * 30
+            # the four receive fields, three flags, priority, drv, target,
+            # tfollower, plan, speed, a param and the two gaps in; the
+            # kept signal and the decision out
+            return V * (37 + 4 * fs) + V * 5, V * 12
+        # yield: each slot's sender, speed and a param in, its cap out;
+        # per receiver its sender's speed, param, gap, target leader and
+        # follower, and that follower's speed and param
+        nrecv = int((st.lc_recv >= 0).sum())
+        return V * (4 + 3 * fs) + nrecv * (8 + 5 * fs), V * 30
     if n.startswith("lc_commit"):
         if mode == "tail":
+            # every slot's running flag, offset and end flag in and its
+            # four outputs out; a running slot's partner, flags, drivables,
+            # new speed, direction and target (lane widths: L of them)
             L = a[6]
-            return V * 48 + L * 8 + V * 11, V * 15
-        return V * 35 + V * 32, V * 10
+            nrun = int(st.running.sum())
+            return V * (2 + fs) + nrun * (4 + 2 + 4 + 4 + fs + 4 + 4) \
+                + L * fs + V * (3 + fs), V * 15
+        # commit: thirteen per-slot fields in, ten out
+        return V * (27 + fs) + V * (24 + fs), V * 10
     raise KeyError(n)
 
 
@@ -2327,29 +2405,35 @@ def sort_sum_ms(a, reps):
                               torch.sum(tt, -1)), reps)
 
 
-def lane_of(last_of, leader, L, V):
-    """Each slot's lane from G1's lane chains (L for the slots on none)."""
+def lane_of(last_of, leader, L):
+    """Each slot's lane from G1's lane chains, (B, V) from last_of (B, D)
+    and leader (B, V) (L for the slots on none)."""
     import torch
-    lane = torch.full((V,), L, dtype=torch.long, device=leader.device)
-    walk = last_of[:L]
-    lanes = torch.arange(L, device=leader.device)
+    B, V = leader.shape
+    lane = torch.full((B * V,), L, dtype=torch.long, device=leader.device)
+    walk = last_of[:, :L]
+    lanes = torch.arange(L, device=leader.device).expand(B, L)
+    base = torch.arange(B, device=leader.device)[:, None] * V
     while bool((walk >= 0).any()):
         ok = walk >= 0
-        lane[walk[ok].long()] = lanes[ok]
-        walk = torch.where(ok, leader[walk.clamp(0).long()], -1)
-    return lane
+        lane[(walk + base)[ok].long()] = lanes[ok]
+        walk = torch.where(ok, leader.gather(1, walk.clamp(0).long()), -1)
+    return lane.view(B, V)
 
 
 def index_add_ms(a, reps):
-    """One library call computing G5's per-lane sums: index_add_ of
-    (1, speed) rows into (L + 1, 2) by lane (L for the slots on no lane),
-    the lanes taken outside the timing."""
+    """One library call computing G5's per-lane sums of every env:
+    index_add_ of (1, speed) rows into (B * (L + 1), 2) by env and lane (L
+    for the slots on no lane), the bins taken outside the timing."""
     import torch
     last_of, leader, speed, ring_num = a[:4]
-    L = ring_num.shape[1]
-    lane = lane_of(last_of, leader, L, speed.numel())
-    vals = torch.stack([torch.ones_like(speed), speed], dim=1)
-    out = torch.zeros((L + 1, 2), dtype=speed.dtype, device=speed.device)
+    B, L = speed.shape[0], ring_num.shape[-1]
+    lane = (lane_of(last_of, leader, L) + (L + 1) * torch.arange(
+        B, device=speed.device)[:, None]).reshape(-1)
+    vals = torch.stack([torch.ones_like(speed), speed], dim=-1).reshape(
+        -1, 2)
+    out = torch.zeros((B * (L + 1), 2), dtype=speed.dtype,
+                      device=speed.device)
     return time_cuda(lambda: out.zero_().index_add_(0, lane, vals), reps)
 
 
@@ -2688,8 +2772,10 @@ def _batch_args_ok(n, a, k, batch):
     """The recorded call ran over the whole batch (env axis `batch`)."""
     if n == "notify_cross":
         t = a[2]
-    elif n == "spawn_slots":
+    elif n in ("spawn_slots", "shadow_insert"):
         t = a[0].active
+    elif n in ("lc_plan", "lc_commit"):
+        t = a[1].dis        # after the mode
     else:
         t = a[0]
     assert t.dim() == 2 and t.shape[0] == batch, \
@@ -2934,6 +3020,215 @@ def run_gen1_dqn(cfg_path, batch, iters, warm):
                           mean_rewards=rewards)
 
 
+def lcb_warm_batch(cfg_path, exact, at, pool):
+    """One Engine on `cfg_path` (lane change, DURATION) on the card, its
+    states after each step of `at` (past the first shadows) in one pool of
+    at least `pool` slots, stacked as a batch of len(at) envs whose states
+    differ. Returns the Engine, the batch's config and the batch."""
+    import dataclasses
+    import torch
+    from cityflow_tpu_torch.core.state import SIM_FIELDS, SimState, pad_state
+    from cityflow_tpu_torch.engine import Engine
+    eng = Engine(cfg_path, exact=exact, backend="gen1",
+                 spawn_horizon=max(at) + AGREE_GEN1_LCB_STEPS + 16)
+    snaps = []
+    for t in range(1, max(at) + 1):
+        eng.next_step()
+        if t in at:
+            snaps.append(eng.state)
+    V = max([pool] + [x.active.shape[0] for x in snaps])
+    snaps = [pad_state(x, V) for x in snaps]
+    stb = SimState(**{k: torch.stack([getattr(x, k) for x in snaps])
+                      .contiguous() for k in SIM_FIELDS})
+    return eng, dataclasses.replace(eng.cfg, max_vehicles=V), stb
+
+
+def check_agreement_gen1_lc_batch(cfg_path, steps, exact):
+    """parallel/batch.make_batched_step with lane change and the DURATION
+    history on a batch of AGREE_GEN1_LCB_AT's states (one Engine's, at
+    four different steps past the first shadows, so that an env-offset
+    fault that reads env 0 shows): `steps` batched steps on the card
+    against the same batch on the CPU (plain versions) and against each
+    env stepped alone on the card. Every 10 steps: batched against alone
+    bitwise, every leaf; card against CPU bitwise in exact mode, in fast
+    mode [agree-fast]'s yardstick (the same vehicles on the same
+    drivables, |dis| and |speed| within 2e-3). The steps with shadows are
+    counted (must be > 0); the card batch's launch counts returned."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.core import step as step_mod
+    from cityflow_tpu_torch.core.state import SIM_FIELDS
+    from cityflow_tpu_torch.parallel.batch import make_batched_step
+    tag = "agree-gen1-lc-batch" + ("" if exact else "-fast")
+    t0 = time.time()
+    eng, cfg, stb = lcb_warm_batch(cfg_path, exact, AGREE_GEN1_LCB_AT,
+                                   AGREE_GEN1_LCB_POOL)
+    assert cfg.lane_change and cfg.track_history
+    B = stb.step.shape[0]
+    assert len(set(stb.step.tolist())) == B, "the envs are not distinct"
+    cpu = lambda d: {k: v.cpu() if torch.is_tensor(v) else v
+                     for k, v in d.items()}
+    net, spawn = eng._net_dev, eng._spawn_dev
+    net_c, spawn_c = cpu(net), cpu(spawn)
+    step_g = make_batched_step(net, cfg, with_obs=False)
+    step_c = make_batched_step(net_c, cfg, with_obs=False)
+    g, c = stb, stb.map(lambda x: x.cpu())
+    alone = [stb.map(lambda x, b=b: x[b:b + 1].contiguous())
+             for b in range(B)]
+    shadow_steps, worst = 0, 0.0
+    kernels.reset_launches()
+    for i in range(1, steps + 1):
+        g = step_g(g, spawn)[0]
+        c = step_c(c, spawn_c)[0]
+        alone = [step_mod.step(net, cfg, x, spawn) for x in alone]
+        shadow_steps += int((g.is_shadow & g.running).any(-1).sum())
+        if i % 10 and i != steps:
+            continue
+        for b, x in enumerate(alone):
+            for k in SIM_FIELDS:
+                assert bitwise_equal(getattr(g, k)[b:b + 1], getattr(x, k)), \
+                    f"[{tag}] step {i}: env {b} {k} differs from alone"
+        if exact:
+            for k in SIM_FIELDS:
+                assert bitwise_equal(getattr(g, k).cpu(), getattr(c, k)), \
+                    f"[{tag}] step {i}: {k} differs card vs CPU"
+            continue
+        for b in range(B):
+            va, vb = batch_vehicles(g, b), batch_vehicles(c, b)
+            assert set(va) == set(vb), \
+                f"[{tag}] step {i} env {b}: vehicle sets differ"
+            for u in va:
+                assert va[u][0] == vb[u][0], \
+                    f"[{tag}] step {i} env {b}: uid {u} drivable"
+                worst = max(worst, abs(va[u][1] - vb[u][1]),
+                            abs(va[u][2] - vb[u][2]))
+        assert worst <= 2e-3, f"[{tag}] step {i}: drift {worst}"
+    launches = kernels.launch_counts()
+    assert shadow_steps > 0, f"[{tag}] no shadows"
+    assert int(g.overflow.max()) == 0 and int(c.overflow.max()) == 0
+    for k in GEN1_KERNELS + GEN1_LC_KERNELS:
+        assert launches[k] > 0, f"{k} idle on [{tag}]"
+    log(f"[{tag}] {steps} steps B={B} from steps "
+        f"{[a for a in AGREE_GEN1_LCB_AT]} pool={cfg.max_vehicles}: "
+        f"batched == alone bitwise, card vs CPU "
+        f"{'bitwise' if exact else f'worst_drift={worst}'}; "
+        f"vehicles per env={[len(batch_vehicles(g, b)) for b in range(B)]} "
+        f"env-steps with shadows={shadow_steps} "
+        f"wall_s={time.time() - t0:.1f}")
+    return shadow_steps, launches
+
+
+def run_gen1_lc_batch(ctx, batch, steps):
+    """The batched gen-1 fast step with lane change and the DURATION
+    history on config_30x30_lc.json at `batch` envs: [gen1-lc]'s state
+    after its warm-up (float64, padded to the pool [gen1-lc] ended with,
+    the smallest power of two with no overflow there) cast to float32
+    through carry and copied into the batch (in place of warming a
+    second, fast Engine), then `steps` timed batched steps, the launch
+    counts set to 0 just before and read just after. Asserts overflow ==
+    0, shadows in the window, vehicles, every env equal to env 0 bitwise
+    and G1-G12, G5-G8 and G15 launched."""
+    import dataclasses
+    import torch
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.carry import (
+        net_tensors, sim_state_from_numpy, sim_state_to_numpy)
+    from cityflow_tpu_torch.core.state import pad_state
+    from cityflow_tpu_torch.parallel.batch import (
+        init_batch_state, make_batched_step)
+    host_net, spawn, cfg64, warm = ctx
+    dev = spawn["step"].device
+    cfg = dataclasses.replace(cfg64, exact=False)
+    net = net_tensors(host_net, torch.float32, dev)
+    one = sim_state_from_numpy(sim_state_to_numpy(
+        pad_state(warm, cfg.max_vehicles)), dev, torch.float32)
+    start = int(one.step)
+    stb = init_batch_state(cfg, one, batch)
+    del one
+    step_b = make_batched_step(net, cfg, with_obs=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shadows = torch.zeros((), dtype=torch.int64, device=dev)
+    kernels.reset_launches()
+    t0 = time.time()
+    for _ in range(steps):
+        stb = step_b(stb, spawn)[0]
+        shadows += (stb.is_shadow & stb.running).sum()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = kernels.launch_counts()
+    veh = int(stb.running[0].sum())
+    log(f"[gen1-lc-batch] B={batch} steps={steps} (engine steps "
+        f"{start + 1}-{start + steps}) ms_per_batched_step="
+        f"{dt * 1e3 / steps:.3f} env_steps_per_s={batch * steps / dt:.1f} "
+        f"vehicles_per_env={veh} shadow_rows_in_window={int(shadows)} "
+        f"pool={cfg.max_vehicles} overflow={int(stb.overflow.max())} "
+        f"ring={tuple(stb.hist_ring_num.shape)}")
+    assert int(stb.overflow.max()) == 0, "overflow flags set"
+    assert int(shadows) > 0, "no shadows in the [gen1-lc-batch] window"
+    assert veh > 0, "no vehicles"
+    envs_equal(stb)
+    log(f"[gen1-lc-batch] overflow == 0, shadows in the window, every env "
+        f"equal to env 0 bitwise after step {start + steps}")
+    for k in GEN1_KERNELS + GEN1_LC_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was not launched on " \
+            "gen1-lc-batch"
+    holder = [stb]
+    del stb
+
+    def one_step():
+        holder[0] = step_b(holder[0], spawn)[0]
+    res = _gen1_batch_report("gen1-lc-batch", one_step, launches, steps,
+                             batch, dt, GEN1_KERNELS + GEN1_LC_KERNELS)
+    res.update(start_step=start, vehicles=veh, pool=cfg.max_vehicles,
+               shadow_rows_in_window=int(shadows))
+    return launches, res, (net, cfg, spawn, holder)
+
+
+def check_gen1_lcb_kernels(ctx, reps, batch):
+    """On every call of one more [gen1-lc-batch] step: G5-G8 (every mode
+    of G7 and G8) and G15 against their plain versions, each call asserted
+    to span the `batch` envs: bitwise, G5's speed sums within 1e-6
+    relative (float32, as pinned). Timed on the first call of each kernel
+    and mode (rows <name>@lcbatch), G5 beside index_add_; G15 has no one
+    library call that computes its function."""
+    from cityflow_tpu_torch import kernels
+    from cityflow_tpu_torch.core import step as step_mod
+    net, cfg, spawn, holder = ctx
+
+    def one():
+        holder[0] = step_mod.step(net, cfg, holder[0], spawn)
+    calls = record_gen1_calls(one, GEN1_LC_KERNELS)
+    del holder[:]
+    rows = []
+    for n in GEN1_LC_KERNELS:
+        mod = kernels.MODULES[n]
+        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        assert calls[n], f"{n}: no call recorded"
+        rel_tol = 1e-6 if n == "hist_window" else None
+        errs = []
+        for a, k in calls[n]:
+            _batch_args_ok(n, a, k, batch)
+            errs.append(_check_call(n, kern, plain, a, k, rel_tol))
+        how = "within 1e-6 relative" if rel_tol else "bitwise"
+        log(f"[kernels] {n}: {len(calls[n])} calls at B={batch} equal to the "
+            f"plain version ({how})")
+        timed = {}
+        for a, k in calls[n]:
+            timed.setdefault(_gen1_label(n, a), (a, k))
+        for label, (a, k) in timed.items():
+            ms = time_cuda(lambda: kern(*a, **k), reps)
+            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+            lib = index_add_ms(a, reps) if n == "hist_window" else None
+            nbytes, nops = gen1_work(
+                f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
+                kern(*a, **k))
+            rows.append(kernel_row(label + "@lcbatch", max(errs), ms,
+                                   plain_ms, nbytes, nops, lib))
+    return rows
+
+
 def main():
     t_start = time.time()
     if not os.path.isdir(os.path.join(HERE, "cityflow_tpu_torch")):
@@ -3060,7 +3355,7 @@ def main():
         assert golden_launches[k] > 0, f"{k} idle on [golden-gen1]"
     assert golden_launches["update_location@fast"] == 0
     check_agreement_gen1(cfg_path, AGREE_GEN1_STEPS)
-    gen1_launches, gen1_res, eng = run_gen1(cfg_path, GEN1_WARMUP,
+    gen1_launches, gen1_res, eng, _ = run_gen1(cfg_path, GEN1_WARMUP,
                                             GEN1_STEPS)
     log(f"[gen1] {json.dumps(gen1_res)}")
     rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS)
@@ -3076,13 +3371,15 @@ def main():
                                    "config_30x30_lc.json"),
                       name="config_30x30_lc_duration",
                       routerType="DURATION")
-    glc_launches, glc_res, eng = run_gen1(
+    glc_launches, glc_res, eng, glc_warm = run_gen1(
         glc_cfg, GEN1_LC_WARMUP, GEN1_LC_STEPS, tag="gen1-lc",
         names=GEN1_KERNELS + GEN1_LC_KERNELS)
     log(f"[gen1-lc] {json.dumps(glc_res)}")
     rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS,
                                untimed=("spawn_slots", "admit_heads"))
-    del eng
+    # what [gen1-lc-batch] starts from: the warm state, the pool, tables
+    glc_ctx = (eng.net, eng._spawn_dev, eng.cfg, glc_warm)
+    del eng, glc_warm
     torch.cuda.empty_cache()
 
     # Engine(exact=False): gen-1 fast mode (float32) ...
@@ -3093,7 +3390,7 @@ def main():
         "agree-fast", Engine(four, spawn_horizon=AGREE_FAST_STEPS + 8, **fast),
         Engine(four, spawn_horizon=AGREE_FAST_STEPS + 8, device="cpu",
                **fast), AGREE_FAST_STEPS)
-    fast_launches, fast_res, eng = run_gen1(
+    fast_launches, fast_res, eng, _ = run_gen1(
         cfg_path, GEN1_WARMUP, GEN1_STEPS, tag="gen1-fast", exact=False,
         modes=GEN1_FAST_MODES)
     log(f"[gen1-fast] {json.dumps(fast_res)}")
@@ -3146,12 +3443,46 @@ def main():
                                            GEN1_DQN_ITERS, warm)
     del warm
     log(f"[gen1-dqn] {json.dumps(gdqn_res)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # batched gen-1 lane change and the DURATION history
+    for exact in (True, False):
+        check_agreement_gen1_lc_batch(lcd, AGREE_GEN1_LCB_STEPS, exact)
+    lcb_batch = BATCH
+    while True:
+        try:
+            glcb_launches, glcb_res, lcb_ctx = run_gen1_lc_batch(
+                glc_ctx, lcb_batch, GEN1_LCB_STEPS)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            why = str(e)[:160]
+        # the state, the history rings and the step's temporaries at this
+        # B do not fit the card: halve B and say so
+        log(f"[gen1-lc-batch] out of device memory at B={lcb_batch} "
+            f"({why}); halving B")
+        assert lcb_batch > 1, "[gen1-lc-batch] does not fit at B=1"
+        gc.collect()
+        torch.cuda.empty_cache()
+        lcb_batch //= 2
+    glcb_res["batch_halved_from"] = BATCH if lcb_batch != BATCH else None
+    log(f"[gen1-lc-batch] {json.dumps(glcb_res)}")
+    del glc_ctx
+    rows += check_gen1_lcb_kernels(lcb_ctx, REPS, lcb_batch)
+    del lcb_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
     # each row's launches come from the path that runs it
     path_of = {"lane_stats@hist": hist_launches,
                "phase_pressure@features": dqn_launches}
     for r in rows:
         name = r["name"]
-        if name.endswith("@batch"):
+        if name.endswith("@lcbatch"):
+            base = name[:-len("@lcbatch")]
+            r["launches"] = glcb_launches[
+                {"lc_plan": "lc_plan@signal",
+                 "lc_commit": "lc_commit@tail"}.get(base, base)]
+        elif name.endswith("@batch"):
             r["launches"] = gb_launches[name.split("@")[0]]
         elif name == "phase_scores":
             # the pressure mode: the calls in no other mode

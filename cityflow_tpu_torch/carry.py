@@ -63,10 +63,12 @@ def net_tensors(net, dtype, device):
 
 def sim_state_from_numpy(leaves, device, dtype=torch.float64) -> SimState:
     """{field: array} of a gen-1 SimState (the JAX package's, or a dump;
-    one env's, or a vmapped batch's with its leading env axis, which the
-    port's batched step takes as it is) -> the port's SimState in its
-    dtypes: bool, int32 (JAX under x64 returns some ints as int64) and
-    `dtype` for floats."""
+    one env's, or a vmapped batch's with its leading env axis on every
+    leaf, the lane-change leaves and the history rings (B, HL + 1, L)
+    included, which the port's batched step takes as it is) -> the port's
+    SimState in its dtypes: bool, int32 (JAX under x64 returns some ints
+    as int64) and `dtype` for floats (float64 leaves cast to float32 give
+    a fast-mode state)."""
     out = {}
     for k in SIM_FIELDS:
         a = np.asarray(leaves[k])

@@ -211,6 +211,48 @@ __device__ void block_exclusive_scan(const X* x, int* y, long long n,
   __syncthreads();
 }
 
+// One block: out[0..MS) = the first MS slots v in slot order with
+// (flag[v] != 0) == want, -1 past the last (each thread a contiguous chunk,
+// the chunk counts scanned in shared memory; sh: blockDim.x ints). Every
+// thread of the block calls it.
+__device__ __forceinline__ void block_first_n(const uint8_t* flag, bool want,
+                                              long long V, long long MS,
+                                              int* out, int* sh) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  for (long long k = t; k < MS; k += nt) out[k] = -1;
+  long long chunk = (V + nt - 1) / nt;
+  long long lo = t * chunk;
+  long long hi = lo + chunk < V ? lo + chunk : V;
+  int c = 0;
+  for (long long v = lo; v < hi; ++v) c += (flag[v] != 0) == want;
+  sh[t] = c;
+  __syncthreads();
+  for (int o = 1; o < nt; o <<= 1) {
+    int add = (t >= o) ? sh[t - o] : 0;
+    __syncthreads();
+    sh[t] += add;
+    __syncthreads();
+  }
+  int r = sh[t] - c;
+  for (long long v = lo; v < hi && r < MS; ++v)
+    if ((flag[v] != 0) == want) out[r++] = (int)v;
+  __syncthreads();
+}
+
+// w bytes from s to d, in the widest word both are aligned to (a slot row
+// of a leaf: 1, 4, 8 or a multiple of 4 or 8 bytes)
+__device__ __forceinline__ void copy_bytes(char* d, const char* s,
+                                           long long w) {
+  if (w % 8 == 0) {
+    for (long long i = 0; i < w; i += 8)
+      *(long long*)(d + i) = *(const long long*)(s + i);
+  } else if (w % 4 == 0) {
+    for (long long i = 0; i < w; i += 4) *(int*)(d + i) = *(const int*)(s + i);
+  } else {
+    for (long long i = 0; i < w; ++i) d[i] = s[i];
+  }
+}
+
 __host__ __device__ __forceinline__ unsigned grid_blocks(long long n,
                                                          int threads) {
   long long b = (n + threads - 1) / threads;

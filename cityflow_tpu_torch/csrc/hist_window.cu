@@ -14,6 +14,10 @@
 // Bound: bytes. Per lane: its rear slot, then per vehicle its leader and
 // speed (12 bytes); the old ring row and sums in, the new row and sums
 // out (64 bytes per lane).
+//
+// B envs at once: the env is blockIdx.y, and at_env moves every per-env
+// pointer (last_of, the slots, the rings, the sums, hist_t) to that env's
+// rows. Each env takes its ring row from its own hist_t.
 #include "gen1.cuh"
 
 using namespace gen1;
@@ -31,11 +35,30 @@ struct HistWindowArgs {
   void* out_ssum;           // (L,) T
   void* ring_num_out;       // (HL1, L) T copy of ring_num; row slot written
   void* ring_ssum_out;      // (HL1, L) T
-  long long L, HL1, V, fp32;
+  long long B, L, D, HL1, V, fp32;
 };
 
+// the arguments of env b: the per-env arrays moved to that env's rows
+__device__ HistWindowArgs at_env(HistWindowArgs a, long long b) {
+  long long fs = a.fp32 ? 4 : 8;
+  a.last_of += b * a.D;
+  a.leader += b * a.V;
+  a.speed = (const char*)a.speed + b * a.V * fs;
+  a.ring_num = (const char*)a.ring_num + b * a.HL1 * a.L * fs;
+  a.ring_ssum = (const char*)a.ring_ssum + b * a.HL1 * a.L * fs;
+  a.hist_num = (const char*)a.hist_num + b * a.L * fs;
+  a.hist_ssum = (const char*)a.hist_ssum + b * a.L * fs;
+  a.hist_t += b;
+  a.out_num = (char*)a.out_num + b * a.L * fs;
+  a.out_ssum = (char*)a.out_ssum + b * a.L * fs;
+  a.ring_num_out = (char*)a.ring_num_out + b * a.HL1 * a.L * fs;
+  a.ring_ssum_out = (char*)a.ring_ssum_out + b * a.HL1 * a.L * fs;
+  return a;
+}
+
 template <typename T>
-__global__ void hist_window_kernel(const HistWindowArgs a) {
+__global__ void hist_window_kernel(const HistWindowArgs a0) {
+  const HistWindowArgs a = at_env(a0, blockIdx.y);
   const T* speed = (const T*)a.speed;
   const long long t = *a.hist_t;
   const long long slot = t % a.HL1;
@@ -61,9 +84,10 @@ __global__ void hist_window_kernel(const HistWindowArgs a) {
 
 extern "C" int hist_window(const HistWindowArgs* args, void* stream) {
   const HistWindowArgs a = *args;
-  if (a.L == 0) return 0;
+  if (a.L == 0 || a.B == 0) return 0;
   const int threads = 128;
-  GEN1_LAUNCH(hist_window_kernel, a, grid_blocks(a.L, threads), threads,
-                                     0, (cudaStream_t)stream);
+  GEN1_LAUNCH(hist_window_kernel, a,
+              dim3(grid_blocks(a.L, threads), (unsigned)a.B), threads, 0,
+              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

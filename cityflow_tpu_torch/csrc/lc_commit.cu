@@ -20,6 +20,10 @@
 // and its shadow point at each other until both are unlinked in the same
 // commit), so the scatter becomes a read.
 //
+// B envs at once: the env is blockIdx.y, and at_env moves every per-env
+// pointer to that env's rows; a partner is a slot index local to its
+// env. The lane widths and the interval are shared.
+//
 // Bound: bytes. Per slot about ten fields and its partner's two or three.
 #include "gen1.cuh"
 
@@ -64,8 +68,60 @@ struct LcCommitArgs {
   int* lc_recv_out;
   uint8_t* lc_has_signal_out;
   int* lc_target_out;
-  long long V, L, fp32;
+  long long B, V, L, fp32;
 };
+
+template <typename P>
+__device__ __forceinline__ void shift(P*& ptr, long long n) {
+  if (ptr) ptr += n;
+}
+
+__device__ __forceinline__ void shift_bytes(const void*& ptr, long long n) {
+  if (ptr) ptr = (const char*)ptr + n;
+}
+
+__device__ __forceinline__ void shift_bytes(void*& ptr, long long n) {
+  if (ptr) ptr = (char*)ptr + n;
+}
+
+// the arguments of env b: the per-env arrays moved to that env's rows
+// (null pointers of the other mode stay null)
+__device__ LcCommitArgs at_env(LcCommitArgs a, long long b) {
+  const long long fs = a.fp32 ? 4 : 8, o = b * a.V;
+  shift(a.running, o);
+  shift(a.is_shadow, o);
+  shift(a.lc_changing, o);
+  shift(a.partner, o);
+  shift(a.drv, o);
+  shift(a.buf_drv, o);
+  shift_bytes(a.offset, o * fs);
+  shift_bytes(a.new_speed, o * fs);
+  shift(a.lc_dir, o);
+  shift(a.lc_target, o);
+  shift(a.end, o);
+  shift_bytes(a.offset_out, o * fs);
+  shift(a.finish, o);
+  shift(a.abort_, o);
+  shift(a.end_out, o);
+  shift(a.removed, o);
+  shift(a.uid, o);
+  shift(a.lc_finished, o);
+  shift(a.lc_has_signal, o);
+  shift(a.lc_last_dir, o);
+  shift(a.c_finish, o);
+  shift_bytes(a.c_offset, o * fs);
+  shift(a.uid_out, o);
+  shift(a.is_shadow_out, o);
+  shift(a.partner_out, o);
+  shift_bytes(a.offset_c_out, o * fs);
+  shift(a.lc_changing_out, o);
+  shift(a.lc_finished_out, o);
+  shift(a.lc_last_dir_out, o);
+  shift(a.lc_recv_out, o);
+  shift(a.lc_has_signal_out, o);
+  shift(a.lc_target_out, o);
+  return a;
+}
 
 __device__ __forceinline__ bool aborts(const LcCommitArgs& a, long long v) {
   // a shadow that moved to another drivable (engine.cpp:223-226)
@@ -74,7 +130,8 @@ __device__ __forceinline__ bool aborts(const LcCommitArgs& a, long long v) {
 }
 
 template <typename T>
-__global__ void tail_kernel(const LcCommitArgs a) {
+__global__ void tail_kernel(const LcCommitArgs a0) {
+  const LcCommitArgs a = at_env(a0, blockIdx.y);
   const T dt = *(const T*)a.interval;
   const T* lw = (const T*)a.lane_width;
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -99,7 +156,8 @@ __global__ void tail_kernel(const LcCommitArgs a) {
 }
 
 template <typename T>
-__global__ void commit_kernel(const LcCommitArgs a) {
+__global__ void commit_kernel(const LcCommitArgs a0) {
+  const LcCommitArgs a = at_env(a0, blockIdx.y);
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
     int p = a.partner[v];
@@ -126,9 +184,9 @@ __global__ void commit_kernel(const LcCommitArgs a) {
 
 extern "C" int lc_commit(const LcCommitArgs* args, int mode, void* stream) {
   const LcCommitArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   const int threads = 128;
-  const unsigned g = grid_blocks(a.V, threads);
+  const dim3 g(grid_blocks(a.V, threads), (unsigned)a.B);
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == 0) {
     GEN1_LAUNCH(tail_kernel, a, g, threads, 0, s);

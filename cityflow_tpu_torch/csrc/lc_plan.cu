@@ -25,6 +25,13 @@
 // written for every slot, as there. The float formulas keep the JAX
 // package's operation order.
 //
+// B envs at once: the env is blockIdx.y, and at_env moves every per-env
+// pointer (the slots, the engine step, G6's neighbours, last_of, every
+// output) to that env's rows; the tables are shared. A leader, follower
+// or sender is a slot index local to its env, so receive's atomicMax
+// targets land in the sender's own env's rows and the winning slot comes
+// out env-local: per env, the largest slot of the highest priority.
+//
 // Bound: bytes. Per slot about 30 field reads (several through an index),
 // the route entries of two lanes and k_out rear vehicles; a few outputs.
 #include "gen1.cuh"
@@ -87,8 +94,68 @@ struct LcPlanArgs {
   const int* y_tleader;
   const int* y_tfollower;
   void* yield_v;             // T
-  long long V, L, D, KO, NR, RLEN, MAXLPR, NP, fp32;
+  long long B, V, L, D, KO, NR, RLEN, MAXLPR, NP, fp32;
 };
+
+// the arguments of env b: the per-env arrays moved to that env's rows
+// (null pointers of a mode that does not read them stay null)
+template <typename P>
+__device__ __forceinline__ void shift(P*& ptr, long long n) {
+  if (ptr) ptr += n;
+}
+
+__device__ __forceinline__ void shift_bytes(const void*& ptr, long long n) {
+  if (ptr) ptr = (const char*)ptr + n;
+}
+
+__device__ __forceinline__ void shift_bytes(void*& ptr, long long n) {
+  if (ptr) ptr = (char*)ptr + n;
+}
+
+__device__ LcPlanArgs at_env(LcPlanArgs a, long long b) {
+  const long long fs = a.fp32 ? 4 : 8, V = a.V, o = b * V;
+  shift(a.running, o);
+  shift(a.is_shadow, o);
+  shift(a.lc_changing, o);
+  shift_bytes(a.lc_last_t, o * fs);
+  shift(a.drv, o);
+  shift_bytes(a.dis, o * fs);
+  shift_bytes(a.speed, o * fs);
+  shift_bytes(a.gap, o * fs);
+  shift_bytes(a.params, o * a.NP * fs);
+  shift(a.route, o);
+  shift(a.route_pos, o);
+  shift(a.lc_target, o);
+  shift(a.priority, o);
+  shift(a.step, b);
+  shift(a.outer_lane, o);
+  shift(a.inner_lane, o);
+  shift(a.outer_leader, o);
+  shift(a.outer_follower, o);
+  shift(a.inner_leader, o);
+  shift(a.inner_follower, o);
+  shift(a.last_of, b * a.D);
+  shift(a.has_signal, o);
+  shift(a.target, o);
+  shift(a.direction, o);
+  shift(a.plan, o);
+  shift(a.tleader, o);
+  shift(a.tfollower, o);
+  shift_bytes(a.lgap, o * fs);
+  shift_bytes(a.fgap, o * fs);
+  shift(a.best_l, o);
+  shift(a.best_f, o);
+  shift(a.slot_l, o);
+  shift(a.slot_f, o);
+  shift(a.lc_recv, o);
+  shift(a.do_change, o);
+  shift(a.y_recv, o);
+  shift_bytes(a.y_fgap, o * fs);
+  shift(a.y_tleader, o);
+  shift(a.y_tfollower, o);
+  shift_bytes(a.yield_v, o * fs);
+  return a;
+}
 
 constexpr int INT32_MIN_ = -2147483647 - 1;
 
@@ -117,7 +184,8 @@ __device__ __forceinline__ T estimate_gap(const LcPlanArgs& a, int leader,
 }
 
 template <typename T>
-__global__ void signal_kernel(const LcPlanArgs a) {
+__global__ void signal_kernel(const LcPlanArgs a0) {
+  const LcPlanArgs a = at_env(a0, blockIdx.y);
   const T* dis = (const T*)a.dis;
   const T* P = (const T*)a.params;
   const T* drv_len = (const T*)a.drv_len;
@@ -212,7 +280,8 @@ __global__ void signal_kernel(const LcPlanArgs a) {
 
 // receive, pass 1: the highest priority among the senders of each
 // receiver (best_* start at -2^31)
-__global__ void receive_best_kernel(const LcPlanArgs a) {
+__global__ void receive_best_kernel(const LcPlanArgs a0) {
+  const LcPlanArgs a = at_env(a0, blockIdx.y);
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
     if (!(a.plan[v] && a.has_signal[v])) continue;
@@ -225,7 +294,8 @@ __global__ void receive_best_kernel(const LcPlanArgs a) {
 
 // receive, pass 2: the largest sender slot of that priority (slot_* start
 // at -1)
-__global__ void receive_slot_kernel(const LcPlanArgs a) {
+__global__ void receive_slot_kernel(const LcPlanArgs a0) {
+  const LcPlanArgs a = at_env(a0, blockIdx.y);
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
     if (!(a.plan[v] && a.has_signal[v])) continue;
@@ -237,7 +307,8 @@ __global__ void receive_slot_kernel(const LcPlanArgs a) {
 }
 
 template <typename T>
-__global__ void decide_kernel(const LcPlanArgs a) {
+__global__ void decide_kernel(const LcPlanArgs a0) {
+  const LcPlanArgs a = at_env(a0, blockIdx.y);
   const T* speed = (const T*)a.speed;
   const T* P = (const T*)a.params;
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -273,7 +344,8 @@ __global__ void decide_kernel(const LcPlanArgs a) {
 }
 
 template <typename T>
-__global__ void yield_kernel(const LcPlanArgs a) {
+__global__ void yield_kernel(const LcPlanArgs a0) {
+  const LcPlanArgs a = at_env(a0, blockIdx.y);
   const T* speed = (const T*)a.speed;
   const T* P = (const T*)a.params;
   const T dt = *(const T*)a.interval;
@@ -300,9 +372,9 @@ __global__ void yield_kernel(const LcPlanArgs a) {
 
 extern "C" int lc_plan(const LcPlanArgs* args, int mode, void* stream) {
   const LcPlanArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   const int threads = 128;
-  const unsigned g = grid_blocks(a.V, threads);
+  const dim3 g(grid_blocks(a.V, threads), (unsigned)a.B);
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:

@@ -16,6 +16,10 @@
 // key > the probe's (ties: the smallest slot). Keys are lax.sort's total
 // order of -dis, so -0.0 and NaN order as there.
 //
+// B envs at once: the env is blockIdx.y, and at_env moves every per-env
+// pointer (the slots, last_of, the outputs) to that env's rows; every
+// link a walk follows is a slot index local to its env.
+//
 // Bound: bytes. Per vehicle its state and two lane walks, each member's
 // distance and leader read (12 bytes a member); six int32 outputs.
 #include "gen1.cuh"
@@ -37,8 +41,25 @@ struct LcProbeArgs {
   int* outer_follower;
   int* inner_leader;
   int* inner_follower;
-  long long V, L, R, fp32;
+  long long B, V, L, D, R, fp32;
 };
+
+// the arguments of env b: the per-env arrays moved to that env's rows
+__device__ LcProbeArgs at_env(LcProbeArgs a, long long b) {
+  long long fs = a.fp32 ? 4 : 8, V = a.V;
+  a.running += b * V;
+  a.drv += b * V;
+  a.dis = (const char*)a.dis + b * V * fs;
+  a.last_of += b * a.D;
+  a.leader += b * V;
+  a.outer_lane += b * V;
+  a.inner_lane += b * V;
+  a.outer_leader += b * V;
+  a.outer_follower += b * V;
+  a.inner_leader += b * V;
+  a.inner_follower += b * V;
+  return a;
+}
 
 template <typename T>
 __device__ __forceinline__ void probe(const LcProbeArgs& a, const T* dis,
@@ -65,7 +86,8 @@ __device__ __forceinline__ void probe(const LcProbeArgs& a, const T* dis,
 }
 
 template <typename T>
-__global__ void lc_probe_kernel(const LcProbeArgs a) {
+__global__ void lc_probe_kernel(const LcProbeArgs a0) {
+  const LcProbeArgs a = at_env(a0, blockIdx.y);
   const T* dis = (const T*)a.dis;
   for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        v < a.V; v += (long long)gridDim.x * blockDim.x) {
@@ -91,9 +113,10 @@ __global__ void lc_probe_kernel(const LcProbeArgs a) {
 
 extern "C" int lc_probe(const LcProbeArgs* args, void* stream) {
   const LcProbeArgs a = *args;
-  if (a.V == 0) return 0;
+  if (a.V == 0 || a.B == 0) return 0;
   const int threads = 128;
-  GEN1_LAUNCH(lc_probe_kernel, a, grid_blocks(a.V, threads), threads,
-                                  0, (cudaStream_t)stream);
+  GEN1_LAUNCH(lc_probe_kernel, a,
+              dim3(grid_blocks(a.V, threads), (unsigned)a.B), threads, 0,
+              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -59,26 +59,8 @@ __global__ void spawn_free(const SpawnArgs a) {
   const long long b = blockIdx.y;
   const uint8_t* active = a.active + b * a.V;
   int* tgt = a.tgt + b * a.MS;
-  const int t = threadIdx.x, nt = blockDim.x;
-  for (long long k = t; k < a.MS; k += nt) tgt[k] = -1;
-  long long chunk = (a.V + nt - 1) / nt;
-  long long lo = t * chunk;
-  long long hi = lo + chunk < a.V ? lo + chunk : a.V;
-  int c = 0;
-  for (long long v = lo; v < hi; ++v) c += !active[v];
-  sh[t] = c;
-  __syncthreads();
-  for (int o = 1; o < nt; o <<= 1) {
-    int add = (t >= o) ? sh[t - o] : 0;
-    __syncthreads();
-    sh[t] += add;
-    __syncthreads();
-  }
-  int r = sh[t] - c;
-  for (long long v = lo; v < hi && r < a.MS; ++v)
-    if (!active[v]) tgt[r++] = (int)v;
-  __syncthreads();
-  if (t == 0) {
+  block_first_n(active, false, a.V, a.MS, tgt, sh);
+  if (threadIdx.x == 0) {
     long long start = a.cursor[b];
     long long top = a.n - a.MS;
     start = start < 0 ? 0 : (start > top ? top : start);
@@ -92,18 +74,6 @@ __global__ void spawn_free(const SpawnArgs a) {
     }
     a.cursor_out[b] = a.cursor[b] + nwant;
     a.overflow_out[b] = a.overflow[b] | (ov ? OV_SLOTS_ : 0);
-  }
-}
-
-__device__ __forceinline__ void copy_bytes(char* d, const char* s,
-                                           long long w) {
-  if (w % 8 == 0) {
-    for (long long i = 0; i < w; i += 8)
-      *(long long*)(d + i) = *(const long long*)(s + i);
-  } else if (w % 4 == 0) {
-    for (long long i = 0; i < w; i += 4) *(int*)(d + i) = *(const int*)(s + i);
-  } else {
-    for (long long i = 0; i < w; ++i) d[i] = s[i];
   }
 }
 

@@ -35,6 +35,8 @@ counter:
                      drivable counts, the in-flight travel-time sum
   G14 phase_scores   gen-1 intersection pressure, MaxPressure phase
                      pressures and choice, the DQN's per-phase features
+  G15 shadow_insert  gen-1 lane change: the shadows into each env's first
+                     free slots, every per-slot leaf written
   T1 tpl_params      vehicle template index -> template parameters
 
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
@@ -42,11 +44,11 @@ each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
 and lane-change modes also as car_follow@tpl+lc. G7's and G8's modes are
 counted apart as lc_plan@<mode> and lc_commit@<mode>. The gen-1 kernels
-G1-G12 run in float64 (exact mode) or float32 (fast mode); the float32
-launches of G1-G8 and G10-G12 are counted apart as <name>@f32, and the
-fast branches of G2, G9 and G10 as <name>@fast. G1-G4 and G9-G14 take B
-envs' slot pools at once (a leading env axis, the env on the kernel's
-grid); one env is a batch of one. G13's calls with the per-drivable
+G1-G12 and G15 run in float64 (exact mode) or float32 (fast mode); the
+float32 launches of G1-G8, G10-G12 and G15 are counted apart as
+<name>@f32, and the fast branches of G2, G9 and G10 as <name>@fast.
+Every G kernel takes B envs' slot pools at once (a leading env axis, the
+env on the kernel's grid); one env is a batch of one. G13's calls with the per-drivable
 counts count apart as lane_counts@drivables, G14's modes as
 phase_scores@phases and phase_scores@features.
 
@@ -58,8 +60,8 @@ from cityflow_tpu_torch.kernels import (
     admit_heads, arrange, blocker_cycles, car_follow, cross_caps, cross_pass,
     gather_rows, hist_window, lane_counts, lane_stats, lc_commit, lc_insert,
     lc_partner, lc_plan, lc_probe, lc_receive, lc_signal, leader_scan,
-    notify_cross, phase_pressure, phase_scores, ring_commit, spawn_slots,
-    tpl_params, update_location)
+    notify_cross, phase_pressure, phase_scores, ring_commit, shadow_insert,
+    spawn_slots, tpl_params, update_location)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -73,12 +75,13 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "blocker_cycles": blocker_cycles,
            "update_location": update_location, "spawn_slots": spawn_slots,
            "admit_heads": admit_heads, "lane_counts": lane_counts,
-           "phase_scores": phase_scores}
+           "phase_scores": phase_scores, "shadow_insert": shadow_insert}
 
 # the gen-1 kernels with a float32 mode, and those with a fast branch
 F32_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
                "hist_window", "lc_probe", "lc_plan", "lc_commit",
-               "update_location", "spawn_slots", "admit_heads")
+               "update_location", "spawn_slots", "admit_heads",
+               "shadow_insert")
 FAST_KERNELS = ("leader_scan", "blocker_cycles", "update_location")
 
 

@@ -106,7 +106,7 @@ def lib():
                      "notify_cross", "cross_pass", "tpl_params",
                      "hist_window", "lc_probe", "blocker_cycles",
                      "update_location", "spawn_slots", "admit_heads",
-                     "lane_counts", "phase_scores"):
+                     "lane_counts", "phase_scores", "shadow_insert"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int

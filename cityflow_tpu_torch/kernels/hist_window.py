@@ -1,12 +1,14 @@
 """G5 hist_window: the gen-1 DURATION router's lane-history window
-(csrc/hist_window.cu), Lane::updateHistory for every lane.
+(csrc/hist_window.cu), Lane::updateHistory for every lane of B envs at
+once (one env is B = 1).
 
-Inputs: G1's last_of (D,) and leader (V,) (i32) of the arrangement the
-call belongs to, speed (V,) f64, the ring rows ring_num / ring_ssum
-(HL1, L) f64, the window sums hist_num / hist_ssum (L,) f64 and hist_t
-(0-dim i32, the calls so far); float32 for f64 in fast mode. Returns
-(hist_num, hist_ssum, ring_num, ring_ssum), new tensors: this call's
-per-lane vehicle count and speed sum go into ring row hist_t % HL1, and
+Inputs: G1's last_of (B, D) and leader (B, V) (i32) of the arrangement the
+call belongs to, speed (B, V) f64, the ring rows ring_num / ring_ssum
+(B, HL1, L) f64, the window sums hist_num / hist_ssum (B, L) f64 and
+hist_t (B,) i32 (each env's calls so far); float32 for f64 in fast mode.
+Returns (hist_num, hist_ssum, ring_num, ring_ssum), new tensors: each
+env's per-lane vehicle count and speed sum of this call go into its ring
+row hist_t % HL1 (its own hist_t: envs need not step in lockstep), and
 each window sum becomes sum - old row + this call's (the old row counts
 once the ring is full).
 
@@ -20,7 +22,7 @@ import ctypes
 
 import torch
 
-from cityflow_tpu_torch.core.step import gat
+from cityflow_tpu_torch.core.step import egat
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
@@ -32,36 +34,38 @@ class _Args(ctypes.Structure):
         "last_of", "leader", "speed", "ring_num", "ring_ssum", "hist_num",
         "hist_ssum", "hist_t", "out_num", "out_ssum", "ring_num_out",
         "ring_ssum_out")]
-        + [(n, ctypes.c_longlong) for n in ("L", "HL1", "V", "fp32")])
+        + [(n, ctypes.c_longlong) for n in ("B", "L", "D", "HL1", "V",
+                                            "fp32")])
 
 
 def lane_sums_plain(last_of, leader, speed, L):
-    """Per lane (count, speed sum) of its running vehicles, added one
-    vehicle at a time from the rear along the leader chain."""
-    cur = last_of[:L]
-    n = torch.zeros(L, dtype=speed.dtype, device=speed.device)
+    """Per env and lane (count, speed sum) of its running vehicles, added
+    one vehicle at a time from the rear along the leader chain."""
+    cur = last_of[:, :L]
+    n = torch.zeros(cur.shape, dtype=speed.dtype, device=speed.device)
     s = torch.zeros_like(n)
     while bool((cur >= 0).any()):
         has = cur >= 0
         n = torch.where(has, n + 1, n)
-        s = torch.where(has, s + gat(speed, cur), s)
-        cur = torch.where(has, gat(leader, cur), -1)
+        s = torch.where(has, s + egat(speed, cur), s)
+        cur = torch.where(has, egat(leader, cur), -1)
     return n, s
 
 
 def hist_window_plain(last_of, leader, speed, ring_num, ring_ssum, hist_num,
                       hist_ssum, hist_t):
-    """Plain PyTorch version: the lane walk vectorised over lanes, then
-    JAX's window update (sum - old + cur) and the ring row swap."""
-    HL1, L = ring_num.shape
+    """Plain PyTorch version: the lane walk vectorised over envs and
+    lanes, then JAX's window update (sum - old + cur) and each env's ring
+    row swap."""
+    B, HL1, L = ring_num.shape
     cur_n, cur_s = lane_sums_plain(last_of, leader, speed, L)
-    slot = (hist_t % HL1).reshape(1).long()
-    full = hist_t >= HL1
-    old_n = torch.where(full, ring_num.index_select(0, slot)[0], 0.0)
-    old_s = torch.where(full, ring_ssum.index_select(0, slot)[0], 0.0)
+    row = (hist_t % HL1).long().view(B, 1, 1).expand(B, 1, L)
+    full = (hist_t >= HL1)[:, None]
+    old_n = torch.where(full, ring_num.gather(1, row)[:, 0], 0.0)
+    old_s = torch.where(full, ring_ssum.gather(1, row)[:, 0], 0.0)
     return (hist_num - old_n + cur_n, hist_ssum - old_s + cur_s,
-            ring_num.index_copy(0, slot, cur_n[None]),
-            ring_ssum.index_copy(0, slot, cur_s[None]))
+            ring_num.scatter(1, row, cur_n[:, None]),
+            ring_ssum.scatter(1, row, cur_s[:, None]))
 
 
 def hist_window(last_of, leader, speed, ring_num, ring_ssum, hist_num,
@@ -73,13 +77,19 @@ def hist_window(last_of, leader, speed, ring_num, ring_ssum, hist_num,
                     ring_ssum, hist_num, hist_ssum, hist_t,
                     dtypes=[i32, i32, f64, f64, f64, f64, f64, i32],
                     cuda=not cpu)
-    HL1, L = ring_num.shape
-    V = speed.shape[0]
-    if tuple(ring_ssum.shape) != (HL1, L) or tuple(hist_num.shape) != (L,) \
-            or tuple(hist_ssum.shape) != (L,) or hist_t.dim() != 0 \
-            or leader.shape[0] != V or last_of.shape[0] < L:
-        raise ValueError("hist_window: shapes do not fit (HL1, L) rings, "
-                         "(L,) sums, (V,) slots and a 0-dim hist_t")
+    if ring_num.dim() != 3 or speed.dim() != 2 or last_of.dim() != 2:
+        raise ValueError("hist_window: rings must be (B, HL1, L), slots "
+                         "(B, V), last_of (B, D)")
+    B, HL1, L = ring_num.shape
+    V = speed.shape[1]
+    if tuple(ring_ssum.shape) != (B, HL1, L) \
+            or tuple(hist_num.shape) != (B, L) \
+            or tuple(hist_ssum.shape) != (B, L) \
+            or tuple(hist_t.shape) != (B,) \
+            or tuple(leader.shape) != (B, V) or speed.shape[0] != B \
+            or last_of.shape[0] != B or last_of.shape[1] < L:
+        raise ValueError("hist_window: shapes do not fit (B, HL1, L) rings, "
+                         "(B, L) sums, (B, V) slots and a (B,) hist_t")
     if cpu:
         return hist_window_plain(last_of, leader, speed, ring_num,
                                  ring_ssum, hist_num, hist_ssum, hist_t)
@@ -92,15 +102,17 @@ def _launch(last_of, leader, speed, ring_num, ring_ssum, hist_num,
     global launches, launches_f32
     fp32 = _lib.fp32("hist_window", speed, ring_num, ring_ssum, hist_num,
                      hist_ssum)
-    HL1, L = ring_num.shape
+    B, HL1, L = ring_num.shape
     out_num = torch.empty_like(hist_num)
     out_ssum = torch.empty_like(hist_ssum)
+    # a new ring each call (the step writes none of its inputs): a copy
+    # whose row hist_t % HL1 the kernel overwrites
     ring_num_out = ring_num.clone()
     ring_ssum_out = ring_ssum.clone()
     a = _Args(*(t.data_ptr() for t in (
         last_of, leader, speed, ring_num, ring_ssum, hist_num, hist_ssum,
         hist_t, out_num, out_ssum, ring_num_out, ring_ssum_out)),
-        L, HL1, speed.shape[0], fp32)
+        B, L, last_of.shape[1], HL1, speed.shape[1], fp32)
     _lib.check(_lib.lib().hist_window(ctypes.byref(a),
                                       _lib.stream_ptr(speed)),
                "hist_window")

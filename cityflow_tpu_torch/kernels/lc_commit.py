@@ -11,17 +11,19 @@ Vehicle::update (csrc/lc_commit.cu), in two modes:
           reset and clearSignal; dict of the ten SimState leaves it
           writes
 
-`st` is the gen-1 SimState (float64, or float32 in fast mode). The
-kernel reads a slot's partner through the partner link, which the step
-keeps symmetric; the plain version scatters the promoted uids as the JAX
-package does.
+`st` is the gen-1 SimState of B envs ((B, V) leaves; float64, or float32
+in fast mode; one env is B = 1), every per-slot argument and output
+(B, V). The kernel reads a slot's partner through the partner link, a
+slot index local to its env, which the step keeps symmetric; the plain
+version scatters the promoted uids as the JAX package does, each env
+within its own row.
 """
 
 import ctypes
 
 import torch
 
-from cityflow_tpu_torch.core.step import _scat_drop, gat
+from cityflow_tpu_torch.core.step import _scat_drop, egat, gat
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
@@ -44,7 +46,7 @@ class _Args(ctypes.Structure):
         + COMMIT_IN + ("c_finish", "c_offset")
         + tuple(k + "_out" if k != "offset" else "offset_c_out"
                 for k in COMMIT_OUT))]
-        + [(n, ctypes.c_longlong) for n in ("V", "L", "fp32")])
+        + [(n, ctypes.c_longlong) for n in ("B", "V", "L", "fp32")])
 
 
 def _tail_plain(st, buf_drv, new_speed, end, net):
@@ -61,17 +63,17 @@ def _tail_plain(st, buf_drv, new_speed, end, net):
     tgt_w = gat(net["lane_width"], st.lc_target)
     max_off = (tgt_w + cur_w) / 2
     new_off = torch.minimum(new_off, max_off)
-    finish = chg & (new_off >= max_off) & ~gat(abort, st.partner)
+    finish = chg & (new_off >= max_off) & ~egat(abort, st.partner)
     return dict(offset=torch.where(chg, new_off * dirn, st.offset),
                 finish=finish, abort=abort, end=end | abort | finish)
 
 
 def _commit_plain(st, removed, finish, offset):
-    V = st.dis.shape[0]
+    V = st.dis.shape[-1]
     shadow = torch.where(finish, st.partner, V)
     uid = _scat_drop(st.uid, shadow, torch.where(finish, st.uid, -1))
     promote = _scat_drop(torch.zeros_like(finish), shadow, finish)
-    dead = (st.partner >= 0) & gat(removed, st.partner)
+    dead = (st.partner >= 0) & egat(removed, st.partner)
     changing = torch.where(dead | removed, False, st.lc_changing)
     return dict(
         uid=uid, is_shadow=torch.where(promote | dead, False, st.is_shadow),
@@ -85,7 +87,7 @@ def _commit_plain(st, removed, finish, offset):
 
 
 def lc_commit_plain(mode, st, *args):
-    """Plain PyTorch version: the JAX package's (V,) slabs."""
+    """Plain PyTorch version: the JAX package's slabs, (B, V)."""
     if mode == "tail":
         buf_drv, new_speed, end, net, _L = args
         return _tail_plain(st, buf_drv, new_speed, end, net)
@@ -101,7 +103,6 @@ def lc_commit(mode, st, *args):
     if mode not in MODES:
         raise ValueError(f"lc_commit: unknown mode {mode!r}")
     cpu = st.dis.device.type == "cpu"
-    V = st.dis.shape[0]
     i32, f64, b8 = (torch.int32,), _lib.FLOATS, (torch.bool,)
     state = [getattr(st, k) for k in TAIL_IN + COMMIT_IN
              + ("offset", "lc_dir", "lc_target")]
@@ -117,8 +118,9 @@ def lc_commit(mode, st, *args):
     _lib.check_args("lc_commit", *slot, *extra, *state,
                     dtypes=dtypes + [b8, b8, b8, i32, i32, i32, b8, b8, i32,
                                      f64, i32, i32], cuda=not cpu)
-    if any(t.shape[0] != V for t in slot + tuple(state)):
-        raise ValueError(f"lc_commit: per-slot inputs must be ({V},)")
+    if st.dis.dim() != 2 or any(tuple(t.shape) != tuple(st.dis.shape)
+                                for t in slot + tuple(state)):
+        raise ValueError("lc_commit: per-slot inputs must be (B, V)")
     if cpu:
         return lc_commit_plain(mode, st, *args)
     return _launch(mode, st, args)
@@ -126,10 +128,10 @@ def lc_commit(mode, st, *args):
 
 def _launch(mode, st, args):
     global launches, launches_tail, launches_commit, launches_f32
-    V = st.dis.shape[0]
+    B, V = st.dis.shape
     dev = st.dis.device
     e = lambda like: torch.empty_like(like)
-    b = lambda: torch.empty(V, dtype=torch.bool, device=dev)
+    b = lambda: torch.empty((B, V), dtype=torch.bool, device=dev)
     P = {k: getattr(st, k).data_ptr() for k in TAIL_IN + COMMIT_IN
          + ("offset", "lc_dir", "lc_target")}
     if mode == "tail":
@@ -152,7 +154,7 @@ def _launch(mode, st, args):
                                         offset.data_ptr()] + [
             out[k].data_ptr() for k in COMMIT_OUT]
     fp32 = int(st.dis.dtype == torch.float32)
-    a = _Args(*ptrs, V, L, fp32)
+    a = _Args(*ptrs, B, V, L, fp32)
     _lib.check(_lib.lib().lc_commit(ctypes.byref(a), MODES.index(mode),
                                     _lib.stream_ptr(st.dis)), "lc_commit")
     launches += 1

@@ -13,9 +13,11 @@ four modes:
            it starts a change (gap validity)
   yield    yieldSpeed of each signal receiver, 100 for the others (f64)
 
-`st` is the gen-1 SimState (float64, or float32 in fast mode), `net` the
-step's device tables; every output covers every slot, as the JAX
-package's (V,) slabs do.
+`st` is the gen-1 SimState of B envs ((B, V) leaves, params (B, V, 12),
+step (B,); float64, or float32 in fast mode; one env is B = 1), `net`
+the step's device tables, shared by the envs; every output is (B, V) and
+covers every slot, as the JAX package's vmapped (V,) slabs do. Slot
+indices (leaders, followers, senders) are local to their env.
 """
 
 import ctypes
@@ -23,8 +25,8 @@ import ctypes
 import torch
 
 from cityflow_tpu_torch.core.step import (
-    P_LEN, P_MAXNEGACC, P_MAXSPEED, chain_step, gat, no_collision_speed,
-    on_last_road)
+    P_LEN, P_MAXNEGACC, P_MAXSPEED, chain_step, egat, gat,
+    no_collision_speed, on_last_road)
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
@@ -63,16 +65,16 @@ class _Args(ctypes.Structure):
         SLOTS + NB + TABLES + ("last_of", "interval") + SIG + RCV + DEC
         + tuple("y_" + k[3:] for k in YIELD_IN) + ("yield_v",))]
         + [(n, ctypes.c_longlong) for n in (
-            "V", "L", "D", "KO", "NR", "RLEN", "MAXLPR", "NP", "fp32")])
+            "B", "V", "L", "D", "KO", "NR", "RLEN", "MAXLPR", "NP",
+            "fp32")])
 
 
 def _signal_plain(st, net, L, nb, last_of):
     """plan_lane_change up to the gaps (JAX lanechange.py:116-189)."""
     p = st.params
     dt = net["interval"]
-    V = st.dis.shape[0]
     inf = torch.tensor(torch.inf, dtype=st.dis.dtype, device=st.dis.device)
-    now = st.step.to(st.dis.dtype) * dt
+    now = (st.step.to(st.dis.dtype) * dt)[:, None]
     on_lane = st.running & (st.drv >= 0) & (st.drv < L)
     real = ~st.is_shadow
     past_cool = now - st.lc_last_t >= COOLING_TIME
@@ -80,9 +82,10 @@ def _signal_plain(st, net, L, nb, last_of):
     lane_left = gat(net["drv_len"], st.drv) - st.dis
     gap_ok = on_lane & (lane_left >= 30)
     cur_est = st.gap
-    expected = 2 * p[:, P_LEN] + 4 * dt * p[:, P_MAXSPEED]
-    want = mk & gap_ok & ~(cur_est > expected) & ~(cur_est < 1.5 * p[:, P_LEN])
-    veh = torch.stack([st.dis, p[:, P_LEN]], dim=-1)
+    length = p[..., P_LEN]
+    expected = 2 * length + 4 * dt * p[..., P_MAXSPEED]
+    want = mk & gap_ok & ~(cur_est > expected) & ~(cur_est < 1.5 * length)
+    veh = torch.stack([st.dis, length], dim=-1)
 
     def reachable(lane):
         nxt, _ = chain_step(net, L, st.route, st.route_pos,
@@ -90,18 +93,18 @@ def _signal_plain(st, net, L, nb, last_of):
         return on_last_road(net, None, st.route, st.route_pos) | (nxt >= 0)
 
     def estimate_gap(leader, lane):
-        la = gat(veh, leader)
+        la = egat(veh, leader)
         return torch.where(leader < 0, gat(net["drv_len"], lane) - st.dis,
-                           la[:, 0] - st.dis - la[:, 1])
+                           la[..., 0] - st.dis - la[..., 1])
 
     outer_ok = want & (nb["outer_lane"] < L) & reachable(nb["outer_lane"])
     outer_est = torch.where(outer_ok, estimate_gap(nb["outer_leader"],
                                                    nb["outer_lane"]), 0.0)
-    target = torch.where(outer_ok & (outer_est > cur_est + p[:, P_LEN]),
+    target = torch.where(outer_ok & (outer_est > cur_est + length),
                          nb["outer_lane"], -1)
     inner_ok = want & (nb["inner_lane"] < L) & reachable(nb["inner_lane"])
     inner_est = estimate_gap(nb["inner_leader"], nb["inner_lane"])
-    take_inner = inner_ok & (inner_est > cur_est + p[:, P_LEN]) \
+    take_inner = inner_ok & (inner_est > cur_est + length) \
         & (inner_est > outer_est)
     target = torch.where(take_inner, nb["inner_lane"], target)
     target = torch.where(st.lc_changing, st.lc_target, target)
@@ -116,48 +119,49 @@ def _signal_plain(st, net, L, nb, last_of):
     tleader = torch.where(is_outer, nb["outer_leader"], nb["inner_leader"])
     tfollower = torch.where(is_outer, nb["outer_follower"],
                             nb["inner_follower"])
-    tl = gat(veh, tleader)
-    lgap = torch.where(tleader >= 0, tl[:, 0] - st.dis - tl[:, 1], inf)
+    tl = egat(veh, tleader)
+    lgap = torch.where(tleader >= 0, tl[..., 0] - st.dis - tl[..., 1], inf)
     rest = lane_left
     no_tl = tleader < 0
     lgap = torch.where(no_tl, rest, lgap)
-    best = torch.full((V,), torch.inf, dtype=st.dis.dtype,
-                      device=st.dis.device)
+    best = torch.full_like(st.dis, torch.inf)
     outs = gat(net["lane_out"], target.clamp(0, L - 1))
     for k in range(net["lane_out"].shape[1]):
-        ol = outs[:, k]
-        cand = torch.where(ol >= 0, gat(last_of, ol), -1)
-        ca = gat(veh, cand)
-        cgap = ca[:, 0] + rest
+        ol = outs[..., k]
+        cand = torch.where(ol >= 0, egat(last_of, ol), -1)
+        ca = egat(veh, cand)
+        cgap = ca[..., 0] + rest
         better = no_tl & (cand >= 0) & (cgap < best)
-        hit = better & (cgap < ca[:, 1])
+        hit = better & (cgap < ca[..., 1])
         tleader = torch.where(hit, cand, tleader)
-        lgap = torch.where(hit, rest - (ca[:, 1] - cgap), lgap)
+        lgap = torch.where(hit, rest - (ca[..., 1] - cgap), lgap)
         best = torch.where(better, cgap, best)
     fgap = torch.where(tfollower >= 0,
-                       st.dis - gat(st.dis, tfollower) - p[:, P_LEN], inf)
+                       st.dis - egat(st.dis, tfollower) - length, inf)
     return dict(has_signal=has_signal, target=target, direction=direction,
                 plan=plan, tleader=tleader, tfollower=tfollower, lgap=lgap,
                 fgap=fgap)
 
 
 def _receive_plain(st, sig):
-    """recv_for of the JAX package (lanechange.py:194-204), per role."""
-    V = st.dis.shape[0]
+    """recv_for of the JAX package (lanechange.py:194-204), per role, each
+    env's scatter-max within its own row."""
+    B, V = st.dis.shape
     dev = st.dis.device
     sender_ok = sig["plan"] & sig["has_signal"]
+    me = torch.arange(V, dtype=torch.int32, device=dev).expand(B, V)
     out = {}
     for tag, role in (("l", sig["tleader"]), ("f", sig["tfollower"])):
         pri = torch.where(sender_ok, st.priority, INT_MIN)
         tgt = torch.where(sender_ok & (role >= 0), role, V).long()
-        best = torch.full((V + 1,), INT_MIN, dtype=torch.int32,
-                          device=dev).scatter_reduce(0, tgt, pri, "amax")[:V]
-        key = torch.where(sender_ok & (gat(best, role) == st.priority)
-                          & (role >= 0), role, V).long()
-        slot = torch.full((V + 1,), -1, dtype=torch.int32,
+        best = torch.full((B, V + 1), INT_MIN, dtype=torch.int32,
                           device=dev).scatter_reduce(
-            0, key, torch.arange(V, dtype=torch.int32, device=dev),
-            "amax")[:V]
+            -1, tgt, pri, "amax")[:, :V].contiguous()
+        key = torch.where(sender_ok & (egat(best, role) == st.priority)
+                          & (role >= 0), role, V).long()
+        slot = torch.full((B, V + 1), -1, dtype=torch.int32,
+                          device=dev).scatter_reduce(
+            -1, key, me, "amax")[:, :V].contiguous()
         out["best_" + tag], out["slot_" + tag] = best, slot
     return out
 
@@ -172,11 +176,11 @@ def _decide_plain(st, L, sig, rcv):
     can_recv = (st.running & ~st.lc_changing
                 & ~(has & (st.priority >= best_pri)) & (best_pri > INT_MIN))
     lc_recv = torch.where(can_recv, src, -1)
-    min_brake = 0.5 * st.speed * st.speed / p[:, P_MAXNEGACC]
+    min_brake = 0.5 * st.speed * st.speed / p[..., P_MAXNEGACC]
     tf = sig["tfollower"]
-    tfb = gat(torch.stack([st.speed, p[:, P_MAXNEGACC]], dim=-1), tf)
-    safe_before = torch.where(tf >= 0, 0.5 * tfb[:, 0] * tfb[:, 0]
-                              / tfb[:, 1], 0.0)
+    tfb = egat(torch.stack([st.speed, p[..., P_MAXNEGACC]], dim=-1), tf)
+    safe_before = torch.where(tf >= 0, 0.5 * tfb[..., 0] * tfb[..., 0]
+                              / tfb[..., 1], 0.0)
     gap_valid = (sig["lgap"] >= min_brake) & (sig["fgap"] >= safe_before)
     on_lane = st.running & (st.drv >= 0) & (st.drv < L)
     do_change = (sig["plan"] & has & (lc_recv < 0) & ~st.lc_changing
@@ -189,18 +193,18 @@ def _yield_plain(st, net):
     p = st.params
     f = st.dis.dtype
     src = st.lc_recv
-    spk = gat(torch.stack([st.speed, p[:, P_MAXNEGACC], st.lc_fgap,
-                           st.lc_tleader.to(f)], dim=-1), src)
-    src_tf = gat(st.lc_tfollower, src)
-    tfb = gat(torch.stack([st.speed, p[:, P_MAXNEGACC]], dim=-1), src_tf)
-    safe = torch.where(src_tf >= 0, 0.5 * tfb[:, 0] * tfb[:, 0] / tfb[:, 1],
-                       0.0)
-    me = torch.arange(st.dis.shape[0], dtype=torch.int32,
+    spk = egat(torch.stack([st.speed, p[..., P_MAXNEGACC], st.lc_fgap,
+                            st.lc_tleader.to(f)], dim=-1), src)
+    src_tf = egat(st.lc_tfollower, src)
+    tfb = egat(torch.stack([st.speed, p[..., P_MAXNEGACC]], dim=-1), src_tf)
+    safe = torch.where(src_tf >= 0,
+                       0.5 * tfb[..., 0] * tfb[..., 0] / tfb[..., 1], 0.0)
+    me = torch.arange(st.dis.shape[-1], dtype=torch.int32,
                       device=st.dis.device)
-    i_am_leader = spk[:, 3].to(torch.int32) == me
+    i_am_leader = spk[..., 3].to(torch.int32) == me
     zero = torch.zeros((), dtype=f, device=st.dis.device)
-    v = no_collision_speed(spk[:, 0], spk[:, 1], st.speed,
-                           p[:, P_MAXNEGACC], spk[:, 2] - safe,
+    v = no_collision_speed(spk[..., 0], spk[..., 1], st.speed,
+                           p[..., P_MAXNEGACC], spk[..., 2] - safe,
                            net["interval"], zero)
     v = torch.where(v < 0, 100.0, v)
     return torch.where((src >= 0) & ~i_am_leader, v, 100.0)
@@ -208,7 +212,8 @@ def _yield_plain(st, net):
 
 def lc_plan_plain(mode, st, net, L, nb=None, last_of=None, sig=None,
                   rcv=None):
-    """Plain PyTorch version: the JAX package's formulas over (V,)."""
+    """Plain PyTorch version: the JAX package's formulas over (B, V), each
+    gather through a slot index within its env (egat)."""
     if mode == "signal":
         return _signal_plain(st, net, L, nb, last_of)
     if mode == "receive":
@@ -232,7 +237,6 @@ def lc_plan(mode, st, net, L, nb=None, last_of=None, sig=None, rcv=None):
     if mode not in MODES:
         raise ValueError(f"lc_plan: unknown mode {mode!r}")
     cpu = st.dis.device.type == "cpu"
-    V = st.dis.shape[0]
     given = dict(nb=nb, last_of=last_of, sig=sig, rcv=rcv)
     for g in _need(mode):
         if given[g] is None:
@@ -250,11 +254,16 @@ def lc_plan(mode, st, net, L, nb=None, last_of=None, sig=None, rcv=None):
             named += [(k, given[group][k]) for k in keys]
     _lib.check_args("lc_plan", *(t for _, t in named),
                     dtypes=[_dtype(k) for k, _ in named], cuda=not cpu)
+    BV = tuple(st.dis.shape)
     per_slot = [getattr(st, k) for k in SLOTS if k != "step"] + [
         d[k] for d, keys in ((nb, NB), (sig, SIG), (rcv, RCV))
         if d is not None for k in keys]
-    if any(t.shape[0] != V for t in per_slot):
-        raise ValueError(f"lc_plan: every per-slot input must have {V} rows")
+    if len(BV) != 2 or any(tuple(t.shape[:2]) != BV for t in per_slot) \
+            or tuple(st.step.shape) != BV[:1] \
+            or (last_of is not None and (last_of.dim() != 2
+                                         or last_of.shape[0] != BV[0])):
+        raise ValueError("lc_plan: every per-slot input must be (B, V), "
+                         "step (B,) and last_of (B, D)")
     if cpu:
         return lc_plan_plain(mode, st, net, L, nb, last_of, sig, rcv)
     return _launch(mode, st, net, L, nb, last_of, sig, rcv)
@@ -263,7 +272,7 @@ def lc_plan(mode, st, net, L, nb=None, last_of=None, sig=None, rcv=None):
 def _launch(mode, st, net, L, nb, last_of, sig, rcv):
     global launches, launches_signal, launches_receive, launches_decide, \
         launches_yield, launches_f32
-    V = st.dis.shape[0]
+    B, V = st.dis.shape
     dev = st.dis.device
     i32 = dict(dtype=torch.int32, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
@@ -271,24 +280,19 @@ def _launch(mode, st, net, L, nb, last_of, sig, rcv):
     fp32 = int(st.dis.dtype == torch.float32)
     out = {}
     if mode == "signal":
-        out = dict(has_signal=torch.empty(V, **b8),
-                   target=torch.empty(V, **i32),
-                   direction=torch.empty(V, **i32),
-                   plan=torch.empty(V, **b8), tleader=torch.empty(V, **i32),
-                   tfollower=torch.empty(V, **i32),
-                   lgap=torch.empty(V, **f64), fgap=torch.empty(V, **f64))
+        out = {k: torch.empty(
+            (B, V), **(b8 if k in BOOLS else f64 if k in F64 else i32))
+            for k in SIG}
         sig = out
     elif mode == "receive":
-        out = dict(best_l=torch.full((V,), INT_MIN, **i32),
-                   best_f=torch.full((V,), INT_MIN, **i32),
-                   slot_l=torch.full((V,), -1, **i32),
-                   slot_f=torch.full((V,), -1, **i32))
+        out = {k: torch.full((B, V), INT_MIN if k.startswith("best")
+                             else -1, **i32) for k in RCV}
         rcv = out
     elif mode == "decide":
-        out = dict(lc_recv=torch.empty(V, **i32),
-                   do_change=torch.empty(V, **b8))
+        out = dict(lc_recv=torch.empty((B, V), **i32),
+                   do_change=torch.empty((B, V), **b8))
     else:
-        out = torch.empty(V, **f64)
+        out = torch.empty((B, V), **f64)
     ptr = lambda d, k: None if d is None else d[k].data_ptr()
     dec = out if mode == "decide" else None
     ys = [getattr(st, k).data_ptr() if mode == "yield" else None
@@ -302,8 +306,8 @@ def _launch(mode, st, net, L, nb, last_of, sig, rcv):
                 + [ptr(sig, k) for k in SIG] + [ptr(rcv, k) for k in RCV]
                 + [ptr(dec, k) for k in DEC] + ys
                 + [out.data_ptr() if mode == "yield" else None]),
-              V, L, net["drv_len"].shape[0], net["lane_out"].shape[1],
-              *rnl.shape, st.params.shape[1], fp32)
+              B, V, L, net["drv_len"].shape[0], net["lane_out"].shape[1],
+              *rnl.shape, st.params.shape[-1], fp32)
     _lib.check(_lib.lib().lc_plan(ctypes.byref(a), MODES.index(mode),
                                   _lib.stream_ptr(st.dis)), "lc_plan")
     launches += 1

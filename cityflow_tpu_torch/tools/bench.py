@@ -4,9 +4,10 @@
 The metric of record: the 30x30 grid, gen-2 ring layout, float32, B envs
 in the trailing-batch layout, on one CUDA device. --layout gen1 times the
 gen-1 slot-pool step in fast mode (float32) with a leading env axis
-instead (parallel/batch.py), the layout of non-grid nets; --layout auto
-takes the ring and falls back to gen-1 where the ring cannot express the
-scenario. Prints ONE JSON line:
+instead (parallel/batch.py), the layout of non-grid nets, with lane change
+(laneChange) and the DURATION router's lane history (routerType) as the
+config sets them; --layout auto takes the ring and falls back to gen-1
+where the ring cannot express the scenario. Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
 
 Baseline: the reference C++ engine, 1 thread, scaled by 8 for an 8-thread
@@ -21,6 +22,9 @@ and flow are staged under the checkout's build/ (tools/scenario.py).
         --config benchmarks/config_30x30_lc.json --warmup 1960
     python -m cityflow_tpu_torch.tools.bench --layout gen1 \
         --max-vehicles 32768
+    python -m cityflow_tpu_torch.tools.bench --layout gen1 \
+        --config benchmarks/config_30x30_lc.json --warmup 1960 \
+        --max-vehicles 131072 --window 0 --steps 40
 """
 
 import argparse
@@ -119,6 +123,8 @@ def run_gen1(args, net, batch, device=None, on_step=None):
         k_out=max(net.host.ko, 1), k_cross=max(net.host.kc, 1),
         rl_traffic_light=bool(cfgj["rlTrafficLight"]),
         lane_change=bool(cfgj.get("laneChange", False)),
+        track_history=(str(cfgj.get("routerType", "LENGTH")).upper()
+                       == "DURATION"),
         exact=False)
     net_dev = net_tensors(net, torch.float32, dev)
     st0 = init_state(cfg, net.num_inters, net.phase_time, net.n_phases,

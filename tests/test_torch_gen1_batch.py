@@ -27,7 +27,7 @@ from cityflow_tpu.parallel import batch as jbatch
 
 from cityflow_tpu_torch.carry import sim_state_from_numpy, sim_state_to_numpy
 from cityflow_tpu_torch.core import step as ts
-from cityflow_tpu_torch.core.state import SIM_FIELDS
+from cityflow_tpu_torch.core.state import SIM_FIELDS, init_state
 from cityflow_tpu_torch.engine import Engine
 from cityflow_tpu_torch.kernels.admit_heads import admit_heads_plain
 from cityflow_tpu_torch.kernels.spawn_slots import spawn_slots_plain
@@ -135,22 +135,37 @@ def test_split_step_and_rollout_equal_the_monolithic_step():
     assert int(a.running.sum()) > 0 and int(a.overflow.max()) == 0
 
 
-def test_batched_lane_change_and_history_raise_above_one_env():
-    """Lane change and the DURATION history run one env at a time: B > 1
-    raises; B = 1 (init_batch_state's copy) steps as the Engine's lift of
-    its one env does."""
-    _, net, cfg, spawn, st0 = _setup("config_2x2_lc.json", False)
-    assert cfg.lane_change
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ts.step(net, cfg, init_batch_state(cfg, st0, 2), spawn)
-    hist = dataclasses.replace(cfg, lane_change=False, track_history=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ts.step(net, hist, init_batch_state(hist, st0, 2), spawn)
-    one, single = init_batch_state(cfg, st0, 1), st0
-    for _ in range(5):
-        one = ts.step(net, cfg, one, spawn)
-        single = ts.squeeze(ts.step(net, cfg, ts.lift(single), spawn))
-    assert not _diff_leaves(one, [single])
+@pytest.mark.parametrize("lane_change,history",
+                         [(True, False), (False, True), (True, True)],
+                         ids=["lane-change", "history", "both"])
+def test_batched_lane_change_and_history_equal_single_env_steps(
+        lane_change, history):
+    """Lane change and the DURATION history at B = 2, each env with its
+    own phases every step, step as the two envs stepped one by one (a
+    batch of one each): every SimState leaf bit for bit after each of 20
+    steps (config_2x2_lc.json, fast mode)."""
+    eng, net, cfg, spawn, st0 = _setup("config_2x2_lc.json", False)
+    cfg = dataclasses.replace(cfg, lane_change=lane_change,
+                              track_history=history)
+    if history:
+        st0 = init_state(cfg, eng.net.num_inters, eng.net.phase_time,
+                         eng.net.n_phases, eng.net.phase_offset, "cpu")
+    ph = torch.as_tensor(_phases(eng, 20, seed=5)[:, :2])
+    step_b = make_batched_step(net, cfg, with_obs=False, rl_actions=True)
+    stb = init_batch_state(cfg, st0, 2)
+    singles = [st0] * 2
+    for t in range(20):
+        stb = step_b(stb, spawn, ph[t])[0]
+        singles = [ts.squeeze(ts.step(net, cfg, ts.lift(s.replace_fields(
+            phase=ph[t, b].contiguous())), spawn))
+            for b, s in enumerate(singles)]
+        assert not _diff_leaves(stb, singles), t
+    assert int(stb.overflow.max()) == 0
+    assert not torch.equal(stb.dis[0], stb.dis[1])   # the phases told
+    if history:
+        assert stb.hist_ring_num.shape[:2] == (2, cfg.history_len + 1)
+        assert (stb.hist_t == 40 if lane_change else stb.hist_t == 20).all()
+        assert not torch.equal(stb.hist_ssum[0], stb.hist_ssum[1])
 
 
 # ---------------------------------------------------------------------------

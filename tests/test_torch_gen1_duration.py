@@ -76,7 +76,8 @@ def test_hist_window_matches_jax_update_history(duration_config, hist_t):
     assert int(st.running.sum()) > 80
     arr = ts.squeeze(ts.arrangement(eng._net_dev, eng.cfg, *ts.lift((
         st.running, st.drv, st.dis, st.list_seq))))
-    got = sim_state_to_numpy(ts.update_history(eng.cfg, st, arr))
+    got = sim_state_to_numpy(ts.squeeze(ts.update_history(
+        eng.cfg, *ts.lift((st, arr)))))
     jst = jstate.SimState(**{k: jnp.asarray(v) for k, v in c.items()})
     jcfg = jstate.StepConfig(**dataclasses.asdict(eng.cfg))
     want = {k: np.asarray(v) for k, v in dataclasses.asdict(

@@ -1,9 +1,10 @@
 """Gen-1 lane change of the port against the JAX package, module by
 module, and against the reference goldens.
 
-The modules (G6 lc_probe, G7 lc_plan in its four modes with the plain
-shadow insert, G8 lc_commit in both modes) run through their plain
-versions (this host has no card) on post-admission states of
+The modules (G6 lc_probe, G7 lc_plan in its four modes with the shadow
+insert G15, G8 lc_commit in both modes) run through their plain versions
+(this host has no card), each env's state lifted to a batch of one, on
+post-admission states of
 config_2x2_lc.json that the port's engine records at steps 238 and 273
 (signals with two senders for one receiver, shadows mid-change), each
 also with seeded equal distances (a probe level with a vehicle of the
@@ -243,7 +244,8 @@ def test_lc_probe_matches_jax(recorded, case):
     eng, rec = recorded
     r = rec[case]
     arr = _arr(eng, r["st"])[0]
-    nb = tlc.probe_neighbors(eng._net_dev, eng.cfg, r["st"], arr)
+    nb = ts.squeeze(tlc.probe_neighbors(eng._net_dev, eng.cfg,
+                                        *ts.lift((r["st"], arr))))
     _eq_state("nb", _np(nb), r["jax"]["nb"])
 
 
@@ -257,8 +259,10 @@ def test_lc_plan_modes_match_jax(recorded, case):
     st, j2 = r["st"], r["jax"]["st2"]
     net, L = eng._net_dev, eng.cfg.num_lanes
     arr = _arr(eng, st)[0]
-    nb = tlc.probe_neighbors(net, eng.cfg, st, arr)
-    sig = lc_plan("signal", st, net, L, nb=nb, last_of=arr["last_of"])
+    bst, barr = ts.lift((st, arr))
+    nb = tlc.probe_neighbors(net, eng.cfg, bst, barr)
+    bsig = lc_plan("signal", bst, net, L, nb=nb, last_of=barr["last_of"])
+    sig = ts.squeeze(bsig)
     # the shadow insert wrote the new shadows' slots after these fields
     new = j2["active"] & ~st.active.numpy()
     assert new.any() or case[1] == "ties"
@@ -278,12 +282,13 @@ def test_lc_plan_modes_match_jax(recorded, case):
         ("has_signal", "lc_has_signal"), ("tleader", "lc_tleader"),
         ("tfollower", "lc_tfollower"))})
     plan = np.where(new, sig["plan"].numpy(), plan)
-    rcv = lc_plan("receive", st, net, L, sig=sig)
+    brcv = lc_plan("receive", bst, net, L, sig=bsig)
+    rcv = ts.squeeze(brcv)
     want = _np(_jax_receive(jnp.asarray(plan), jnp.asarray(
         j2["lc_has_signal"]), jnp.asarray(st.priority.numpy()),
         jnp.asarray(j2["lc_tleader"]), jnp.asarray(j2["lc_tfollower"])))
     _eq_state("receive", _np(rcv), want)
-    dec = lc_plan("decide", st, net, L, sig=sig, rcv=rcv)
+    dec = ts.squeeze(lc_plan("decide", bst, net, L, sig=bsig, rcv=brcv))
     _eq("lc_recv", dec["lc_recv"].numpy()[~new], j2["lc_recv"][~new])
     _eq("do_change", dec["do_change"].numpy()[~new],
         (j2["lc_changing"] & ~st.lc_changing.numpy())[~new])
@@ -295,7 +300,8 @@ def test_plan_lane_change_with_shadow_insert_matches_jax(recorded, case):
     eng, rec = recorded
     r = rec[case]
     arr = _arr(eng, r["st"])[0]
-    st2 = tlc.plan_lane_change(eng._net_dev, eng.cfg, r["st"], arr)
+    st2 = ts.squeeze(tlc.plan_lane_change(eng._net_dev, eng.cfg,
+                                          *ts.lift((r["st"], arr))))
     _eq_state("st2", sim_state_to_numpy(st2), r["jax"]["st2"])
 
 
@@ -308,7 +314,8 @@ def test_lc_yield_and_get_action_tail_match_jax(recorded, case):
     j = rec[case]["jax"]
     net, cfg = eng._net_dev, eng.cfg
     st3 = _port_state(j["st3"])
-    _eq("yield", tlc.yield_speed(net, cfg, st3).numpy(), j["y"])
+    _eq("yield", ts.squeeze(tlc.yield_speed(net, cfg, ts.lift(st3))).numpy(),
+        j["y"])
     arr, fattrs, iattrs = _arr(eng, st3)
     ll_avail = ts.lanelink_available(net, cfg, st3)
     veh_next, _ = ts.chain_step(net, cfg.num_lanes, st3.route,

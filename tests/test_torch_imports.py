@@ -94,11 +94,12 @@ def test_gen1_modules_are_covered():
 
 def test_gen1_lane_change_history_and_replay_modules_are_covered():
     """The import rule above reaches gen-1 lane change, the replay writer,
-    the run tool and the G5-G8 wrappers."""
+    the run tool and the G5-G8 and G15 wrappers."""
     files = {os.path.relpath(p, PKG) for p in _port_sources()}
     for rel in ("core/lanechange.py", "replay.py", "tools/simple_run.py",
                 "kernels/hist_window.py", "kernels/lc_probe.py",
-                "kernels/lc_plan.py", "kernels/lc_commit.py"):
+                "kernels/lc_plan.py", "kernels/lc_commit.py",
+                "kernels/shadow_insert.py"):
         assert rel in files, rel
 
 
