@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the 26 kernels from csrc/ (nvcc, sm_90a) with its time
+            of the 30 kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -19,8 +19,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             warm-up runs one env, copied into the batch) at B=128
             (asserted: no halving on out-of-memory); asserts
             overflow == 0, vehicles > 0, every env equal to env 0 bitwise,
-            and K1-K4 launched; prints ms per batched step, env-steps/s,
-            the p1/p2 split, each kernel's share and peak memory
+            and K1-K4 and R1-R4 launched; prints ms per batched step,
+            env-steps/s, the p1/p2 split, each kernel's share and peak
+            memory
+  kernels   (ring regions) R1 notify_winners, R2 ring_exits, R3
+            ring_admit and R4 route_rows against their plain versions on
+            every call of one more step of the main path's own state
+            (bitwise; R2's t_rm within 1e-6 relative), timed (R3 on a
+            fresh copy of its state each call) beside their bounds; the
+            same on [lc] (with R2's pair stages @pairs / @finish),
+            [mixed] and [mixed-lc] (rows <kernel>@<path>)
   agree-lc  lane change, B=1 on the card against the plain port on the
             CPU on tests/fixtures/config_1x1s_lc.json, 80 steps: vehicles
             keyed by (uid, shadow), drift within 2e-3, equal (changing,
@@ -33,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernels   (lane change) L1-L4 and the lane-change modes of K3 / K4
             against their plain versions on the inputs of one more step of
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
-            K3 within 1e-5, their not-bitwise counts printed), timed
+            K3 within 1e-5, their not-bitwise counts printed), timed; R1-R4
+            as on [main]; the plain PyTorch left in the lane-change step
+            timed on that state: lc_front_ctx, its KOUT min alone,
+            refresh_gaps
   agree-mixed  non-uniform vehicle templates, B=1 card against CPU on
             tests/fixtures/config_2x2_mixed.json, 100 steps, skc=99
   mixed     the main path on the 30x30 grid with three vehicle templates
@@ -137,7 +148,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             env): RING_ENGINE_WARMUP steps, then RING_ENGINE_STEPS timed
             with get_lane_vehicle_count() every 5th step, as an RL caller
             reads; ms per step, the step alone, one fetch's ms, growths,
-            the device busy share; K1-K4 launched
+            the device busy share; K1-K4 and R1-R4 launched
   agree-gen1-batch  parallel/batch.make_batched_step (fast mode,
             rl_actions) at B=4 with its own phases per env every step on
             config_4x4.json, 40 steps, card against CPU as [agree-fast]
@@ -276,11 +287,14 @@ GEN1_LCB_STEPS = 40                 # timed batched steps of 30x30_lc at
                                     # BATCH from [gen1-lc]'s step-1960 state
 # the RL kernels of the batched gen-1 step
 GEN1_RL_KERNELS = ("lane_counts", "phase_scores", "phase_scores@phases")
-MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit")
+MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit",
+                "notify_winners", "ring_exits", "ring_admit", "route_rows")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
-LC_MODES = ("car_follow@lc", "ring_commit@lc")
+LC_MODES = ("car_follow@lc", "ring_commit@lc", "ring_exits@pairs",
+            "ring_exits@finish", "ring_admit@lc", "route_rows@lc")
 AGREE_MIXED_STEPS = 100             # card-vs-CPU steps on the mixed fixture
-TPL_MODES = ("tpl_params", "car_follow@tpl", "cross_caps@tpl")
+TPL_MODES = ("tpl_params", "car_follow@tpl", "cross_caps@tpl",
+             "notify_winners@tpl", "ring_admit@tpl")
 TPL_LC_MODES = ("lc_signal@tpl", "lc_receive@tpl", "car_follow@tpl+lc")
 RL_KERNELS = ("lane_stats", "phase_pressure")
 REPLACES = {
@@ -420,6 +434,28 @@ GEN1_LCB_ROWS = ("hist_window", "lc_probe", "lc_plan", "lc_plan@receive",
                  "lc_commit@commit", "shadow_insert")
 REPLACES.update({f"{n}@lcbatch": REPLACES[n] + " under vmap "
                  "(parallel/batch.py:48), float32" for n in GEN1_LCB_ROWS})
+# the ring step's regions (R1-R4), a row per ring path that runs them
+RING_REPLACES = {
+    "notify_winners": "cityflow_tpu/core/ring.py:789-864 (notify winners), "
+                      ":866-879 (blocker doubling)",
+    "ring_exits": "cityflow_tpu/core/ring.py:1462-1483, :1530-1566 (exits, "
+                  "removals, leave prefixes), :1908-1929 (blocker commit, "
+                  "lights)",
+    "ring_admit": "cityflow_tpu/core/ring.py:489-643 (spawn + admission)",
+    "route_rows": "cityflow_tpu/core/ring.py:1567-1642 (route compaction)"}
+RING_PATH_NOTE = {"lc": " under lane_change", "mixed": " with templates",
+                  "mixed-lc": " with templates under lane_change"}
+REPLACES.update(RING_REPLACES)
+REPLACES.update({f"{n}@{p}": v + RING_PATH_NOTE[p]
+                 for n, v in RING_REPLACES.items() for p in RING_PATH_NOTE})
+for _p in ("", ":mixed-lc"):
+    REPLACES[f"ring_exits@pairs{_p}"] = (
+        "cityflow_tpu/core/ring.py:1484-1515 (the pair bookkeeping: aborts, "
+        "lateral offset)" + ("" if not _p else " with templates"))
+    REPLACES[f"ring_exits@finish{_p}"] = (
+        "cityflow_tpu/core/ring.py:1515-1529, :1545-1550 (the pair "
+        "bookkeeping: finish, promote, unlinks, aborted shadows' stats)"
+        + ("" if not _p else " with templates"))
 
 
 def log(*a):
@@ -833,6 +869,7 @@ def _patch_points():
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
     return [(ring_mod, n) for n in MAIN_KERNELS] \
+        + [(ring_mod, n) for n in ("ring_exits_pairs", "ring_exits_finish")] \
         + [(ring_lc, n) for n in LC_KERNELS] \
         + [(ring_mod, "tpl_params"), (ring_lc, "tpl_params")]
 
@@ -880,11 +917,12 @@ def kernel_shares(sim, state, nsteps):
     and per phase over `nsteps` batched steps."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
-    # one untimed step first, so the window starts in the steady state
-    # of the caching allocator
+    # one untimed step first (from a copy: the batched step writes its
+    # state in place), so the window starts in the steady state of the
+    # caching allocator
     state = ring_mod.ring_step_p2_batched(
         sim.tables, sim.cfg, *ring_mod.ring_step_p1_batched(
-            sim.tables, sim.cfg, state, sim.q))
+            sim.tables, sim.cfg, fresh(state), sim.q))
     torch.cuda.synchronize()
     phase_ms = {"p1": 0.0, "p2": 0.0}
     with timed_calls(_patch_points()) as events:
@@ -1041,8 +1079,8 @@ def record_lc_calls(sim, state):
     try:
         for m, n in points:
             setattr(m, n, rec(n))
-        s, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg, state,
-                                               sim.q)
+        s, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg,
+                                               fresh(state), sim.q)
         ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, s, mid)
         torch.cuda.synchronize()
     finally:
@@ -1235,8 +1273,8 @@ def record_tpl_calls(sim, state, lc):
     try:
         for m, n in points:
             setattr(m, n, rec(m, n))
-        st, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg, state,
-                                                sim.q)
+        st, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg,
+                                                fresh(state), sim.q)
         ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, st, mid)
         torch.cuda.synchronize()
     finally:
@@ -1370,6 +1408,263 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
                 f"LCI {c}: {v:.4f} ms" for c, v in at.items())
             + f" (the peak demand is {lci}, build_sim's cap "
             f"{sim.cfg.LCI})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the ring step's regions R1-R4 on each ring path's own state
+# ---------------------------------------------------------------------------
+
+# the R wrappers the ring step calls by name (R2 in three stages)
+RING_WRAPPERS = ("notify_winners", "ring_admit", "ring_exits",
+                 "ring_exits_pairs", "ring_exits_finish", "route_rows")
+
+
+def fresh(state):
+    """A copy of a batched ring state: the batched entries write theirs in
+    place (R3's admission), so a phase that steps again from a state it
+    keeps steps from a copy."""
+    return state.map(lambda x: x.clone())
+
+
+def admit_copy(rs):
+    """rs with the leaves R3 writes copied (the rest shared)."""
+    from cityflow_tpu_torch.kernels.ring_admit import ADMIT_FIELDS
+    return rs.replace_fields(**{f: getattr(rs, f).clone()
+                                for f in ADMIT_FIELDS
+                                if getattr(rs, f) is not None})
+
+
+def record_ring_calls(sim, state):
+    """One more batched step from a copy of `state` with the R1-R4 wrappers
+    recording their arguments: R3's state as it was before the call (the
+    leaves it writes copied), every other argument by reference (nothing
+    in the step writes them after the call)."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    orig = {n: getattr(ring_mod, n) for n in RING_WRAPPERS}
+    calls = {n: [] for n in RING_WRAPPERS}
+
+    def rec(n):
+        def fn(*a, **k):
+            kept = a[:2] + (admit_copy(a[2]),) + a[3:] \
+                if n == "ring_admit" else a
+            calls[n].append((kept, k))
+            return orig[n](*a, **k)
+        return fn
+
+    try:
+        for n in RING_WRAPPERS:
+            setattr(ring_mod, n, rec(n))
+        st, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg,
+                                                fresh(state), sim.q)
+        ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, st, mid)
+        torch.cuda.synchronize()
+    finally:
+        for n, f in orig.items():
+            setattr(ring_mod, n, f)
+    return calls
+
+
+def _ring_call(fn, n, a, k):
+    """One call of an R wrapper or its plain version; R3 on a fresh copy of
+    its recorded state, returning the OV bits and the leaves it wrote."""
+    if n != "ring_admit":
+        return fn(*a, **k)
+    rs = admit_copy(a[2])
+    from cityflow_tpu_torch.kernels.ring_admit import ADMIT_FIELDS
+    ov = fn(*a[:2], rs, *a[3:], **k)
+    return [ov] + [getattr(rs, f) for f in ADMIT_FIELDS
+                   if getattr(rs, f) is not None]
+
+
+def _ring_compare(n, got, want):
+    """(max |err|, not bitwise): every value bitwise, except R2's t_rm
+    within 1e-6 relative."""
+    if isinstance(want, dict):
+        err, nbit = 0.0, 0
+        for key in sorted(want):
+            if key == "t_rm":
+                _, nb = rel_close(f"{n}.t_rm", got[key], want[key], 1e-6)
+                err, nbit = max(err, float(
+                    (got[key] - want[key]).abs().max())), nbit + nb
+            else:
+                e, nb = _compare(f"{n}.{key}", got[key], want[key], 0.0)
+                err, nbit = max(err, e), nbit + nb
+        assert set(got) == set(want), f"{n}: output keys differ"
+        return err, nbit
+    return _compare(n, got, want, 0.0)
+
+
+def time_cuda_fresh(setup, fn, reps):
+    """Mean device time of fn(setup()) over `reps` calls, each on a fresh
+    setup() (untimed) and behind a ~0.05 s device spin, so that the
+    events bracket the call alone."""
+    import torch
+    fn(setup())
+    total = 0.0
+    for _ in range(reps):
+        arg = setup()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        s.record()
+        fn(arg)
+        e.record()
+        torch.cuda.synchronize()
+        total += s.elapsed_time(e)
+    return total / reps
+
+
+def ring_work(n, a, k, out):
+    """Bytes each R call must move (each input read once, each output
+    written once; ring slots only where occupied, R3's slots only where
+    admitted, R4's route rows only for the exits taken) and its
+    operations, from its arguments and outputs."""
+    import torch
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts
+                         if t is not None)
+    cfg, net = a[0], a[1]
+    if n == "notify_winners":
+        n_k, blk, et, st, avail = a[6:11]
+        occ = int(n_k.sum())
+        tpl = k.get("k_tpl") is not None
+        nbytes = (nb(out, n_k, blk, et, st, avail, net["lk_d"],
+                     net["lk_len"], net["lk_turn"])
+                  + occ * 4 * (4 + tpl))
+        # per (cross, link, env): the count over the occupied slots and
+        # the winner's formulas (can_yield, reach_steps: ~60 flops)
+        nops = out[0].numel() * 60 + cfg.KC * occ * 2
+        return nbytes, nops
+    if n == "ring_admit":
+        rs, q = a[2], a[3]
+        EL, B = rs.el_cursor.shape
+        slot = sum(getattr(rs, f).element_size() for f in (
+            "l_dis", "l_speed", "l_flow", "l_route", "l_rpos", "l_nxt",
+            "l_nxt3", "l_prev", "l_enter", "l_pri", "l_uid", "l_last",
+            "l_custom", "l_hascustom", "l_off", "l_sh", "l_chg", "l_dir",
+            "l_gap", "l_yv", "l_tpl") if getattr(rs, f) is not None)
+        if rs.l_rnrow is not None:
+            slot += 2 * cfg.MAXLPR * 4
+        admitted = int((out[2] - rs.el_cursor).sum())  # cursor moved
+        per_entry = 4 * (3 + len(q))                   # cursor, n_l, tail
+        if cfg.lane_change:                            # best, end lane
+            per_entry += 1 + 4 + 4 + 4
+        return EL * B * per_entry + admitted * (slot + 4), 0
+    if n == "ring_exits":
+        rs, mid = a[2], a[3]
+        occ_l, occ_k = int(rs.n_l.sum()), int(rs.n_k.sum())
+        nbytes = (nb(mid["new_dis_l"], rs.n_l, rs.n_k, mid["ap_fail"],
+                     mid["ap_red"], mid["ap_ffo"], rs.phase,
+                     rs.phase_remain)
+                  + occ_l * (4 + 1 + 1 + (rs.l_sh is not None))
+                  + int(out["n_rm"].sum()) * 4       # the removed's enter
+                  + occ_k * (4 + 1 + 4)              # nd_k, fail, foe
+                  + nb(*(v for key, v in out.items() if key != "ov")))
+        return nbytes, 0
+    if n == "ring_exits_pairs":
+        rs = a[2]
+        return (nb(rs.n_l, rs.l_sh, rs.l_last, rs.l_chg, rs.l_dir, rs.l_off,
+                   *a[3:7]) + nb(*out.values())), 0
+    if n == "ring_exits_finish":
+        rs = a[2]
+        return (nb(rs.n_l, rs.l_sh, rs.l_chg, *a[3:11])
+                + int(out["n_rm"].sum() - a[11].sum()) * 4
+                + nb(*out.values())), 0
+    if n == "route_rows":
+        ef = a[2]
+        exits = int(ef.sum())
+        return (nb(ef, *out) + exits * 4 * (2 + out[0].shape[0])), 0
+    raise KeyError(n)
+
+
+def time_lc_plain_regions(sim, state, reps):
+    """The lane-change regions still plain PyTorch on the card, on a lc
+    path's own state: lc_front_ctx (its K1 gathers included), its strict
+    min over KOUT alone, and refresh_gaps. Returns their ms."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    from cityflow_tpu_torch.core import ring_lc
+    net, cfg = sim.tables, sim.cfg
+    cx = ring_mod._Ctx(net, cfg, state.n_l.device)
+    orig, kept = ring_mod._kout_min, []
+
+    def rec(*a):
+        kept.append(a)
+        return orig(*a)
+    ring_mod._kout_min = rec
+    try:
+        fx = ring_mod.lc_front_ctx(net, cfg, state, cx)
+    finally:
+        ring_mod._kout_min = orig
+    out = dict(
+        lc_front_ctx=time_cuda(
+            lambda: ring_mod.lc_front_ctx(net, cfg, state, cx), reps),
+        kout_min=time_cuda(lambda: orig(*kept[0]), reps),
+        refresh_gaps=time_cuda(
+            lambda: ring_lc.refresh_gaps(net, cfg, state, fx), reps))
+    log(f"[{'lc' if cfg.uniform else 'mixed-lc'}] plain PyTorch regions on "
+        f"its state, ms a call: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def check_ring_kernels(sim, state, reps, path):
+    """R1-R4 against their plain versions on every call of one more step
+    of a ring path's own state (bitwise; R2's t_rm within 1e-6 relative),
+    each wrapper timed on its call (R3 on a fresh copy of its state every
+    call, kernel and plain alike) beside its bound. Rows: <kernel> on
+    [main], <kernel>@<path> on the others; R2's lane-change stages as
+    ring_exits@pairs / @finish (and @pairs:<path> past [lc])."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    calls = record_ring_calls(sim, state)
+    lc = sim.cfg.lane_change
+    rows = []
+    for n in RING_WRAPPERS:
+        if n in ("ring_exits_pairs", "ring_exits_finish") and not lc:
+            assert not calls[n], f"{n} called without lane change"
+            continue
+        assert len(calls[n]) == 1, f"{n}: {len(calls[n])} calls a step"
+        base = "ring_exits" if n.startswith("ring_exits") else n
+        mod = kernels.MODULES[base]
+        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        a, k = calls[n][0]
+        got = _ring_call(kern, n, a, k)
+        want = _ring_call(plain, n, a, k)
+        torch.cuda.synchronize()
+        err, nbit = _ring_compare(n, got, want)
+        nbytes, nops = ring_work(n, a, k, got)
+        admitted = int((got[2] - a[2].el_cursor).sum()) \
+            if n == "ring_admit" else 0
+        del got, want
+        if n in ("ring_exits_pairs", "ring_exits_finish"):
+            label = f"ring_exits@{n.split('_')[-1]}" + (
+                "" if path == "lc" else f":{path}")
+        else:
+            label = n if path == "main" else f"{n}@{path}"
+        # the path's launch count of this stage (R2's first: the stages
+        # less the two lane-change ones)
+        of = {"ring_exits": (["ring_exits"], ["ring_exits@pairs",
+                                              "ring_exits@finish"]),
+              "ring_exits_pairs": (["ring_exits@pairs"], []),
+              "ring_exits_finish": (["ring_exits@finish"], [])}.get(
+                  n, ([n], []))
+        log(f"[kernels] {label}: {len(calls[n])} call on the {path} step "
+            f"checked, max_abs_err={err} not_bitwise={nbit}")
+        if n == "ring_admit":
+            setup = lambda: (a[:2] + (admit_copy(a[2]),) + a[3:])
+            ms = time_cuda_fresh(setup, lambda x: kern(*x, **k), reps)
+            plain_ms = time_cuda_fresh(setup, lambda x: plain(*x, **k), reps)
+            log(f"[kernels] {label}: admitted {admitted} of "
+                f"{a[2].el_cursor.numel()} entry lanes x envs")
+        else:
+            ms = time_cuda(lambda: kern(*a, **k), reps)
+            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        row = kernel_row(label, err, ms, plain_ms, nbytes, nops, None)
+        row["source"] = f"cityflow_tpu_torch/csrc/{base}.cu"
+        row["launches_of"] = (path,) + of
+        rows.append(row)
     return rows
 
 
@@ -3272,9 +3567,11 @@ def main():
     del sim
     torch.cuda.empty_cache()
     check_agreement(net, AGREE_STEPS, sl=40)
-    main_launches, res = run_path("main", cfg_path, BATCH, WARMUP, STEPS,
-                                  MAIN_KERNELS)[:2]
+    main_launches, res, mn_sim, mn_state = run_path(
+        "main", cfg_path, BATCH, WARMUP, STEPS, MAIN_KERNELS)
     log(f"[main] {json.dumps(res)}")
+    rows += check_ring_kernels(mn_sim, mn_state, REPS, "main")
+    del mn_sim, mn_state
     torch.cuda.empty_cache()
 
     # the fixture's `dir` names the machine it was written on: stage it
@@ -3287,6 +3584,8 @@ def main():
         MAIN_KERNELS + LC_KERNELS + LC_MODES)
     log(f"[lc] {json.dumps(lc_res)}")
     rows += check_lc_kernels(lc_sim, lc_state, REPS)
+    rows += check_ring_kernels(lc_sim, lc_state, REPS, "lc")
+    lc_res["plain_regions_ms"] = time_lc_plain_regions(lc_sim, lc_state, REPS)
     del lc_sim, lc_state
     torch.cuda.empty_cache()
 
@@ -3304,6 +3603,7 @@ def main():
         lane_slots=0)
     log(f"[mixed] {json.dumps(mixed_res)}")
     rows += check_tpl_kernels(m_sim, m_state, REPS, lc=False)
+    rows += check_ring_kernels(m_sim, m_state, REPS, "mixed")
     del m_sim, m_state
     torch.cuda.empty_cache()
     check_agreement(compile_scenario(prepare(os.path.join(
@@ -3325,6 +3625,7 @@ def main():
     log(f"[mixed-lc] {json.dumps(mlc_res)}")
     rows += check_tpl_kernels(ml_sim, ml_state, REPS, lc=True,
                               lci=demand["peak"])
+    rows += check_ring_kernels(ml_sim, ml_state, REPS, "mixed-lc")
     del ml_sim, ml_state
     torch.cuda.empty_cache()
 
@@ -3475,9 +3776,15 @@ def main():
     # each row's launches come from the path that runs it
     path_of = {"lane_stats@hist": hist_launches,
                "phase_pressure@features": dqn_launches}
+    ring_paths = {"main": main_launches, "lc": lc_launches,
+                  "mixed": mixed_launches, "mixed-lc": mlc_launches}
     for r in rows:
         name = r["name"]
-        if name.endswith("@lcbatch"):
+        if "launches_of" in r:
+            path, plus, minus = r.pop("launches_of")
+            r["launches"] = sum(ring_paths[path][k] for k in plus) \
+                - sum(ring_paths[path][k] for k in minus)
+        elif name.endswith("@lcbatch"):
             base = name[:-len("@lcbatch")]
             r["launches"] = glcb_launches[
                 {"lc_plan": "lc_plan@signal",

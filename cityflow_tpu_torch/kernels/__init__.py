@@ -38,7 +38,19 @@ counter:
   G15 shadow_insert  gen-1 lane change: the shadows into each env's first
                      free slots, every per-slot leaf written
   T1 tpl_params      vehicle template index -> template parameters
+  R1 notify_winners  ring step: each cross's notifier and its canPass
+                     terms, the blocker-cycle flag (the foe exchange's
+                     input)
+  R2 ring_exits      ring step: crossings, leave prefixes, removals and
+                     their sums, the lane-change pair flags (stages pairs /
+                     finish), the blocker commit, the lights
+  R3 ring_admit      ring step: spawn and admission, in place
+  R4 route_rows      ring step: the route rows of the link -> lane
+                     transfers
 
+R1, R3 and R4 count their template / lane-change calls apart as
+<name>@tpl / <name>@lc, R2 its two lane-change stages as ring_exits@pairs
+and ring_exits@finish.
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
 each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
@@ -60,8 +72,9 @@ from cityflow_tpu_torch.kernels import (
     admit_heads, arrange, blocker_cycles, car_follow, cross_caps, cross_pass,
     gather_rows, hist_window, lane_counts, lane_stats, lc_commit, lc_insert,
     lc_partner, lc_plan, lc_probe, lc_receive, lc_signal, leader_scan,
-    notify_cross, phase_pressure, phase_scores, ring_commit, shadow_insert,
-    spawn_slots, tpl_params, update_location)
+    notify_cross, notify_winners, phase_pressure, phase_scores, ring_admit,
+    ring_commit, ring_exits, route_rows, shadow_insert, spawn_slots,
+    tpl_params, update_location)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -75,7 +88,9 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "blocker_cycles": blocker_cycles,
            "update_location": update_location, "spawn_slots": spawn_slots,
            "admit_heads": admit_heads, "lane_counts": lane_counts,
-           "phase_scores": phase_scores, "shadow_insert": shadow_insert}
+           "phase_scores": phase_scores, "shadow_insert": shadow_insert,
+           "notify_winners": notify_winners, "ring_exits": ring_exits,
+           "ring_admit": ring_admit, "route_rows": route_rows}
 
 # the gen-1 kernels with a float32 mode, and those with a fast branch
 F32_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
@@ -104,7 +119,13 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
             for n in FAST_KERNELS},
          "lane_counts@drivables": (lane_counts, "launches_drivables"),
          "phase_scores@phases": (phase_scores, "launches_phases"),
-         "phase_scores@features": (phase_scores, "launches_features")}
+         "phase_scores@features": (phase_scores, "launches_features"),
+         "notify_winners@tpl": (notify_winners, "launches_tpl"),
+         "ring_exits@pairs": (ring_exits, "launches_pairs"),
+         "ring_exits@finish": (ring_exits, "launches_finish"),
+         "ring_admit@lc": (ring_admit, "launches_lc"),
+         "ring_admit@tpl": (ring_admit, "launches_tpl"),
+         "route_rows@lc": (route_rows, "launches_lc")}
 
 
 def reset_launches():

@@ -140,7 +140,8 @@ class RingVecEnv:
 
     def step(self, phases):
         """phases: (B, I) int in original intersection order -> (obs dict,
-        reward (B,))."""
+        reward (B,)). The step writes the previous self.state in place (as
+        JAX's batched entries donate it)."""
         sim = self.sim
         phases = torch.as_tensor(phases, device=self.device)
         ring_phase = phases.index_select(1, self._i_ring2orig).to(I32)

@@ -54,7 +54,9 @@ def make_ring_dqn_split_step(tables, cfg, max_phases: int,
     One iteration: observations and eps-greedy actions on `state`
     (trailing-batch), sim_steps_per_action batched ring steps with those
     phases held, then one TD update of `params` against `target`. The
-    caller copies params into target every few iterations."""
+    caller copies params into target every few iterations. The steps
+    write `state` in place (the batched ring entries, as JAX's donate
+    theirs): pass a state that is not needed afterwards."""
     obs_fn, obs_dim = build_ring_intersection_obs(cfg, max_phases)
     G, I = cfg.G, cfg.I
 
