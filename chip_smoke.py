@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   build     the card's name and power limit (nvidia-smi), then the build
-            of the 30 kernels from csrc/ (nvcc, sm_90a) with its time
+            of the 33 kernels from csrc/ (nvcc, sm_90a) with its time
   scenario  the 30x30 grid regenerated by the port's gridgen into build/,
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
@@ -19,7 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             warm-up runs one env, copied into the batch) at B=128
             (asserted: no halving on out-of-memory); asserts
             overflow == 0, vehicles > 0, every env equal to env 0 bitwise,
-            and K1-K4 and R1-R4 launched; prints ms per batched step,
+            and K1-K4, R1-R7 (R7 in its three modes) and K3's ring-leader
+            mode (lane and link rows) launched; prints ms per batched step,
             env-steps/s, the p1/p2 split, each kernel's share and peak
             memory
   kernels   (ring regions) R1 notify_winners, R2 ring_exits, R3
@@ -28,7 +29,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             (bitwise; R2's t_rm within 1e-6 relative), timed (R3 on a
             fresh copy of its state each call) beside their bounds; the
             same on [lc] (with R2's pair stages @pairs / @finish),
-            [mixed] and [mixed-lc] (rows <kernel>@<path>)
+            [mixed] and [mixed-lc] (rows <kernel>@<path>); then R5
+            front_leaders (approach mode; with lane change also its
+            lane-change mode, front_leaders@ctx), R6 gap_refresh (lane
+            change), R7 ring_pack (forward, @entrant, @candidate) and K3's
+            ring-leader mode (car_follow@ring lane rows, @ring-link link
+            rows) on every call of one more step of each ring path, bit
+            for bit against their plain versions, timed beside their
+            bounds (rows <base>@<path>, or <base>:<path> for a mode)
   agree-lc  lane change, B=1 on the card against the plain port on the
             CPU on tests/fixtures/config_1x1s_lc.json, 80 steps: vehicles
             keyed by (uid, shadow), drift within 2e-3, equal (changing,
@@ -41,10 +49,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernels   (lane change) L1-L4 and the lane-change modes of K3 / K4
             against their plain versions on the inputs of one more step of
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
-            K3 within 1e-5, their not-bitwise counts printed), timed; R1-R4
-            as on [main]; the plain PyTorch left in the lane-change step
-            timed on that state: lc_front_ctx, its KOUT min alone,
-            refresh_gaps
+            K3 within 1e-5, their not-bitwise counts printed), timed; R1-R7
+            and K3's ring-leader mode as on [main]
   agree-mixed  non-uniform vehicle templates, B=1 card against CPU on
             tests/fixtures/config_2x2_mixed.json, 100 steps, skc=99
   mixed     the main path on the 30x30 grid with three vehicle templates
@@ -288,14 +294,25 @@ GEN1_LCB_STEPS = 40                 # timed batched steps of 30x30_lc at
 # the RL kernels of the batched gen-1 step
 GEN1_RL_KERNELS = ("lane_counts", "phase_scores", "phase_scores@phases")
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit",
-                "notify_winners", "ring_exits", "ring_admit", "route_rows")
+                "notify_winners", "ring_exits", "ring_admit", "route_rows",
+                "front_leaders", "ring_pack", "ring_pack@entrant",
+                "ring_pack@candidate", "car_follow@ring",
+                "car_follow@ring-link")
+# the kernel wrappers core/ring.py calls by name
+RING_CALLS = ("gather_rows", "cross_caps", "car_follow", "ring_commit",
+              "notify_winners", "ring_exits", "ring_admit", "route_rows",
+              "ring_exits_pairs", "ring_exits_finish", "front_leaders",
+              "front_leaders_lc", "pack_forward", "pack_entrants",
+              "pack_candidates", "tpl_params")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc", "ring_exits@pairs",
-            "ring_exits@finish", "ring_admit@lc", "route_rows@lc")
+            "ring_exits@finish", "ring_admit@lc", "route_rows@lc",
+            "front_leaders@ctx", "gap_refresh")
 AGREE_MIXED_STEPS = 100             # card-vs-CPU steps on the mixed fixture
 TPL_MODES = ("tpl_params", "car_follow@tpl", "cross_caps@tpl",
              "notify_winners@tpl", "ring_admit@tpl")
-TPL_LC_MODES = ("lc_signal@tpl", "lc_receive@tpl", "car_follow@tpl+lc")
+TPL_LC_MODES = ("lc_signal@tpl", "lc_receive@tpl", "car_follow@tpl+lc",
+                "gap_refresh@tpl")
 RL_KERNELS = ("lane_stats", "phase_pressure")
 REPLACES = {
     "gather_rows": "cityflow_tpu/core/ring.py:243 (_typed_mm), :300-341 "
@@ -546,7 +563,8 @@ def check_kernels(sim, B, reps):
                        gather_rows.gather_rows_plain(xf, fidx, 0.0)), \
         "gather_rows (foe) mismatch"
     nxt = T(rng.integers(-1, LKp, (IL, G, B)).astype(np.int32) + cfg.LNp)
-    didx = cx.to_link_idx(cx.lpi_of(nxt))
+    from cityflow_tpu_torch.kernels._ring_idx import lpi_of, to_link_idx
+    didx = to_link_idx(cfg, net, lpi_of(cfg, nxt))
     x5 = T(rng.standard_normal((5, IL * G, B)).astype(np.float32))
     assert torch.equal(gather_rows.gather_rows(x5, didx=didx, fill=0.0),
                        gather_rows.gather_rows_plain(x5, didx=didx,
@@ -868,10 +886,8 @@ def _patch_points():
     """(module, name) of every kernel wrapper the step calls by name."""
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
-    return [(ring_mod, n) for n in MAIN_KERNELS] \
-        + [(ring_mod, n) for n in ("ring_exits_pairs", "ring_exits_finish")] \
-        + [(ring_lc, n) for n in LC_KERNELS] \
-        + [(ring_mod, "tpl_params"), (ring_lc, "tpl_params")]
+    return [(ring_mod, n) for n in RING_CALLS] \
+        + [(ring_lc, n) for n in LC_KERNELS + ("gap_refresh",)]
 
 
 @contextlib.contextmanager
@@ -1215,11 +1231,7 @@ def lc_work(n, a, k):
         found = lc_partner_plain(uid, sh, l_dir, n_l, chg, chans, tabs)[1]
         return ins + 4 * C * int(found.sum()) + S * N * B * (4 * C + 1), 0
     if n == "car_follow":
-        shape = a[2]
-        elems = int(torch.tensor(shape).prod())
-        # speed gap lead_spd custom lane_left v_yield (f32), has_lead
-        # has_custom invalid (bool) in; the raw speed out; drv_maxspd
-        return elems * (6 * 4 + 3 + 4) + shape[1] * 4, elems * 80
+        return k3_work(a, k)
     if n == "ring_commit":
         chans, _, base, app = a[:4]
         dmask = k["dmask"]
@@ -1295,12 +1307,7 @@ def tpl_work(n, a, k):
     if n == "cross_caps":
         return cross_caps_work(a[0], a[5], a[7], per_row_extra=4)
     if n == "car_follow":
-        nbytes, nops = lc_work("car_follow", a, {})
-        elems = int(torch.tensor(a[2]).prod())
-        # lc_work counts a v_yield input; the template indices (self, and
-        # the leader's with min_chain)
-        return (nbytes - 4 * elems * ("v_yield" not in k)
-                + 4 * elems * (1 + (a[0] & 2 > 0))), nops
+        return k3_work(a, k)
     if n == "lc_signal":
         nbytes, nops = lc_work("lc_signal", a, k)
         return nbytes + nb(k["tpl"], k["olt_len"]), nops
@@ -1578,37 +1585,6 @@ def ring_work(n, a, k, out):
     raise KeyError(n)
 
 
-def time_lc_plain_regions(sim, state, reps):
-    """The lane-change regions still plain PyTorch on the card, on a lc
-    path's own state: lc_front_ctx (its K1 gathers included), its strict
-    min over KOUT alone, and refresh_gaps. Returns their ms."""
-    import torch
-    from cityflow_tpu_torch.core import ring as ring_mod
-    from cityflow_tpu_torch.core import ring_lc
-    net, cfg = sim.tables, sim.cfg
-    cx = ring_mod._Ctx(net, cfg, state.n_l.device)
-    orig, kept = ring_mod._kout_min, []
-
-    def rec(*a):
-        kept.append(a)
-        return orig(*a)
-    ring_mod._kout_min = rec
-    try:
-        fx = ring_mod.lc_front_ctx(net, cfg, state, cx)
-    finally:
-        ring_mod._kout_min = orig
-    out = dict(
-        lc_front_ctx=time_cuda(
-            lambda: ring_mod.lc_front_ctx(net, cfg, state, cx), reps),
-        kout_min=time_cuda(lambda: orig(*kept[0]), reps),
-        refresh_gaps=time_cuda(
-            lambda: ring_lc.refresh_gaps(net, cfg, state, fx), reps))
-    log(f"[{'lc' if cfg.uniform else 'mixed-lc'}] plain PyTorch regions on "
-        f"its state, ms a call: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in out.items()))
-    return out
-
-
 def check_ring_kernels(sim, state, reps, path):
     """R1-R4 against their plain versions on every call of one more step
     of a ring path's own state (bitwise; R2's t_rm within 1e-6 relative),
@@ -1665,6 +1641,289 @@ def check_ring_kernels(sim, state, reps, path):
         row["source"] = f"cityflow_tpu_torch/csrc/{base}.cu"
         row["launches_of"] = (path,) + of
         rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the ring step's front leaders, gap refresh, channel packs and K3's
+# ring-leader mode (R5-R7) on each ring path's own state
+# ---------------------------------------------------------------------------
+
+# (module of core/ that calls it, kernel module, wrapper) of each call
+FRONT_CALLS = (("ring", "front_leaders", "front_leaders"),
+               ("ring", "front_leaders", "front_leaders_lc"),
+               ("ring_lc", "gap_refresh", "gap_refresh"),
+               ("ring", "ring_pack", "pack_forward"),
+               ("ring", "ring_pack", "pack_entrants"),
+               ("ring", "ring_pack", "pack_candidates"),
+               ("ring", "car_follow", "car_follow"))
+# the row of each (wrapper, K3 ring kind) and its launch counters
+# (counted, less)
+FRONT_ROWS = {
+    ("front_leaders", None): ("front_leaders", ["front_leaders"],
+                              ["front_leaders@ctx"]),
+    ("front_leaders_lc", None): ("front_leaders@ctx", ["front_leaders@ctx"],
+                                 []),
+    ("gap_refresh", None): ("gap_refresh", ["gap_refresh"], []),
+    ("pack_forward", None): ("ring_pack", ["ring_pack"],
+                             ["ring_pack@entrant", "ring_pack@candidate"]),
+    ("pack_entrants", None): ("ring_pack@entrant", ["ring_pack@entrant"],
+                              []),
+    ("pack_candidates", None): ("ring_pack@candidate",
+                                ["ring_pack@candidate"], []),
+    ("car_follow", "lane"): ("car_follow@ring", ["car_follow@ring"],
+                             ["car_follow@ring-link"]),
+    ("car_follow", "link"): ("car_follow@ring-link",
+                             ["car_follow@ring-link"], [])}
+FRONT_REPLACES = {
+    "front_leaders": "cityflow_tpu/core/ring.py:1151-1300 (approach rows: "
+                     "the KOUT min over the out-link ring tails, the "
+                     "per-front leaders, v_isr / isr_rel back from the link "
+                     "domain)",
+    "front_leaders@ctx": "cityflow_tpu/core/ring.py:344-448 (lc_front_ctx: "
+                         "the KOUT min, the out-link tails, the next link's "
+                         "end-lane tail)",
+    "gap_refresh": "cityflow_tpu/core/ring_lc.py:99-158 (refresh_gaps)",
+    "ring_pack": "cityflow_tpu/core/ring.py:300-341 (_shifted_exchange / "
+                 "_fwd_ex), :686-729 (the forward exchange's channel pack)",
+    "ring_pack@entrant": "cityflow_tpu/core/ring.py:1644-1690 (the link "
+                         "entrants' pack, to_link)",
+    "ring_pack@candidate": "cityflow_tpu/core/ring.py:1744-1837 (the lane "
+                           "candidates' pack, E_app)",
+    "car_follow@ring": "cityflow_tpu/core/ring.py:1301-1386 (the lane "
+                       "domain's shifted leader views, gaps, invalid, the "
+                       "fronts' override)",
+    "car_follow@ring-link": "cityflow_tpu/core/ring.py:1094-1150 (the link "
+                            "rows' shifted leader views, the end-lane tail "
+                            "at slot 0)"}
+
+
+def front_label(base, path):
+    """A row's name: the base on [main], base@<path> on another path,
+    base:<path> where the base already names a mode; the lane-change-only
+    rows carry [lc] bare."""
+    if path == "main":
+        return base
+    if base in ("gap_refresh",):
+        return f"{base}@{path}"
+    if base == "front_leaders@ctx":
+        return base if path == "lc" else f"{base}:{path}"
+    return f"{base}:{path}" if "@" in base else f"{base}@{path}"
+
+
+REPLACES.update({front_label(b, p): v + ("" if p == "main" else
+                                         RING_PATH_NOTE[p])
+                 for b, v in FRONT_REPLACES.items()
+                 for p in ("main",) + tuple(RING_PATH_NOTE)})
+
+
+def record_front_calls(sim, state):
+    """One more batched step from a copy of `state` with the R5-R7
+    wrappers and K3 recording their arguments (K3 only in its ring-leader
+    mode): the calls before R3's admission keep a copy of the leaves R3
+    writes in place, the others their arguments by reference."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    from cityflow_tpu_torch.core import ring_lc
+    mods = {"ring": ring_mod, "ring_lc": ring_lc}
+    calls = {w: [] for _, _, w in FRONT_CALLS}
+    orig = {}
+
+    def rec(w, fn):
+        def call(*a, **k):
+            if w == "car_follow" and k.get("ring") is None:
+                return fn(*a, **k)
+            kept = a[:2] + (admit_copy(a[2]),) + a[3:] \
+                if w in ("front_leaders_lc", "gap_refresh") else a
+            calls[w].append((kept, k))
+            return fn(*a, **k)
+        return call
+
+    try:
+        for m, _, w in FRONT_CALLS:
+            orig[(m, w)] = getattr(mods[m], w)
+            setattr(mods[m], w, rec(w, orig[(m, w)]))
+        st, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg,
+                                                fresh(state), sim.q)
+        ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, st, mid)
+        torch.cuda.synchronize()
+    finally:
+        for (m, w), f in orig.items():
+            setattr(mods[m], w, f)
+    return calls
+
+
+def _bitwise(name, got, want):
+    """(max |err|, values not bitwise): ints and bools equal, floats equal
+    bit for bit (+0.0 and -0.0 apart)."""
+    import torch
+    err, nbit = 0.0, 0
+    for g, w in zip(_flat(got), _flat(want), strict=True):
+        assert g.shape == w.shape and g.dtype == w.dtype, \
+            f"{name}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}"
+        if g.dtype == torch.float32:
+            nbit += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+            d = (g.double() - w.double()).abs().nan_to_num(0.0)
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        else:
+            nbit += int((g != w).sum())
+    return err, nbit
+
+
+def k3_work(a, k, out=None):
+    """K3's bytes (each distinct input tensor read once, the ring-leader
+    mode's end-lane bundle only in the channels it reads, each output
+    written once) and operations (~80 float operations an element)."""
+    import torch
+    mode, shape, raw = a[0], tuple(a[2]), k.get("raw", False)
+    elems = 1
+    for d in shape:
+        elems *= d
+    seen, nbytes = set(), 0
+    ts = [v for v in k.values() if isinstance(v, torch.Tensor)]
+    r = k.get("ring")
+    if r is not None:
+        ts += [t for t in (r.dis, r.speed, r.n, r.tpl, r.len_row, r.nxt,
+                           r.last, r.in_inv, r.ap_v, r.ap_d, r.ap_rel)
+               if t is not None]
+        if r.s0 is not None:
+            ch = 4 if r.tpl is not None else 3
+            nbytes += ch * r.s0[0].numel() * 4
+    for t in ts:
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * t.element_size()
+    if mode == 1:
+        outs = 4 + 1
+    elif raw:
+        outs = 4
+    else:
+        outs = 8 + (4 if r is not None else 0)
+    return nbytes + elems * outs, elems * 80
+
+
+def front_work(w, a, k, out):
+    """Bytes each R5-R7 call must move (each input read once, only the
+    slots and channels it reads, each output written once)."""
+    import torch
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts
+                         if t is not None)
+    cfg, net = a[0], a[1]
+    tpl = not cfg.uniform
+    outs = nb(*_flat(out))
+    AP, IL, G = cfg.AP, cfg.IL, cfg.G
+    if w in ("front_leaders", "pack_entrants"):
+        from cityflow_tpu_torch.core.numerics import xla_f32_to_i32
+        from cityflow_tpu_torch.kernels._ring_idx import (
+            from_link_idx, lpi_of, to_link_idx)
+        inl = a[3] if w == "front_leaders" else a[2]
+        B = inl.shape[-1]
+        plane = IL * G * B * 4                   # one inl channel plane
+        nxt = xla_f32_to_i32(inl[2 * AP:3 * AP]).reshape(AP, IL, G, B)
+    if w == "front_leaders":
+        rs, inl, et, v_isr_ap, isr_rel_ap = a[2:7]
+        full = int((rs.n_k > 0).sum())          # link ring tails read
+        # each slot reads its next link's isr row where it has one, slot
+        # 0 that link's end-lane tail too
+        hops = [int((from_link_idx(cfg, lpi_of(cfg, nxt[s])) >= 0).sum())
+                for s in range(AP)]
+        # inl: distance and next link of every front slot, the speed,
+        # occupancy (and template) of slots 0..AP-2 as leaders, the length
+        planes = 2 * AP + (2 + tpl) * (AP - 1) + 1
+        return (outs + nb(rs.n_k) + planes * plane
+                + full * (8 + 4 * tpl) + 5 * sum(hops)
+                + hops[0] * (12 + 4 * tpl + 4)), 0
+    if w == "front_leaders_lc":
+        rs = a[2]
+        tails = int((rs.n_l > 0).sum()) * (4 + 4 * tpl) \
+            + int((rs.n_k > 0).sum()) * (4 + 4 * tpl)
+        return outs + nb(rs.n_l, rs.n_k, rs.l_nxt[0]) + tails, 0
+    if w == "gap_refresh":
+        from cityflow_tpu_torch.kernels.gap_refresh import _FX
+        rs, fx = a[2], a[3]
+        # a leader's template is read from slots 0..S-2, the front's own
+        # at slot 0; of R5's context only the entries the kernel reads
+        lead = lambda t: None if t is None else t[:-1]
+        return (outs + nb(rs.l_dis, lead(rs.l_tpl), rs.k_dis,
+                          lead(rs.k_tpl), rs.l_gap[0], rs.k_gap[0],
+                          rs.l_nxt[0], net["ln_len"], net["lk_len"],
+                          *(fx.get(n) for n in _FX))), 0
+    if w == "pack_forward":
+        rs = a[2]
+        valid = int((net["in_src"] >= 0).sum())
+        slot = sum(getattr(rs, f).element_size() for f in (
+            "l_dis", "l_speed", "l_nxt", "l_nxt3", "l_route", "l_rpos",
+            "l_flow", "l_pri", "l_uid", "l_enter", "l_custom",
+            "l_hascustom", "l_gap", "l_yv", "l_tpl")
+            if getattr(rs, f) is not None)
+        B = rs.n_l.shape[-1]
+        return outs + valid * B * (cfg.AP * slot + 4 + 8), 0
+    if w == "pack_entrants":
+        starts = int((net["start_src"] >= 0).sum())
+        heads = sum(int((to_link_idx(cfg, net, lpi_of(cfg, nxt[s])) >= 0)
+                        .sum()) for s in range(AP))
+        moved = int((out[:, 0] > 0.5).sum())
+        # each link reads its start in-lane's next links; a front heading
+        # into it its occupancy and exit flag; an entrant its channels,
+        # its in-lane length and its new distance and speed
+        NE = out.shape[1]
+        return (outs + starts * B * AP * 4 + heads * (4 + 1)
+                + moved * 4 * (NE - 1 + 1)), 0
+    if w == "pack_candidates":
+        rs, nd_k, ns_k, pays, exit_flags = a[2:7]
+        XKe = exit_flags.shape[0]
+        link = [getattr(rs, f)[:XKe] for f in (
+            "k_flow", "k_route", "k_rpos", "k_enter", "k_pri", "k_uid",
+            "k_gap", "k_tpl") if getattr(rs, f) is not None]
+        return outs + nb(nd_k[:XKe], ns_k[:XKe], pays, exit_flags,
+                         *link), 0
+    raise KeyError(w)
+
+
+def check_front_kernels(sim, state, reps, path):
+    """R5 (both modes), R6, R7 (three modes) and K3's ring-leader mode
+    (lane and link rows) against their plain versions on every call of
+    one more step of a ring path's own state, bit for bit; each timed on
+    its call beside its bound. Rows as front_label names them."""
+    import torch
+    from cityflow_tpu_torch import kernels
+    calls = record_front_calls(sim, state)
+    lc = sim.cfg.lane_change
+    rows = []
+    for _, mname, w in FRONT_CALLS:
+        mod = kernels.MODULES[mname]
+        kern, plain = getattr(mod, w), getattr(mod, w + "_plain")
+        by_kind = {}
+        for a, k in calls[w]:
+            by_kind.setdefault(k["ring"].kind if w == "car_follow" else None,
+                               []).append((a, k))
+        want_n = 0 if (w in ("front_leaders_lc", "gap_refresh") and not lc) \
+            else 1
+        kinds = ("lane", "link") if w == "car_follow" else (None,)
+        for kind in kinds:
+            got_calls = by_kind.get(kind, [])
+            assert len(got_calls) == want_n, \
+                f"{w} {kind}: {len(got_calls)} calls a step"
+            if not want_n:
+                continue
+            a, k = got_calls[0]
+            got = kern(*a, **k)
+            want = plain(*a, **k)
+            torch.cuda.synchronize()
+            base, plus, minus = FRONT_ROWS[(w, kind)]
+            label = front_label(base, path)
+            err, nbit = _bitwise(label, got, want)
+            log(f"[kernels] {label}: 1 call on the {path} step checked, "
+                f"max_abs_err={err} not_bitwise={nbit}")
+            assert nbit == 0, f"{label}: {nbit} values not bitwise"
+            nbytes, nops = k3_work(a, k) if w == "car_follow" \
+                else front_work(w, a, k, got)
+            del got, want
+            ms = time_cuda(lambda: kern(*a, **k), reps)
+            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+            row = kernel_row(label, err, ms, plain_ms, nbytes, nops, None)
+            row["launches_of"] = (path, plus, minus)
+            rows.append(row)
     return rows
 
 
@@ -3571,6 +3830,7 @@ def main():
         "main", cfg_path, BATCH, WARMUP, STEPS, MAIN_KERNELS)
     log(f"[main] {json.dumps(res)}")
     rows += check_ring_kernels(mn_sim, mn_state, REPS, "main")
+    rows += check_front_kernels(mn_sim, mn_state, REPS, "main")
     del mn_sim, mn_state
     torch.cuda.empty_cache()
 
@@ -3585,7 +3845,7 @@ def main():
     log(f"[lc] {json.dumps(lc_res)}")
     rows += check_lc_kernels(lc_sim, lc_state, REPS)
     rows += check_ring_kernels(lc_sim, lc_state, REPS, "lc")
-    lc_res["plain_regions_ms"] = time_lc_plain_regions(lc_sim, lc_state, REPS)
+    rows += check_front_kernels(lc_sim, lc_state, REPS, "lc")
     del lc_sim, lc_state
     torch.cuda.empty_cache()
 
@@ -3604,6 +3864,7 @@ def main():
     log(f"[mixed] {json.dumps(mixed_res)}")
     rows += check_tpl_kernels(m_sim, m_state, REPS, lc=False)
     rows += check_ring_kernels(m_sim, m_state, REPS, "mixed")
+    rows += check_front_kernels(m_sim, m_state, REPS, "mixed")
     del m_sim, m_state
     torch.cuda.empty_cache()
     check_agreement(compile_scenario(prepare(os.path.join(
@@ -3626,6 +3887,7 @@ def main():
     rows += check_tpl_kernels(ml_sim, ml_state, REPS, lc=True,
                               lci=demand["peak"])
     rows += check_ring_kernels(ml_sim, ml_state, REPS, "mixed-lc")
+    rows += check_front_kernels(ml_sim, ml_state, REPS, "mixed-lc")
     del ml_sim, ml_state
     torch.cuda.empty_cache()
 

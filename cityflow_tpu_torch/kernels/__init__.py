@@ -47,10 +47,22 @@ counter:
   R3 ring_admit      ring step: spawn and admission, in place
   R4 route_rows      ring step: the route rows of the link -> lane
                      transfers
+  R5 front_leaders   ring step: the lane fronts' leaders from the link
+                     rings' tails (approach mode: K3's approach inputs;
+                     lane-change mode: lc_front_ctx)
+  R6 gap_refresh     ring step, lane change: the stale-gap refresh of every
+                     lane and link slot
+  R7 ring_pack       ring step: the channel packs (forward exchange, link
+                     entrants, lane candidates) straight from the rings
 
 R1, R3 and R4 count their template / lane-change calls apart as
 <name>@tpl / <name>@lc, R2 its two lane-change stages as ring_exits@pairs
-and ring_exits@finish.
+and ring_exits@finish, R5 its lane-change mode as front_leaders@ctx, R6
+its template calls as gap_refresh@tpl, R7 its modes as ring_pack@entrant
+and ring_pack@candidate (the rest are forward packs). K3's ring-leader
+mode (the lane and link rows read their leaders from the ring in place)
+counts apart as car_follow@ring, its link-row calls also as
+car_follow@ring-link.
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
 each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
@@ -72,9 +84,10 @@ from cityflow_tpu_torch.kernels import (
     admit_heads, arrange, blocker_cycles, car_follow, cross_caps, cross_pass,
     gather_rows, hist_window, lane_counts, lane_stats, lc_commit, lc_insert,
     lc_partner, lc_plan, lc_probe, lc_receive, lc_signal, leader_scan,
-    notify_cross, notify_winners, phase_pressure, phase_scores, ring_admit,
-    ring_commit, ring_exits, route_rows, shadow_insert, spawn_slots,
-    tpl_params, update_location)
+    front_leaders, gap_refresh, notify_cross, notify_winners,
+    phase_pressure, phase_scores, ring_admit, ring_commit, ring_exits,
+    ring_pack, route_rows, shadow_insert, spawn_slots, tpl_params,
+    update_location)
 
 MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "car_follow": car_follow, "ring_commit": ring_commit,
@@ -90,7 +103,9 @@ MODULES = {"gather_rows": gather_rows, "cross_caps": cross_caps,
            "admit_heads": admit_heads, "lane_counts": lane_counts,
            "phase_scores": phase_scores, "shadow_insert": shadow_insert,
            "notify_winners": notify_winners, "ring_exits": ring_exits,
-           "ring_admit": ring_admit, "route_rows": route_rows}
+           "ring_admit": ring_admit, "route_rows": route_rows,
+           "front_leaders": front_leaders, "gap_refresh": gap_refresh,
+           "ring_pack": ring_pack}
 
 # the gen-1 kernels with a float32 mode, and those with a fast branch
 F32_KERNELS = ("arrange", "leader_scan", "notify_cross", "cross_pass",
@@ -125,7 +140,13 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "ring_exits@finish": (ring_exits, "launches_finish"),
          "ring_admit@lc": (ring_admit, "launches_lc"),
          "ring_admit@tpl": (ring_admit, "launches_tpl"),
-         "route_rows@lc": (route_rows, "launches_lc")}
+         "route_rows@lc": (route_rows, "launches_lc"),
+         "front_leaders@ctx": (front_leaders, "launches_ctx"),
+         "gap_refresh@tpl": (gap_refresh, "launches_tpl"),
+         "ring_pack@entrant": (ring_pack, "launches_ent"),
+         "ring_pack@candidate": (ring_pack, "launches_cand"),
+         "car_follow@ring": (car_follow, "launches_ring"),
+         "car_follow@ring-link": (car_follow, "launches_ring_link")}
 
 
 def reset_launches():

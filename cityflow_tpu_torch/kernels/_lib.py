@@ -107,12 +107,13 @@ def lib():
                      "hist_window", "lc_probe", "blocker_cycles",
                      "update_location", "spawn_slots", "admit_heads",
                      "lane_counts", "phase_scores", "shadow_insert",
-                     "notify_winners", "ring_admit", "route_rows"):
+                     "notify_winners", "ring_admit", "route_rows",
+                     "gap_refresh"):
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int
-        for name in ("lc_plan", "lc_commit", "ring_exits"):  # (args, mode,
-            #                                                stream)
+        for name in ("lc_plan", "lc_commit", "ring_exits", "front_leaders",
+                     "ring_pack"):                     # (args, mode, stream)
             fn = getattr(L, name)
             fn.argtypes = [vp, ctypes.c_int, vp]
             fn.restype = ctypes.c_int

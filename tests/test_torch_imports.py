@@ -218,10 +218,12 @@ def test_bench_gen1_layout_runs_on_the_cpu(capsys):
 
 
 def test_ring_region_modules_are_covered():
-    """The import rule above reaches the R1-R4 wrappers."""
+    """The import rule above reaches the R1-R7 wrappers."""
     files = {os.path.relpath(p, PKG) for p in _port_sources()}
     for rel in ("kernels/notify_winners.py", "kernels/ring_exits.py",
-                "kernels/ring_admit.py", "kernels/route_rows.py"):
+                "kernels/ring_admit.py", "kernels/route_rows.py",
+                "kernels/front_leaders.py", "kernels/gap_refresh.py",
+                "kernels/ring_pack.py", "kernels/_ring_idx.py"):
         assert rel in files, rel
 
 
@@ -233,34 +235,50 @@ def test_ring_region_modules_are_covered():
 def test_each_ring_region_runs_through_its_wrapper_once_a_step(config, kw,
                                                                lc):
     """One batched ring step per mode (uniform, lane change, templates,
-    both) calls each R wrapper once (R2's pair stages with lane change
-    only), and core/ring.py keeps no inline copy of those regions."""
+    both) calls each R wrapper once (R2's pair stages, R5's lane-change
+    mode and R6 with lane change only), R7 once in each of its three
+    modes and K3 once in its ring-leader mode on the lane rows and once
+    on the link rows (twice outside it, on the approach rows), and
+    core/ring.py and core/ring_lc.py keep no inline copy of those
+    regions."""
     import inspect
-    from cityflow_tpu_torch.core import ring
+    from cityflow_tpu_torch.core import ring, ring_lc
     tsim = ring_sim.build_sim(compile_scenario(os.path.join(
         HERE, "fixtures", config)), horizon=16, device="cpu", **kw)
     names = ("notify_winners", "ring_admit", "ring_exits",
-             "ring_exits_pairs", "ring_exits_finish", "route_rows")
-    calls = dict.fromkeys(names, 0)
-    orig = {n: getattr(ring, n) for n in names}
+             "ring_exits_pairs", "ring_exits_finish", "route_rows",
+             "front_leaders", "front_leaders_lc", "pack_forward",
+             "pack_entrants", "pack_candidates", "car_follow")
+    calls = dict.fromkeys(names + ("gap_refresh", "car_follow@ring-lane",
+                                   "car_follow@ring-link"), 0)
+    mods = [(ring, n) for n in names] + [(ring_lc, "gap_refresh")]
+    orig = {(m, n): getattr(m, n) for m, n in mods}
 
-    def counted(n):
+    def counted(m, n):
         def fn(*a, **k):
-            calls[n] += 1
-            return orig[n](*a, **k)
+            r = k.get("ring")
+            calls[n if r is None else f"{n}@ring-{r.kind}"] += 1
+            return orig[(m, n)](*a, **k)
         return fn
     try:
-        for n in names:
-            setattr(ring, n, counted(n))
+        for m, n in mods:
+            setattr(m, n, counted(m, n))
         st = ring.batch_ring_state(tsim.state, 2)
         ring.ring_step_batched(tsim.tables, tsim.cfg, st, tsim.q)
     finally:
-        for n, f in orig.items():
-            setattr(ring, n, f)
-    assert calls == {n: 1 if lc or not n.startswith("ring_exits_") else 0
-                     for n in names}
+        for (m, n), f in orig.items():
+            setattr(m, n, f)
+    lc_only = ("ring_exits_pairs", "ring_exits_finish", "front_leaders_lc",
+               "gap_refresh")
+    assert calls == {n: (2 if n == "car_follow" else
+                         1 if lc or n not in lc_only else 0)
+                     for n in calls}
     src = inspect.getsource(ring)
     for inline in ("torch.sort(", "putc(", "can_yield(", "reach_steps(",
                    "blk_new", "range(cfg.k_phase)", "range(cfg.k_cyc)",
-                   "cross_l", "leave_pref", "rn_at("):
+                   "cross_l", "leave_pref", "rn_at(", "_kout_min",
+                   "shift_in(", "torch.stack(fch)", "payload = torch.stack("):
         assert inline not in src, inline
+    src_lc = inspect.getsource(ring_lc)
+    for inline in ("_kout_min", "shift_in(", "leader_scan_bound("):
+        assert inline not in src_lc, inline
