@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             compiled by the port's compiler
   kernels   K1-K4 against their plain PyTorch versions on the card, at
             the main path's 30x30 call-site shapes (B=128) with seeded
-            numpy inputs; times, bounds and the library yardstick (K1 at
-            two call sites, K4 on both rings)
+            numpy inputs; times, bounds and the library yardstick (K1 on
+            the foe exchange's shape, the forward exchange's and its three
+            ring-step call sites, each beside index_select; K2 reading
+            seeded notifier fields through foe_src; K4 on both rings)
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -19,8 +21,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             warm-up runs one env, copied into the batch) at B=128
             (asserted: no halving on out-of-memory); asserts
             overflow == 0, vehicles > 0, every env equal to env 0 bitwise,
-            and K1-K4, R1-R7 (R7 in its three modes) and K3's ring-leader
-            mode (lane and link rows) launched; prints ms per batched step,
+            K1-K4, R1-R7 (R7 in its four modes) and K3's ring-leader mode
+            (lane and link rows) launched, and K1 launched three times a
+            step (no foe exchange: K2 reads it in place); prints ms per
+            batched step,
             env-steps/s, the p1/p2 split, each kernel's share and peak
             memory
   kernels   (ring regions) R1 notify_winners, R2 ring_exits, R3
@@ -32,11 +36,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             [mixed] and [mixed-lc] (rows <kernel>@<path>); then R5
             front_leaders (approach mode; with lane change also its
             lane-change mode, front_leaders@ctx), R6 gap_refresh (lane
-            change), R7 ring_pack (forward, @entrant, @candidate) and K3's
-            ring-leader mode (car_follow@ring lane rows, @ring-link link
-            rows) on every call of one more step of each ring path, bit
-            for bit against their plain versions, timed beside their
-            bounds (rows <base>@<path>, or <base>:<path> for a mode)
+            change), R7 ring_pack (forward, @entrant, @candidate,
+            @approach), K3's ring-leader mode (car_follow@ring lane rows,
+            @ring-link link rows) and K2 reading the foe in place
+            (cross_caps@link link rows, @approach approach rows) on every
+            call of one more step of each ring path, bit for bit against
+            their plain versions, timed beside their bounds (rows
+            <base>@<path>, or <base>:<path> for a mode)
   agree-lc  lane change, B=1 on the card against the plain port on the
             CPU on tests/fixtures/config_1x1s_lc.json, 80 steps: vehicles
             keyed by (uid, shadow), drift within 2e-3, equal (changing,
@@ -296,14 +302,18 @@ GEN1_RL_KERNELS = ("lane_counts", "phase_scores", "phase_scores@phases")
 MAIN_KERNELS = ("gather_rows", "cross_caps", "car_follow", "ring_commit",
                 "notify_winners", "ring_exits", "ring_admit", "route_rows",
                 "front_leaders", "ring_pack", "ring_pack@entrant",
-                "ring_pack@candidate", "car_follow@ring",
+                "ring_pack@candidate", "ring_pack@approach",
+                "cross_caps@approach", "car_follow@ring",
                 "car_follow@ring-link")
+# K1's launches a ring step: the avail rows, the end-lane and the
+# start-lane bundles (the foe exchange is read in place by K2)
+K1_PER_RING_STEP = 3
 # the kernel wrappers core/ring.py calls by name
 RING_CALLS = ("gather_rows", "cross_caps", "car_follow", "ring_commit",
               "notify_winners", "ring_exits", "ring_admit", "route_rows",
               "ring_exits_pairs", "ring_exits_finish", "front_leaders",
               "front_leaders_lc", "pack_forward", "pack_entrants",
-              "pack_candidates", "tpl_params")
+              "pack_candidates", "pack_approach", "tpl_params")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
 LC_MODES = ("car_follow@lc", "ring_commit@lc", "ring_exits@pairs",
             "ring_exits@finish", "ring_admit@lc", "route_rows@lc",
@@ -317,6 +327,12 @@ RL_KERNELS = ("lane_stats", "phase_pressure")
 REPLACES = {
     "gather_rows": "cityflow_tpu/core/ring.py:243 (_typed_mm), :300-341 "
                    "(exchanges), :881-927 (foe_perm)",
+    "gather_rows@avail": "cityflow_tpu/core/ring.py:748-753 (_typed_mm "
+                         "E_rl: the phases' available road links)",
+    "gather_rows@et": "cityflow_tpu/core/ring.py:762-777 (_typed_mm E_end: "
+                      "the end-lane tail bundle)",
+    "gather_rows@st": "cityflow_tpu/core/ring.py:758-760, :779-787 "
+                      "(_typed_mm E_start: the start-lane head bundle)",
     "gather_rows@in_src": "cityflow_tpu/core/ring.py:300-341 (_fwd_ex, "
                           "the forward exchange)",
     "cross_caps": "cityflow_tpu/core/ring.py:936 (cross_caps)",
@@ -548,48 +564,45 @@ def check_kernels(sim, B, reps):
 
     row = lambda *a: rows.append(kernel_row(*a))
 
-    # ---- K1: the forward exchange (lane -> in-lane, 44 channels) and the
-    #      foe exchange (9 channels), static; to_link, dynamic
-    C = 14 * AP + 2
-    x = T(rng.standard_normal((C, LNp, B)).astype(np.float32))
-    idx = net["in_src"].reshape(-1)
-    got = gather_rows.gather_rows(x, idx, 0.0)
-    want = gather_rows.gather_rows_plain(x, idx, 0.0)
-    err = float((got - want).abs().max())
-    assert torch.equal(got, want), "gather_rows (static) mismatch"
-    xf = T(rng.standard_normal((9, KC * LKp, B)).astype(np.float32))
-    fidx = net["foe_src"]
-    assert torch.equal(gather_rows.gather_rows(xf, fidx, 0.0),
-                       gather_rows.gather_rows_plain(xf, fidx, 0.0)), \
-        "gather_rows (foe) mismatch"
-    nxt = T(rng.integers(-1, LKp, (IL, G, B)).astype(np.int32) + cfg.LNp)
-    from cityflow_tpu_torch.kernels._ring_idx import lpi_of, to_link_idx
-    didx = to_link_idx(cfg, net, lpi_of(cfg, nxt))
-    x5 = T(rng.standard_normal((5, IL * G, B)).astype(np.float32))
-    assert torch.equal(gather_rows.gather_rows(x5, didx=didx, fill=0.0),
-                       gather_rows.gather_rows_plain(x5, didx=didx,
-                                                     fill=0.0)), \
-        "gather_rows (dynamic) mismatch"
-    ms = time_cuda(lambda: gather_rows.gather_rows(xf, fidx, 0.0), reps)
-    plain = time_cuda(lambda: gather_rows.gather_rows_plain(xf, fidx, 0.0),
-                      reps)
-    fl = fidx.clamp(min=0).long()
-    lib = time_cuda(lambda: xf.index_select(1, fl), reps)
-    nsrc = int(torch.unique(fidx[fidx >= 0]).numel())
-    nbytes = 4 * (9 * nsrc * B + 9 * fidx.numel() * B + fidx.numel())
-    row("gather_rows", err, ms, plain, nbytes, 0, lib)
-    # the forward exchange (lane -> in-lane, 14 AP + 2 channels), the
-    # largest other static call site
-    ms = time_cuda(lambda: gather_rows.gather_rows(x, idx, 0.0), reps)
-    plain = time_cuda(lambda: gather_rows.gather_rows_plain(x, idx, 0.0),
-                      reps)
-    il = idx.clamp(min=0).long()
-    lib = time_cuda(lambda: x.index_select(1, il), reps)
-    nsrc = int(torch.unique(idx[idx >= 0]).numel())
-    nbytes = 4 * (C * nsrc * B + C * idx.numel() * B + idx.numel())
-    row("gather_rows@in_src", 0.0, ms, plain, nbytes, 0, lib)
+    # ---- K1: the foe exchange's shape (9 channels of R1's fields; no
+    #      ring path launches it there, K2 reads the foe in place), the
+    #      forward exchange's (lane -> in-lane, 14 AP + 2 channels) and the
+    #      three call sites of the ring step (avail rows, end-lane and
+    #      start-lane bundles), each bitwise and beside index_select
+    def k1_row(name, x, idx):
+        got = gather_rows.gather_rows(x, idx, 0.0)
+        want = gather_rows.gather_rows_plain(x, idx, 0.0)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"{name} mismatch"
+        del got, want
+        ms = time_cuda(lambda: gather_rows.gather_rows(x, idx, 0.0), reps)
+        plain = time_cuda(lambda: gather_rows.gather_rows_plain(x, idx, 0.0),
+                          reps)
+        il = idx.clamp(min=0).long()
+        lib = time_cuda(lambda: x.index_select(1, il), reps)
+        C, _, Bx = x.shape
+        nsrc = int(torch.unique(idx[idx >= 0]).numel())
+        nbytes = 4 * (C * nsrc * Bx + C * idx.numel() * Bx + idx.numel())
+        log(f"[kernels] {name}: x {tuple(x.shape)} -> "
+            f"({C}, {idx.numel()}, {Bx})")
+        row(name, 0.0, ms, plain, nbytes, 0, lib)
 
-    # ---- K2: link rows, R = SKC
+    fidx = net["foe_src"]
+    k1_row("gather_rows", T(rng.standard_normal((9, KC * LKp, B))
+                            .astype(np.float32)), fidx)
+    k1_row("gather_rows@in_src", T(rng.standard_normal((14 * AP + 2, LNp, B))
+                                   .astype(np.float32)),
+           net["in_src"].reshape(-1))
+    MAXRL = net["phase_rl_avail"].shape[1]
+    k1_row("gather_rows@avail", T((rng.random((1, MAXRL * G, B)) < 0.5)
+                                  .astype(np.float32)), net["rl_src"])
+    k1_row("gather_rows@et", T(rng.standard_normal((6, LNp, B))
+                               .astype(np.float32)), net["end_src"])
+    k1_row("gather_rows@st", T(rng.standard_normal((7, IL * G, B))
+                               .astype(np.float32)), net["start_src"])
+
+    # ---- K2: link rows, R = SKC, the foe read in place from seeded
+    #      notifier fields through foe_src
     R = min(cfg.SKC, SK)
     f32 = lambda *s, lo=0.0, hi=1.0: T(rng.uniform(lo, hi, s)
                                         .astype(np.float32))
@@ -599,26 +612,27 @@ def check_kernels(sim, B, reps):
     ph = T(rng.integers(-3, 3, (R, LKp, B)).astype(np.float32))
     plo = T(rng.integers(0, 4, (R, LKp, B)).astype(np.float32))
     rel = T(rng.random((R, LKp, B)) < 0.7)
-    foe = torch.stack([
-        T((rng.random((KC, LKp, B)) < 0.5).astype(np.float32))
+    NF = KC * LKp
+    fields = torch.stack([
+        T((rng.random((NF, B)) < 0.5).astype(np.float32))
         for _ in range(4)] + [
-        T(rng.integers(0, 256, (KC, LKp, B)).astype(np.float32)),
-        f32(KC, LKp, B, lo=-10.0, hi=60.0),
-        T(rng.integers(0, 300, (KC, LKp, B)).astype(np.float32)),
-        T(rng.integers(-3, 3, (KC, LKp, B)).astype(np.float32)),
-        T(rng.integers(0, 4, (KC, LKp, B)).astype(np.float32))])
-    args = (dls, speed, ent, ph, plo, rel, foe, cx.cc_tabs, cx.prm_cc)
+        T(rng.integers(0, 256, (NF, B)).astype(np.float32)),
+        f32(NF, B, lo=-10.0, hi=60.0),
+        T(rng.integers(0, 300, (NF, B)).astype(np.float32)),
+        T(rng.integers(-3, 3, (NF, B)).astype(np.float32)),
+        T(rng.integers(0, 4, (NF, B)).astype(np.float32))])
+    args = (dls, speed, ent, ph, plo, rel, fields, fidx, cx.cc_tabs,
+            cx.prm_cc)
     got = cross_caps.cross_caps(*args)
     want = cross_caps.cross_caps_plain(*args)
-    for g_, w_, n_ in zip(got, want, ("any_fail", "ff_d", "ff_foe")):
-        bad = int((g_ != w_).sum())
-        log(f"[kernels] cross_caps {n_}: mismatches={bad}")
-        assert bad == 0, f"cross_caps {n_} mismatch"
-    err = float((got[1] - want[1]).nan_to_num(0.0, 0.0, 0.0).abs().max())
+    err, nbit = _bitwise("cross_caps", got, want)
+    log(f"[kernels] cross_caps: not_bitwise={nbit}")
+    assert nbit == 0, "cross_caps mismatch"
     ms = time_cuda(lambda: cross_caps.cross_caps(*args), reps)
     plain = time_cuda(lambda: cross_caps.cross_caps_plain(*args), reps)
-    row("cross_caps", err, ms, plain, *cross_caps_work(dls, rel, cx.cc_tabs),
-        None)
+    row("cross_caps", err, ms, plain,
+        *cross_caps_work(dls, ent, rel, fidx, cx.cc_tabs), None)
+    del fields, got, want
 
     # ---- K3: link rows, mode 3 (isr + min_chain)
     shp = (SK, LPI, G, B)
@@ -751,10 +765,12 @@ def check_kernels(sim, B, reps):
     return rows
 
 
-def cross_caps_work(dls, rel, tb, per_row_extra=0):
-    """K2's bytes and operations: a row reads the foe channels, t2 and
-    foelpi only of the crosses it considers (valid, ahead of it, row
-    relevant); count those of this data. `per_row_extra`: bytes more per
+def cross_caps_work(dls, ent, rel, foe_src, tb, per_row_extra=0):
+    """K2's bytes and operations: a row reads foe_src, t2 and foelpi of
+    the crosses it considers (valid, ahead of it, row relevant), and the
+    foe's 9 channels of R1's fields of those that have a foe; count those
+    of this data. A row reads its enter time only where `ent` is a tensor
+    (the approach rows pass one value). `per_row_extra`: bytes more per
     row (the template mode's index)."""
     import torch
     R, LKp, B = dls.shape
@@ -766,12 +782,14 @@ def cross_caps_work(dls, rel, tb, per_row_extra=0):
             & rel[r]
         n_cons += int(c_r.sum())
         need |= c_r
+    has_foe = (foe_src.reshape(KC, LKp) >= 0)[..., None]
     n = R * LKp * B
-    nbytes = (n * (5 * 4 + 1 + per_row_extra)   # dls speed ent ph plo rel
+    row_in = 4 * (4 + torch.is_tensor(ent))      # dls speed ph plo, ent
+    nbytes = (n * (row_in + 1 + per_row_extra)   # those, rel
               + KC * LKp * (4 + 1)                 # d, cvalid
-              + int(need.any(-1).sum()) * (4 + 4)  # t2, foelpi
+              + int(need.any(-1).sum()) * (4 + 4 + 4)  # foe_src t2 foelpi
               + LKp * (4 + 1)                      # t1, turn
-              + int(need.sum()) * 9 * 4            # foe channels
+              + int((need & has_foe).sum()) * 9 * 4    # foe channels
               + n * (1 + 4 + 4))                   # any_fail, ff_d, ff_foe
     return nbytes, n_cons * 60
 
@@ -1039,6 +1057,9 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
     assert r["vehicles"] > 0, "no vehicles"
     per_step = {k: v / r["steps_run"] for k, v in launches.items()}
     log(f"[{tag}] launches per step={per_step}")
+    assert launches["gather_rows"] == K1_PER_RING_STEP * r["steps_run"], \
+        f"K1 launched {per_step['gather_rows']} times a {tag} step, not " \
+        f"{K1_PER_RING_STEP}"
     res = dict(B=B, steps=r["steps"], warmup=warmup, ms_per_step=ms,
                env_steps_per_s=B * r["steps"] / r["seconds"],
                vehicles=r["vehicles"], launches_per_step=per_step)
@@ -1305,7 +1326,8 @@ def tpl_work(n, a, k):
         tpl, table, cols = a
         return nb(tpl, table) + 4 * len(cols) * tpl.numel(), 0
     if n == "cross_caps":
-        return cross_caps_work(a[0], a[5], a[7], per_row_extra=4)
+        return cross_caps_work(a[0], a[2], a[5], a[7], a[8],
+                               per_row_extra=4)
     if n == "car_follow":
         return k3_work(a, k)
     if n == "lc_signal":
@@ -1656,7 +1678,9 @@ FRONT_CALLS = (("ring", "front_leaders", "front_leaders"),
                ("ring", "ring_pack", "pack_forward"),
                ("ring", "ring_pack", "pack_entrants"),
                ("ring", "ring_pack", "pack_candidates"),
-               ("ring", "car_follow", "car_follow"))
+               ("ring", "ring_pack", "pack_approach"),
+               ("ring", "car_follow", "car_follow"),
+               ("ring", "cross_caps", "cross_caps"))
 # the row of each (wrapper, K3 ring kind) and its launch counters
 # (counted, less)
 FRONT_ROWS = {
@@ -1666,11 +1690,19 @@ FRONT_ROWS = {
                                  []),
     ("gap_refresh", None): ("gap_refresh", ["gap_refresh"], []),
     ("pack_forward", None): ("ring_pack", ["ring_pack"],
-                             ["ring_pack@entrant", "ring_pack@candidate"]),
+                             ["ring_pack@entrant", "ring_pack@candidate",
+                              "ring_pack@approach"]),
     ("pack_entrants", None): ("ring_pack@entrant", ["ring_pack@entrant"],
                               []),
     ("pack_candidates", None): ("ring_pack@candidate",
                                 ["ring_pack@candidate"], []),
+    ("pack_approach", None): ("ring_pack@approach", ["ring_pack@approach"],
+                              []),
+    # K2's two call sites, each row with its own site's launches
+    ("cross_caps", "link"): ("cross_caps@link", ["cross_caps"],
+                             ["cross_caps@approach"]),
+    ("cross_caps", "approach"): ("cross_caps@approach",
+                                 ["cross_caps@approach"], []),
     ("car_follow", "lane"): ("car_follow@ring", ["car_follow@ring"],
                              ["car_follow@ring-link"]),
     ("car_follow", "link"): ("car_follow@ring-link",
@@ -1690,6 +1722,14 @@ FRONT_REPLACES = {
                          "entrants' pack, to_link)",
     "ring_pack@candidate": "cityflow_tpu/core/ring.py:1744-1837 (the lane "
                            "candidates' pack, E_app)",
+    "ring_pack@approach": "cityflow_tpu/core/ring.py:1154-1168, :1206-1231 "
+                          "(the approach rows' to_link pack, their _PP)",
+    "cross_caps@link": "cityflow_tpu/core/ring.py:881-927 (the foe "
+                       "exchange, read in place), :936-996 (cross_caps on "
+                       "the link rows)",
+    "cross_caps@approach": "cityflow_tpu/core/ring.py:881-927 (the foe "
+                           "exchange, read in place), :936-996 (cross_caps "
+                           "on the approach rows)",
     "car_follow@ring": "cityflow_tpu/core/ring.py:1301-1386 (the lane "
                        "domain's shifted leader views, gaps, invalid, the "
                        "fronts' override)",
@@ -1719,9 +1759,9 @@ REPLACES.update({front_label(b, p): v + ("" if p == "main" else
 
 def record_front_calls(sim, state):
     """One more batched step from a copy of `state` with the R5-R7
-    wrappers and K3 recording their arguments (K3 only in its ring-leader
-    mode): the calls before R3's admission keep a copy of the leaves R3
-    writes in place, the others their arguments by reference."""
+    wrappers, K3 and K2 recording their arguments (K3 only in its
+    ring-leader mode): the calls before R3's admission keep a copy of the
+    leaves R3 writes in place, the others their arguments by reference."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
@@ -1812,7 +1852,7 @@ def front_work(w, a, k, out):
     tpl = not cfg.uniform
     outs = nb(*_flat(out))
     AP, IL, G = cfg.AP, cfg.IL, cfg.G
-    if w in ("front_leaders", "pack_entrants"):
+    if w in ("front_leaders", "pack_entrants", "pack_approach"):
         from cityflow_tpu_torch.core.numerics import xla_f32_to_i32
         from cityflow_tpu_torch.kernels._ring_idx import (
             from_link_idx, lpi_of, to_link_idx)
@@ -1858,17 +1898,30 @@ def front_work(w, a, k, out):
             if getattr(rs, f) is not None)
         B = rs.n_l.shape[-1]
         return outs + valid * B * (cfg.AP * slot + 4 + 8), 0
+    # the in-lanes some link starts at (several links may share one)
+    ss = net["start_src"]
+    starts = int(torch.unique(ss[ss >= 0]).numel())
     if w == "pack_entrants":
-        starts = int((net["start_src"] >= 0).sum())
         heads = sum(int((to_link_idx(cfg, net, lpi_of(cfg, nxt[s])) >= 0)
                         .sum()) for s in range(AP))
         moved = int((out[:, 0] > 0.5).sum())
-        # each link reads its start in-lane's next links; a front heading
-        # into it its occupancy and exit flag; an entrant its channels,
+        # each start in-lane's next links are read once; a front heading
+        # into a link its occupancy and exit flag; an entrant its channels,
         # its in-lane length and its new distance and speed
         NE = out.shape[1]
         return (outs + starts * B * AP * 4 + heads * (4 + 1)
                 + moved * 4 * (NE - 1 + 1)), 0
+    if w == "pack_approach":
+        st = a[3]
+        heads = sum(int((to_link_idx(cfg, net, lpi_of(cfg, nxt[s])) >= 0)
+                        .sum()) for s in range(AP))
+        # each link reads its start index and its start in-lane's length,
+        # each start in-lane its front next links once; a front heading
+        # into a link its occupancy, in_src, distance, speed, priority
+        # halves (and template); with templates the end-lane tail's four
+        # channels
+        return (outs + nb(net["start_src"], st[6]) + starts * B * AP * 4
+                + heads * 4 * (6 + tpl) + tpl * 4 * cfg.LKp * B * 4), 0
     if w == "pack_candidates":
         rs, nd_k, ns_k, pays, exit_flags = a[2:7]
         XKe = exit_flags.shape[0]
@@ -1880,11 +1933,22 @@ def front_work(w, a, k, out):
     raise KeyError(w)
 
 
+def _call_kind(w, a, k):
+    """K3's ring kind, K2's call site (the approach rows pass their one
+    enter time as a float), None for the others."""
+    if w == "car_follow":
+        return k["ring"].kind
+    if w == "cross_caps":
+        return "link" if hasattr(a[2], "shape") else "approach"
+    return None
+
+
 def check_front_kernels(sim, state, reps, path):
-    """R5 (both modes), R6, R7 (three modes) and K3's ring-leader mode
-    (lane and link rows) against their plain versions on every call of
-    one more step of a ring path's own state, bit for bit; each timed on
-    its call beside its bound. Rows as front_label names them."""
+    """R5 (both modes), R6, R7 (four modes), K3's ring-leader mode (lane
+    and link rows) and K2 (link and approach rows, the foe read in place)
+    against their plain versions on every call of one more step of a ring
+    path's own state, bit for bit; each timed on its call beside its
+    bound. Rows as front_label names them."""
     import torch
     from cityflow_tpu_torch import kernels
     calls = record_front_calls(sim, state)
@@ -1895,11 +1959,11 @@ def check_front_kernels(sim, state, reps, path):
         kern, plain = getattr(mod, w), getattr(mod, w + "_plain")
         by_kind = {}
         for a, k in calls[w]:
-            by_kind.setdefault(k["ring"].kind if w == "car_follow" else None,
-                               []).append((a, k))
+            by_kind.setdefault(_call_kind(w, a, k), []).append((a, k))
         want_n = 0 if (w in ("front_leaders_lc", "gap_refresh") and not lc) \
             else 1
-        kinds = ("lane", "link") if w == "car_follow" else (None,)
+        kinds = {"car_follow": ("lane", "link"),
+                 "cross_caps": ("link", "approach")}.get(w, (None,))
         for kind in kinds:
             got_calls = by_kind.get(kind, [])
             assert len(got_calls) == want_n, \
@@ -1916,8 +1980,14 @@ def check_front_kernels(sim, state, reps, path):
             log(f"[kernels] {label}: 1 call on the {path} step checked, "
                 f"max_abs_err={err} not_bitwise={nbit}")
             assert nbit == 0, f"{label}: {nbit} values not bitwise"
-            nbytes, nops = k3_work(a, k) if w == "car_follow" \
-                else front_work(w, a, k, got)
+            if w == "car_follow":
+                nbytes, nops = k3_work(a, k)
+            elif w == "cross_caps":
+                nbytes, nops = cross_caps_work(
+                    a[0], a[2], a[5], a[7], a[8],
+                    per_row_extra=4 * (k.get("tpl") is not None))
+            else:
+                nbytes, nops = front_work(w, a, k, got)
             del got, want
             ms = time_cuda(lambda: kern(*a, **k), reps)
             plain_ms = time_cuda(lambda: plain(*a, **k), reps)

@@ -16,7 +16,8 @@ missed yields NaN instead of simulating template 0.
 
 Where the JAX version applies a one-hot operator with an einsum, this one
 gathers through the index tables of compiler/ring_net.index_tables (K1,
-kernels/gather_rows.py). Cross::canPass runs in K2 (kernels/cross_caps.py),
+kernels/gather_rows.py). Cross::canPass runs in K2 (kernels/cross_caps.py,
+each cross's foe read in place from R1's fields through foe_src),
 the car-following min-rule in K3 (kernels/car_follow.py), both ring
 commits in K4 (kernels/ring_commit.py), the lane-history window in O1
 (kernels/lane_stats.py), spawn and admission in R3
@@ -28,9 +29,9 @@ link rings' tails in R5 (kernels/front_leaders.py: the approach rows'
 inputs, and lc_front_ctx), the lane-change gap refresh in R6
 (kernels/gap_refresh.py, core/ring_lc.refresh_gaps) and the channel packs
 between the kernels in R7 (kernels/ring_pack.py: the forward exchange,
-the link entrants, the lane candidates); K3's ring-leader mode reads each
-slot's leader from the ring in place. On a CPU tensor each of those takes
-its plain PyTorch version.
+the link entrants, the lane candidates, the approach rows' to_link
+pack); K3's ring-leader mode reads each slot's leader from the ring in
+place. On a CPU tensor each of those takes its plain PyTorch version.
 
 The batched entries write their input state in place (R3's admission, the
 history rows), as the JAX package's batched entries donate theirs: their
@@ -61,7 +62,7 @@ from cityflow_tpu_torch.core.state import (
     INT_MAX, OV_LINK_TABLE, OV_REMOVE, OV_SLOTS)
 from cityflow_tpu_torch.core.step import leader_scan_bound
 from cityflow_tpu_torch.kernels._ring_idx import (
-    hilo as _hilo, lpi_of, sel_slot as _sel_slot, to_link_idx)
+    hilo as _hilo, sel_slot as _sel_slot)
 from cityflow_tpu_torch.kernels.car_follow import RingLeaders, car_follow
 from cityflow_tpu_torch.kernels.cross_caps import cross_caps
 from cityflow_tpu_torch.kernels.front_leaders import (
@@ -74,8 +75,8 @@ from cityflow_tpu_torch.kernels.ring_commit import ring_commit
 from cityflow_tpu_torch.kernels.ring_exits import (
     ring_exits, ring_exits_finish, ring_exits_pairs)
 from cityflow_tpu_torch.kernels.ring_pack import (
-    candidate_channels, entrant_channels, pack_candidates, pack_entrants,
-    pack_forward)
+    candidate_channels, entrant_channels, pack_approach, pack_candidates,
+    pack_entrants, pack_forward)
 from cityflow_tpu_torch.kernels.route_rows import route_rows
 from cityflow_tpu_torch.kernels.tpl_params import tpl_params
 
@@ -398,7 +399,7 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
     cx = _Ctx(net, cfg, dev)
     F, dt = cx.F, cx.dt
     SL, SK, LNp, LKp = cfg.SL, cfg.SK, cfg.LNp, cfg.LKp
-    G, LPI, KC, IL, AP = cfg.G, cfg.LPI, cfg.KC, cfg.IL, cfg.AP
+    G, LPI, IL, AP = cfg.G, cfg.LPI, cfg.IL, cfg.AP
     ov = rs.overflow
     # the uniform path's scalar parameters; NaN with non-uniform templates,
     # where every use below is guarded by `uni` or replaced by a _PP
@@ -499,7 +500,6 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
              h_occ[0].to(F32), il_len] + ([] if uni else [h_tpl[0].to(F32)])
     st = gather_rows(torch.stack(st_in).reshape(len(st_in), IL * G, B),
                      net["start_src"], 0.0)
-    st_len = st[6].reshape(LPI, G, B)
 
     kdis3 = rs.k_dis.reshape(SK, LPI, G, B)
     kspd3 = rs.k_speed.reshape(SK, LPI, G, B)
@@ -509,30 +509,27 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
         k_len3 = _PP(cfg, net, k_tpl3, (P_LEN,))[P_LEN]  # own lengths
 
     # ---- notify winners (Engine::threadNotifyCross, engine.cpp:317-372)
-    # and the blocker-cycle flag (R1), then the foe exchange: one exact
-    # gather of all 9 channels (K1)
+    # and the blocker-cycle flag (R1); K2 reads each cross's foe in place
+    # through foe_src (the foe exchange)
     _span("notify")
     fields = notify_winners(cfg, net, rs.k_dis, rs.k_speed, rs.k_entll,
                             rs.k_pri, rs.n_k, rs.blk, et, st, avail_lk,
                             k_tpl=None if uni else rs.k_tpl)
-    foe = gather_rows(fields, net["foe_src"], 0.0).reshape(9, KC, LKp, B)
 
     # ---- link ring rows: Cross::canPass (K2) + car following (K3) --------
     _span("link_leaders")
     # Lane::canEnter of the link's end lane (roadnet.cpp:438-445): tail dis
-    # > tail len + the subject's len, or the tail moving
+    # > tail len + the subject's len, or the tail moving (with templates,
+    # the approach rows' own comes from R7's approach mode)
     if uni:
         can_enter_k = (~end_tail_exists | (end_tail_dis > p_len + p_len)
                        | (end_tail_speed >= 2))
         tpl_k = {}
         ce_k = can_enter_k
     else:
-        def can_enter_of(own_len):
-            return (~end_tail_exists
-                    | (end_tail_dis > end_tail_len + own_len)
-                    | (end_tail_speed >= 2))
         tpl_k = dict(tpl=k_tpl3, table=tpp)
-        ce_k = can_enter_of(k_len3)
+        ce_k = (~end_tail_exists | (end_tail_dis > end_tail_len + k_len3)
+                | (end_tail_speed >= 2))
 
     _span("link_rows")
     R = min(cfg.SKC, SK)
@@ -540,7 +537,7 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
         rs.k_dis[:R], rs.k_speed[:R],
         torch.clamp_max(rs.k_entll[:R], 1 << 25).to(F32),
         kprih[:R].reshape(R, LKp, B), kpril[:R].reshape(R, LKp, B),
-        occ_k[:R], foe, cx.cc_tabs, cx.prm_cc,
+        occ_k[:R], fields, net["foe_src"], cx.cc_tabs, cx.prm_cc,
         **({} if uni else dict(tpl=rs.k_tpl[:R], table=tpp)))
     if SK > R:
         pad = lambda x, v: torch.cat(
@@ -567,46 +564,31 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
                          net["lk_len"], p_len, s0=et), **tpl_k)
 
     # ---- approach rows: lane fronts computed per link then sent back ----
-    # route each lane-front slot to its next link, one batched
-    # cross_caps / isr pass over all AP rows, then back
+    # each lane-front slot routed to its next link (R7's approach mode),
+    # one batched cross_caps / isr pass over all AP rows, then back
     _span("approach_rows")
-    lpi_hs = [lpi_of(cfg, h_nxt[a]) for a in range(AP)]
     mine_ilgs = [h_occ[a] & (h_nxt[a] >= 0) for a in range(AP)]
-    NLC = 5 if uni else 6
-    lk_ch = torch.stack([gather_rows(
-        torch.stack([mine_ilgs[a].to(F32), h_dis[a], h_speed[a], h_prih[a],
-                     h_pril[a]] + ([] if uni else [h_tpl[a].to(F32)]))
-        .reshape(NLC, IL * G, B),
-        didx=to_link_idx(cfg, net, lpi_hs[a]), fill=0.0) for a in range(AP)])
-    lk_ch = lk_ch.reshape(AP, NLC, LPI, G, B)
-    mine_lk = lk_ch[:, 0] > 0.5
-    dis_lk, spd_lk = lk_ch[:, 1].contiguous(), lk_ch[:, 2].contiguous()
-    prih_lk, pril_lk = lk_ch[:, 3].contiguous(), lk_ch[:, 4].contiguous()
+    ap = pack_approach(cfg, net, inl_flat, st, None if uni else et)
+    ap4 = lambda x: x.reshape(AP, LPI, G, B)
+    mine_lk = ap4(ap["mine"])
     if uni:
         approach_ap, ce_ap, tpl_ap_kw, cc_ap_kw = approach, can_enter_k, {}, {}
     else:
-        tpl_ap = xla_f32_to_i32(lk_ch[:, 5]).contiguous()   # (AP, LPI, G, B)
-        pp_ap = _PP(cfg, net, tpl_ap, (P_LEN, P_MAXSPEED, P_USUALNEGACC))
-        ms_ap = pp_ap[P_MAXSPEED]
-        approach_ap = ms_ap * ms_ap / pp_ap[P_USUALNEGACC] / 2 \
-            + ms_ap * dt * 2
-        ce_ap = can_enter_of(pp_ap[P_LEN])
-        tpl_ap_kw = dict(tpl=tpl_ap, table=tpp)
-        cc_ap_kw = dict(tpl=tpl_ap.reshape(AP, LKp, B), table=tpp)
-    dls_ap = dis_lk - st_len[None]
-    lane_left_lk = st_len[None] - dis_lk
+        approach_ap, ce_ap = ap4(ap["approach"]), ap4(ap["ce"])
+        tpl_ap_kw = dict(tpl=ap4(ap["tpl"]), table=tpp)
+        cc_ap_kw = dict(tpl=ap["tpl"], table=tpp)
     af_ap, fd_ap, ffo_ap = cross_caps(
-        dls_ap.reshape(AP, LKp, B), spd_lk.reshape(AP, LKp, B), ENT_BIG,
-        prih_lk.reshape(AP, LKp, B), pril_lk.reshape(AP, LKp, B),
-        mine_lk.reshape(AP, LKp, B), foe, cx.cc_tabs, cx.prm_cc,
-        **cc_ap_kw)
+        ap["dls"], ap["speed"], ENT_BIG, ap["prih"], ap["pril"], ap["mine"],
+        fields, net["foe_src"], cx.cc_tabs, cx.prm_cc, **cc_ap_kw)
     af_ap = af_ap.reshape(AP, LPI, G, B)
     fd_ap = fd_ap.reshape(AP, LPI, G, B)
     ffo_ap = ffo_ap.reshape(AP, LPI, G, B)
+    lane_left_lk = ap4(ap["lane_left"])
     v_isr_ap, red_ap = car_follow(
-        1, cx.prm_cf, (AP, LPI, G, B), speed=spd_lk, dls=dls_ap,
-        isr_lane_left=lane_left_lk, any_fail=af_ap, ff_d=fd_ap, app=True,
-        avail=avail_lk, can_enter=ce_ap, turn=lk_turn, **tpl_ap_kw)
+        1, cx.prm_cf, (AP, LPI, G, B), speed=ap4(ap["speed"]),
+        dls=ap4(ap["dls"]), isr_lane_left=lane_left_lk, any_fail=af_ap,
+        ff_d=fd_ap, app=True, avail=avail_lk, can_enter=ce_ap, turn=lk_turn,
+        **tpl_ap_kw)
     isr_rel_ap = mine_lk & (lane_left_lk <= approach_ap)
 
     # the fronts' leaders: the out-link ring tails (Lane::laneLinks order,
@@ -678,8 +660,7 @@ def _notify_phase(net, cfg: RingConfig, rs: RingState, q,
     if debug:
         dbg.update(k2_link=(af_r, fd_r, ffo_r), k2_ap=(af_ap, fd_ap, ffo_ap),
                    k3_link=(ns_k3, dd_k), k3_ap_isr=(v_isr_ap, red_ap),
-                   k3_ap=(ap_spd, ap_dd), k3_lane=(new_spd_l, delta_l),
-                   foe=foe)
+                   k3_ap=(ap_spd, ap_dd), k3_lane=(new_spd_l, delta_l))
     return rs, mid, dbg
 
 

@@ -13,6 +13,13 @@
 // table (an index outside [0, TP) reads zeros, like the JAX one-hot
 // einsum); its own instantiation, the uniform one unchanged.
 //
+// The foe exchange (:881-927, foe_perm / foe_gather) is read in place: a
+// cross's 9 foe channels are fields[c, foe_src[kc * LK + col], b] of R1's
+// notifier fields, so the (9, KC, LK, B) exchanged slab is never written.
+// foe_src is one int per (cross, link), the same for the whole warp; a
+// cross whose foe_src is -1 has no foe (the gathered slab holds +0.0
+// there: foe_exists false, so it passes) and reads nothing.
+//
 // Bound: bytes. Per output it reads 5 row floats + the relevant flag and,
 // per cross, 9 foe channels (36 bytes) plus the cross tables; the decision
 // tree is ~60 float and integer operations per cross, far below the card's
@@ -32,11 +39,12 @@ struct CrossCapsArgs {
   const int* foelpi;       // (KC, LK)
   const int* t1;           // (LK,) own link type
   const uint8_t* turn;     // (LK,)
-  const float* foe;        // (9, KC, LK, B) exchanged foe channels
+  const float* fields;     // (9, NF, B) R1's notifier fields
+  const int* foe_src;      // (KC, LK) fields row of each cross's foe, or -1
   uint8_t* any_fail;       // (R, LK, B)
   float* ff_d;             // (R, LK, B)
   int* ff_foe;             // (R, LK, B)
-  long long R, KC, LK, B;
+  long long R, KC, LK, B, NF;
   float ent_val;
   float maxneg, yld, len, turnspd, maxspd, upa, dt;
   const int* tpl;          // template mode: (R, LK, B), else null
@@ -56,7 +64,7 @@ __device__ __forceinline__ float tparam(const CrossCapsArgs& a, int t,
 template <bool TPL>
 __global__ void cross_caps_kernel(const CrossCapsArgs a) {
   long long total = a.R * a.LK * a.B;
-  long long chs = a.KC * a.LK * a.B;  // foe channel stride
+  long long chs = a.NF * a.B;  // fields channel stride
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     long long b = e % a.B;
@@ -88,17 +96,19 @@ __global__ void cross_caps_kernel(const CrossCapsArgs a) {
       float dk = a.d[tk];
       bool considered = a.cvalid[tk] && (dk >= dls) && relevant;
       if (!considered) continue;
+      int src = __ldg(&a.foe_src[tk]);
+      if (src < 0) continue;          // no foe: passes
       float d1 = dk - dls;
-      long long fo = tk * a.B + b;
-      bool foe_exists = a.foe[fo] > 0.5f;
-      bool foe_yield = a.foe[chs + fo] > 0.5f;
-      bool foe_cleared = a.foe[2 * chs + fo] > 0.5f;
-      bool foe_cyc = a.foe[3 * chs + fo] > 0.5f;
-      float fr = a.foe[4 * chs + fo];
-      float fdist = a.foe[5 * chs + fo];
-      float fent = a.foe[6 * chs + fo];
-      float fph = a.foe[7 * chs + fo];
-      float fplo = a.foe[8 * chs + fo];
+      const float* fo = a.fields + (long long)src * a.B + b;
+      bool foe_exists = fo[0] > 0.5f;
+      bool foe_yield = fo[chs] > 0.5f;
+      bool foe_cleared = fo[2 * chs] > 0.5f;
+      bool foe_cyc = fo[3 * chs] > 0.5f;
+      float fr = fo[4 * chs];
+      float fdist = fo[5 * chs];
+      float fent = fo[6 * chs];
+      float fph = fo[7 * chs];
+      float fplo = fo[8 * chs];
       bool self_yield = can_yield(speed, maxneg, yld, len, d1);
       int sri = reach_steps(speed, d1, target, upa, a.dt);
       float sr = (float)(sri < 255 ? sri : 255);

@@ -23,11 +23,23 @@
 // speed, flow, route, rpos + 1, enter, pri hi, pri lo, uid, nxt, nxt3,
 // last, prev, valid [, gap, 0, rn.., ax..] [, template]: cands
 // (KIN * XKe, NP, OL * G, B), 0 where the index is -1.
+// mode 3, approach: per front slot a and link lk, the front of the link's
+// start in-lane j = start_src[lk] when its next link is lk (to_link, as in
+// mode 1), else +0.0 in every channel: the inputs of the approach rows'
+// K2 and K3 calls, each in its own buffer. mine (the front is occupied and
+// its in-lane has a lane), speed, pri hi, pri lo, dls = dis - st_len and
+// lane_left = st_len - dis (st_len: the start in-lane's length, st's
+// channel 6); with templates the template index, the approach distance
+// ms ms / usualNegAcc / 2 + ms dt 2 and canEnter of the link's end lane
+// for the front's own length (the template table read in place: no T1
+// call). Replaces the to_link one-hot einsums of
+// cityflow_tpu/core/ring.py:1154-1168 and their use at :1206-1231.
 //
 // Integers ride as float32 (int -> float rounding, as the plain packs'
 // .to(float32)); priorities as their 16-bit halves.
 //
-// Bound: bytes. Every output written once, every channel read once.
+// Bound: bytes. Every output written once, every channel read once (mode
+// 3 reads each front's channels only where it heads into the link).
 #include "ring_regions.cuh"
 
 struct RingPackArgs {
@@ -77,11 +89,22 @@ struct RingPackArgs {
   const float* lk_len;       // (LKp,)
   const int* app_src;        // (KIN, OL * G)
   float* cands;
+  // mode 3
+  const float* st_len;       // (LKp, B) the start in-lane's length
+  const float* et;           // (NET, LKp, B) end-lane tails (templates)
+  const float* table;        // (TP, 12) template parameters (templates)
+  uint8_t* ap_mine;          // (AP, LKp, B)
+  float* ap_f;               // (5 [+ 1], AP, LKp, B) speed, pri hi, pri
+                             // lo, dls, lane_left [, approach]
+  int* ap_tpl;               // (AP, LKp, B) (templates)
+  uint8_t* ap_ce;            // (AP, LKp, B) (templates)
   long long SL, LNp, LKp, IL, G, AP, B, XKl, KIN, XKe, OLG, MAXLPR;
   long long nfc;             // inl channels per slot
   long long ch_tpl;          // inl's template channel (templates only)
+  long long TP;              // template table rows (mode 3, templates)
   int lc;                    // lane change (the gap / yield channels)
   int tpl;                   // templates (the template channel)
+  float dt;                  // the step interval (mode 3, templates)
 };
 
 namespace {
@@ -259,6 +282,72 @@ __global__ void candidate_kernel(const RingPackArgs a) {
   }
 }
 
+// ---- mode 3: approach ------------------------------------------------------
+
+__global__ void approach_kernel(const RingPackArgs a) {
+  const long long ILG = a.IL * a.G;
+  const long long total = a.LKp * a.B;
+  const long long cs = ILG * a.B;            // inl channel stride
+  const long long os = a.AP * total;         // ap_f channel stride
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long b = e % a.B;
+    const long long lk = e / a.B;
+    const int j = a.start_src[lk];
+    const long long g = j >= 0 ? j % a.G : 0;
+    const long long q = (long long)j * a.B + b;    // (in-lane, env)
+    const float stl = a.st_len[e];
+    // the link's end-lane tail: dis, speed, exists, template (et 0 / 2 /
+    // 5 / 6), for canEnter
+    float etd = 0.0f, ets = 0.0f, etl = 0.0f;
+    bool ete = false;
+    if (a.tpl) {
+      etd = a.et[e];
+      ets = a.et[2 * total + e];
+      ete = a.et[5 * total + e] > 0.5f;
+      etl = rr::tparam(a.table, a.TP, xla_f32_to_i32(a.et[6 * total + e]),
+                       rr::P_LEN);
+    }
+    for (long long s = 0; s < a.AP; ++s) {
+      auto ch = [&](long long c) { return a.inl_in[(c * a.AP + s) * cs + q]; };
+      // to_link: the start in-lane's front s heads into this link
+      bool to = false;
+      if (j >= 0) {
+        const int nxt = xla_f32_to_i32(ch(2));
+        const long long lpi =
+            nxt >= 0 ? floor_div((long long)nxt - a.LNp - g, a.G) : -1;
+        to = lpi == lk / a.G;
+      }
+      float dis = 0.0f, spd = 0.0f, ph = 0.0f, pl = 0.0f, tf = 0.0f;
+      bool mine = false;
+      if (to) {       // the next link is lk, so nxt >= 0
+        mine = ch(13) > 0.0f && a.in_src[j] >= 0;
+        dis = ch(0);
+        spd = ch(1);
+        ph = ch(7);
+        pl = ch(8);
+        if (a.tpl) tf = ch(a.ch_tpl);
+      }
+      const long long o = s * total + e;
+      a.ap_mine[o] = mine;
+      a.ap_f[o] = spd;
+      a.ap_f[os + o] = ph;
+      a.ap_f[2 * os + o] = pl;
+      a.ap_f[3 * os + o] = dis - stl;
+      a.ap_f[4 * os + o] = stl - dis;
+      if (a.tpl) {
+        const int t = rr::via_f32(xla_f32_to_i32(tf));
+        const float ms = rr::tparam(a.table, a.TP, t, rr::P_MAXSPEED);
+        const float una = rr::tparam(a.table, a.TP, t, rr::P_USUALNEGACC);
+        const float len = rr::tparam(a.table, a.TP, t, rr::P_LEN);
+        a.ap_tpl[o] = t;
+        a.ap_f[5 * os + o] = ms * ms / una / 2.0f + ms * a.dt * 2.0f;
+        a.ap_ce[o] = !ete || (etd > etl + len) || (ets >= 2.0f);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int ring_pack(const RingPackArgs* args, int mode, void* stream) {
@@ -283,6 +372,12 @@ extern "C" int ring_pack(const RingPackArgs* args, int mode, void* stream) {
     if (a.OLG == 0 || a.XKe == 0) return 0;
     if (a.lc && !a.k_gap) return -1;
     candidate_kernel<<<rr::grid_for(a.OLG * a.B, threads), threads, 0, st>>>(
+        a);
+  } else if (mode == 3) {
+    if (a.LKp == 0 || a.AP == 0) return 0;
+    if (a.tpl && (!a.et || !a.table || !a.ap_tpl || !a.ap_ce || a.TP < 1))
+      return -1;
+    approach_kernel<<<rr::grid_for(a.LKp * a.B, threads), threads, 0, st>>>(
         a);
   } else {
     return -1;

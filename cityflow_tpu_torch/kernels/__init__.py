@@ -2,8 +2,9 @@
 csrc/), each with its wrapper, its plain PyTorch version and its launch
 counter:
 
-  K1 gather_rows     one-hot exchanges as exact gathers
-  K2 cross_caps      Cross::canPass over each link's crosses
+  K1 gather_rows     static one-hot exchanges as exact row gathers
+  K2 cross_caps      Cross::canPass over each link's crosses, the foe
+                     read in place from R1's fields
   K3 car_follow      isr_speed + min_chain, fused
   K4 ring_commit     shift-out + append of both rings, all channels
                      (lane-change mode: the rank-preserving delete)
@@ -53,16 +54,17 @@ counter:
   R6 gap_refresh     ring step, lane change: the stale-gap refresh of every
                      lane and link slot
   R7 ring_pack       ring step: the channel packs (forward exchange, link
-                     entrants, lane candidates) straight from the rings
+                     entrants, lane candidates, the approach rows' to_link
+                     pack) straight from the rings
 
 R1, R3 and R4 count their template / lane-change calls apart as
 <name>@tpl / <name>@lc, R2 its two lane-change stages as ring_exits@pairs
 and ring_exits@finish, R5 its lane-change mode as front_leaders@ctx, R6
-its template calls as gap_refresh@tpl, R7 its modes as ring_pack@entrant
-and ring_pack@candidate (the rest are forward packs). K3's ring-leader
-mode (the lane and link rows read their leaders from the ring in place)
-counts apart as car_follow@ring, its link-row calls also as
-car_follow@ring-link.
+its template calls as gap_refresh@tpl, R7 its modes as ring_pack@entrant,
+ring_pack@candidate and ring_pack@approach (the rest are forward packs).
+K3's ring-leader mode (the lane and link rows read their leaders from the
+ring in place) counts apart as car_follow@ring, its link-row calls also
+as car_follow@ring-link.
 K2, K3, L1 and L2 have a template mode (non-uniform vehicle templates:
 each row's parameters read from its template index and the table inside
 the kernel), counted apart as <name>@tpl; K3's calls in both its template
@@ -122,6 +124,7 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "lane_stats@obs": (lane_stats, "launches_obs"),
          "phase_pressure@features": (phase_pressure, "launches_features"),
          "cross_caps@tpl": (cross_caps, "launches_tpl"),
+         "cross_caps@approach": (cross_caps, "launches_app"),
          "car_follow@tpl": (car_follow, "launches_tpl"),
          "car_follow@tpl+lc": (car_follow, "launches_tpl_lc"),
          "lc_signal@tpl": (lc_signal, "launches_tpl"),
@@ -145,6 +148,7 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "gap_refresh@tpl": (gap_refresh, "launches_tpl"),
          "ring_pack@entrant": (ring_pack, "launches_ent"),
          "ring_pack@candidate": (ring_pack, "launches_cand"),
+         "ring_pack@approach": (ring_pack, "launches_app"),
          "car_follow@ring": (car_follow, "launches_ring"),
          "car_follow@ring-link": (car_follow, "launches_ring_link")}
 

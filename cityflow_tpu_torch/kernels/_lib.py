@@ -97,7 +97,7 @@ def lib():
             build_seconds = time.time() - t0
         L = ctypes.CDLL(path)
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        L.gather_rows.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll,
+        L.gather_rows.argtypes = [vp, vp, vp, ll, ll, ll, ll,
                                   ctypes.c_uint, vp]
         L.gather_rows.restype = ctypes.c_int
         for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",

@@ -2,11 +2,15 @@
 operators (csrc/gather_rows.cu).
 
     out[c, j, b] = x[c, idx[j], b]       if idx[j] >= 0       else fill
+
+x is (C, N, B) with the env axis B last; idx is a static (J,) int32 table.
+Works on any 4-byte dtype (float32 or int32). The plain version also
+takes a per-(j, b) int32 index `didx` (the dynamic to_link / from_link
+selections of R5's and R7's plain versions):
+
     out[c, j, b] = x[c, didx[j, b], b]   if didx[j, b] >= 0   else fill
 
-x is (C, N, B) with the env axis B last; idx is a static (J,) int32 table,
-didx a per-(j, b) int32 index for the dynamic to_link / from_link
-selections. Works on any 4-byte dtype (float32 or int32).
+whose kernels pack those selections themselves.
 """
 
 import struct
@@ -33,24 +37,21 @@ def gather_rows_plain(x, idx=None, fill=0.0, didx=None):
                                              device=x.device))
 
 
-def gather_rows(x, idx=None, fill=0.0, didx=None, out=None):
+def gather_rows(x, idx, fill=0.0, out=None):
     """K1 on a CUDA tensor, the plain version on a CPU tensor."""
     global launches
-    if (idx is None) == (didx is None):
-        raise ValueError("gather_rows: give exactly one of idx, didx")
     if x.dim() != 3:
         raise ValueError(f"gather_rows: x must be (C, N, B), got {x.shape}")
     C, N, B = x.shape
-    J = idx.shape[0] if didx is None else didx.shape[0]
+    J = idx.shape[0]
     cpu = x.device.type == "cpu"
-    i32 = (torch.int32,)
-    _lib.check_args("gather_rows", x, idx, didx, out,
-                    dtypes=[(torch.float32, torch.int32), i32, i32,
+    _lib.check_args("gather_rows", x, idx, out,
+                    dtypes=[(torch.float32, torch.int32), (torch.int32,),
                             (x.dtype,)], cuda=not cpu)
-    if didx is not None and tuple(didx.shape) != (J, B):
-        raise ValueError(f"gather_rows: didx {tuple(didx.shape)} != {(J, B)}")
+    if idx.dim() != 1:
+        raise ValueError(f"gather_rows: idx {tuple(idx.shape)} is not (J,)")
     if cpu:
-        res = gather_rows_plain(x, idx, fill, didx)
+        res = gather_rows_plain(x, idx, fill)
         if out is not None:
             out.copy_(res)
             return out
@@ -63,10 +64,8 @@ def gather_rows(x, idx=None, fill=0.0, didx=None, out=None):
         fill_bits = struct.unpack("<I", struct.pack("<f", float(fill)))[0]
     else:
         fill_bits = int(fill) & 0xFFFFFFFF
-    rc = _lib.lib().gather_rows(
-        x.data_ptr(), None if idx is None else idx.data_ptr(),
-        None if didx is None else didx.data_ptr(), out.data_ptr(),
-        C, N, J, B, fill_bits, _lib.stream_ptr(x))
+    rc = _lib.lib().gather_rows(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                C, N, J, B, fill_bits, _lib.stream_ptr(x))
     _lib.check(rc, "gather_rows")
     launches += 1
     return out

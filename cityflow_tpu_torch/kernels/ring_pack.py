@@ -1,6 +1,6 @@
 """R7 ring_pack: the ring step's channel packs, each written straight from
 the ring leaves into the buffer the next kernel reads
-(csrc/ring_pack.cu). Three modes:
+(csrc/ring_pack.cu). Four modes:
 
   forward (pack_forward)        the AP lane-front slots' channels of each
       in-lane's lane (through in_src), then its length and maxSpeed: the
@@ -12,6 +12,11 @@ the ring leaves into the buffer the next kernel reads
   candidate (pack_candidates)   the link-ring exit slots with their route
       rows, per lane row and in-lane (app_src_g): cands (KIN * XKe, NP,
       OL * G, B), K4's lane-ring append.
+  approach (pack_approach)      the lane fronts that head into each link
+      (to_link), per front slot and link: the approach rows' K2 / K3
+      inputs (mine, speed, priority halves, dls, lane_left; with templates
+      the template index, the approach distance and canEnter, read from
+      the template table in place), each (AP, LKp, B).
 
 Integer channels ride as float32 (int -> float rounding, as .to(float32)
 gives) and come back through the saturating cast; priorities as their
@@ -23,15 +28,19 @@ import ctypes
 
 import torch
 
+from cityflow_tpu_torch.compiler.net import (
+    P_LEN, P_MAXSPEED, P_USUALNEGACC)
 from cityflow_tpu_torch.core.numerics import xla_f32_to_i32
 from cityflow_tpu_torch.kernels import _lib
 from cityflow_tpu_torch.kernels._ring_idx import (
     hilo as _hilo, lpi_of, to_link_idx)
 from cityflow_tpu_torch.kernels.gather_rows import gather_rows_plain
+from cityflow_tpu_torch.kernels.tpl_params import tpl_params_plain
 
 launches = 0
 launches_ent = 0        # of those, the entrant mode
 launches_cand = 0       # of those, the candidate mode
+launches_app = 0        # of those, the approach mode
 F32 = torch.float32
 I32 = torch.int32
 B8 = torch.bool
@@ -42,15 +51,19 @@ _PTRS = ("l_dis", "l_speed", "l_nxt", "l_nxt3", "l_route", "l_rpos",
          "inl", "inl_in", "start_src", "exited", "ap_dis", "ap_spd",
          "new_dis_l", "new_spd_l", "ent", "nd_k", "ns_k", "k_flow",
          "k_route", "k_rpos", "k_enter", "k_pri", "k_uid", "k_gap", "k_tpl",
-         "pays", "exit_flags", "lk_len", "app_src", "cands")
+         "pays", "exit_flags", "lk_len", "app_src", "cands", "st_len", "et",
+         "table", "ap_mine", "ap_f", "ap_tpl", "ap_ce")
 _DIMS = ("SL", "LNp", "LKp", "IL", "G", "AP", "B", "XKl", "KIN", "XKe",
-         "OLG", "MAXLPR", "nfc", "ch_tpl")
+         "OLG", "MAXLPR", "nfc", "ch_tpl", "TP")
+# the approach mode's float outputs, in ap_f's channel order
+APPROACH_F = ("speed", "prih", "pril", "dls", "lane_left", "approach")
 
 
 class _Args(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] \
         + [(n, ctypes.c_longlong) for n in _DIMS] \
-        + [("lc", ctypes.c_int), ("tpl", ctypes.c_int)]
+        + [("lc", ctypes.c_int), ("tpl", ctypes.c_int),
+           ("dt", ctypes.c_float)]
 
 
 def forward_channels(cfg):
@@ -181,6 +194,47 @@ def pack_candidates_plain(cfg, net, rs, nd_k, ns_k, pays, exit_flags):
     return cands
 
 
+def pack_approach_plain(cfg, net, inl, st, et=None):
+    """JAX ring.py:1154-1168, :1206-1231: each lane-front slot's channels
+    routed to its next link (to_link), then the approach rows' K2 / K3
+    inputs; with templates their parameters (_PP) and canEnter of the
+    link's end lane (et: the end-lane tail bundle) for the front's own
+    length."""
+    IL, G, AP, LKp = cfg.IL, cfg.G, cfg.AP, cfg.LKp
+    B = inl.shape[-1]
+    uni = cfg.uniform
+    src_ok = (net["in_src"].reshape(-1) >= 0).reshape(IL, G)[None, :, :,
+                                                              None]
+    ch = lambda c: inl[c * AP:(c + 1) * AP].reshape(AP, IL, G, B)
+    h_nxt = xla_f32_to_i32(ch(2))
+    h_occ = (ch(13) > 0) & src_ok
+    if not uni:
+        h_tpl = xla_f32_to_i32(ch(forward_channels(cfg).index("tpl")))
+    NLC = 5 if uni else 6
+    lk_ch = torch.stack([gather_rows_plain(
+        torch.stack([(h_occ[a] & (h_nxt[a] >= 0)).to(F32), ch(0)[a],
+                     ch(1)[a], ch(7)[a], ch(8)[a]]
+                    + ([] if uni else [h_tpl[a].to(F32)]))
+        .reshape(NLC, IL * G, B),
+        didx=to_link_idx(cfg, net, lpi_of(cfg, h_nxt[a])), fill=0.0)
+        for a in range(AP)])                            # (AP, NLC, LKp, B)
+    st_len = st[6]
+    dis = lk_ch[:, 1]
+    out = dict(mine=lk_ch[:, 0] > 0.5, speed=lk_ch[:, 2].contiguous(),
+               prih=lk_ch[:, 3].contiguous(), pril=lk_ch[:, 4].contiguous(),
+               dls=dis - st_len[None], lane_left=st_len[None] - dis)
+    if not uni:
+        table = net["tpl_params"]
+        tpl = xla_f32_to_i32(lk_ch[:, 5]).contiguous()
+        ln, ms, una = tpl_params_plain(tpl, table,
+                                       (P_LEN, P_MAXSPEED, P_USUALNEGACC))
+        dt = net["ring_f32"][len(cfg.params)]
+        et_len = tpl_params_plain(xla_f32_to_i32(et[6]), table, (P_LEN,))[0]
+        out.update(tpl=tpl, approach=ms * ms / una / 2 + ms * dt * 2,
+                   ce=~(et[5] > 0.5) | (et[0] > et_len + ln) | (et[2] >= 2))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -215,13 +269,15 @@ def _check_lc_tpl(cfg, rs, name, lane):
 
 def _args(cfg, net, B, **ptrs):
     ptr = lambda t: None if t is None else t.data_ptr()
+    table = ptrs.get("table")
     return _Args(*(ptr(ptrs.get(n)) for n in _PTRS),
                  cfg.SL, cfg.LNp, cfg.LKp, cfg.IL, cfg.G, cfg.AP, B,
                  ptrs.get("XKl", 0), cfg.KIN, ptrs.get("XKe", 0),
                  cfg.OL * cfg.G, ptrs.get("MAXLPR", 0),
                  len(forward_channels(cfg)),
-                 16 if cfg.lane_change else 14, int(cfg.lane_change),
-                 int(not cfg.uniform))
+                 16 if cfg.lane_change else 14,
+                 0 if table is None else table.shape[0],
+                 int(cfg.lane_change), int(not cfg.uniform), cfg.interval)
 
 
 def pack_forward(cfg, net, rs):
@@ -318,3 +374,47 @@ def pack_candidates(cfg, net, rs, nd_k, ns_k, pays, exit_flags):
     launches += 1
     launches_cand += 1
     return cands
+
+
+def pack_approach(cfg, net, inl, st, et=None):
+    """R7's approach mode on CUDA tensors, the plain version on CPU
+    tensors. `inl` the forward view (NFC * AP + 2, IL * G, B), `st` the
+    start-lane head bundle (its channel 6 the start in-lane's length, (.,
+    LKp, B)), `et` the end-lane tail bundle (templates only). Returns a
+    dict of (AP, LKp, B) tensors: mine (bool), speed, prih, pril, dls,
+    lane_left; with templates also tpl (int32), approach and ce (bool)."""
+    AP, LKp, B = cfg.AP, cfg.LKp, inl.shape[-1]
+    cpu = inl.device.type == "cpu"
+    uni = cfg.uniform
+    _lib.check_args("pack_approach", inl, st, et,
+                    dtypes=[(F32,), (F32,), (F32,)], cuda=not cpu)
+    NFC = len(forward_channels(cfg))
+    if tuple(inl.shape) != (NFC * AP + 2, cfg.IL * cfg.G, B) \
+            or st.dim() != 3 or st.shape[0] <= 6 \
+            or tuple(st.shape[1:]) != (LKp, B) \
+            or (et is None) != uni or (et is not None and (
+                et.dim() != 3 or et.shape[0] <= 6
+                or tuple(et.shape[1:]) != (LKp, B))):
+        raise ValueError("pack_approach: input shapes")
+    if cpu:
+        return pack_approach_plain(cfg, net, inl, st, et)
+    global launches, launches_app
+    dev = inl.device
+    NF = 5 if uni else 6
+    f = torch.empty((NF, AP, LKp, B), dtype=F32, device=dev)
+    out = dict(mine=torch.empty((AP, LKp, B), dtype=B8, device=dev))
+    out.update(zip(APPROACH_F[:NF], f))
+    kw = {}
+    if not uni:
+        out.update(tpl=torch.empty((AP, LKp, B), dtype=I32, device=dev),
+                   ce=torch.empty((AP, LKp, B), dtype=B8, device=dev))
+        kw = dict(et=et, table=net["tpl_params"], ap_tpl=out["tpl"],
+                  ap_ce=out["ce"])
+    a = _args(cfg, net, B, inl_in=inl, in_src=net["in_src"],
+              start_src=net["start_src"], st_len=st[6], ap_mine=out["mine"],
+              ap_f=f, **kw)
+    _lib.check(_lib.lib().ring_pack(ctypes.byref(a), 3, _lib.stream_ptr(inl)),
+               "pack_approach")
+    launches += 1
+    launches_app += 1
+    return out

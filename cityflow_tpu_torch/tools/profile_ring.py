@@ -40,7 +40,7 @@ _WRAPPED = {
              "ring_exits_pairs", "ring_exits_finish", "route_rows",
              "tpl_params", "lane_history", "front_leaders",
              "front_leaders_lc", "pack_forward", "pack_entrants",
-             "pack_candidates"),
+             "pack_candidates", "pack_approach"),
     "ring_lc": ("lc_signal", "lc_receive", "lc_insert", "lc_partner",
                 "gap_refresh")}
 

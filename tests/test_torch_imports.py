@@ -236,11 +236,13 @@ def test_each_ring_region_runs_through_its_wrapper_once_a_step(config, kw,
                                                                lc):
     """One batched ring step per mode (uniform, lane change, templates,
     both) calls each R wrapper once (R2's pair stages, R5's lane-change
-    mode and R6 with lane change only), R7 once in each of its three
-    modes and K3 once in its ring-leader mode on the lane rows and once
-    on the link rows (twice outside it, on the approach rows), and
-    core/ring.py and core/ring_lc.py keep no inline copy of those
-    regions."""
+    mode and R6 with lane change only), R7 once in each of its four
+    modes, K3 once in its ring-leader mode on the lane rows and once on
+    the link rows (twice outside it, on the approach rows), K1 three
+    times (the avail rows, the end-lane and start-lane bundles) and K2
+    twice (link and approach rows), each time reading R1's fields in
+    place through foe_src, and core/ring.py and core/ring_lc.py keep no
+    inline copy of those regions."""
     import inspect
     from cityflow_tpu_torch.core import ring, ring_lc
     tsim = ring_sim.build_sim(compile_scenario(os.path.join(
@@ -248,36 +250,48 @@ def test_each_ring_region_runs_through_its_wrapper_once_a_step(config, kw,
     names = ("notify_winners", "ring_admit", "ring_exits",
              "ring_exits_pairs", "ring_exits_finish", "route_rows",
              "front_leaders", "front_leaders_lc", "pack_forward",
-             "pack_entrants", "pack_candidates", "car_follow")
+             "pack_entrants", "pack_candidates", "pack_approach",
+             "car_follow", "gather_rows", "cross_caps")
     calls = dict.fromkeys(names + ("gap_refresh", "car_follow@ring-lane",
-                                   "car_follow@ring-link"), 0)
-    mods = [(ring, n) for n in names] + [(ring_lc, "gap_refresh")]
+                                   "car_follow@ring-link",
+                                   "cross_caps@foe-in-place"), 0)
+    mods = [(ring, n) for n in names] + [(ring_lc, n) for n in (
+        "gap_refresh", "gather_rows", "cross_caps") if hasattr(ring_lc, n)]
     orig = {(m, n): getattr(m, n) for m, n in mods}
+    B = 2
+    NF = 9 * tsim.cfg.KC * tsim.cfg.LKp
 
     def counted(m, n):
         def fn(*a, **k):
             r = k.get("ring")
             calls[n if r is None else f"{n}@ring-{r.kind}"] += 1
+            if n == "cross_caps" and tuple(a[6].shape) == (9, NF // 9, B) \
+                    and a[7] is tsim.tables["foe_src"]:
+                calls["cross_caps@foe-in-place"] += 1
             return orig[(m, n)](*a, **k)
         return fn
     try:
         for m, n in mods:
             setattr(m, n, counted(m, n))
-        st = ring.batch_ring_state(tsim.state, 2)
+        st = ring.batch_ring_state(tsim.state, B)
         ring.ring_step_batched(tsim.tables, tsim.cfg, st, tsim.q)
     finally:
         for (m, n), f in orig.items():
             setattr(m, n, f)
     lc_only = ("ring_exits_pairs", "ring_exits_finish", "front_leaders_lc",
                "gap_refresh")
-    assert calls == {n: (2 if n == "car_follow" else
+    per_step = dict(car_follow=2, gather_rows=3, cross_caps=2)
+    per_step["cross_caps@foe-in-place"] = 2
+    assert calls == {n: (per_step[n] if n in per_step else
                          1 if lc or n not in lc_only else 0)
                      for n in calls}
     src = inspect.getsource(ring)
     for inline in ("torch.sort(", "putc(", "can_yield(", "reach_steps(",
                    "blk_new", "range(cfg.k_phase)", "range(cfg.k_cyc)",
                    "cross_l", "leave_pref", "rn_at(", "_kout_min",
-                   "shift_in(", "torch.stack(fch)", "payload = torch.stack("):
+                   "shift_in(", "torch.stack(fch)", "payload = torch.stack(",
+                   "to_link_idx(", "lk_ch = torch.stack",
+                   "gather_rows(fields"):
         assert inline not in src, inline
     src_lc = inspect.getsource(ring_lc)
     for inline in ("_kout_min", "shift_in(", "leader_scan_bound("):
