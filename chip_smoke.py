@@ -13,7 +13,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             numpy inputs; times, bounds and the library yardstick (K1 on
             the foe exchange's shape, the forward exchange's and its three
             ring-step call sites, each beside index_select; K2 reading
-            seeded notifier fields through foe_src; K4 on both rings)
+            seeded notifier fields through foe_src; K4 on both rings and
+            in its lane-change mode, beside PR 12's times); then K4 and T1
+            on every seeded edge case of tools/kernel_cases.py (K4's
+            lane, link and lane-change commits at B = 1, 3, 128 and 130,
+            S = 128, MAX_CH channels, MAX_A candidates, then at S = 300
+            and 900, which the kernel takes in chunks of rows, with a
+            shift or delete cap longer than a chunk's halo; T1 at TP = 1,
+            3 and 1024 on contiguous and misaligned indices), bit for bit
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -42,7 +49,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             (cross_caps@link link rows, @approach approach rows) on every
             call of one more step of each ring path, bit for bit against
             their plain versions, timed beside their bounds (rows
-            <base>@<path>, or <base>:<path> for a mode)
+            <base>@<path>, or <base>:<path> for a mode); K4's two calls
+            of one more step of each ring path ([main], [lc], [mixed],
+            [mixed-lc], [rl]) bit for bit against its plain version,
+            timed beside it and its bound (printed)
   agree-lc  lane change, B=1 on the card against the plain port on the
             CPU on tests/fixtures/config_1x1s_lc.json, 80 steps: vehicles
             keyed by (uid, shadow), drift within 2e-3, equal (changing,
@@ -324,6 +334,10 @@ TPL_MODES = ("tpl_params", "car_follow@tpl", "cross_caps@tpl",
 TPL_LC_MODES = ("lc_signal@tpl", "lc_receive@tpl", "car_follow@tpl+lc",
                 "gap_refresh@tpl")
 RL_KERNELS = ("lane_stats", "phase_pressure")
+# PR 12's times of the rows T1 and K4 were redesigned from (PERF.md;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+PR12_MS = {"ring_commit": 4.7289, "ring_commit@link": 1.3791,
+           "ring_commit@lc": 9.1619, "tpl_params": 1.2430}
 REPLACES = {
     "gather_rows": "cityflow_tpu/core/ring.py:243 (_typed_mm), :300-341 "
                    "(exchanges), :881-927 (foe_perm)",
@@ -696,72 +710,32 @@ def check_kernels(sim, B, reps):
     row("car_follow", err, ms, plain, n * (5 * 4 + 3 * 1 + 2 * 4) + LNp * 4,
         n * 80, None)
 
-    # ---- K4: lane ring, 12 channels, A = KIN * XK candidates sorted
-    XK = cfg.XK
-    A = cfg.KIN * min(XK, SK)
-    n_l = T(rng.integers(0, SL + 1, (LNp, B)).astype(np.int32))
-    x_l = torch.minimum(n_l, T(rng.integers(0, XK + 1, (LNp, B))
-                               .astype(np.int32)))
-    app = torch.stack([f32(14, cfg.OL * G, B, lo=0.0, hi=30.0)
-                       for _ in range(A)])
-    app[:, 13] = T((rng.random((A, cfg.OL * G, B)) < 0.3).astype(np.float32))
-    app[:, 2:5] = app[:, 2:5].floor()
-    app[:, 6:13] = app[:, 6:13].floor()
-    iring = lambda lo, hi: T(rng.integers(lo, hi, (SL, LNp, B))
-                             .astype(np.int32))
-    chans = [(f32(SL, LNp, B, hi=300.0), "f32", 0.0, 0, 0),
-             (f32(SL, LNp, B, hi=17.0), "f32", 0.0, 1, 0),
-             (iring(0, 100), "i32", 0.0, 2, 0),
-             (iring(0, 100), "i32", 0.0, 3, 0),
-             (iring(0, 10), "i32", 0.0, 4, 0),
-             (f32(SL, LNp, B, hi=300.0), "f32", 0.0, 5, 0),
-             (iring(-2**31, 2**31 - 1), "pri", 0.0, 6, 7),
-             (iring(-1, 10**6), "i32", -1.0, 8, 0),
-             (iring(-1, 50000), "i32", -1.0, 9, 0),
-             (iring(-1, 50000), "i32", -1.0, 10, 0),
-             (T(rng.random((SL, LNp, B)) < 0.2), "bool", 0.0, 11, 0),
-             (iring(-1, 50000), "i32", -1.0, 12, 0)]
-    kw = dict(valid_ch=13, sort_ch=0, nsel=min(cfg.SA, A), XK=XK,
-              app_I=cfg.I, app_G=G)
-    got = ring_commit.ring_commit(chans, x_l, n_l - x_l, app, **kw)
-    want = ring_commit.ring_commit_plain(chans, x_l, n_l - x_l, app, **kw)
-    bad = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
-    log(f"[kernels] ring_commit (lane): mismatches={bad}")
-    assert bad == 0, "ring_commit mismatch"
-    ms = time_cuda(lambda: ring_commit.ring_commit(
-        chans, x_l, n_l - x_l, app, **kw), reps)
-    plain = time_cuda(lambda: ring_commit.ring_commit_plain(
-        chans, x_l, n_l - x_l, app, **kw), reps)
-    # link ring: entrants in order, the entry step as a per-env value
-    n_k = T(rng.integers(0, SK + 1, (LKp, B)).astype(np.int32))
-    x_k = torch.minimum(n_k, T(rng.integers(0, XK + 1, (LKp, B))
-                               .astype(np.int32)))
-    ent = f32(AP, 11, LKp, B, hi=30.0).floor()
-    ent[:, 0] = T((rng.random((AP, LKp, B)) < 0.3).astype(np.float32))
-    kring = lambda lo, hi: T(rng.integers(lo, hi, (SK, LKp, B))
-                             .astype(np.int32))
-    kch = [(f32(SK, LKp, B, hi=60.0), "f32", 0.0, 1, 0),
-           (kring(0, 100), "i32", 0.0, 3, 0),
-           (kring(-2**31, 2**31 - 1), "pri", 0.0, 7, 8),
-           (kring(-1, 10**6), "i32", -1.0, 9, 0),
-           (kring(0, 2**31 - 1), "i32", float(2**31 - 1), -1, 0)]
-    kkw = dict(valid_ch=0, sort_ch=-1, nsel=AP, XK=XK,
-               envval=T(np.full(B, 7.0, np.float32)))
-    got = ring_commit.ring_commit(kch, x_k, n_k - x_k, ent, **kkw)
-    want = ring_commit.ring_commit_plain(kch, x_k, n_k - x_k, ent, **kkw)
-    bad = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
-    log(f"[kernels] ring_commit (link): mismatches={bad}")
-    assert bad == 0, "ring_commit (link) mismatch"
-    nbytes = commit_bytes(chans, int((SL - x_l).sum()), app, kw["valid_ch"],
-                          kw["nsel"], 2 * LNp * B * 4)
-    row("ring_commit", 0.0, ms, plain, nbytes, 0, None)
-    kms = time_cuda(lambda: ring_commit.ring_commit(
-        kch, x_k, n_k - x_k, ent, **kkw), reps)
-    kplain = time_cuda(lambda: ring_commit.ring_commit_plain(
-        kch, x_k, n_k - x_k, ent, **kkw), reps)
-    nbytes = commit_bytes(kch, int((SK - x_k).sum()), ent, kkw["valid_ch"],
-                          kkw["nsel"], 2 * LKp * B * 4 + B * 4)
-    row("ring_commit@link", 0.0, kms, kplain, nbytes, 0, None)
+    # ---- K4: lane ring (12 channels, A = KIN * XK candidates sorted) and
+    #      link ring (entrants in order, the entry step as a per-env value)
+    #      on seeded inputs, bitwise, each beside its PR 12 time
+    seeded = seeded_commit_calls(sim, B, rng)
+    for label in ("ring_commit", "ring_commit@link"):
+        a, k, nbytes = seeded[label]
+        got = ring_commit.ring_commit(*a, **k)
+        want = ring_commit.ring_commit_plain(*a, **k)
+        _, bad = _bitwise(label, got, want)
+        log(f"[kernels] {label} (seeded): not_bitwise={bad}")
+        assert bad == 0, f"{label} mismatch"
+        del got, want
+        ms = time_cuda(lambda: ring_commit.ring_commit(*a, **k), reps)
+        plain = time_cuda(lambda: ring_commit.ring_commit_plain(*a, **k),
+                          reps)
+        log(f"[kernels] {label}: ms={ms:.4f} (PR 12: {PR12_MS[label]})")
+        row(label, 0.0, ms, plain, nbytes, 0, None)
+    a, k, _ = seeded["ring_commit@lc-seeded"]
+    _, bad = _bitwise("ring_commit@lc-seeded",
+                      ring_commit.ring_commit(*a, **k),
+                      ring_commit.ring_commit_plain(*a, **k))
+    log(f"[kernels] ring_commit@lc-seeded: {len(a[0])} channels, "
+        f"not_bitwise={bad}")
+    assert bad == 0, "ring_commit (seeded lane-change mode) mismatch"
+    del seeded, a, k
+    check_kernel_cases()
     return rows
 
 
@@ -807,6 +781,123 @@ def commit_bytes(chans, keep, app, valid_ch, nsel, extra):
     n_app_ch = sum((c[3] >= 0) + (c[1] == "pri") for c in chans)
     return (esz * (keep + upd.numel()) + extra
             + 4 * (A * AC * B + int(nvalid.sum()) + n_app_ch * taken))
+
+
+def seeded_commit_calls(sim, B, rng):
+    """K4's seeded calls at the 30x30 shapes: {label: ((chans, x, base,
+    app), kwargs, bytes)} for the lane commit ("ring_commit": 12
+    channels, A = KIN * XK candidates stably sorted), the link commit
+    ("ring_commit@link": 5 channels, the entrants in order, one channel
+    of the per-env entry step), drawn in that order as before, and the
+    lane-change delete mode
+    ("ring_commit@lc-seeded": the lane commit's channels, 5 + 2 MAXLPR
+    more, a delete mask over about 5% of the slots, XD = XK + LCD)."""
+    import numpy as np
+    import torch
+    cfg, dev = sim.cfg, sim.device
+    T = lambda a: torch.as_tensor(a, device=dev).contiguous()
+    f32 = lambda *s, lo=0.0, hi=1.0: T(rng.uniform(lo, hi, s)
+                                        .astype(np.float32))
+    SL, SK, LNp, LKp, G, AP = cfg.SL, cfg.SK, cfg.LNp, cfg.LKp, cfg.G, \
+        cfg.AP
+    XK = cfg.XK
+    A = cfg.KIN * min(XK, SK)
+    n_l = T(rng.integers(0, SL + 1, (LNp, B)).astype(np.int32))
+    x_l = torch.minimum(n_l, T(rng.integers(0, XK + 1, (LNp, B))
+                               .astype(np.int32)))
+    app = torch.stack([f32(14, cfg.OL * G, B, lo=0.0, hi=30.0)
+                       for _ in range(A)])
+    app[:, 13] = T((rng.random((A, cfg.OL * G, B)) < 0.3).astype(np.float32))
+    app[:, 2:5] = app[:, 2:5].floor()
+    app[:, 6:13] = app[:, 6:13].floor()
+    iring = lambda lo, hi: T(rng.integers(lo, hi, (SL, LNp, B))
+                             .astype(np.int32))
+    chans = [(f32(SL, LNp, B, hi=300.0), "f32", 0.0, 0, 0),
+             (f32(SL, LNp, B, hi=17.0), "f32", 0.0, 1, 0),
+             (iring(0, 100), "i32", 0.0, 2, 0),
+             (iring(0, 100), "i32", 0.0, 3, 0),
+             (iring(0, 10), "i32", 0.0, 4, 0),
+             (f32(SL, LNp, B, hi=300.0), "f32", 0.0, 5, 0),
+             (iring(-2**31, 2**31 - 1), "pri", 0.0, 6, 7),
+             (iring(-1, 10**6), "i32", -1.0, 8, 0),
+             (iring(-1, 50000), "i32", -1.0, 9, 0),
+             (iring(-1, 50000), "i32", -1.0, 10, 0),
+             (T(rng.random((SL, LNp, B)) < 0.2), "bool", 0.0, 11, 0),
+             (iring(-1, 50000), "i32", -1.0, 12, 0)]
+    kw = dict(valid_ch=13, sort_ch=0, nsel=min(cfg.SA, A), XK=XK,
+              app_I=cfg.I, app_G=G)
+    out = {"ring_commit": (
+        (chans, x_l, n_l - x_l, app), kw,
+        commit_bytes(chans, int((SL - x_l).sum()), app, kw["valid_ch"],
+                     kw["nsel"], 2 * LNp * B * 4))}
+    n_k = T(rng.integers(0, SK + 1, (LKp, B)).astype(np.int32))
+    x_k = torch.minimum(n_k, T(rng.integers(0, XK + 1, (LKp, B))
+                               .astype(np.int32)))
+    ent = f32(AP, 11, LKp, B, hi=30.0).floor()
+    ent[:, 0] = T((rng.random((AP, LKp, B)) < 0.3).astype(np.float32))
+    kring = lambda lo, hi: T(rng.integers(lo, hi, (SK, LKp, B))
+                             .astype(np.int32))
+    kch = [(f32(SK, LKp, B, hi=60.0), "f32", 0.0, 1, 0),
+           (kring(0, 100), "i32", 0.0, 3, 0),
+           (kring(-2**31, 2**31 - 1), "pri", 0.0, 7, 8),
+           (kring(-1, 10**6), "i32", -1.0, 9, 0),
+           (kring(0, 2**31 - 1), "i32", float(2**31 - 1), -1, 0)]
+    kkw = dict(valid_ch=0, sort_ch=-1, nsel=AP, XK=XK,
+               envval=T(np.full(B, 7.0, np.float32)))
+    out["ring_commit@link"] = (
+        (kch, x_k, n_k - x_k, ent), kkw,
+        commit_bytes(kch, int((SK - x_k).sum()), ent, kkw["valid_ch"],
+                     kkw["nsel"], 2 * LKp * B * 4 + B * 4))
+    # the lane-change mode: the pair channels (offset, shadow, changing,
+    # direction, gap, MAXLPR route rows and aux rows) take an entrant's
+    # valid flag (13), its distance (0) or its previous lane (12)
+    lch = [(f32(SL, LNp, B, lo=-1.0, hi=1.0), "f32", 0.0, 13, 0),
+           (T(rng.random((SL, LNp, B)) < 0.05), "bool", 0.0, 13, 0),
+           (T(rng.random((SL, LNp, B)) < 0.05), "bool", 0.0, 13, 0),
+           (iring(-1, 2), "i32", 0.0, 13, 0),
+           (f32(SL, LNp, B, hi=50.0), "f32", 0.0, 0, 0)] \
+        + [(iring(-1, 50000), "i32", -1.0, 12, 0)
+           for _ in range(2 * cfg.MAXLPR)]
+    dmask = T(rng.random((SL, LNp, B)) < 0.05)
+    XD = min(XK + cfg.LCD, SL)
+    lkw = dict(kw, dmask=dmask, XD=XD)
+    lbase = n_l - dmask.sum(0, dtype=torch.int32)
+    out["ring_commit@lc-seeded"] = (
+        (chans + lch, None, lbase, app), lkw,
+        commit_bytes(chans + lch, int((~dmask).sum()), app, kw["valid_ch"],
+                     kw["nsel"], dmask.numel() + LNp * B * 4))
+    return out
+
+
+def check_kernel_cases():
+    """K4 and T1 against their plain versions, bit for bit, on every
+    seeded edge case of tools/kernel_cases.py (the cases the CPU tests
+    hold the plain versions to against a slot-by-slot walk): K4's lane,
+    link and lane-change commits at B = 1, 3, 128 and 130, S = 128,
+    MAX_CH channels, MAX_A candidates, and at S = 300 and 900 (chunks of
+    rows); T1 at TP = 1, 3 and 1024 on contiguous and misaligned index
+    views."""
+    import torch
+    from cityflow_tpu_torch.kernels import ring_commit, tpl_params
+    from cityflow_tpu_torch.tools import kernel_cases as kc
+    n = 0
+    for name, case in kc.commit_cases():
+        a, k = kc.commit_args(case, "cuda")
+        _, bad = _bitwise(f"ring_commit[{name}]",
+                          ring_commit.ring_commit(*a, **k),
+                          ring_commit.ring_commit_plain(*a, **k))
+        assert bad == 0, f"ring_commit[{name}]: {bad} values differ"
+        n += 1
+    for name, case in kc.tpl_cases():
+        a = kc.tpl_args(case, "cuda")
+        _, bad = _bitwise(f"tpl_params[{name}]", tpl_params.tpl_params(*a),
+                          tpl_params.tpl_params_plain(*a))
+        assert bad == 0, f"tpl_params[{name}]: {bad} values differ"
+        n += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] K4 / T1 seeded edge cases: {n} of "
+        f"{len(kc.COMMIT_CASES) + len(kc.TPL_CASES)} bitwise "
+        f"({', '.join(kc.COMMIT_CASES)}; {', '.join(kc.TPL_CASES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -1075,6 +1166,69 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
 
 
 # ---------------------------------------------------------------------------
+# K4 on every call of one more step of each ring path
+# ---------------------------------------------------------------------------
+
+def check_commit_calls(tag, sim, state, reps):
+    """K4 against its plain version, bit for bit, on every call of one more
+    batched step of a ring path's own state (the link and the lane
+    commit; under lane change the lane commit's delete mode), each call
+    timed beside its plain version and its bound (printed; the kernel
+    table's K4 rows stay the seeded calls and [lc]'s delete mode)."""
+    import torch
+    from cityflow_tpu_torch.core import ring as ring_mod
+    from cityflow_tpu_torch.kernels import ring_commit as rc
+    keep = {id(v) for v in sim.tables.values()}
+    clone = lambda x: x if not isinstance(x, torch.Tensor) \
+        or id(x) in keep else x.clone()
+    calls = []
+
+    def rec(chans, *a, **k):
+        calls.append(([(clone(c[0]),) + tuple(c[1:]) for c in chans],
+                      [clone(v) for v in a],
+                      {n: clone(v) for n, v in k.items()}))
+        return rc.ring_commit(chans, *a, **k)
+
+    orig = ring_mod.ring_commit
+    ring_mod.ring_commit = rec
+    try:
+        st, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg,
+                                                fresh(state), sim.q)
+        ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, st, mid)
+        torch.cuda.synchronize()
+    finally:
+        ring_mod.ring_commit = orig
+    del st, mid
+    assert len(calls) == 2, f"[{tag}] {len(calls)} K4 calls a step"
+    for (chans, a, k), site in zip(calls, ("link", "lane")):
+        got = rc.ring_commit(chans, *a, **k)
+        want = rc.ring_commit_plain(chans, *a, **k)
+        _, bad = _bitwise(f"ring_commit@{site}:{tag}", got, want)
+        assert bad == 0, f"[{tag}] K4 {site} commit: {bad} values differ"
+        del got, want
+        ms = time_cuda(lambda: rc.ring_commit(chans, *a, **k), reps)
+        plain = time_cuda(lambda: rc.ring_commit_plain(chans, *a, **k),
+                          reps)
+        dmask = k.get("dmask")
+        x, base, app = a
+        S = chans[0][0].shape[0]
+        keep_slots = int((~dmask).sum()) if dmask is not None \
+            else int((S - x.clamp(0, S)).sum())
+        extra = base.numel() * 4 + (dmask.numel() if dmask is not None
+                                    else x.numel() * 4) \
+            + (k["envval"].numel() * 4 if k.get("envval") is not None
+               else 0)
+        nbytes = commit_bytes(chans, keep_slots, app, k["valid_ch"],
+                              k["nsel"], extra)
+        mode = ", delete mode" if dmask is not None else ""
+        log(f"[kernels] ring_commit {site} commit on the {tag} step "
+            f"({len(chans)} channels{mode}): "
+            f"bitwise, ms={ms:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={nbytes / H100_BYTES_PER_S * 1e3:.4f}")
+    del calls
+
+
+# ---------------------------------------------------------------------------
 # lane-change kernels on the lc path's own inputs
 # ---------------------------------------------------------------------------
 
@@ -1184,6 +1338,8 @@ def check_lc_kernels(sim, state, reps):
         ms = time_cuda(lambda: kern(*a, **k), reps)
         plain_ms = time_cuda(lambda: plain(*a, **k), reps)
         nbytes, nops = lc_work(n, a, k)
+        if label in PR12_MS:
+            log(f"[kernels] {label}: ms={ms:.4f} (PR 12: {PR12_MS[label]})")
         rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, None))
     return rows
 
@@ -1271,8 +1427,8 @@ def record_tpl_calls(sim, state, lc):
     """One more batched step of a template path with the wrappers
     recording their arguments (cloned, tables by reference): every T1
     call, and every call in the template mode of K2, K3 and, with lane
-    change, L1 and L2; with lane change also every K4 and L3 call, which
-    carry the tpl channel."""
+    change, L1 and L2; with lane change also every L3 call, which carries
+    the tpl channel (K4's calls: check_commit_calls)."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
@@ -1289,7 +1445,7 @@ def record_tpl_calls(sim, state, lc):
             return type(x)(clone(v) for v in x)
         return x
 
-    every = ["tpl_params"] + (["ring_commit", "lc_insert"] if lc else [])
+    every = ["tpl_params"] + (["lc_insert"] if lc else [])
     names = every + ["cross_caps", "car_follow"] \
         + (["lc_signal", "lc_receive"] if lc else [])
     points = [(m, n) for m, n in _patch_points() if n in names]
@@ -1375,8 +1531,8 @@ def insert_demand():
 
 def check_tpl_kernels(sim, state, reps, lc, lci=None):
     """T1 and the template modes against their plain versions on every
-    recorded call of one more step of a template path (T1, K2, L1, K4 and
-    L3 exact; K3 and L2 within 1e-5, their not-bitwise counts printed).
+    recorded call of one more step of a template path (T1, K2, L1 and L3
+    exact; K3 and L2 within 1e-5, their not-bitwise counts printed).
     Rows: without lane change T1, K2@tpl and K3@tpl; with it L1@tpl,
     L2@tpl and K3@tpl+lc. Each is timed on its largest call (K3 at the
     lane rows, with v_yield on the lane-change path), T1 beside the
@@ -1387,7 +1543,7 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
     calls = record_tpl_calls(sim, state, lc)
     tol = {"car_follow": 1e-5, "lc_receive": 1e-5}
     checked = ("tpl_params", "cross_caps", "car_follow") \
-        + (("lc_signal", "lc_receive", "ring_commit", "lc_insert")
+        + (("lc_signal", "lc_receive", "lc_insert")
            if lc else ())
     timed = ("lc_signal", "lc_receive", "car_follow") if lc else \
         ("tpl_params", "cross_caps", "car_follow")
@@ -1401,7 +1557,7 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
             e, nb_ = _compare(n, kern(*a, **k), plain(*a, **k),
                               tol.get(n, 0.0))
             err, nbit = max(err, e), nbit + nb_
-        label = n if n in ("tpl_params", "ring_commit", "lc_insert") \
+        label = n if n in ("tpl_params", "lc_insert") \
             else n + "@tpl"
         yld = sum("v_yield" in k for _, k in calls[n])
         log(f"[kernels] {label} on the {'mixed-lc' if lc else 'mixed'} "
@@ -1424,7 +1580,8 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
             tc, ti = table[:, list(cols)], tpl.long()
             lib = time_cuda(lambda: tc[ti], reps)
             log(f"[kernels] tpl_params timed at {tuple(tpl.shape)} x "
-                f"{len(cols)} columns")
+                f"{len(cols)} columns: ms={ms:.4f} (PR 12: "
+                f"{PR12_MS['tpl_params']}) library_ms={lib:.4f}")
         nbytes, nops = tpl_work(n, a, k)
         rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, lib))
     if lci is not None:
@@ -1767,11 +1924,15 @@ def record_front_calls(sim, state):
     from cityflow_tpu_torch.core import ring_lc
     mods = {"ring": ring_mod, "ring_lc": ring_lc}
     calls = {w: [] for _, _, w in FRONT_CALLS}
+    calls["car_follow@approach"] = []          # K3's approach-row calls
     orig = {}
 
     def rec(w, fn):
         def call(*a, **k):
             if w == "car_follow" and k.get("ring") is None:
+                if a[0] in (1, 2) and len(a[2]) == 4 \
+                        and a[2][0] == sim.cfg.AP:
+                    calls["car_follow@approach"].append((a, k))
                 return fn(*a, **k)
             kept = a[:2] + (admit_copy(a[2]),) + a[3:] \
                 if w in ("front_leaders_lc", "gap_refresh") else a
@@ -1994,6 +2155,28 @@ def check_front_kernels(sim, state, reps, path):
             row = kernel_row(label, err, ms, plain_ms, nbytes, nops, None)
             row["launches_of"] = (path, plus, minus)
             rows.append(row)
+    # K3's approach-row calls (the isr mode, then min_chain on the AP
+    # rows): within 1e-5, timed beside their bounds (printed)
+    from cityflow_tpu_torch.kernels import car_follow as k3
+    tot = dict(ms=0.0, plain=0.0, bound=0.0)
+    for a, k in calls["car_follow@approach"]:
+        err, nbit = _compare("car_follow@approach", k3.car_follow(*a, **k),
+                             k3.car_follow_plain(*a, **k), 1e-5)
+        nbytes, nops = k3_work(a, k)
+        bound = max(nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS) * 1e3
+        ms = time_cuda(lambda: k3.car_follow(*a, **k), reps)
+        plain_ms = time_cuda(lambda: k3.car_follow_plain(*a, **k), reps)
+        tot["ms"] += ms
+        tot["plain"] += plain_ms
+        tot["bound"] += bound
+        log(f"[kernels] car_follow approach rows, mode {a[0]}, on the "
+            f"{path} step: max_abs_err={err} not_bitwise={nbit} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f}")
+    assert len(calls["car_follow@approach"]) == 2, \
+        f"K3: {len(calls['car_follow@approach'])} approach-row calls"
+    log(f"[kernels] car_follow approach rows on the {path} step, both "
+        f"calls: ms={tot['ms']:.4f} plain_ms={tot['plain']:.4f} "
+        f"bound_ms={tot['bound']:.4f}")
     return rows
 
 
@@ -3899,6 +4082,7 @@ def main():
     main_launches, res, mn_sim, mn_state = run_path(
         "main", cfg_path, BATCH, WARMUP, STEPS, MAIN_KERNELS)
     log(f"[main] {json.dumps(res)}")
+    check_commit_calls("main", mn_sim, mn_state, REPS)
     rows += check_ring_kernels(mn_sim, mn_state, REPS, "main")
     rows += check_front_kernels(mn_sim, mn_state, REPS, "main")
     del mn_sim, mn_state
@@ -3913,6 +4097,7 @@ def main():
         "lc", lc_cfg, BATCH, LC_WARMUP, STEPS,
         MAIN_KERNELS + LC_KERNELS + LC_MODES)
     log(f"[lc] {json.dumps(lc_res)}")
+    check_commit_calls("lc", lc_sim, lc_state, REPS)
     rows += check_lc_kernels(lc_sim, lc_state, REPS)
     rows += check_ring_kernels(lc_sim, lc_state, REPS, "lc")
     rows += check_front_kernels(lc_sim, lc_state, REPS, "lc")
@@ -3932,6 +4117,7 @@ def main():
         "mixed", mixed_cfg, BATCH, WARMUP, STEPS, MAIN_KERNELS + TPL_MODES,
         lane_slots=0)
     log(f"[mixed] {json.dumps(mixed_res)}")
+    check_commit_calls("mixed", m_sim, m_state, REPS)
     rows += check_tpl_kernels(m_sim, m_state, REPS, lc=False)
     rows += check_ring_kernels(m_sim, m_state, REPS, "mixed")
     rows += check_front_kernels(m_sim, m_state, REPS, "mixed")
@@ -3954,6 +4140,7 @@ def main():
         f"{ml_sim.cfg.LCI})")
     assert demand["peak"] <= ml_sim.cfg.LCI, "insert demand above the cap"
     log(f"[mixed-lc] {json.dumps(mlc_res)}")
+    check_commit_calls("mixed-lc", ml_sim, ml_state, REPS)
     rows += check_tpl_kernels(ml_sim, ml_state, REPS, lc=True,
                               lci=demand["peak"])
     rows += check_ring_kernels(ml_sim, ml_state, REPS, "mixed-lc")
@@ -3974,6 +4161,7 @@ def main():
     assert hist_launches["lane_stats@hist"] > 0, "O1 history mode idle"
     rl_launches, rl_res, env = run_rl(cfg_path, BATCH, RL_WARMUP, STEPS)
     log(f"[rl] {json.dumps(rl_res)}")
+    check_commit_calls("rl", env.sim, env.state, REPS)
     rows += check_rl_kernels(env, REPS)
     dqn_launches, dqn_res = run_dqn(env, DQN_ITERS)
     log(f"[dqn] {json.dumps(dqn_res)}")

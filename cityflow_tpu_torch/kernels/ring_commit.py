@@ -24,7 +24,8 @@ ring.py:1815-1857) takes a delete mask `dmask` (S, N, B) instead of the
 front departures x: the kept slots close up in order (a rank-preserving
 delete of front exits and mid-ring finishes), a kept slot moving up by more
 than XD = min(XK + LCD, S) is dropped as the JAX where-chain drops it, and
-the entrants append at base as before.
+the entrants append at base as before. The kernel keeps each slot's source
+in 16 bits, so XD <= MAX_XD.
 """
 
 import ctypes
@@ -39,6 +40,7 @@ launches_lc = 0         # of those, in the lane-change mode (dmask)
 KINDS = {"f32": 0, "i32": 1, "bool": 2, "pri": 3}
 MAX_CH = 32
 MAX_A = 16
+MAX_XD = 65000          # delete mode (csrc/ring_commit.cu)
 
 
 class _Chan(ctypes.Structure):
@@ -170,9 +172,9 @@ def ring_commit(chans, x, base, app, valid_ch, sort_ch, nsel, XK, app_I=0,
         if x is None or tuple(x.shape) != (N, B):
             raise ValueError("ring_commit: x must be (N, B)")
     elif tuple(dmask.shape) != (S, N, B) or dmask.dtype != torch.bool \
-            or not 0 <= XD <= S:
+            or not 0 <= XD <= min(S, MAX_XD):
         raise ValueError("ring_commit: dmask must be (S, N, B) bool, "
-                         "0 <= XD <= S")
+                         f"0 <= XD <= min(S, {MAX_XD})")
     else:
         x = None
     dtypes = {"f32": torch.float32, "i32": torch.int32, "bool": torch.bool,

@@ -24,7 +24,7 @@ class _Args(ctypes.Structure):
     _fields_ = [("tpl", ctypes.c_void_p), ("table", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("TP", ctypes.c_int), ("ncols", ctypes.c_int),
-                ("cols", ctypes.c_int * NPARAM)]
+                ("cols", ctypes.c_ulonglong)]
 
 
 def tpl_params_plain(tpl, table, cols):
@@ -55,7 +55,7 @@ def tpl_params(tpl, table, cols):
                       device=tpl.device)
     a = _Args(tpl.data_ptr(), table.data_ptr(), out.data_ptr(), tpl.numel(),
               table.shape[0], len(cols),
-              (ctypes.c_int * NPARAM)(*(cols + (0,) * (NPARAM - len(cols)))))
+              sum(c << (4 * i) for i, c in enumerate(cols)))
     rc = _lib.lib().tpl_params(ctypes.byref(a), _lib.stream_ptr(tpl))
     _lib.check(rc, "tpl_params")
     launches += 1
