@@ -8,9 +8,10 @@ min_chain with a `v_yield` input (the yieldSpeed term, applied after the
 intersection term; JAX ring.py:1081) and, on the lane-change path, raw: its
 own kernel instantiation, so the one without v_yield is unchanged.
 
-Inputs are keyword tensors that broadcast to `shape` under PyTorch's rules
-with their non-1 dimensions in one contiguous block (a (LPI, G, 1) table
-against (SK, LPI, G, B) rows), or Python scalars. Parameters are the
+Inputs are keyword tensors that broadcast to `shape` (at most 4 dims, the
+envs last) under PyTorch's rules (a (LPI, G, 1) table against (SK, LPI, G,
+B) rows), or Python scalars; the kernel reads each through its strides
+over the call's dimensions, 0 where it broadcasts. Parameters are the
 subject's: maxspd, turnspd, upa, una, yld, maxneg, mingap, headway, maxpos,
 dt, as Python floats (used as float32, like JAX's f(p) constants).
 
@@ -102,31 +103,32 @@ MC_INPUTS = ("speed", "gap", "lead_spd", "has_lead", "isr_rel", "custom",
 
 
 class _View(ctypes.Structure):
-    _fields_ = [("p", ctypes.c_void_p), ("div", ctypes.c_longlong),
-                ("mod", ctypes.c_longlong), ("val", ctypes.c_float),
-                ("is_bool", ctypes.c_int)]
+    _fields_ = [("p", ctypes.c_void_p), ("st", ctypes.c_int * 4),
+                ("val", ctypes.c_float), ("is_bool", ctypes.c_int)]
 
 
 class _Args(ctypes.Structure):
     _fields_ = ([("inp", _View * len(INPUTS)),
                  ("out_v", ctypes.c_void_p), ("out_delta", ctypes.c_void_p),
-                 ("out_red", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                 ("out_red", ctypes.c_void_p), ("d", ctypes.c_int * 4),
                  ("mode", ctypes.c_int), ("raw", ctypes.c_int)]
                 + [(n, ctypes.c_float) for n in PARAMS]
                 + [("with_yield", ctypes.c_int), ("tpl", ctypes.c_void_p),
                    ("lead_tpl", ctypes.c_void_p), ("table", ctypes.c_void_p),
                    ("TP", ctypes.c_int), ("ring", ctypes.c_int)]
-                + [(n, ctypes.c_longlong) for n in ("S", "N", "B")]
                 + [(n, ctypes.c_void_p) for n in (
                     "r_dis", "r_spd", "r_tpl", "r_n", "len_row")]
                 + [("lead_len", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in (
                     "out_dis", "r_nxt", "r_last", "in_inv", "ap_v", "ap_d",
                     "ap_rel")]
-                + [(n, ctypes.c_longlong) for n in ("AP", "ILG")]
+                + [(n, ctypes.c_int) for n in ("AP", "ILG")]
                 + [("s0", ctypes.c_void_p)]
                 + [(n, ctypes.c_int) for n in (
-                    "s0_dis", "s0_spd", "s0_ex", "s0_tpl")])
+                    "s0_dis", "s0_spd", "s0_ex", "s0_tpl", "spd_ring",
+                    "dls_ring")]
+                + [("U", ctypes.c_float * 16), ("hb", ctypes.c_float),
+                   ("hbb", ctypes.c_float)])
 
 # the min_chain inputs the ring-leader mode reads from the ring itself
 RING_VIEWS = {"lane": ("gap", "lead_spd", "has_lead", "lane_left",
@@ -288,27 +290,37 @@ def car_follow_plain(mode, prm, shape, raw=False, tpl=None, lead_tpl=None,
     return torch.where(neg, 0.0, v), torch.broadcast_to(delta, shape)
 
 
+def _dims(shape):
+    """The call's shape as the kernel's four dimensions (S, d1, d2, d3):
+    the leading axis, then the rest with 1s in front. The kernel takes at
+    most 4 dims and indexes in 32 bits (the plain version takes any)."""
+    if not 1 <= len(shape) <= 4:
+        raise ValueError(f"car_follow: shape {shape} has {len(shape)} dims, "
+                         "expected 1 to 4")
+    n = 1
+    for d in shape:
+        n *= d
+    if n >= 2 ** 31:
+        raise ValueError(f"car_follow: {n} elements, the kernel indexes "
+                         "in 32 bits")
+    return (shape[0],) + (1,) * (4 - len(shape)) + tuple(shape[1:])
+
+
 def _view(x, shape, name):
+    """Input `x` as the kernel reads it: its element strides over the
+    call's four dimensions, 0 where it broadcasts (a Python scalar: every
+    element reads the value)."""
     if not torch.is_tensor(x):
-        return _View(None, 1, 1, float(x), 0)
-    nd = len(shape)
-    if x.dim() > nd:
-        raise ValueError(f"car_follow: {name} has more dims than the rows")
-    xs = (1,) * (nd - x.dim()) + tuple(x.shape)
-    big = [d for d in range(nd) if xs[d] != 1]
-    if big:
-        lo, hi = big[0], big[-1]
-        if any(xs[d] != shape[d] for d in range(lo, hi + 1)):
-            raise ValueError(f"car_follow: {name} {tuple(x.shape)} is not a "
-                             f"contiguous block of {tuple(shape)}")
-        div = 1
-        for d in shape[hi + 1:]:
-            div *= d
-    else:
-        div = 1
+        return _View(None, (ctypes.c_int * 4)(0, 0, 0, 0), float(x), 0)
     if x.dtype not in (torch.float32, torch.bool):
         raise ValueError(f"car_follow: {name} has dtype {x.dtype}")
-    return _View(x.data_ptr(), div, max(x.numel(), 1), 0.0,
+    try:
+        st = torch.broadcast_to(x, shape).stride()
+    except RuntimeError:
+        raise ValueError(f"car_follow: {name} {tuple(x.shape)} does not "
+                         f"broadcast to {tuple(shape)}") from None
+    st4 = (st[0],) + (0,) * (4 - len(shape)) + tuple(st[1:])
+    return _View(x.data_ptr(), (ctypes.c_int * 4)(*st4), 0.0,
                  int(x.dtype == torch.bool))
 
 
@@ -343,7 +355,8 @@ def _check_ring(ring, mode, shape, raw, tpl, lead_tpl, inp):
     n = 1
     for d in shape:
         n *= d
-    if n != S * N * B or tuple(ring.speed.shape) != (S, N, B) \
+    if n != S * N * B or shape[0] != S or shape[-1] != B \
+            or tuple(ring.speed.shape) != (S, N, B) \
             or tuple(ring.n.shape) != (N, B) \
             or tuple(ring.len_row.shape) != (N,) \
             or (tpl is None) != (ring.tpl is None):
@@ -389,15 +402,12 @@ def car_follow(mode, prm, shape, raw=False, tpl=None, lead_tpl=None,
     if ring is not None:
         rt, rdt = _check_ring(ring, mode, shape, raw, tpl, lead_tpl, inp)
         _lib.check_args("car_follow", *rt, dtypes=rdt, cuda=not cpu)
-    views = [_view(inp[k], shape, k) if k in inp else _View(None, 1, 1, 0.0, 0)
-             for k in INPUTS]
     if cpu:
         return car_follow_plain(mode, prm, shape, raw, tpl, lead_tpl, table,
                                 ring, **inp)
+    dims = _dims(shape)
+    views = [_view(inp[k] if k in inp else 0.0, shape, k) for k in INPUTS]
     dev = inp["speed"].device
-    n = 1
-    for d in shape:
-        n *= d
     out_v = torch.empty(shape, dtype=torch.float32, device=dev)
     out_d = out_r = out_dis = None
     if mode == 1:
@@ -410,13 +420,12 @@ def car_follow(mode, prm, shape, raw=False, tpl=None, lead_tpl=None,
     r = ring
     lane = r is not None and r.kind == "lane"
     a = _Args((_View * len(INPUTS))(*views), out_v.data_ptr(), ptr(out_d),
-              ptr(out_r), n, mode, int(raw),
+              ptr(out_r), (ctypes.c_int * 4)(*dims), mode, int(raw),
               *(float(prm[i]) for i in range(len(PARAMS))),
               int("v_yield" in inp), ptr(tpl),
               ptr(lead_tpl if mode & 2 and r is None else None), ptr(table),
               0 if table is None else table.shape[0],
               0 if r is None else (1 if lane else 2),
-              *((0, 0, 0) if r is None else r.dis.shape),
               *(ptr(None if r is None else getattr(r, k))
                 for k in ("dis", "speed", "tpl", "n", "len_row")),
               0.0 if r is None else float(r.lead_len), ptr(out_dis),

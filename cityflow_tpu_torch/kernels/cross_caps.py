@@ -43,7 +43,7 @@ class _Args(ctypes.Structure):
         "dls", "speed", "ent", "ph", "plo", "relevant", "d", "cvalid", "t2",
         "foelpi", "t1", "turn", "fields", "foe_src", "any_fail", "ff_d",
         "ff_foe")]
-        + [(n, ctypes.c_longlong) for n in ("R", "KC", "LK", "B", "NF")]
+        + [(n, ctypes.c_int) for n in ("R", "KC", "LK", "B", "NF")]
         + [(n, ctypes.c_float) for n in (
             "ent_val", "maxneg", "yld", "len", "turnspd", "maxspd", "upa",
             "dt")]
@@ -159,6 +159,8 @@ def cross_caps(dls, speed, ent, ph, plo, relevant, fields, foe_src, tabs,
     if cpu:
         return cross_caps_plain(dls, speed, ent, ph, plo, relevant, fields,
                                 foe_src, tabs, prm, tpl, table)
+    if max(R * LK * B, fields.numel(), KC * LK) >= 2 ** 31:
+        raise ValueError("cross_caps: the kernel indexes in 32 bits")
     any_fail = torch.empty((R, LK, B), dtype=torch.bool, device=dls.device)
     ff_d = torch.empty((R, LK, B), dtype=torch.float32, device=dls.device)
     ff_foe = torch.empty((R, LK, B), dtype=torch.int32, device=dls.device)

@@ -1,14 +1,20 @@
-"""Seeded edge cases of K4 ring_commit and T1 tpl_params.
+"""Seeded edge cases of K4 ring_commit, T1 tpl_params, K3 car_follow and
+K2 cross_caps.
 
-The same cases feed the CPU tests (tests/test_torch_commit_cases.py: the
-plain versions against a slot-by-slot numpy walk) and chip_smoke.py (the
-kernels against the plain versions on the card, bit for bit), so what the
-kernels are held to on the card is what the tests show right on the CPU.
+The same cases feed the CPU tests (tests/test_torch_commit_cases.py and
+tests/test_torch_follow_cases.py: the plain versions against numpy walks)
+and chip_smoke.py (the kernels against the plain versions on the card, bit
+for bit), so what the kernels are held to on the card is what the tests
+show right on the CPU.
 
     for name, case in commit_cases():
         args, kw = commit_args(case, device)     # ring_commit(*args, **kw)
     for name, case in tpl_cases():
         tpl, table, cols = tpl_args(case, device)
+    for name, case in follow_cases():
+        args, kw = follow_args(case, device)     # car_follow(*args, **kw)
+    for name, case in caps_cases():
+        args, kw = caps_args(case, device)       # cross_caps(*args, **kw)
 
 Each case is a dict of numpy arrays and ints, made from its own seed
 (commit_case(name), tpl_case(name): one case without the others).
@@ -26,6 +32,24 @@ of rows: S = 300 and 900 in each mode, and a shift (XK) or a delete cap
 T1 (TP = 1, 3 and 1024): n % 4 != 0, a view that starts one element in (not
 16-byte aligned), indices -1, TP and far outside, repeated and reordered
 columns.
+
+K3 (FOLLOW_CASES): modes 1, 2 and 3; raw; the lane-change mode (v_yield);
+the template mode (TP = 3, and 100, more than the kernel derives into
+shared memory); the ring-leader mode on lane and link rows; at B = 1, 3,
+128 and 130, with the views the ring paths pass (scalars, (LPI, G, 1),
+(LPI, G, B), (N, 1), (IL, G, B) against (AP, IL, G, B), full) and views
+that start one element in. Rows with n = 0 and n = S, link rows whose
+slot 0 has an end-lane tail and ones without, lane fronts whose in-lane
+is -1 or whose approach row is not relevant, template indices -1, TP and
+far outside, stopped vehicles with no distance left (the 0 / 0 that the
+reference's std::min keeps), NaN and +-inf inputs.
+
+K2 (CAPS_CASES): R = 1 to 4 rows, KC = 1, 5 and 20 crosses (two chunks of
+the kernel's 16), B = 1, 3, 33, 128 and 130 (not a multiple of the
+kernel's 32-env tile), rows that are not relevant, crosses whose foe_src
+is -1, equal cross distances (the largest foe lpi wins), priorities equal
+in the high half, reach steps at and above 255, the template mode and the
+approach rows' single enter time.
 """
 
 import numpy as np
@@ -185,3 +209,358 @@ def tpl_args(case, device):
     base = torch.as_tensor(case["base"], device=device)
     return (TPL_VIEWS[case["view"]](base),
             torch.as_tensor(case["table"], device=device), case["cols"])
+
+
+# ---- K3 car_follow ---------------------------------------------------------
+
+# the scalar parameters: maxspd, turnspd, upa, una, yld, maxneg, mingap,
+# headway, maxpos, dt
+FOLLOW_PRM = (16.67, 8.33, 2.0, 4.5, 5.0, 9.0, 2.5, 1.5, 2.0, 1.0)
+FOLLOW_PRM_HALF = (11.11, 6.0, 2.5, 3.5, 4.0, 7.5, 2.0, 1.2, 3.0, 0.5)
+# the uniform vehicle length
+FOLLOW_LEN = 5.0
+# (AP, IL or LPI, G): the approach rows; the link rows' (S, LPI, G); the
+# lane rows' (S, N); the approach rows' in-lanes of the lane rows
+_AP, _IL, _G = 3, 4, 5
+_SK = 7
+_SL, _NL, _ILG = 12, 9, 6
+
+
+def _tpl_table(rng, TP):
+    """(TP, 12) template parameters in plausible ranges (the columns of
+    compiler/net.py P_*)."""
+    lo_hi = ((0, 10), (3, 8), (2, 2), (1.5, 3), (5, 9), (1, 2.5), (2.5, 4.5),
+             (1.5, 3), (8, 20), (1, 2), (3, 6), (5, 10))
+    return np.stack([rng.uniform(lo, hi, TP) for lo, hi in lo_hi],
+                    1).astype(np.float32)
+
+
+def _tpl_idx(rng, shape, TP):
+    """Template indices in [0, TP), about 8% of them -1, TP or far outside."""
+    idx = rng.integers(0, TP, shape).astype(np.int32)
+    bad = rng.random(shape) < 0.08
+    idx[bad] = rng.choice(np.int32([-1, TP, TP + 5, -2 ** 31, 2 ** 31 - 1]),
+                          int(bad.sum()))
+    return idx
+
+
+def _f32(rng, shape, lo, hi, wild=0.0, zero=0.0):
+    """Uniform float32 in [lo, hi); a share `zero` of them 0, a share
+    `wild` NaN or +-inf."""
+    x = rng.uniform(lo, hi, shape).astype(np.float32)
+    x[rng.random(shape) < zero] = 0.0
+    w = rng.random(shape) < wild
+    x[w] = rng.choice(np.float32([np.nan, np.inf, -np.inf]), int(w.sum()))
+    return x
+
+
+def _bool(rng, shape, p):
+    return rng.random(shape) < p
+
+
+def _stopped(inp, rng, prm):
+    """A share of the rows stopped at the stop line with no distance left
+    (speed 0, ff_d - dls - yld = 0, lane_left 0): stop_before_speed's 0 / 0,
+    which isr_speed's std::min keeps out. Another share stopped exactly at
+    their brake distance from the line (lane_left = the brake distance
+    after accelerating: stop_before_speed's strict test)."""
+    maxspd, _, upa, una, yld, _, _, _, _, dt = (np.float32(v) for v in prm)
+    shape = inp["speed"].shape
+    at = rng.random(shape) < 0.08
+    inp["speed"][at] = 0.0
+    inp["dls"][at] = 0.0
+    inp["ff_d"][at] = yld
+    inp["any_fail"][at] = True
+    inp["isr_lane_left"][at] = 0.0
+    nxt = np.float32(0.0) + upa * dt
+    bda = (np.float32(0.0) + nxt) * dt / np.float32(2.0) \
+        + (nxt * nxt / una / np.float32(2.0))
+    at = (rng.random(shape) < 0.08) & ~at
+    inp["speed"][at] = 0.0
+    inp["isr_lane_left"][at] = bda
+
+
+def _follow_case(rng, kind, B, TP=0, yld=False, raw=False, offset=False,
+                 wild=0.0, mode=None, half=False, app="scalar", own=False):
+    """One seeded K3 case: kind "isr" (mode 1), "chain" (mode 2), "mode3"
+    (both) on approach-row shapes, "link" / "lane" in the ring-leader
+    mode. A string input "@dis" / "@speed" is the ring's own array (as
+    the ring paths pass it); with `own` the rows' speed (and a link row's
+    dls) are arrays of their own instead."""
+    prm = FOLLOW_PRM_HALF if half else FOLLOW_PRM
+    case = dict(prm=prm, raw=raw, offset=offset, tpl=None, lead_tpl=None,
+                table=None, ring=None)
+    if TP:
+        case["table"] = _tpl_table(rng, TP)
+    inp = {}
+    if kind in ("isr", "chain", "mode3"):
+        shape = (_AP, _IL, _G, B)
+        case["mode"] = {"isr": 1, "chain": 2, "mode3": 3}[kind]
+        inp["speed"] = _f32(rng, shape, 0.0, 17.0, wild, zero=0.1)
+        if case["mode"] & 1:
+            inp.update(
+                dls=_f32(rng, shape, -30.0, 5.0, wild),
+                isr_lane_left=_f32(rng, shape, -5.0, 80.0, wild),
+                any_fail=_bool(rng, shape, 0.3),
+                ff_d=_f32(rng, shape, 0.0, 90.0, wild),
+                app=True if app == "scalar" else _bool(rng, shape, 0.8),
+                avail=_bool(rng, (_IL, _G, B), 0.5),
+                can_enter=(_bool(rng, (_IL, _G, B), 0.5) if not TP
+                           else _bool(rng, shape, 0.5)),
+                turn=_bool(rng, (_IL, _G, 1), 0.4))
+            _stopped(inp, rng, prm)
+        if case["mode"] & 2:
+            inp.update(
+                gap=_f32(rng, shape, -5.0, 100.0, wild),
+                lead_spd=_f32(rng, shape, 0.0, 17.0, wild, zero=0.1),
+                has_lead=_bool(rng, shape, 0.8),
+                isr_rel=_bool(rng, shape, 0.5),
+                custom=_f32(rng, shape, 0.0, 17.0, wild),
+                has_custom=_bool(rng, shape, 0.1),
+                drv_maxspd=_f32(rng, (_IL, _G, B), 5.0, 20.0),
+                invalid=_bool(rng, shape, 0.05),
+                lane_left=_f32(rng, shape, -2.0, 300.0, wild))
+            if case["mode"] == 2:
+                inp["v_isr"] = _f32(rng, shape, 0.0, 20.0, wild)
+        if TP:
+            case["tpl"] = _tpl_idx(rng, shape, TP)
+            if case["mode"] & 2:
+                case["lead_tpl"] = _tpl_idx(rng, shape, TP)
+    else:
+        S, shape = ((_SK, (_SK, _IL, _G, B)) if kind == "link"
+                    else (_SL, (_SL, _NL, B)))
+        N = _IL * _G if kind == "link" else _NL
+        n = rng.integers(0, S + 1, (N, B)).astype(np.int32)
+        n[0] = 0                                    # an empty row
+        n[1] = S                                    # a full one
+        ring = dict(kind=kind, dis=_f32(rng, (S, N, B), 0.0, 300.0, wild),
+                    speed=_f32(rng, (S, N, B), 0.0, 17.0, wild, zero=0.1),
+                    n=n, tpl=_tpl_idx(rng, (S, N, B), TP) if TP else None,
+                    len_row=_f32(rng, (N,), 50.0, 300.0),
+                    lead_len=FOLLOW_LEN)
+        case["mode"] = mode or (3 if kind == "link" else 2)
+        inp.update(speed="@speed", isr_rel=case["mode"] == 3 or kind == "link",
+                   custom=_f32(rng, shape, 0.0, 17.0, wild),
+                   has_custom=_bool(rng, shape, 0.1))
+        if own:
+            inp["speed"] = _f32(rng, shape, 0.0, 17.0, wild, zero=0.1)
+        if kind == "link":
+            CE = 7 if TP else 6
+            s0 = _f32(rng, (CE, N, B), 0.0, 100.0, wild)
+            s0[5] = rng.choice(np.float32([0.0, 1.0, 0.3, 0.7, 0.5]),
+                               (N, B), p=[0.3, 0.4, 0.1, 0.1, 0.1])
+            if TP:
+                s0[6] = _tpl_idx(rng, (N, B), TP).astype(np.float32)
+            ring["s0"] = s0
+            inp.update(drv_maxspd=10000.0, invalid=False, lane_left=0.0)
+            if case["mode"] & 1:
+                inp.update(dls=_f32(rng, shape, 0.0, 300.0) if own else "@dis",
+                           isr_lane_left=0.0,
+                           any_fail=_bool(rng, shape, 0.3),
+                           ff_d=_f32(rng, shape, 0.0, 90.0, wild),
+                           app=False, avail=_bool(rng, (_IL, _G, B), 0.5),
+                           can_enter=_bool(rng, (_IL, _G, B), 0.5),
+                           turn=_bool(rng, (_IL, _G, 1), 0.4))
+            else:
+                inp["v_isr"] = _f32(rng, shape, 0.0, 20.0, wild)
+        else:
+            inv = rng.integers(0, _ILG, _NL).astype(np.int32)
+            inv[::3] = -1                           # lanes without an in-lane
+            ring.update(nxt=rng.integers(-1, 4, (S, N, B)).astype(np.int32),
+                        last=_bool(rng, (S, N, B), 0.3), in_inv=inv,
+                        ap_v=_f32(rng, (_AP, _ILG, B), 0.0, 17.0, wild),
+                        ap_d=None if raw
+                        else _f32(rng, (_AP, _ILG, B), 0.0, 300.0),
+                        ap_rel=_bool(rng, (_AP, _ILG, B), 0.5))
+            inp.update(v_isr=0.0, isr_rel=False,
+                       drv_maxspd=_f32(rng, (N, 1), 5.0, 20.0))
+        if TP:
+            case["tpl"] = "@tpl"
+        case["ring"] = ring
+    if yld:
+        inp["v_yield"] = _f32(rng, shape, 0.0, 20.0, wild)
+    case.update(shape=shape, inp=inp)
+    return case
+
+
+# name -> (kind, B, keywords of _follow_case)
+FOLLOW_SPECS = {
+    "isr_B128": ("isr", 128, {}),
+    "isr_tpl100_B130": ("isr", 130, dict(TP=100, half=True)),
+    "isr_B3_offset": ("isr", 3, dict(offset=True, app="full")),
+    "isr_B128_wild": ("isr", 128, dict(wild=0.03, app="full")),
+    "chain_B128": ("chain", 128, {}),
+    "chain_yield_raw_B128": ("chain", 128, dict(yld=True, raw=True)),
+    "chain_tpl3_B1": ("chain", 1, dict(TP=3)),
+    "chain_tpl100_yield_raw_B130": ("chain", 130, dict(TP=100, yld=True,
+                                                       raw=True, half=True)),
+    "chain_raw_B3_offset": ("chain", 3, dict(raw=True, offset=True)),
+    "mode3_B128_wild": ("mode3", 128, dict(wild=0.03)),
+    "mode3_tpl3_B3": ("mode3", 3, dict(TP=3)),
+    "link_B128": ("link", 128, {}),
+    "link_B130_wild": ("link", 130, dict(wild=0.03, half=True)),
+    "link_tpl100_B128": ("link", 128, dict(TP=100)),
+    "link_tpl3_B1": ("link", 1, dict(TP=3)),
+    "link_mode2_raw_B3": ("link", 3, dict(mode=2, raw=True)),
+    "link_B128_offset": ("link", 128, dict(offset=True)),
+    "lane_B128": ("lane", 128, {}),
+    "lane_raw_yield_B128": ("lane", 128, dict(yld=True, raw=True)),
+    "lane_B130_wild": ("lane", 130, dict(wild=0.03, half=True)),
+    "lane_tpl3_B3": ("lane", 3, dict(TP=3)),
+    "lane_tpl100_yield_raw_B130": ("lane", 130, dict(TP=100, yld=True,
+                                                     raw=True)),
+    "lane_tpl100_B128_wild": ("lane", 128, dict(TP=100, wild=0.02)),
+    "lane_B1": ("lane", 1, {}),
+    "lane_raw_B128_offset": ("lane", 128, dict(raw=True, offset=True)),
+    "lane_B128_own": ("lane", 128, dict(own=True)),
+    "link_tpl3_B128_own": ("link", 128, dict(TP=3, own=True)),
+}
+FOLLOW_CASES = tuple(FOLLOW_SPECS)
+
+
+def follow_case(name, seed=0):
+    """The K3 case `name` (one of FOLLOW_CASES), from its own seed."""
+    kind, B, kw = FOLLOW_SPECS[name]
+    return _follow_case(np.random.default_rng(
+        [seed, 1000 + FOLLOW_CASES.index(name)]), kind, B, **kw)
+
+
+def follow_cases(seed=0):
+    """(name, case) for each of FOLLOW_CASES."""
+    for name in FOLLOW_CASES:
+        yield name, follow_case(name, seed)
+
+
+def _tensor(a, device, offset=False):
+    """`a` as a tensor on `device`; with `offset` a view one element into
+    a larger buffer (contiguous, not 16-byte aligned)."""
+    import torch
+    t = torch.as_tensor(a, device=device)
+    if not offset or t.dim() == 0:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def follow_args(case, device):
+    """The case as car_follow's (args, kwargs) of tensors on `device`."""
+    from cityflow_tpu_torch.kernels.car_follow import RingLeaders
+    off = case["offset"]
+    T = lambda a: None if a is None else _tensor(a, device, off)
+    r = case["ring"]
+    ring = None
+    if r is not None:
+        ring = RingLeaders(**{k: (T(v) if isinstance(v, np.ndarray) else v)
+                              for k, v in r.items()})
+    shape = case["shape"]
+
+    def val(v):
+        if isinstance(v, str):
+            return getattr(ring, v[1:]).reshape(shape)
+        return T(v) if isinstance(v, np.ndarray) else v
+    kw = {k: val(v) for k, v in case["inp"].items()}
+    kw.update(raw=case["raw"], ring=ring)
+    if case["table"] is not None:
+        kw.update(tpl=val(case["tpl"]), table=T(case["table"]))
+        if case["lead_tpl"] is not None:
+            kw["lead_tpl"] = T(case["lead_tpl"])
+    return (case["mode"], case["prm"], shape), kw
+
+
+# ---- K2 cross_caps ---------------------------------------------------------
+
+# maxneg, yld, len, turnspd, maxspd, upa, dt
+CAPS_PRM = (9.0, 5.0, 5.0, 8.33, 16.67, 2.0, 1.0)
+_LK = 24
+
+
+def _caps_case(rng, R, KC, B, TP=0, app=False, far=False):
+    """One seeded K2 case on LK = 24 links: distances, enter times and
+    priorities from small sets, so crosses tie in distance, rows tie with
+    their foes in reach, distance, enter time and the priority's high half;
+    with `far` the crosses lie thousands of metres out (reach steps above
+    255)."""
+    LK, NF = _LK, KC * _LK
+    step = rng.choice(np.float32([0.0, 0.0, 2.5, 5.0, 10.0]), (KC, LK))
+    d = (np.cumsum(step, 0) + rng.choice(np.float32([0.0, 2.5, 5.0]), LK))
+    if far:
+        d = d * np.float32(400.0)
+    d = d.astype(np.float32)
+    cvalid = rng.random((KC, LK)) < 0.85
+    cvalid[KC // 2:, ::5] = False                 # padded tails
+    foe_src = rng.integers(0, NF, (KC, LK)).astype(np.int32)
+    foe_src[rng.random((KC, LK)) < 0.2] = -1
+    tabs = dict(d=d, cvalid=cvalid,
+                t2=rng.integers(0, 3, (KC, LK)).astype(np.int32),
+                foelpi=rng.integers(0, 12, (KC, LK)).astype(np.int32),
+                t1=rng.integers(0, 3, LK).astype(np.int32),
+                turn=rng.random(LK) < 0.4)
+    rows = (R, LK, B)
+    dls = rng.choice(np.float32([-5.0, 0.0, 2.5, 5.0, 10.0, 20.0]), rows)
+    speed = _f32(rng, rows, 0.0, 17.0, zero=0.1)
+    if far:
+        speed[rng.random(rows) < 0.3] = np.float32(0.001)
+    ent = 5.0 if app else rng.choice(np.float32([0, 5, 10]), rows)
+    ph = rng.choice(np.float32([-1, 0, 1]), rows)
+    plo = rng.choice(np.float32([0, 1, 2, 3]), rows)
+    rel = rng.random(rows) < 0.6
+    rel[:, 0] = False                              # a column nobody considers
+    fields = np.stack([
+        rng.choice(np.float32([0.0, 1.0, 0.5, 0.7]), (NF, B),
+                   p=[0.2, 0.6, 0.1, 0.1]),
+        *(rng.choice(np.float32([0.0, 1.0]), (NF, B)) for _ in range(3)),
+        rng.choice(np.float32([0, 1, 2, 3, 4, 5, 8, 255, 300]), (NF, B)),
+        rng.choice(np.float32([-5.0, 0.0, 2.5, 5.0, 10.0, 20.0]), (NF, B)),
+        rng.choice(np.float32([0, 5, 10]), (NF, B)),
+        rng.choice(np.float32([-1, 0, 1]), (NF, B)),
+        rng.choice(np.float32([0, 1, 2, 3]), (NF, B))])
+    case = dict(dls=dls, speed=speed, ent=ent, ph=ph, plo=plo, rel=rel,
+                fields=fields, foe_src=foe_src.reshape(-1), tabs=tabs,
+                prm=CAPS_PRM, tpl=None, table=None)
+    if TP:
+        case.update(tpl=_tpl_idx(rng, rows, TP), table=_tpl_table(rng, TP))
+    return case
+
+
+# name -> (R, KC, B, keywords of _caps_case)
+CAPS_SPECS = {
+    "R4_KC20_B128": (4, 20, 128, {}),
+    "R3_KC20_B130_app": (3, 20, 130, dict(app=True)),
+    "R1_KC1_B1": (1, 1, 1, {}),
+    "R2_KC5_B3_tpl3": (2, 5, 3, dict(TP=3)),
+    "R4_KC20_B33_tpl5": (4, 20, 33, dict(TP=5)),
+    "R3_KC20_B128_tpl3_app": (3, 20, 128, dict(TP=3, app=True)),
+    "R4_KC20_B130_far": (4, 20, 130, dict(far=True)),
+    "R2_KC1_B128": (2, 1, 128, {}),
+}
+CAPS_CASES = tuple(CAPS_SPECS)
+
+
+def caps_case(name, seed=0):
+    """The K2 case `name` (one of CAPS_CASES), from its own seed."""
+    R, KC, B, kw = CAPS_SPECS[name]
+    return _caps_case(np.random.default_rng(
+        [seed, 2000 + CAPS_CASES.index(name)]), R, KC, B, **kw)
+
+
+def caps_cases(seed=0):
+    """(name, case) for each of CAPS_CASES."""
+    for name in CAPS_CASES:
+        yield name, caps_case(name, seed)
+
+
+def caps_args(case, device):
+    """The case as cross_caps' (args, kwargs) on `device`."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    ent = case["ent"]
+    args = (T(case["dls"]), T(case["speed"]),
+            T(ent) if isinstance(ent, np.ndarray) else ent, T(case["ph"]),
+            T(case["plo"]), T(case["rel"]), T(case["fields"]),
+            T(case["foe_src"]), {k: T(v) for k, v in case["tabs"].items()},
+            case["prm"])
+    kw = {} if case["tpl"] is None else dict(tpl=T(case["tpl"]),
+                                             table=T(case["table"]))
+    return args, kw
