@@ -23,7 +23,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             MAX_A candidates, then at S = 300 and 900, which the kernel
             takes in chunks of rows, with a shift or delete cap longer than
             a chunk's halo; T1 at TP = 1, 3 and 1024 on contiguous and
-            misaligned indices), bit for bit
+            misaligned indices), bit for bit; then G12 (f64 and f32, B =
+            1, 3, 128 and 130, repeated least uids, misaligned views) bit
+            for bit and L2 (both modes, S = 1, 40, 100 and 130) with
+            do_change bit for bit and yv within 1e-5
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -847,18 +850,22 @@ def seeded_commit_calls(sim, B, rng):
 
 
 def check_kernel_cases():
-    """K4, T1, K3 and K2 against their plain versions, bit for bit, on
-    every seeded edge case of tools/kernel_cases.py (the cases the CPU
-    tests hold the plain versions to against numpy walks): K4's lane,
-    link and lane-change commits at B = 1, 3, 128 and 130, S = 128,
+    """K4, T1, K3, K2, L2 and G12 against their plain versions on every
+    seeded edge case of tools/kernel_cases.py (the cases the CPU tests hold
+    the plain versions to against numpy walks), bit for bit but L2's yv
+    (within 1e-5, as on its path; its not-bitwise count printed): K4's
+    lane, link and lane-change commits at B = 1, 3, 128 and 130, S = 128,
     MAX_CH channels, MAX_A candidates, and at S = 300 and 900 (chunks of
     rows); T1 at TP = 1, 3 and 1024 on contiguous and misaligned index
     views; K3 in every mode and instantiation the ring paths launch, K2
     at R = 1 to 4 and KC = 1 to 20, both at B = 1, 3, 128 and 130 (K2
-    also 33)."""
+    also 33); L2 in both modes at S = 1, 40, 100 and 130 (rings longer
+    than one table of its receivers); G12 in f64 and f32, V not a
+    multiple of four and misaligned views."""
     import torch
     from cityflow_tpu_torch.kernels import (
-        car_follow, cross_caps, ring_commit, tpl_params)
+        admit_heads, car_follow, cross_caps, lc_receive, ring_commit,
+        tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -888,10 +895,25 @@ def check_kernel_cases():
                           tpl_params.tpl_params_plain(*a))
         assert bad == 0, f"tpl_params[{name}]: {bad} values differ"
         n += 1
+    for name, case in kc.admit_cases():
+        a = kc.admit_args(case, "cuda")
+        _, bad = _bitwise(f"admit_heads[{name}]", admit_heads.admit_heads(*a),
+                          admit_heads.admit_heads_plain(*a))
+        assert bad == 0, f"admit_heads[{name}]: {bad} values differ"
+        n += 1
+    err, nbit = 0.0, 0
+    for name, case in kc.receive_cases():
+        a, k = kc.receive_args(case, "cuda")
+        e, nb = _compare(f"lc_receive[{name}]", lc_receive.lc_receive(*a, **k),
+                         lc_receive.lc_receive_plain(*a, **k), 1e-5)
+        err, nbit = max(err, e), nbit + nb
+        n += 1
     torch.cuda.synchronize()
-    cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES)
-    log(f"[kernels] K3 / K2 / K4 / T1 seeded edge cases: {n} of "
-        f"{sum(map(len, cases))} bitwise "
+    cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
+             kc.ADMIT_CASES, kc.RECEIVE_CASES)
+    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 seeded edge cases: {n} of "
+        f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
+        f"not_bitwise={nbit}; the rest bitwise) "
         f"({'; '.join(', '.join(c) for c in cases)})")
 
 
@@ -1368,22 +1390,32 @@ def lc_work(n, a, k):
         nops = 2 * int(n_l.sum()) * S
         return ins + outs, nops
     if n == "lc_receive":
-        plan, n_l, tabs = a[0], a[8], a[10]
+        plan, hsig, chg, n_l, tabs = a[0], a[4], a[9], a[8], a[10]
         S, N, B = plan.shape
         occ = torch.arange(S, device=plan.device)[:, None, None] < n_l[None]
-        # plan, chg, hsig, pri and speed on occupied rows (a receiver's
-        # own; a sender is a plan row, and plan rows are occupied); dirc,
-        # tl_slot, ygap and gval on plan rows; yv and do_change in full
-        ins = (4 * N * B + 8 * N + int(occ.sum()) * (3 * 1 + 2 * 4)
-               + int(plan.sum()) * (3 * 4 + 1))
-        # an occupied receiver tests the plan rows of its neighbour columns
+        # an occupied row's plan, chg and hsig; a plan row's dirc, tl_slot
+        # and pri (it is a sender; plan rows are occupied); the pri of the
+        # other rows holding a signal (a receiver's own, against the kept
+        # sender's); gval where a plan row holds a signal and does not
+        # change; at each yield (yv != 100, the plain version's) the
+        # sender's speed and ygap and the receiver's speed, and in the
+        # template mode both template indices; n_l, the neighbour tables;
+        # yv and do_change in full
+        from cityflow_tpu_torch.kernels.lc_receive import lc_receive_plain
+        yields = int((lc_receive_plain(*a, **k)[0] != 100).sum())
+        ins = (4 * N * B + 8 * N + int(occ.sum()) * 3 + int(plan.sum()) * 12
+               + int((occ & hsig & ~plan).sum()) * 4
+               + int((plan & hsig & ~chg).sum())
+               + yields * (12 + 8 * (k.get("tpl") is not None)))
+        # each plan row of a neighbour column is offered to its two
+        # receivers in the column that reads it
         senders = plan.sum(0)                                   # (N, B)
-        tests = 0
+        offers = 0
         for q in (tabs["inner_src"], tabs["outer_src"]):
             has = (q >= 0)[:, None]
-            tests += int(torch.where(has, n_l * senders[q.clamp(min=0).long()],
-                                     0).sum())
-        return ins + S * N * B * (4 + 1), 2 * tests
+            offers += int(torch.where(has, senders[q.clamp(min=0).long()],
+                                      0).sum())
+        return ins + S * N * B * (4 + 1), 2 * offers
     if n == "lc_insert":
         ch, do_change, dirc, yv, n_l, tabs, LCI = a
         S, N, B = do_change.shape
@@ -1484,8 +1516,7 @@ def tpl_work(n, a, k):
         nbytes, nops = lc_work("lc_signal", a, k)
         return nbytes + nb(k["tpl"], k["olt_len"]), nops
     if n == "lc_receive":
-        nbytes, nops = lc_work("lc_receive", a, k)
-        return nbytes + nb(k["tpl"]), nops
+        return lc_work("lc_receive", a, k)
     raise KeyError(n)
 
 
@@ -3244,11 +3275,16 @@ def gen1_work(n, a, k, out):
         fs = dis.element_size()
         nenv = V // active.shape[-1]
         nheads = int((out["head"] >= 0).sum())
-        # per slot its flags, lane, uid, leader, ticket, distance and gap
-        # in, running / leader / gap / ticket / scan flag out; per lane its
-        # rear vehicle and head; the heads' minGap and the rears' dis, len
-        return V * (2 + 16 + 2 * fs) + V * (10 + fs) + nenv * L * 8 \
-            + nenv * 4 + nheads * 3 * fs, 4 * V
+        waiting = int((active & ~running).sum())
+        admitted = int((out["running"] & ~running).sum())
+        # per slot its flags, leader, ticket and gap in, running / leader /
+        # gap / ticket / scan flag out; the waiting slots' lane and uid;
+        # per lane its head out; per lane with a head its rear vehicle, that
+        # vehicle's dis and len and the head's minGap; the admitted slots'
+        # dis
+        return V * (2 + 8 + fs) + V * (10 + fs) + waiting * 8 \
+            + nenv * L * 4 + nheads * (4 + 3 * fs) + admitted * fs \
+            + nenv * 4, 4 * V
     mode = n.split("@")[1] if "@" in n else None
     st = a[1]
     V = st.dis.numel()
@@ -4257,7 +4293,8 @@ def main():
     if os.path.exists(ptxas):
         with open(ptxas) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line \
+                        or "spill" in line:
                     log(f"[build] {line.strip()}")
 
     t0 = time.time()

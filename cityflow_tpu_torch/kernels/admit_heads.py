@@ -34,7 +34,7 @@ SLOTS = ("active", "running", "drv", "uid", "dis", "params", "leader", "gap",
 
 class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        SLOTS + ("last_of", "seq_counter", "min_uid", "head", "running_out",
+        SLOTS + ("last_of", "seq_counter", "keys", "head", "running_out",
                  "leader_out", "gap_out", "list_seq_out", "need_scan"))]
         + [(n, ctypes.c_longlong) for n in ("B", "V", "D", "L", "NP",
                                             "fp32")])
@@ -116,7 +116,9 @@ def _launch(ins, L):
     B, V = active.shape
     dev = active.device
     i32 = dict(dtype=torch.int32, device=dev)
-    min_uid = torch.empty((B, L), **i32)
+    # per lane the 64-bit keys (uid, least slot) and, where the uid
+    # repeats, (uid, ~greatest slot)
+    keys = torch.empty((B, L, 2), dtype=torch.int64, device=dev)
     out = dict(running=torch.empty((B, V), dtype=torch.bool, device=dev),
                leader=torch.empty((B, V), **i32),
                gap=torch.empty((B, V), dtype=dis.dtype, device=dev),
@@ -124,7 +126,7 @@ def _launch(ins, L):
                need_scan=torch.empty((B, V), dtype=torch.bool, device=dev),
                head=torch.empty((B, L), **i32))
     fp32 = _lib.fp32("admit_heads", dis, params, ins[7])
-    a = _Args(*(t.data_ptr() for t in ins), min_uid.data_ptr(),
+    a = _Args(*(t.data_ptr() for t in ins), keys.data_ptr(),
               out["head"].data_ptr(), out["running"].data_ptr(),
               out["leader"].data_ptr(), out["gap"].data_ptr(),
               out["list_seq"].data_ptr(), out["need_scan"].data_ptr(),

@@ -9,6 +9,12 @@ yields, at noCollisionSpeed(sender speed, maxNegAcc, my speed, maxNegAcc,
 sender's yield gap). Outputs yv (float32, 100 = no-op) and do_change
 (bool).
 
+The kernel walks each (lane, env) column's neighbour senders once, each
+offering itself to its two receivers, and keeps every receiver's best in
+shared memory. It takes plan as L1 gives it, set only on occupied rows
+(s < n_l): rows at or past n_l are read neither as senders nor as
+receivers.
+
 The template mode (JAX ring_lc.py:322-361 under non-uniform templates)
 takes the ring's `tpl` channel and the (TP, 12) table: the kept sender's
 maxNegAcc and the receiver's come from their templates. Its own kernel
@@ -96,7 +102,6 @@ def lc_receive(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri, n_l, chg,
     (SL, LNp, B) from L1 and the state; prm = (maxNegAcc, interval). The
     template mode takes tpl (SL, LNp, B) int32 and the (TP, 12) table; of
     prm only the interval is read."""
-    global launches, launches_tpl
     SL, N, B = plan.shape
     f32, i32, b8 = (torch.float32,), (torch.int32,), (torch.bool,)
     ins = (plan, dirc, tl_slot, ygap, hsig, gval, speed, pri, n_l, chg,
@@ -119,6 +124,13 @@ def lc_receive(plan, dirc, tl_slot, ygap, hsig, gval, speed, pri, n_l, chg,
     if cpu:
         return lc_receive_plain(plan, dirc, tl_slot, ygap, hsig, gval, speed,
                                 pri, n_l, chg, tabs, prm, tpl, table)
+    return _launch(ins, prm, tpl, table)
+
+
+def _launch(ins, prm, tpl, table):
+    global launches, launches_tpl
+    plan = ins[0]
+    SL, N, B = plan.shape
     yv = torch.empty((SL, N, B), dtype=torch.float32, device=plan.device)
     do_change = torch.empty((SL, N, B), dtype=torch.bool, device=plan.device)
     ptr = lambda t: None if t is None else t.data_ptr()

@@ -1,8 +1,9 @@
-"""Seeded edge cases of K4 ring_commit, T1 tpl_params, K3 car_follow and
-K2 cross_caps.
+"""Seeded edge cases of K4 ring_commit, T1 tpl_params, K3 car_follow, K2
+cross_caps, L2 lc_receive and G12 admit_heads.
 
-The same cases feed the CPU tests (tests/test_torch_commit_cases.py and
-tests/test_torch_follow_cases.py: the plain versions against numpy walks)
+The same cases feed the CPU tests (tests/test_torch_commit_cases.py,
+tests/test_torch_follow_cases.py, tests/test_torch_receive_cases.py and
+tests/test_torch_admit_cases.py: the plain versions against numpy walks)
 and chip_smoke.py (the kernels against the plain versions on the card, bit
 for bit), so what the kernels are held to on the card is what the tests
 show right on the CPU.
@@ -15,6 +16,10 @@ show right on the CPU.
         args, kw = follow_args(case, device)     # car_follow(*args, **kw)
     for name, case in caps_cases():
         args, kw = caps_args(case, device)       # cross_caps(*args, **kw)
+    for name, case in receive_cases():
+        args, kw = receive_args(case, device)    # lc_receive(*args, **kw)
+    for name, case in admit_cases():
+        args = admit_args(case, device)          # admit_heads(*args)
 
 Each case is a dict of numpy arrays and ints, made from its own seed
 (commit_case(name), tpl_case(name): one case without the others).
@@ -50,6 +55,10 @@ kernel's 32-env tile), rows that are not relevant, crosses whose foe_src
 is -1, equal cross distances (the largest foe lpi wins), priorities equal
 in the high half, reach steps at and above 255, the template mode and the
 approach rows' single enter time.
+
+L2 (RECEIVE_CASES) and G12 (ADMIT_CASES): the edges each generator's
+docstring names, at B = 1, 3, 128 and 130; L2 at S = 1, 40 and rings
+longer than its kernel's table of 48 receivers, G12 in f64 and f32.
 """
 
 import numpy as np
@@ -564,3 +573,214 @@ def caps_args(case, device):
     kw = {} if case["tpl"] is None else dict(tpl=T(case["tpl"]),
                                              table=T(case["table"]))
     return args, kw
+
+
+# ---- L2 lc_receive ---------------------------------------------------------
+
+# (maxNegAcc, interval)
+RECEIVE_PRM = (4.5, 1.0)
+RECEIVE_PRM_HALF = (3.5, 0.5)
+_RN = 9
+# priorities: equal ones, pairs that differ only in the high half, the
+# int32 extremes and negatives
+_PRI = np.int32([0, 3, 3, 7, 5 | (1 << 16), 5 | (2 << 16), 5 | (3 << 16),
+                 -(1 << 16) | 5, -5, -(2 ** 31), 2 ** 31 - 1, 0x12340000,
+                 0x12350000])
+
+
+def _receive_case(rng, B, S, TP=0, half=False):
+    """One seeded L2 case on _RN = 9 lanes. Lane 0 has no inner neighbour,
+    lane 1 no outer one, lane 2 neither; column 3 is empty and column 4
+    full in every env; lane 5 (no outer neighbour) has column 6 as its
+    inner one, which aims every occupied row at receiver c (leader role)
+    and c + 1 (follower role) with one priority: the first sender must
+    win both. Plan
+    is set only on occupied rows, as L1 gives it."""
+    N = _RN
+    shape = (S, N, B)
+    inner = rng.integers(0, N, N).astype(np.int32)
+    outer = rng.integers(0, N, N).astype(np.int32)
+    inner[0] = outer[1] = inner[2] = outer[2] = -1
+    inner[5], outer[5] = 6, -1
+    n_l = rng.integers(0, S + 1, (N, B)).astype(np.int32)
+    n_l[3] = 0
+    n_l[4] = n_l[6] = S
+    occ = np.arange(S)[:, None, None] < n_l[None]
+    plan = occ & (rng.random(shape) < 0.5)
+    dirc = rng.choice(np.int32([-1, 0, 1]), shape, p=[0.4, 0.2, 0.4])
+    # target slots around the ring's: -1 (leader role nowhere, follower
+    # slot 0), S - 1 (the follower slot falls off the ring), S and far out
+    tl = rng.integers(-1, S + 1, shape).astype(np.int32)
+    far = rng.random(shape) < 0.03
+    tl[far] = rng.choice(np.int32([S + 5, -7, 2 ** 31 - 1, -(2 ** 31)]),
+                         int(far.sum()))
+    tl[rng.random(shape) < 0.05] = S - 1
+    pri = rng.choice(_PRI, shape)
+    # the crowd: column 6 aims every occupied row at slots c, c + 1 of
+    # lane 5
+    c = max(S // 2 - 1, 0)
+    plan[:, 6] = occ[:, 6]
+    dirc[:, 6] = 1
+    tl[:, 6] = c
+    pri[:, 6] = 7
+    hsig = rng.random(shape) < 0.5
+    chg = rng.random(shape) < 0.15
+    case = dict(plan=plan, dirc=dirc, tl_slot=tl,
+                ygap=_f32(rng, shape, -20.0, 80.0, wild=0.0),
+                hsig=hsig, gval=rng.random(shape) < 0.7,
+                speed=_f32(rng, shape, 0.0, 17.0, zero=0.1), pri=pri,
+                n_l=n_l, chg=chg, inner_src=inner, outer_src=outer,
+                prm=RECEIVE_PRM_HALF if half else RECEIVE_PRM, tpl=None,
+                table=None, crowd=(5, c))
+    # a sender with no follower behind it yields at an infinite gap
+    case["ygap"][rng.random(shape) < 0.05] = np.inf
+    if TP:
+        case.update(tpl=_tpl_idx(rng, shape, TP), table=_tpl_table(rng, TP))
+    return case
+
+
+# name -> (B, S, keywords of _receive_case)
+RECEIVE_SPECS = {
+    "B1_S40": (1, 40, {}),
+    "B3_S40": (3, 40, dict(half=True)),
+    "B128_S40": (128, 40, {}),
+    "B130_S40_tpl3": (130, 40, dict(TP=3)),
+    "B1_S1": (1, 1, {}),
+    "B128_S1_tpl3": (128, 1, dict(TP=3)),
+    "B3_S130": (3, 130, {}),
+    "B130_S100_tpl3": (130, 100, dict(TP=3, half=True)),
+}
+RECEIVE_CASES = tuple(RECEIVE_SPECS)
+
+
+def receive_case(name, seed=0):
+    """The L2 case `name` (one of RECEIVE_CASES), from its own seed."""
+    B, S, kw = RECEIVE_SPECS[name]
+    return _receive_case(np.random.default_rng(
+        [seed, 3000 + RECEIVE_CASES.index(name)]), B, S, **kw)
+
+
+def receive_cases(seed=0):
+    """(name, case) for each of RECEIVE_CASES."""
+    for name in RECEIVE_CASES:
+        yield name, receive_case(name, seed)
+
+
+def receive_args(case, device):
+    """The case as lc_receive's (args, kwargs) on `device`."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    args = tuple(T(case[k]) for k in (
+        "plan", "dirc", "tl_slot", "ygap", "hsig", "gval", "speed", "pri",
+        "n_l", "chg")) + (
+        {k: T(case[k]) for k in ("inner_src", "outer_src")}, case["prm"])
+    kw = {} if case["tpl"] is None else dict(tpl=T(case["tpl"]),
+                                             table=T(case["table"]))
+    return args, kw
+
+
+# ---- G12 admit_heads -------------------------------------------------------
+
+_P_LEN, _P_MINGAP = 1, 7
+
+
+def _admit_case(rng, B, V, L, fp, offset=False):
+    """One seeded G12 case: B envs of V slots over L lanes (D = L + 3
+    drivables). Lane 0 holds many waiting slots, lane 1 one, lane 2 a
+    least uid held by three waiting slots (between them a waiting slot of
+    that uid in another lane and a running one), lane 3 none, lane 5 two
+    waiting slots of uid INT32_MAX; uids near INT32_MAX and negative; some
+    tails -1, and lane 4's tail stands at exactly len + the head's minGap
+    (not available)."""
+    dt = np.float32 if fp == "f32" else np.float64
+    D = L + 3
+    active = rng.random((B, V)) < 0.8
+    running = active & (rng.random((B, V)) < 0.7)
+    waiting = active & ~running
+    drv = rng.integers(-1, D, (B, V)).astype(np.int32)
+    lanes = rng.choice(np.arange(L), (B, V),
+                       p=np.r_[0.3, np.full(L - 1, 0.7 / (L - 1))])
+    drv = np.where(waiting, lanes, drv).astype(np.int32)
+    uid = rng.integers(-50, 5000, (B, V)).astype(np.int32)
+    big = rng.random((B, V)) < 0.05
+    uid[big] = rng.choice(np.int32([2 ** 31 - 1, 2 ** 31 - 2,
+                                    -(2 ** 31) + 1]), int(big.sum()))
+    # lane 3 empty, lane 1 one waiting slot (slot V - 1: not a multiple of
+    # the vector width when V is not)
+    for lane in (1, 2, 3, 5):
+        drv[waiting & (drv == lane)] = 0
+    w1 = V - 1
+    active[:, w1], running[:, w1], drv[:, w1] = True, False, 1
+    # lane 2: uid -(2^31) + 3 (below every other) at three slots, with a
+    # waiting slot of that uid in lane 0 and a running one in between
+    u2 = np.int32(-(2 ** 31) + 3)
+    for v, (act, run, lane) in zip(
+            (2, 5, 6, 7, 9), ((1, 0, 2), (1, 0, 0), (1, 1, 2), (1, 0, 2),
+                              (1, 0, 2))):
+        active[:, v], running[:, v], drv[:, v], uid[:, v] = act, run, \
+            lane, u2
+    # lane 5: uid INT32_MAX (the plain version's "none") at two slots
+    active[:, 16:18], running[:, 16:18], drv[:, 16:18] = True, False, 5
+    uid[:, 16:18] = 2 ** 31 - 1
+    # lane 4's head: slot 11 with the least uid of that lane
+    active[:, 11], running[:, 11], drv[:, 11] = True, False, 4
+    uid[:, 11] = -(2 ** 31)
+    dis = rng.uniform(0.0, 300.0, (B, V)).astype(dt)
+    params = rng.uniform(0.5, 10.0, (B, V, 12)).astype(dt)
+    last_of = np.where(rng.random((B, D)) < 0.3, -1,
+                       rng.integers(0, V, (B, D))).astype(np.int32)
+    # lane 4's tail at slot 12: dis = len + the head's minGap exactly; in
+    # odd envs one ulp above (available)
+    last_of[:, 4] = 12
+    edge = (params[:, 12, _P_LEN] + params[:, 11, _P_MINGAP]).astype(dt)
+    dis[:, 12] = edge
+    dis[1::2, 12] = np.nextafter(edge[1::2], dt(np.inf))
+    # lane 0's and 2's tails far back: available
+    for lane, t in ((0, 13), (2, 14)):
+        last_of[:, lane] = t
+        dis[:, t] = params[:, t, _P_LEN] + dt(50.0)
+    return dict(
+        active=active, running=running, drv=drv, uid=uid, dis=dis,
+        params=params,
+        leader=rng.integers(-1, V, (B, V)).astype(np.int32),
+        gap=rng.uniform(-5.0, 200.0, (B, V)).astype(dt),
+        list_seq=rng.integers(0, 10 ** 6, (B, V)).astype(np.int32),
+        last_of=last_of,
+        seq_counter=rng.integers(0, 2 ** 31 - 1, B).astype(np.int32),
+        L=L, offset=offset)
+
+
+# name -> (B, V, L, float type, keywords of _admit_case)
+ADMIT_SPECS = {
+    "B1_V37_f64": (1, 37, 6, "f64", {}),
+    "B3_V130_f32": (3, 130, 9, "f32", {}),
+    "B128_V1001_f32": (128, 1001, 40, "f32", {}),
+    "B130_V256_f64": (130, 256, 24, "f64", {}),
+    "B128_V512_f64": (128, 512, 40, "f64", {}),
+    "B130_V1001_f32": (130, 1001, 40, "f32", {}),
+    "B3_V64_f32_offset": (3, 64, 7, "f32", dict(offset=True)),
+    "B1_V257_f64_offset": (1, 257, 8, "f64", dict(offset=True)),
+}
+ADMIT_CASES = tuple(ADMIT_SPECS)
+
+
+def admit_case(name, seed=0):
+    """The G12 case `name` (one of ADMIT_CASES), from its own seed."""
+    B, V, L, fp, kw = ADMIT_SPECS[name]
+    return _admit_case(np.random.default_rng(
+        [seed, 4000 + ADMIT_CASES.index(name)]), B, V, L, fp, **kw)
+
+
+def admit_cases(seed=0):
+    """(name, case) for each of ADMIT_CASES."""
+    for name in ADMIT_CASES:
+        yield name, admit_case(name, seed)
+
+
+def admit_args(case, device):
+    """The case as admit_heads' arguments on `device`; with `offset` every
+    tensor a view one element into a larger buffer (contiguous, not
+    16-byte aligned)."""
+    return tuple(_tensor(case[k], device, case["offset"]) for k in (
+        "active", "running", "drv", "uid", "dis", "params", "leader", "gap",
+        "list_seq", "last_of", "seq_counter")) + (case["L"],)

@@ -67,12 +67,13 @@ def call_label(name, a, k):
     return "cross_caps@" + ("link" if torch.is_tensor(a[2]) else "approach")
 
 
-def record_calls(path):
-    """Every K2 and K3 call of one batched step of `path` (a key of PATHS)
-    after its warm-up steps of one env: [(name, args, kwargs)]. The
-    arguments are kept by reference (as the step passed them, views
-    sharing their storage): nothing in the step writes them after the
-    call (R3 admits in place before K2 and K3 run)."""
+def record_calls(path, module=None, names=FOLLOW_CAPS):
+    """Every call of the wrappers `names` of `module` (default: K2 and K3
+    of core/ring.py) in one batched step of `path` (a key of PATHS) after
+    its warm-up steps of one env: [(name, args, kwargs)]. The arguments
+    are kept by reference (as the step passed them, views sharing their
+    storage): nothing in the step writes them after the call (R3 admits in
+    place before K2, K3 and the lane-change kernels run)."""
     from cityflow_tpu_torch import ring_sim
     from cityflow_tpu_torch.compiler.net import compile_scenario
     from cityflow_tpu_torch.core import ring as ring_mod
@@ -93,7 +94,8 @@ def record_calls(path):
     st = ring_mod.batch_ring_state(one.map(lambda x: x[..., 0]), BATCH)
     del one
     calls = []
-    orig = {n: getattr(ring_mod, n) for n in FOLLOW_CAPS}
+    module = module or ring_mod
+    orig = {n: getattr(module, n) for n in names}
 
     def rec(n):
         def fn(*a, **k):
@@ -102,13 +104,13 @@ def record_calls(path):
         return fn
 
     try:
-        for n in FOLLOW_CAPS:
-            setattr(ring_mod, n, rec(n))
+        for n in names:
+            setattr(module, n, rec(n))
         ring_mod.ring_step_batched(sim.tables, sim.cfg, st, sim.q)
         torch.cuda.synchronize()
     finally:
         for n, f in orig.items():
-            setattr(ring_mod, n, f)
+            setattr(module, n, f)
     return calls
 
 
