@@ -25,8 +25,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             a chunk's halo; T1 at TP = 1, 3 and 1024 on contiguous and
             misaligned indices), bit for bit; then G12 (f64 and f32, B =
             1, 3, 128 and 130, repeated least uids, misaligned views) bit
-            for bit and L2 (both modes, S = 1, 40, 100 and 130) with
-            do_change bit for bit and yv within 1e-5
+            for bit, L2 (both modes, S = 1, 40, 100 and 130) with
+            do_change bit for bit and yv within 1e-5, L3 (LCI 1-8, both
+            overflow bits, kernel and plain each on a fresh copy of the
+            state it writes in place) and L1 (neighbour columns out of
+            order, NaN and -0.0 distances, S = 1, 40 and 200) bit for bit
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -72,7 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernels   (lane change) L1-L4 and the lane-change modes of K3 / K4
             against their plain versions on the inputs of one more step of
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
-            K3 within 1e-5, their not-bitwise counts printed), timed; R1-R7
+            K3 within 1e-5, their not-bitwise counts printed), timed (L3,
+            which writes its state in place, on a fresh copy each call);
+            how many neighbour columns L1 read by its linear count; R1-R7
             and K3's ring-leader mode as on [main]
   agree-mixed  non-uniform vehicle templates, B=1 card against CPU on
             tests/fixtures/config_2x2_mixed.json, 100 steps, skc=99
@@ -93,13 +98,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             warm-up steps (the first step with shadows printed), 40 timed;
             [lc]'s asserts, plus T1 and the template modes of K3 (with and
             without v_yield), L1 and L2 launched; the most shadow inserts
-            one lane asked for in one step over all of it (printed, and
-            asserted within the cap)
+            one lane asked for in one warm-up step (printed, and asserted
+            within the cap; the window, which runs without that probe, is
+            held to the cap by overflow == 0)
   kernels   (templates, lane change) on every call of one more [mixed-lc]
             step: T1, K2, L1, K4 and L3 (with the tpl channel) exact, K3
             (template mode, with v_yield too) and L2 within 1e-5, against
             their plain versions; L1, L2 and K3 at the v_yield lane call
-            timed
+            timed, L3 on fresh copies (row lc_insert@mixed-lc, and at the
+            peak insert demand and at LCI 8); L1's linear counts
   agree-rl  the RL env (rl/env.RingVecEnv), B=1 on the card against the
             plain port on the CPU on tests/fixtures/config_4x4_rl.json, 60
             steps with MaxPressure every 5: equal actions at every decision,
@@ -500,6 +507,8 @@ RING_REPLACES = {
 RING_PATH_NOTE = {"lc": " under lane_change", "mixed": " with templates",
                   "mixed-lc": " with templates under lane_change"}
 REPLACES.update(RING_REPLACES)
+REPLACES["lc_insert@mixed-lc"] = REPLACES["lc_insert"] \
+    + " with templates (a shadow copies its template)"
 REPLACES.update({f"{n}@{p}": v + RING_PATH_NOTE[p]
                  for n, v in RING_REPLACES.items() for p in RING_PATH_NOTE})
 for _p in ("", ":mixed-lc"):
@@ -850,8 +859,9 @@ def seeded_commit_calls(sim, B, rng):
 
 
 def check_kernel_cases():
-    """K4, T1, K3, K2, L2 and G12 against their plain versions on every
-    seeded edge case of tools/kernel_cases.py (the cases the CPU tests hold
+    """K4, T1, K3, K2, L2, G12, L3 and L1 against their plain versions on
+    every seeded edge case of tools/kernel_cases.py (the cases the CPU
+    tests hold
     the plain versions to against numpy walks), bit for bit but L2's yv
     (within 1e-5, as on its path; its not-bitwise count printed): K4's
     lane, link and lane-change commits at B = 1, 3, 128 and 130, S = 128,
@@ -861,11 +871,15 @@ def check_kernel_cases():
     at R = 1 to 4 and KC = 1 to 20, both at B = 1, 3, 128 and 130 (K2
     also 33); L2 in both modes at S = 1, 40, 100 and 130 (rings longer
     than one table of its receivers); G12 in f64 and f32, V not a
-    multiple of four and misaligned views."""
+    multiple of four and misaligned views; L3 (in place: kernel and plain
+    each on its own fresh copy) at LCI 1, 2, 3, 4 and 8 with both overflow
+    bits, and L1 on neighbour columns out of order, with NaN and -0.0
+    distances, at S = 1, 40 and 200 (a narrower env tile), both with
+    templates."""
     import torch
     from cityflow_tpu_torch.kernels import (
-        admit_heads, car_follow, cross_caps, lc_receive, ring_commit,
-        tpl_params)
+        admit_heads, car_follow, cross_caps, lc_insert, lc_receive,
+        lc_signal, ring_commit, tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -908,10 +922,25 @@ def check_kernel_cases():
                          lc_receive.lc_receive_plain(*a, **k), 1e-5)
         err, nbit = max(err, e), nbit + nb
         n += 1
+    for name, case in kc.insert_cases():
+        _, bad = _bitwise(
+            f"lc_insert[{name}]",
+            lc_insert.lc_insert(*kc.insert_args(case, "cuda")),
+            lc_insert.lc_insert_plain(*kc.insert_args(case, "cuda")))
+        assert bad == 0, f"lc_insert[{name}]: {bad} values differ"
+        n += 1
+    for name, case in kc.signal_cases():
+        a, k = kc.signal_args(case, "cuda")
+        _, bad = _bitwise(f"lc_signal[{name}]", lc_signal.lc_signal(*a, **k),
+                          lc_signal.lc_signal_plain(*a, **k))
+        assert bad == 0, f"lc_signal[{name}]: {bad} values differ"
+        n += 1
     torch.cuda.synchronize()
     cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
-             kc.ADMIT_CASES, kc.RECEIVE_CASES)
-    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 seeded edge cases: {n} of "
+             kc.ADMIT_CASES, kc.RECEIVE_CASES, kc.INSERT_CASES,
+             kc.SIGNAL_CASES)
+    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 seeded edge "
+        f"cases: {n} of "
         f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
         f"not_bitwise={nbit}; the rest bitwise) "
         f"({'; '.join(', '.join(c) for c in cases)})")
@@ -1109,7 +1138,8 @@ def check_path(tag, sim, st, launches, expect):
                 peak_bytes=peak)
 
 
-def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
+def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40,
+             after_warmup=None):
     """One path through tools/bench.run_ring_ladder (`steps` consecutive
     timed steps after the warm-up), with the launch counts set to 0 just
     before and read just after; the batch it ran at must be `batch` (the
@@ -1117,7 +1147,8 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
     it into the batch). On a lane-change config the shadows of env 0 are
     summed over the timed steps on the device: the window must hold
     some; the first warm-up step with shadows is printed. lane_slots 0 is
-    build_sim's default."""
+    build_sim's default; `after_warmup()`, when given, runs after the last
+    single-env warm-up step (before the batched steps)."""
     import torch
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.compiler.net import compile_scenario
@@ -1129,7 +1160,7 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
         ["--config", cfg_path, "--batch", str(batch), "--warmup",
          str(warmup), "--window", "0", "--steps", str(steps),
          "--lane-slots", str(lane_slots)])
-    shadows, first = [], []
+    shadows, first, warm = [], [], [0]
 
     def count_shadows(s):
         if not shadows:
@@ -1138,6 +1169,9 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
         shadows[0] += s.l_sh[..., 0].sum()
 
     def first_shadow(s):
+        warm[0] += 1
+        if after_warmup is not None and warm[0] == warmup - 1:
+            after_warmup()
         # on the device: the first step whose state holds a shadow
         if not first:
             first.append(torch.full((), -1, dtype=torch.int32,
@@ -1150,7 +1184,8 @@ def run_path(tag, cfg_path, batch, warmup, steps, expect, lane_slots=40):
     t0 = time.time()
     r, B = bench.run_ring_ladder(args, net, batch,
                                  on_step=count_shadows if lc else None,
-                                 on_warmup=first_shadow if lc else None)
+                                 on_warmup=first_shadow
+                                 if lc or after_warmup else None)
     launches = kernels.launch_counts()
     ms = r["seconds"] * 1e3 / r["steps"]
     c = r["sim"].cfg
@@ -1328,7 +1363,9 @@ def _compare(name, got, want, tol):
 def check_lc_kernels(sim, state, reps):
     """L1-L4 and the K3 / K4 lane-change modes on the lc path's own
     inputs, against their plain versions, every recorded call; timed on
-    the first recorded call of each (K3's at the lane rows)."""
+    the first recorded call of each (K3's at the lane rows). L3 writes its
+    state in place: kernel and plain each run on a fresh copy of the
+    recorded call, and each timed call on its own."""
     import torch
     from cityflow_tpu_torch.kernels import (
         car_follow, lc_insert, lc_partner, lc_receive, lc_signal,
@@ -1344,21 +1381,106 @@ def check_lc_kernels(sim, state, reps):
         kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
         err, nbit = 0.0, 0
         for a, k in calls[n]:
-            e, nb = _compare(n, kern(*a, **k), plain(*a, **k),
-                             tol.get(n, 0.0))
+            e, nb = _compare(n, lc_call(kern, n, a, k),
+                             lc_call(plain, n, a, k), tol.get(n, 0.0))
             err, nbit = max(err, e), nbit + nb
         label = n if n in LC_KERNELS else n + "@lc"
         log(f"[kernels] {label}: {len(calls[n])} calls checked, "
             f"max_abs_err={err} not_bitwise={nbit}")
+        if n == "lc_signal":
+            log_signal_branches("lc", calls[n])
         a, k = next(c for c in calls[n]
                     if n != "car_follow" or len(c[0][2]) == 3)
-        ms = time_cuda(lambda: kern(*a, **k), reps)
-        plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        if n == "lc_insert":
+            ms, plain_ms = time_insert(kern, plain, a, reps)
+        else:
+            ms = time_cuda(lambda: kern(*a, **k), reps)
+            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
         nbytes, nops = lc_work(n, a, k)
         if label in PR12_MS:
             log(f"[kernels] {label}: ms={ms:.4f} (PR 12: {PR12_MS[label]})")
         rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, None))
     return rows
+
+
+def insert_copy(a):
+    """L3's recorded arguments with what it writes in place copied: the
+    lane leaves, yv and n_l."""
+    ch, do_change, dirc, yv, n_l, tabs, LCI = a
+    return ({k: v.clone() for k, v in ch.items()}, do_change, dirc,
+            yv.clone(), n_l.clone(), tabs, LCI)
+
+
+def lc_call(fn, n, a, k):
+    """One call of a lane-change wrapper or its plain version; L3 on a
+    fresh copy of its recorded arguments (its outputs are that copy's
+    leaves)."""
+    return fn(*insert_copy(a), **k) if n == "lc_insert" else fn(*a, **k)
+
+
+def time_insert(kern, plain, a, reps, lci=None):
+    """(kernel ms, plain ms) of L3 on `a`, each timed call on its own fresh
+    copy (the copies untimed); with `lci`, at that shadow-insert cap; a
+    None function is not timed."""
+    c = a[-1] if lci is None else lci
+    setup = lambda: insert_copy(a)
+    return tuple(None if f is None else time_cuda_fresh(
+        setup, lambda x: f(*x[:-1], c), reps) for f in (kern, plain))
+
+
+def log_signal_branches(path, calls):
+    """How many (lane, side, env) neighbour columns L1's calls read by its
+    linear count (their occupied dis not non-increasing), of all it
+    reads."""
+    from cityflow_tpu_torch.kernels.lc_signal import unsorted_reads
+    reads = linear = 0
+    for a, _ in calls:
+        r, lin = unsorted_reads(a[0], a[2], a[12])
+        reads, linear = reads + r, linear + lin
+    log(f"[kernels] lc_signal on the {path} step: {linear} of {reads} "
+        f"(lane, side, env) neighbour column reads took the linear count "
+        f"(occupied dis not non-increasing), {reads - linear} the binary "
+        f"search")
+
+
+def insert_work(a):
+    """Bytes L3's in-place call must move, as this call's data reads them:
+    the occupied do_change of every column that is some lane's neighbour,
+    the dirc of its do_change rows and the dis of its candidates, n_l and
+    the tables, the winners' values (read once from their source rows),
+    each target column's occupied dis where it takes an insert, the
+    shifted tail of those columns in every channel (read once, written
+    once: rows from the first insert rank to the last slot), the started
+    rows' sh, chg and dir, the new n_l and the overflow bits."""
+    import torch
+    from cityflow_tpu_torch.kernels.lc_insert import (channel_spec,
+                                                      insert_plan)
+    ch, do_change, dirc, yv, n_l, tabs, LCI = a
+    S, N, B = do_change.shape
+    dev = do_change.device
+    width = {"f32": 4, "i32": 4, "bool": 1}
+    row = sum(width[kind] for _, kind, _ in
+              channel_spec(ch["rnrow"].shape[0], "tpl" in ch))
+    inner, outer = tabs["inner_src"], tabs["outer_src"]
+    is_in = torch.zeros(N, dtype=torch.bool, device=dev)     # an inner
+    is_out = torch.zeros(N, dtype=torch.bool, device=dev)    # an outer
+    is_in[inner[inner >= 0].long()] = True
+    is_out[outer[outer >= 0].long()] = True
+    occ = torch.arange(S, device=dev)[:, None, None] < n_l[None]
+    nb = (is_in | is_out)[None, :, None]
+    cand = do_change & (((dirc > 0) & is_in[None, :, None])
+                        | ((dirc < 0) & is_out[None, :, None]))
+    accepted, pos, exs, _ = insert_plan(ch["dis"], do_change, dirc, n_l,
+                                        tabs, LCI)
+    k = sum(ex.to(torch.int64) for ex in exs)                # (N, B)
+    has = k > 0
+    tail = int(torch.where(has, S - pos[0], 0).sum())
+    n_ins = int(k.sum())
+    started = sum(int((c >= 0).sum()) for c in accepted)
+    return (int((occ & nb).sum()) + 4 * int((do_change & nb).sum())
+            + 4 * int(cand.sum()) + 4 * N * B + 12 * N + row * n_ins
+            + 4 * int((occ & has[None]).sum()) + row * (2 * tail - n_ins)
+            + 6 * started + 4 * int(has.sum()) + N * B)
 
 
 def lc_work(n, a, k):
@@ -1417,14 +1539,7 @@ def lc_work(n, a, k):
                                       0).sum())
         return ins + S * N * B * (4 + 1), 2 * offers
     if n == "lc_insert":
-        ch, do_change, dirc, yv, n_l, tabs, LCI = a
-        S, N, B = do_change.shape
-        ins = nb(*ch.values(), do_change, dirc, yv, n_l) + 12 * N
-        from cityflow_tpu_torch.kernels.lc_insert import channel_spec
-        size = {"f32": 4, "i32": 4, "bool": 1}
-        outs = sum(S * N * B * size[kind] for _, kind, _ in
-                   channel_spec(ch["rnrow"].shape[0])) + N * B * (4 + 1)
-        return ins + outs, 0
+        return insert_work(a), 0
     if n == "lc_partner":
         uid, sh, l_dir, n_l, chg, chans, tabs = a
         S, N, B = uid.shape
@@ -1515,8 +1630,8 @@ def tpl_work(n, a, k):
     if n == "lc_signal":
         nbytes, nops = lc_work("lc_signal", a, k)
         return nbytes + nb(k["tpl"], k["olt_len"]), nops
-    if n == "lc_receive":
-        return lc_work("lc_receive", a, k)
+    if n in ("lc_receive", "lc_insert"):
+        return lc_work(n, a, k)
     raise KeyError(n)
 
 
@@ -1525,8 +1640,13 @@ def insert_demand():
     """The most shadow inserts that any lane asks for in one step: the
     winners per target lane before L3's cap (senders whose target is the
     lane, from its inner and outer side), as L3's inputs hold them, over
-    every L3 call while the context is open (warm-up and timed steps),
-    kept on the device. Yields a dict whose "peak" is set on exit."""
+    every L3 call while the context is open and its "stop" has not been
+    called, kept on the device. Yields a dict whose "stop" ends the
+    probing (run_path calls it after the warm-up, so that the timed
+    window runs without it: the window is held to the cap by its
+    overflow == 0 check, as a lane with more senders than LCI sets
+    OV_REMOVE) and whose "peak" is set on exit. Each column's senders are
+    counted by direction, then read at each lane's neighbours."""
     import torch
     from cityflow_tpu_torch.core import ring_lc
     from cityflow_tpu_torch.kernels._nbr import nbcol
@@ -1535,17 +1655,19 @@ def insert_demand():
 
     def fn(ch, do_change, dirc, yv, n_l, tabs, LCI):
         n = 0
-        for side, want in (("inner_src", 1), ("outer_src", -1)):
-            n = n + (nbcol(do_change, tabs[side])
-                     & (nbcol(dirc, tabs[side]) == want)).to(
-                torch.int32).sum(0)
+        for side, up in (("inner_src", True), ("outer_src", False)):
+            want = (dirc > 0) if up else (dirc < 0)
+            n = n + nbcol((do_change & want).sum(0, dtype=torch.int32),
+                          tabs[side])
         m = n.max()
         if peak:
             peak[0] = torch.maximum(peak[0], m)
         else:
             peak.append(m)
         return orig(ch, do_change, dirc, yv, n_l, tabs, LCI)
-    out = {}
+    def stop():
+        ring_lc.lc_insert = orig
+    out = {"stop": stop}
     ring_lc.lc_insert = fn
     try:
         yield out
@@ -1557,12 +1679,14 @@ def insert_demand():
 def check_tpl_kernels(sim, state, reps, lc, lci=None):
     """T1 and the template modes against their plain versions on every
     recorded call of one more step of a template path (T1, K2, L1 and L3
-    exact; K3 and L2 within 1e-5, their not-bitwise counts printed).
-    Rows: without lane change T1, K2@tpl and K3@tpl; with it L1@tpl,
-    L2@tpl and K3@tpl+lc. Each is timed on its largest call (K3 at the
-    lane rows, with v_yield on the lane-change path), T1 beside the
+    exact; K3 and L2 within 1e-5, their not-bitwise counts printed; L3,
+    which writes its state in place, kernel and plain each on a fresh copy
+    of the call). Rows: without lane change T1, K2@tpl and K3@tpl; with it
+    L1@tpl, L2@tpl, K3@tpl+lc and lc_insert@mixed-lc. Each is timed on
+    its largest call (K3 at the lane rows, with v_yield on the
+    lane-change path; L3 on a fresh copy each call), T1 beside the
     library gather table[:, cols][tpl]. With `lci` (the measured insert
-    demand) L3 is timed on its call at that cap and at its maximum, 8."""
+    demand) L3 is also timed at that cap and at its maximum, 8."""
     import torch
     from cityflow_tpu_torch import kernels
     calls = record_tpl_calls(sim, state, lc)
@@ -1570,8 +1694,8 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
     checked = ("tpl_params", "cross_caps", "car_follow") \
         + (("lc_signal", "lc_receive", "lc_insert")
            if lc else ())
-    timed = ("lc_signal", "lc_receive", "car_follow") if lc else \
-        ("tpl_params", "cross_caps", "car_follow")
+    timed = ("lc_signal", "lc_receive", "car_follow", "lc_insert") if lc \
+        else ("tpl_params", "cross_caps", "car_follow")
     rows = []
     for n in checked:
         assert calls.get(n), f"{n}: no template-path call recorded"
@@ -1579,15 +1703,17 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
         kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
         err, nbit = 0.0, 0
         for a, k in calls[n]:
-            e, nb_ = _compare(n, kern(*a, **k), plain(*a, **k),
-                              tol.get(n, 0.0))
+            e, nb_ = _compare(n, lc_call(kern, n, a, k),
+                              lc_call(plain, n, a, k), tol.get(n, 0.0))
             err, nbit = max(err, e), nbit + nb_
-        label = n if n in ("tpl_params", "lc_insert") \
-            else n + "@tpl"
+        label = {"tpl_params": n, "lc_insert": "lc_insert@mixed-lc"}.get(
+            n, n + "@tpl")
         yld = sum("v_yield" in k for _, k in calls[n])
         log(f"[kernels] {label} on the {'mixed-lc' if lc else 'mixed'} "
             f"step: {len(calls[n])} calls checked ({yld} with v_yield), "
             f"max_abs_err={err} not_bitwise={nbit}")
+        if n == "lc_signal":
+            log_signal_branches("mixed-lc", calls[n])
         if n not in timed:
             continue
         if n == "car_follow":
@@ -1595,10 +1721,15 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
             a, k = next(c for c in calls[n] if len(c[0][2]) == 3
                         and ("v_yield" in c[1]) == lc)
             label += "+lc" if lc else ""
+        elif n == "lc_insert":
+            a, k = calls[n][0]            # one call a step
         else:
             a, k = max(calls[n], key=lambda c: c[0][0].numel())
-        ms = time_cuda(lambda: kern(*a, **k), reps)
-        plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        if n == "lc_insert":
+            ms, plain_ms = time_insert(kern, plain, a, reps)
+        else:
+            ms = time_cuda(lambda: kern(*a, **k), reps)
+            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
         lib = None
         if n == "tpl_params":
             tpl, table, cols = a
@@ -1608,11 +1739,14 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
                 f"{len(cols)} columns: ms={ms:.4f} (PR 12: "
                 f"{PR12_MS['tpl_params']}) library_ms={lib:.4f}")
         nbytes, nops = tpl_work(n, a, k)
-        rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, lib))
+        row = kernel_row(label, err, ms, plain_ms, nbytes, nops, lib)
+        if n == "lc_insert":
+            row["launches_of"] = ("mixed-lc", ["lc_insert"], [])
+        rows.append(row)
     if lci is not None:
         from cityflow_tpu_torch.kernels.lc_insert import MAX_LCI, lc_insert
-        a, k = calls["lc_insert"][0]
-        at = {c: time_cuda(lambda: lc_insert(*a[:-1], c, **k), reps)
+        a, _ = calls["lc_insert"][0]
+        at = {c: time_insert(lc_insert, None, a, reps, c)[0]
               for c in sorted({max(lci, 1), sim.cfg.LCI, MAX_LCI})}
         log(f"[mixed-lc] L3 lc_insert on one [mixed-lc] step's state, by "
             f"shadow-insert cap: " + ", ".join(
@@ -4367,11 +4501,11 @@ def main():
         mlc_launches, mlc_res, ml_sim, ml_state = run_path(
             "mixed-lc", mlc_cfg, BATCH, LC_WARMUP, STEPS,
             MAIN_KERNELS + LC_KERNELS + LC_MODES + TPL_MODES + TPL_LC_MODES,
-            lane_slots=0)
+            lane_slots=0, after_warmup=demand["stop"])
     mlc_res["insert_demand_peak"] = demand["peak"]
     log(f"[mixed-lc] the most shadow inserts one lane asked for in one "
-        f"step, warm-up and window: {demand['peak']} (cap LCI "
-        f"{ml_sim.cfg.LCI})")
+        f"warm-up step: {demand['peak']} (cap LCI {ml_sim.cfg.LCI}; the "
+        f"window is held to it by overflow == 0)")
     assert demand["peak"] <= ml_sim.cfg.LCI, "insert demand above the cap"
     log(f"[mixed-lc] {json.dumps(mlc_res)}")
     check_commit_calls("mixed-lc", ml_sim, ml_state, REPS)

@@ -57,7 +57,9 @@ def lc_phase(net, cfg, rs, fx):
     signals (L1), arbitration and yield speeds (L2), shadow inserts (L3).
     Returns (rs with the shadows inserted, overflow bits per env: 1 = more
     than LCI changers into a lane, 2 = a full ring refused a shadow). The
-    yield speed rides in rs.l_yv (100 = no-op), moved with the inserts."""
+    yield speed rides in rs.l_yv (100 = no-op), moved with the inserts.
+    Like R3, this writes rs's lane leaves (and n_l) in place: a caller
+    that keeps the state it passes in passes a copy."""
     p = cfg.params
     now = rs.step.to(torch.float32) * net["ring_f32"][len(p)]
     tm = {} if cfg.uniform else dict(tpl=rs.l_tpl, table=net["tpl_params"])
@@ -72,17 +74,12 @@ def lc_phase(net, cfg, rs, fx):
     ch = {k: getattr(rs, v) for k, v in _INSERT_LEAVES.items()}
     if not cfg.uniform:
         ch["tpl"] = rs.l_tpl                 # a shadow copies its template
-    out, n_l, ovl = lc_insert(ch, do_change, dirc, yv, rs.n_l, net, cfg.LCI)
-    M = cfg.MAXLPR
+    # L3 writes the lane leaves, yv and n_l in place (as R3 does): the
+    # state's leaves hold the inserts, and yv becomes l_yv
+    _, _, ovl = lc_insert(ch, do_change, dirc, yv, rs.n_l, net, cfg.LCI)
     ov = (ovl & 1).amax(0).to(torch.int32) | ((ovl & 2).amax(0)
                                                 .to(torch.int32))
-    rs = rs.replace_fields(
-        n_l=n_l, l_yv=out["yv"],
-        l_rnrow=torch.stack([out[f"rn{c}"] for c in range(M)]),
-        l_auxrow=torch.stack([out[f"ax{c}"] for c in range(M)]),
-        **{v: out[k] for k, v in _INSERT_LEAVES.items()
-           if k not in ("rnrow", "auxrow")},
-        **({} if cfg.uniform else dict(l_tpl=out["tpl"])))
+    rs = rs.replace_fields(l_yv=yv)
     return rs, ov
 
 

@@ -24,7 +24,7 @@ import torch
 
 from cityflow_tpu_torch.compiler.net import P_LEN, P_MAXNEGACC, P_MAXSPEED
 from cityflow_tpu_torch.kernels import _lib
-from cityflow_tpu_torch.kernels._nbr import nbcol
+from cityflow_tpu_torch.kernels._nbr import nbcol, scalar
 from cityflow_tpu_torch.kernels.tpl_params import tpl_params_plain
 
 launches = 0
@@ -39,8 +39,7 @@ class _Args(ctypes.Structure):
         "dis", "speed", "n_l", "sh", "chg", "dir", "gap", "last", "rnrow",
         "olt_dis", "olt_ex", "now", "inner", "outer", "ln_len", "llocal",
         "plan", "hsig", "gval", "dirc", "tl_slot", "ygap")] \
-        + [(n, ctypes.c_longlong) for n in ("S", "N", "B")] \
-        + [("M", ctypes.c_int), ("KOUT", ctypes.c_int)] \
+        + [(n, ctypes.c_int) for n in ("S", "N", "B", "M", "KOUT")] \
         + [(n, ctypes.c_float) for n in ("len", "neg", "expected", "len15",
                                          "cooling")] \
         + [(n, ctypes.c_void_p) for n in ("tpl", "table", "olt_len")] \
@@ -82,6 +81,23 @@ def _probe(dis, speed, n_l, src, len_s=None, neg_s=None):
     return out
 
 
+def unsorted_reads(dis, n_l, tabs):
+    """(reads, linear): of the (lane, neighbour side, env) columns a call
+    reads (the lane has that neighbour), how many the kernel counts
+    linearly, their occupied dis not non-increasing (dis[t] >= dis[t + 1]
+    fails, as at a NaN); the rest it binary-searches."""
+    SL = dis.shape[0]
+    occ = torch.arange(SL - 1, device=dis.device)[:, None, None] \
+        < (n_l.clamp(0, SL) - 1)[None]
+    bad = (occ & ~(dis[:-1] >= dis[1:])).any(0)           # (LNp, B)
+    reads = linear = 0
+    for src in (tabs["inner_src"], tabs["outer_src"]):
+        has = src >= 0
+        reads += int(has.sum()) * dis.shape[2]
+        linear += int(bad[src[has].long()].sum())
+    return reads, linear
+
+
 def sel_llocal(bundle, llocal, delta):
     """The (llocal + delta) row of a (M, SL, LNp, B) route-row bundle per
     lane column, -1 where that lane index does not exist."""
@@ -97,7 +113,10 @@ def lc_signal_plain(dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow,
     """Plain PyTorch version: ring_lc.lc_phase of the JAX package from the
     neighbour rings to the gap validity (ring_lc.py:192-311)."""
     c = _consts(prm)
-    p_len, p_neg = c["len"], c["neg"]
+    # maxNegAcc as a 0-dim tensor on the rings' device: PyTorch's CUDA
+    # division by a Python float multiplies by its reciprocal, the kernel
+    # (and the CPU) divide
+    p_len, p_neg = c["len"], scalar(c["neg"], dis)
     expected, len15 = c["expected"], c["len15"]
     len_s = neg_s = None
     if tpl is not None:
@@ -189,7 +208,6 @@ def lc_signal(dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow,
     maxSpeed, interval). The template mode takes tpl (SL, LNp, B) int32,
     the (TP, 12) table and olt_len (KOUT, LNp, B); of prm only the interval
     is read."""
-    global launches, launches_tpl
     SL, N, B = dis.shape
     M, KOUT = rnrow.shape[0], olt_dis.shape[0]
     f32, i32, b8 = (torch.float32,), (torch.int32,), (torch.bool,)
@@ -217,10 +235,25 @@ def lc_signal(dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow,
         if tuple(tpl.shape) != (SL, N, B) or tuple(olt_len.shape) != (
                 KOUT, N, B) or table.dim() != 2 or table.shape[1] != 12:
             raise ValueError("lc_signal: template mode shapes")
+    if max(M, 1) * SL * N * B >= 2 ** 31 or KOUT * N * B >= 2 ** 31:
+        raise ValueError("lc_signal: rings too large for 32-bit indices")
     if cpu:
         return lc_signal_plain(dis, speed, n_l, sh, chg, l_dir, l_gap, l_last,
                                rnrow, olt_dis, olt_ex, now, tabs, prm, tpl,
                                table, olt_len)
+    return _launch(dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow,
+                   olt_dis, olt_ex, now, tabs, prm, tpl, table, olt_len)
+
+
+def _launch(dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow, olt_dis,
+            olt_ex, now, tabs, prm, tpl=None, table=None, olt_len=None):
+    global launches, launches_tpl
+    SL, N, B = dis.shape
+    M, KOUT = rnrow.shape[0], olt_dis.shape[0]
+    ins = (dis, speed, n_l, sh, chg, l_dir, l_gap, l_last, rnrow, olt_dis,
+           olt_ex, now, tabs["inner_src"], tabs["outer_src"], tabs["ln_len"],
+           tabs["ln_llocal"])
+    tm = (tpl, table, olt_len)
     e = lambda dt: torch.empty((SL, N, B), dtype=dt, device=dis.device)
     outs = (e(torch.bool), e(torch.bool), e(torch.bool), e(torch.int32),
             e(torch.int32), e(torch.float32))

@@ -784,3 +784,241 @@ def admit_args(case, device):
     return tuple(_tensor(case[k], device, case["offset"]) for k in (
         "active", "running", "drv", "uid", "dis", "params", "leader", "gap",
         "list_seq", "last_of", "seq_counter")) + (case["L"],)
+
+
+# ---- L3 lc_insert and L1 lc_signal -----------------------------------------
+
+# roads of adjacent lane columns: (first column, lanes, llocal of the first).
+# The neighbour tables are the compiler's (inner = the column before in the
+# road, outer = the one after), so symmetric; road A's lane indices start
+# at -1 and road B has more lanes than MAXLPR = 3 route rows, so some
+# senders' target lane index lies outside [0, M); road C is one lane (no
+# neighbour on either side)
+_ROADS = ((0, 3, -1), (3, 4, 0), (7, 1, 0), (8, 2, 1))
+_LN = 10
+_LC_M = 3
+
+
+def _lane_tables():
+    """(inner_src, outer_src, ln_llocal) of the _ROADS lanes."""
+    inner = np.full(_LN, -1, np.int32)
+    outer = np.full(_LN, -1, np.int32)
+    llocal = np.zeros(_LN, np.int32)
+    for first, n, lo0 in _ROADS:
+        for i in range(n):
+            llocal[first + i] = lo0 + i
+            if i > 0:
+                inner[first + i] = first + i - 1
+            if i < n - 1:
+                outer[first + i] = first + i + 1
+    return inner, outer, llocal
+
+
+def _directions(rng, shape, inner, outer):
+    """-1 / 0 / +1 per row, only toward a neighbour the lane has."""
+    d = rng.choice(np.int32([-1, 0, 1]), shape, p=[0.4, 0.2, 0.4])
+    d[(d > 0) & (outer < 0)[None, :, None]] = 0
+    d[(d < 0) & (inner < 0)[None, :, None]] = 0
+    return d
+
+
+# distances from a small set: ties between senders, and between a winner
+# and a row of its target lane
+_DIS_SET = np.float32([0.0, -0.0, 2.5, 7.0, 7.0, 12.25, 30.0, 55.5])
+
+
+def _insert_case(rng, B, S, LCI, TP=0):
+    """One seeded L3 case on the _ROADS lanes. Lane 4 (inner 3, outer 5)
+    is full in odd envs (its winners refused: overflow bit 2, and they
+    start all the same, as the TPU form does); column 3 is a crowd, every
+    occupied row of it sending +1 into lane 4 (more candidates than LCI:
+    overflow bit 1); lane 7 has no neighbour. Distances from _DIS_SET and
+    uniform, a few NaN and -inf (never winners, but candidates). As L1 and
+    L2 leave them: do_change on occupied rows with a direction toward an
+    existing neighbour, l_dir 0 on rows neither shadow nor changing, dirc
+    = l_dir on changing rows that are not shadows."""
+    N, M = _LN, _LC_M
+    inner, outer, llocal = _lane_tables()
+    shape = (S, N, B)
+    n_l = rng.integers(0, S + 1, (N, B)).astype(np.int32)
+    n_l[4, 1::2] = S
+    n_l[7, ::2] = 0
+    occ = np.arange(S)[:, None, None] < n_l[None]
+    dis = rng.choice(_DIS_SET, shape)
+    dis = np.where(rng.random(shape) < 0.5,
+                   rng.uniform(0.0, 60.0, shape).astype(np.float32), dis)
+    w = rng.random(shape) < 0.03
+    dis[w] = rng.choice(np.float32([np.nan, -np.inf]), int(w.sum()))
+    dirc = _directions(rng, shape, inner, outer)
+    sh = rng.random(shape) < 0.15
+    chg = rng.random(shape) < 0.15
+    l_dir = np.where(sh, rng.choice(np.int32([-1, 1]), shape),
+                     _directions(rng, shape, inner, outer)).astype(np.int32)
+    l_dir[~sh & ~chg] = 0
+    dirc = np.where(chg & ~sh, l_dir, dirc).astype(np.int32)
+    do_change = occ & (rng.random(shape) < 0.35) & (dirc != 0)
+    # the crowd
+    do_change[:, 3] = occ[:, 3]
+    dirc[:, 3] = 1
+    sh[:, 3] = chg[:, 3] = False
+    l_dir[:, 3] = 0
+    ints = lambda lo, hi: rng.integers(lo, hi, shape).astype(np.int32)
+    uid = ints(0, 5000)
+    uid[rng.random(shape) < 0.05] = 2 ** 31 - 1     # SHBIT + uid wraps
+    ch = dict(dis=dis, speed=_f32(rng, shape, 0.0, 17.0, zero=0.1),
+              flow=ints(-1, 40), route=ints(-1, 400), rpos=ints(0, 31),
+              nxt=ints(-1, 100), nxt3=ints(-1, 100), prev=ints(-1, 50),
+              enter=_f32(rng, shape, 0.0, 3600.0),
+              pri=rng.choice(_PRI, shape), uid=uid,
+              last=_bool(rng, shape, 0.3),
+              gap=_f32(rng, shape, -5.0, 100.0, wild=0.02),
+              dir=l_dir, off=_f32(rng, shape, -3.0, 3.0), sh=sh, chg=chg,
+              custom=_f32(rng, shape, 0.0, 20.0),
+              hascustom=_bool(rng, shape, 0.1),
+              rnrow=rng.integers(-1, 60, (M,) + shape).astype(np.int32),
+              auxrow=rng.integers(-3, 250, (M,) + shape).astype(np.int32))
+    if TP:
+        ch["tpl"] = _tpl_idx(rng, shape, TP)
+    return dict(ch=ch, do_change=do_change, dirc=dirc,
+                yv=_f32(rng, shape, 0.0, 100.0), n_l=n_l, inner_src=inner,
+                outer_src=outer, ln_llocal=llocal, LCI=LCI)
+
+
+# name -> (B, S, LCI, keywords of _insert_case)
+INSERT_SPECS = {
+    "B1_S40_L2": (1, 40, 2, {}),
+    "B3_S40_L1": (3, 40, 1, {}),
+    "B128_S40_L2": (128, 40, 2, {}),
+    "B130_S40_L4_tpl3": (130, 40, 4, dict(TP=3)),
+    "B3_S12_L8": (3, 12, 8, {}),
+    "B128_S40_L8_tpl3": (128, 40, 8, dict(TP=3)),
+    "B130_S40_L3": (130, 40, 3, {}),
+    "B1_S5_L4_tpl3": (1, 5, 4, dict(TP=3)),
+}
+INSERT_CASES = tuple(INSERT_SPECS)
+
+
+def insert_case(name, seed=0):
+    """The L3 case `name` (one of INSERT_CASES), from its own seed."""
+    B, S, LCI, kw = INSERT_SPECS[name]
+    return _insert_case(np.random.default_rng(
+        [seed, 5000 + INSERT_CASES.index(name)]), B, S, LCI, **kw)
+
+
+def insert_cases(seed=0):
+    """(name, case) for each of INSERT_CASES."""
+    for name in INSERT_CASES:
+        yield name, insert_case(name, seed)
+
+
+def insert_args(case, device):
+    """The case as lc_insert's arguments on `device`, every tensor a fresh
+    copy (L3 writes its leaves, yv and n_l in place)."""
+    import torch
+    T = lambda a: torch.tensor(a, device=device)
+    return ({k: T(v) for k, v in case["ch"].items()}, T(case["do_change"]),
+            T(case["dirc"]), T(case["yv"]), T(case["n_l"]),
+            {k: T(case[k]) for k in ("inner_src", "outer_src", "ln_llocal")},
+            case["LCI"])
+
+
+# (len, maxNegAcc, maxSpeed, interval)
+SIGNAL_PRM = (5.0, 4.5, 16.67, 1.0)
+SIGNAL_PRM_HALF = (4.0, 3.5, 11.11, 0.5)
+_KOUT = 3
+
+
+def _signal_case(rng, B, S, TP=0, half=False):
+    """One seeded L1 case on the _ROADS lanes. Each column's occupied rows
+    hold distances from the lane's length down, in the ring's order, but
+    in about 15% of the (column, env) pairs shuffled, in about 5% with a
+    NaN, some ties and -0.0 next to 0.0; the rows past n_l hold anything.
+    Column 6 (lane 5's outer neighbour) is empty in every env, column 4
+    full. Stale gaps around the signal's thresholds, envs before and after
+    the cooling time, out-link ring tails present and absent, some of them
+    closer than a vehicle length (the tail branch's short gap)."""
+    N, M = _LN, _LC_M
+    inner, outer, llocal = _lane_tables()
+    shape = (S, N, B)
+    prm = SIGNAL_PRM_HALF if half else SIGNAL_PRM
+    ln_len = rng.uniform(60.0, 400.0, N).astype(np.float32)
+    n_l = rng.integers(0, S + 1, (N, B)).astype(np.int32)
+    n_l[6] = 0
+    n_l[4] = S
+    occ = np.arange(S)[:, None, None] < n_l[None]
+    frac = np.sort(rng.random(shape), axis=0)[::-1]
+    dis = (frac * ln_len[None, :, None]).astype(np.float32)
+    tie = rng.random(shape) < 0.2
+    dis[tie] = np.round(dis[tie] / 4.0) * 4.0
+    dis[-(S // 4 or 1):][rng.random((S // 4 or 1, N, B)) < 0.3] = 0.0
+    for p in range(N):
+        for b in range(B):
+            n = n_l[p, b]
+            if n > 1 and rng.random() < 0.15:
+                dis[:n, p, b] = rng.permutation(dis[:n, p, b])
+            if n > 0 and rng.random() < 0.05:
+                dis[rng.integers(0, n), p, b] = np.nan
+    dis[(dis == 0.0) & (rng.random(shape) < 0.5)] = -0.0
+    junk = rng.uniform(-50.0, 450.0, shape).astype(np.float32)
+    dis = np.where(occ, dis, junk)
+    sh = rng.random(shape) < 0.1
+    chg = rng.random(shape) < 0.15
+    expected = 2 * prm[0] + 4 * prm[3] * prm[2]
+    case = dict(
+        dis=dis, speed=_f32(rng, shape, 0.0, 17.0, zero=0.15), n_l=n_l,
+        sh=sh, chg=chg,
+        l_dir=rng.choice(np.int32([-1, 0, 1]), shape),
+        l_gap=_f32(rng, shape, 0.0, 1.3 * expected, wild=0.02),
+        l_last=_bool(rng, shape, 0.3),
+        rnrow=rng.integers(-1, 9, (M,) + shape).astype(np.int32),
+        olt_dis=_f32(rng, (_KOUT, N, B), -40.0, 60.0, wild=0.03),
+        olt_ex=_bool(rng, (_KOUT, N, B), 0.6),
+        now=rng.choice(np.float32([0.0, 2.5, 3.0, 100.0, 1234.5]), B),
+        inner_src=inner, outer_src=outer, ln_len=ln_len, ln_llocal=llocal,
+        prm=prm, tpl=None, table=None, olt_len=None)
+    case["olt_ex"][:, 2] = False            # lane 2: no out-link tail
+    if TP:
+        case.update(tpl=_tpl_idx(rng, shape, TP), table=_tpl_table(rng, TP),
+                    olt_len=_f32(rng, (_KOUT, N, B), 2.0, 9.0))
+    return case
+
+
+# name -> (B, S, keywords of _signal_case)
+SIGNAL_SPECS = {
+    "B1_S40": (1, 40, {}),
+    "B3_S40_half": (3, 40, dict(half=True)),
+    "B128_S40": (128, 40, {}),
+    "B130_S40_tpl3": (130, 40, dict(TP=3)),
+    "B3_S1": (3, 1, {}),
+    "B128_S40_tpl3_half": (128, 40, dict(TP=3, half=True)),
+    "B130_S200": (130, 200, {}),
+    "B1_S12_tpl3": (1, 12, dict(TP=3)),
+}
+SIGNAL_CASES = tuple(SIGNAL_SPECS)
+
+
+def signal_case(name, seed=0):
+    """The L1 case `name` (one of SIGNAL_CASES), from its own seed."""
+    B, S, kw = SIGNAL_SPECS[name]
+    return _signal_case(np.random.default_rng(
+        [seed, 6000 + SIGNAL_CASES.index(name)]), B, S, **kw)
+
+
+def signal_cases(seed=0):
+    """(name, case) for each of SIGNAL_CASES."""
+    for name in SIGNAL_CASES:
+        yield name, signal_case(name, seed)
+
+
+def signal_args(case, device):
+    """The case as lc_signal's (args, kwargs) on `device`."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    args = tuple(T(case[k]) for k in (
+        "dis", "speed", "n_l", "sh", "chg", "l_dir", "l_gap", "l_last",
+        "rnrow", "olt_dis", "olt_ex", "now")) + (
+        {k: T(case[k]) for k in ("inner_src", "outer_src", "ln_len",
+                                 "ln_llocal")}, case["prm"])
+    kw = {} if case["tpl"] is None else {
+        k: T(case[k]) for k in ("tpl", "table", "olt_len")}
+    return args, kw

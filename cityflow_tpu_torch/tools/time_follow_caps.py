@@ -67,13 +67,16 @@ def call_label(name, a, k):
     return "cross_caps@" + ("link" if torch.is_tensor(a[2]) else "approach")
 
 
-def record_calls(path, module=None, names=FOLLOW_CAPS):
+def record_calls(path, module=None, names=FOLLOW_CAPS, copy=False):
     """Every call of the wrappers `names` of `module` (default: K2 and K3
     of core/ring.py) in one batched step of `path` (a key of PATHS) after
     its warm-up steps of one env: [(name, args, kwargs)]. The arguments
     are kept by reference (as the step passed them, views sharing their
-    storage): nothing in the step writes them after the call (R3 admits in
-    place before K2, K3 and the lane-change kernels run)."""
+    storage): nothing in the step writes K2's and K3's after the call (R3
+    admits in place before they run). The lane-change kernels' are not
+    so: L3 writes the lane leaves in place after L1 and L2 read them, and
+    its own; with `copy` every tensor argument but the net's tables is
+    kept as a copy taken before the call."""
     from cityflow_tpu_torch import ring_sim
     from cityflow_tpu_torch.compiler.net import compile_scenario
     from cityflow_tpu_torch.core import ring as ring_mod
@@ -97,9 +100,22 @@ def record_calls(path, module=None, names=FOLLOW_CAPS):
     module = module or ring_mod
     orig = {n: getattr(module, n) for n in names}
 
+    keep = {id(v) for v in sim.tables.values()}
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x if id(x) in keep else x.clone()
+        if x is sim.tables:
+            return x
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(clone(v) for v in x)
+        return x
+
     def rec(n):
         def fn(*a, **k):
-            calls.append((n, a, k))
+            calls.append((n, *clone((a, k))) if copy else (n, a, k))
             return orig[n](*a, **k)
         return fn
 

@@ -43,7 +43,7 @@ def ring_rows(path, reps):
     from cityflow_tpu_torch.core import ring_lc
     from cityflow_tpu_torch.kernels import lc_receive as l2
     rows = []
-    for _, a, k in record_calls(path, ring_lc, ("lc_receive",)):
+    for _, a, k in record_calls(path, ring_lc, ("lc_receive",), copy=True):
         tpl = k.get("tpl") is not None
         label = "lc_receive" + ("@tpl" if tpl else "")
         fn = lambda: l2.lc_receive(*a, **k)
