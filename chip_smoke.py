@@ -28,8 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             for bit, L2 (both modes, S = 1, 40, 100 and 130) with
             do_change bit for bit and yv within 1e-5, L3 (LCI 1-8, both
             overflow bits, kernel and plain each on a fresh copy of the
-            state it writes in place) and L1 (neighbour columns out of
-            order, NaN and -0.0 distances, S = 1, 40 and 200) bit for bit
+            state it writes in place), L1 (neighbour columns out of
+            order, NaN and -0.0 distances, S = 1, 40 and 200), G4 (every
+            branch of the decision, reach ties, KC = 1-20) and G15 (in place, each on a fresh copy; too few
+            free slots, several scan chunks) bit for bit
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -210,7 +212,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             MaxPressure every 5, copied into the batch, GEN1B_STEPS timed
             steps with max_pressure_actions() every 5th; [gen1-batch]'s
             asserts, G13 / G14 launched and a phase changed by the
-            controller
+            controller; G4 on every call of one more step against its
+            plain version (bitwise), and its funnel
   gen1-dqn  rl/dqn.train on config_30x30.json at B=16 from [gen1-env]'s
             warm state (one env at step GEN1B_WARMUP under MaxPressure,
             copied into the batch), 4 iterations of 5 steps: finite losses,
@@ -233,11 +236,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             shadows in the window, every env equal to env 0 bitwise, G1-G12,
             G5-G8 and G15 launched; [gen1-batch]'s prints
   kernels   (batched lane change) on every call of one more [gen1-lc-batch]
-            step, each asserted to span the batch: G5-G8 (every mode) and
-            G15 against their plain versions (bitwise; G5's speed sums
-            within 1e-6 relative), timed (rows <name>@lcbatch), G5 beside
-            index_add_; G15 is also checked and timed at one env on
-            [gen1-lc] (f64) and [agree-gen1-lc-fast] (f32)
+            step, each asserted to span the batch: G5-G8 (every mode),
+            G15 (in place: kernel and plain version each on a fresh copy)
+            and G4 against their plain versions (bitwise; G5's speed sums
+            within 1e-6 relative), timed (rows <name>@lcbatch; G15 on a
+            fresh copy each call), G5 beside index_add_; G15 is also
+            checked and timed at one env on [gen1-lc] (f64) and
+            [agree-gen1-lc-fast] (f32), G4 checked on [gen1-lc]. Each
+            gen-1 path that checks G4 prints its funnel first: the
+            crosses it considered, how many passed on !self_yield, on
+            !o_exists, on t1 > t2, and how many needed reach_steps
 
 The last three lines: the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -492,7 +500,7 @@ REPLACES = {
 # regions under vmap (parallel/batch.py:48)
 GEN1_LCB_ROWS = ("hist_window", "lc_probe", "lc_plan", "lc_plan@receive",
                  "lc_plan@decide", "lc_plan@yield", "lc_commit",
-                 "lc_commit@commit", "shadow_insert")
+                 "lc_commit@commit", "shadow_insert", "cross_pass")
 REPLACES.update({f"{n}@lcbatch": REPLACES[n] + " under vmap "
                  "(parallel/batch.py:48), float32" for n in GEN1_LCB_ROWS})
 # the ring step's regions (R1-R4), a row per ring path that runs them
@@ -859,10 +867,10 @@ def seeded_commit_calls(sim, B, rng):
 
 
 def check_kernel_cases():
-    """K4, T1, K3, K2, L2, G12, L3 and L1 against their plain versions on
-    every seeded edge case of tools/kernel_cases.py (the cases the CPU
-    tests hold
-    the plain versions to against numpy walks), bit for bit but L2's yv
+    """K4, T1, K3, K2, L2, G12, L3, L1, G4 and G15 against their plain
+    versions on every seeded edge case of tools/kernel_cases.py (the cases
+    the CPU tests hold the plain versions to against numpy walks), bit for
+    bit but L2's yv
     (within 1e-5, as on its path; its not-bitwise count printed): K4's
     lane, link and lane-change commits at B = 1, 3, 128 and 130, S = 128,
     MAX_CH channels, MAX_A candidates, and at S = 300 and 900 (chunks of
@@ -875,11 +883,15 @@ def check_kernel_cases():
     each on its own fresh copy) at LCI 1, 2, 3, 4 and 8 with both overflow
     bits, and L1 on neighbour columns out of order, with NaN and -0.0
     distances, at S = 1, 40 and 200 (a narrower env tile), both with
-    templates."""
+    templates; G4 (f32 and f64, B = 1, 3, 128 and
+    130, KC = 1 to 20: every branch of the decision, reach ties, NaN and
+    -0.0) and G15 (in place:
+    each on its own fresh copy; no changer, more changers than MS, too few
+    free slots, MS = 1, several scan chunks, misaligned views)."""
     import torch
     from cityflow_tpu_torch.kernels import (
-        admit_heads, car_follow, cross_caps, lc_insert, lc_receive,
-        lc_signal, ring_commit, tpl_params)
+        admit_heads, car_follow, cross_caps, cross_pass, lc_insert,
+        lc_receive, lc_signal, ring_commit, shadow_insert, tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -935,12 +947,25 @@ def check_kernel_cases():
                           lc_signal.lc_signal_plain(*a, **k))
         assert bad == 0, f"lc_signal[{name}]: {bad} values differ"
         n += 1
+    for name, case in kc.cross_cases():
+        a = kc.cross_args(case, "cuda")
+        _, bad = _bitwise(f"cross_pass[{name}]", cross_pass.cross_pass(*a),
+                          cross_pass.cross_pass_plain(*a))
+        assert bad == 0, f"cross_pass[{name}]: {bad} values differ"
+        n += 1
+    for name, case in kc.shadow_cases():
+        _, bad = _bitwise(
+            f"shadow_insert[{name}]",
+            shadow_insert.shadow_insert(*kc.shadow_args(case, "cuda")),
+            shadow_insert.shadow_insert_plain(*kc.shadow_args(case, "cuda")))
+        assert bad == 0, f"shadow_insert[{name}]: {bad} values differ"
+        n += 1
     torch.cuda.synchronize()
     cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
              kc.ADMIT_CASES, kc.RECEIVE_CASES, kc.INSERT_CASES,
-             kc.SIGNAL_CASES)
-    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 seeded edge "
-        f"cases: {n} of "
+             kc.SIGNAL_CASES, kc.CROSS_CASES, kc.SHADOW_CASES)
+    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 / G4 / G15 "
+        f"seeded edge cases: {n} of "
         f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
         f"not_bitwise={nbit}; the rest bitwise) "
         f"({'; '.join(', '.join(c) for c in cases)})")
@@ -3131,6 +3156,7 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     warm = eng.state    # the step writes no tensor of its input state
+                        # (G15 writes the step's own, in place)
     torch.cuda.reset_peak_memory_stats()
     g0 = eng.growths
     shadows = torch.zeros((), dtype=torch.int64, device=eng.device)
@@ -3221,11 +3247,17 @@ def gen1_profile(step, nsteps, wall_ms, tag):
 
 def record_gen1_calls(step, names):
     """One more call of step() with the wrappers of `names` recording
-    their arguments (the step writes no tensor in place, so references
-    stay valid)."""
+    their arguments as they were at the call. G15 writes the step's own
+    state in place, so its arguments are recorded on a copy
+    (shadow_copy), and where it runs (the lane-change paths), every
+    argument recorded before it in the step that shares storage with a
+    leaf it writes is replaced by a copy taken just before it writes
+    (as_before). No other gen-1 kernel writes a tensor in place."""
     import torch
+    from cityflow_tpu_torch.kernels import shadow_insert as g15
     points = _gen1_points(names)
     orig = {n: getattr(m, n) for m, n in points}
+    orig_g15 = g15.shadow_insert
     calls = {n: [] for _, n in points}
 
     def rec(n):
@@ -3233,15 +3265,179 @@ def record_gen1_calls(step, names):
             calls[n].append((a, k))
             return orig[n](*a, **k)
         return fn
+
+    def g15_rec(*a, **k):
+        as_before(calls, a[1])
+        if "shadow_insert" in calls:
+            calls["shadow_insert"].append((shadow_copy(a), k))
+        return orig_g15(*a, **k)
     try:
         for m, n in points:
             setattr(m, n, rec(n))
+        g15.shadow_insert = g15_rec
         step()
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     finally:
         for m, n in points:
             setattr(m, n, orig[n])
+        g15.shadow_insert = orig_g15
     return calls
+
+
+def as_before(calls, st2):
+    """Replace, in the arguments recorded so far, every tensor that shares
+    storage with a leaf G15 is about to write in st2 by a copy (one copy
+    per tensor, so arguments that were one tensor stay one)."""
+    import dataclasses
+    import torch
+    from cityflow_tpu_torch.kernels.shadow_insert import LEAVES
+    ptrs = {getattr(st2, f).untyped_storage().data_ptr()
+            for f in LEAVES + ("seq_counter", "overflow")}
+    memo = {}
+
+    def fix(x):
+        if isinstance(x, torch.Tensor):
+            if x.untyped_storage().data_ptr() not in ptrs:
+                return x
+            if id(x) not in memo:
+                memo[id(x)] = x.clone()
+            return memo[id(x)]
+        if isinstance(x, (tuple, list)):
+            return type(x)(fix(y) for y in x)
+        if isinstance(x, dict):
+            return {key: fix(y) for key, y in x.items()}
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            new = {f.name: fix(getattr(x, f.name))
+                   for f in dataclasses.fields(x)}
+            if any(v is not getattr(x, f) for f, v in new.items()):
+                return dataclasses.replace(x, **new)
+        return x
+    for n, cs in calls.items():
+        calls[n] = [(fix(a), fix(k)) for a, k in cs]
+
+
+def shadow_copy(a):
+    """G15's arguments with what it writes in place copied: st2's per-slot
+    leaves, seq_counter and overflow (st shares the copies where it shared
+    st2's tensors, and the target where it is st2's lc_target), so that a
+    call on the copy sees the state as the recorded call did."""
+    from cityflow_tpu_torch.kernels.shadow_insert import LEAVES
+    st, st2, do_change, target, MS = a
+    new = {f: getattr(st2, f).clone()
+           for f in LEAVES + ("seq_counter", "overflow")}
+    return (st.replace_fields(**{f: v for f, v in new.items()
+                                 if getattr(st, f) is getattr(st2, f)}),
+            st2.replace_fields(**new), do_change,
+            new["lc_target"] if target is st2.lc_target else target, MS)
+
+
+def _g4_pieces(a):
+    """G4's arguments cut along the env axis into pieces whose (envs, V,
+    KC) slabs hold at most 2^27 entries (the net tables shared)."""
+    B, V = a[0].shape
+    KC = a[9]["lnk_cross_d"].shape[1]
+    n = max(1, min(B, 2 ** 27 // max(V * KC, 1)))
+    for b0 in range(0, B, n):
+        cut = lambda t: t[b0:b0 + n]
+        yield tuple(cut(t) for t in a[:8]) + (
+            {f: cut(v) for f, v in a[8].items()}, a[9])
+
+
+def cross_plain_by_envs(*a):
+    """cross_pass_plain piece by piece of envs (_g4_pieces; each env's
+    result is its own), so that the (B, V, KC) slabs of the largest path
+    fit the card beside its state."""
+    import torch
+    from cityflow_tpu_torch.kernels.cross_pass import cross_pass_plain
+    outs = [cross_pass_plain(*p) for p in _g4_pieces(a)]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def cross_funnel(a):
+    """What G4's lazy decision reads on this call's data (csrc/
+    cross_pass.cu's order), counted over each vehicle's crosses up to its
+    first failure from the plain version's decision terms: `crosses`
+    walked (cvalid read), `considered` (valid, cd >= dls), then how many
+    of those passed on !self_yield and on !o_exists, read o_yield, passed
+    on t1 > t2, needed reach_steps (the foe at dpos; o_cleared read
+    otherwise), broke a reach tie (o_ent, then o_dist / o_pri) and read
+    o_cyc; `fails`, `blockers` (o_idx read); and `bytes` / `ops`, the
+    bound's count."""
+    import torch
+    from cityflow_tpu_torch.kernels.cross_pass import cross_pass_plain
+    c = dict.fromkeys(("crosses", "considered", "no_self_yield", "no_foe",
+                       "foe_yield_read", "t1_gt_t2", "reach", "cleared_read",
+                       "tie", "tie_dist", "cyc_read", "fails", "blockers",
+                       "valid"), 0)
+    fs = a[1].element_size()
+    nveh = nll = 0
+    for piece in _g4_pieces(a):
+        the_ll, blk_ok = piece[0], piece[7]
+        KC = piece[9]["lnk_cross_d"].shape[1]
+        (_, any_fail, _, _), m = cross_pass_plain(*piece, masks=True)
+        cons, sy, ex, yl = (m["considered"], m["self_yield"], m["exists"],
+                            m["foe_yield"])
+        dec = cons & sy & ex                   # read o_yield
+        typ = dec & yl & ~m["t1_gt_t2"]        # read o_dpos
+        reach = typ & m["dpos"]
+        tie = reach & m["reach_eq"] & m["t1_eq_t2"]
+        # o_cyc is read where y is 1: the foe cannot yield, or y0 fails
+        cyc = dec & (~yl | (typ & (m["y0"] != -1)))
+        first = torch.where(any_fail, m["fail"].int().argmax(-1), KC - 1)
+        walked = (torch.arange(KC, device=the_ll.device)
+                  <= first[..., None]) & (the_ll >= 0)[..., None]
+        w = lambda x: int((x & walked).sum())
+        for key, x in (("crosses", walked), ("considered", cons),
+                       ("no_self_yield", cons & ~sy),
+                       ("no_foe", cons & sy & ~ex), ("foe_yield_read", dec),
+                       ("t1_gt_t2", dec & yl & m["t1_gt_t2"]),
+                       ("reach", reach), ("cleared_read", typ & ~m["dpos"]),
+                       ("tie", tie), ("tie_dist", tie & m["ent_eq"]),
+                       ("cyc_read", cyc), ("valid", m["valid"])):
+            c[key] += w(x)
+        c["fails"] += int(any_fail.sum())
+        c["blockers"] += int((any_fail & blk_ok).sum())
+        nveh += the_ll.numel()
+        nll += int((the_ll >= 0).sum())
+    # per vehicle its inputs (the_ll, dls, speed, seven params, next_turn)
+    # and four outputs, its lanelink's type and turn flag; per cross
+    # walked cvalid, cd where valid; per considered cross that yields
+    # foe_pos and o_exists; then each term where the decision reads it
+    # (foetype and o_dpos where the foe can yield, o_reach at dpos, the
+    # two ent, then o_dist and the two pri on a tie); blk_ok at a failure,
+    # o_idx at a blocking one
+    typed = c["reach"] + c["cleared_read"]
+    nbytes = (nveh * (4 + 9 * fs + 1) + nveh * (2 * fs + 5) + nll * 5
+              + c["crosses"] + c["valid"] * fs
+              + (c["considered"] - c["no_self_yield"]) * 5
+              + c["foe_yield_read"] + (c["t1_gt_t2"] + typed) * 4
+              + typed + c["cleared_read"] + c["reach"] * 4 + c["tie"] * 8
+              + c["tie_dist"] * (fs + 8) + c["cyc_read"]
+              + c["fails"] + c["blockers"] * 4)
+    c["bytes"] = nbytes
+    c["ops"] = c["considered"] * 8 + c["reach"] * 30 + nveh * 30
+    return c
+
+
+def shadow_work(a):
+    """(bytes, operations) of one G15 call, in place: the change and
+    active flags scanned, per pair its real's copied row, target and uid
+    in and the shadow's whole row and the real's partner out, the env's
+    seq_counter and overflow in and out (the out-of-place insert's count
+    was every per-slot leaf read and written)."""
+    import torch
+    from cityflow_tpu_torch.kernels.shadow_insert import (
+        K_COPY, LEAVES, leaf_kind)
+    st, st2, do_change, target, MS = a
+    B = do_change.shape[0]
+    width = {f: getattr(st2, f)[0, 0].numel() * getattr(st2, f)
+             .element_size() for f in LEAVES}
+    npair = int(torch.minimum(do_change.sum(-1).clamp(max=MS),
+                              (~st.active).sum(-1).clamp(max=MS)).sum())
+    row_in = sum(w for f, w in width.items() if leaf_kind(f) == K_COPY) + 8
+    return 2 * do_change.numel() + npair * (
+        row_in + sum(width.values()) + 4) + B * 16, 2 * do_change.numel()
 
 
 def gen1_work(n, a, k, out):
@@ -3337,20 +3533,10 @@ def gen1_work(n, a, k, out):
         return ins + nenv * LL * KC * (5 + fs + 16), \
             nenv * LL * KC * (3 * (K + 2) + 60)
     if n == "cross_pass":
-        the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own, net = a
-        fs = dls.element_size()
-        V = the_ll.numel()
-        LL = net["lnk_cross_d"].shape[0]
-        safe = the_ll.clamp(0, LL - 1).long()
-        d = net["lnk_cross_d"][safe]
-        cons = net["lnk_cross_valid"][safe] & (the_ll >= 0)[..., None] \
-            & (d >= dls[..., None])
-        any_fail, ff_d = out[1], out[2]
-        # the crosses up to the first one it must yield at
-        need = int((cons & (~any_fail[..., None] | (d <= ff_d[..., None])))
-                   .sum())
-        return V * (4 + 10 * fs + 4 + 4 + 1 + 1 + 21) \
-            + need * (30 + 2 * fs), need * 100 + V * 30
+        # what the lazy decision reads (cross_funnel), not every foe term
+        # of every cross up to the first failure
+        c = cross_funnel(a)
+        return c["bytes"], c["ops"]
     if n == "hist_window":
         last_of, leader, speed, ring_num = a[:4]
         fs = speed.element_size()
@@ -3377,18 +3563,7 @@ def gen1_work(n, a, k, out):
         return (V * (1 + 4 + dis.element_size() + 4) + last_of.numel() * 4
                 + L * 12 + V * 24), visits * 6 + V * 10
     if n == "shadow_insert":
-        st, st2, do_change, target, MS = a
-        from cityflow_tpu_torch.kernels.shadow_insert import LEAVES
-        # every per-slot leaf read once and written once (the insert
-        # returns a new state), the change and active flags read by the
-        # scan, each pair's target, uid and the env's ticket; a compare per
-        # slot and flag
-        state = sum(getattr(st2, k).numel() * getattr(st2, k).element_size()
-                    for k in LEAVES)
-        npair = int((out["is_shadow"] & ~st2.is_shadow).sum())
-        B = do_change.shape[0]
-        return 2 * state + 2 * do_change.numel() + npair * 8 + B * 16, \
-            2 * do_change.numel()
+        return shadow_work(a)
     if n == "spawn_slots":
         st, tbl, flow_params, MS = a[0], a[1], a[2], a[4]
         from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
@@ -3476,13 +3651,60 @@ def _mode_label(n):
     return f"{n}@{'fast' if n in FAST_BRANCH else 'f32'}"
 
 
+def _gen1_plain(n, mod):
+    """G kernel n's plain version as the checks call it: G4's piece by
+    piece of envs (cross_plain_by_envs: the same values in less memory)."""
+    return cross_plain_by_envs if n == "cross_pass" \
+        else getattr(mod, n + "_plain")
+
+
+def _gen1_call(n, fn, a, k):
+    """fn (kernel or plain version of G kernel n) on recorded call (a, k):
+    G15 on a fresh copy of what it writes in place."""
+    return fn(*shadow_copy(a), **k) if n == "shadow_insert" else fn(*a, **k)
+
+
+def _time_gen1(n, fn, a, k, reps):
+    """time_cuda of fn on (a, k); G15 each call on a fresh copy
+    (time_cuda_fresh, the copies untimed)."""
+    if n == "shadow_insert":
+        return time_cuda_fresh(lambda: shadow_copy(a),
+                               lambda x: fn(*x, **k), reps)
+    return time_cuda(lambda: fn(*a, **k), reps)
+
+
+def _gen1_bound(n, a, k, kern):
+    """gen1_work of a recorded call (G4 and G15 count from their
+    arguments; the others from the kernel's outputs too)."""
+    return gen1_work(
+        f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
+        None if n in ("cross_pass", "shadow_insert") else kern(*a, **k))
+
+
+def log_cross_funnel(tag, calls):
+    """The funnel line of G4's calls on a path (cross_funnel, summed)."""
+    tot = {}
+    for a, _ in calls:
+        for key, v in cross_funnel(a).items():
+            tot[key] = tot.get(key, 0) + v
+    log(f"[{tag}] cross_pass funnel over {len(calls)} calls: crosses "
+        f"walked {tot['crosses']}, considered {tot['considered']}, passed "
+        f"on !self_yield {tot['no_self_yield']}, on !o_exists "
+        f"{tot['no_foe']}, on t1 > t2 {tot['t1_gt_t2']}, needed "
+        f"reach_steps {tot['reach']} (o_cleared read {tot['cleared_read']}"
+        f", reach ties {tot['tie']}, o_cyc read {tot['cyc_read']}), "
+        f"failures {tot['fails']}, blockers {tot['blockers']}; bound "
+        f"bytes {tot['bytes']}")
+    return tot
+
+
 def _check_call(n, kern, plain, a, k, rel_tol):
     """One recorded call of G kernel n: the kernel against its plain
-    version, every output bitwise, except float outputs within `rel_tol`
-    relative where it is not None; returns the largest absolute
-    difference."""
-    got = [t for t in _flat(kern(*a, **k)) if t is not None]
-    want = [t for t in _flat(plain(*a, **k)) if t is not None]
+    version (G15 each on its own fresh copy), every output bitwise, except
+    float outputs within `rel_tol` relative where it is not None; returns
+    the largest absolute difference."""
+    got = [t for t in _flat(_gen1_call(n, kern, a, k)) if t is not None]
+    want = [t for t in _flat(_gen1_call(n, plain, a, k)) if t is not None]
     assert len(got) == len(want), f"{n}: outputs differ in number"
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
@@ -3495,7 +3717,7 @@ def _check_call(n, kern, plain, a, k, rel_tol):
     return err
 
 
-def check_gen1_kernels(eng, reps, names, fast=False, untimed=()):
+def check_gen1_kernels(eng, reps, names, fast=False, untimed=(), tag=None):
     """The kernels of `names` and `untimed` against their plain versions on
     every call of one more step of a gen-1 path, bitwise (fast mode: G10's
     unordered finish sum and G5's speed sums within 1e-6 relative); those
@@ -3509,10 +3731,12 @@ def check_gen1_kernels(eng, reps, names, fast=False, untimed=()):
     from cityflow_tpu_torch import kernels
     names = tuple(names) + tuple(untimed)
     calls = record_gen1_calls(eng.next_step, names)
+    if "cross_pass" in names:
+        log_cross_funnel(tag, calls["cross_pass"])
     rows = []
     for n in names:
         mod = kernels.MODULES[n]
-        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        kern, plain = getattr(mod, n), _gen1_plain(n, mod)
         assert calls[n], f"{n}: no call recorded"
         rel_tol = 1e-6 if fast and n in ("update_location", "hist_window") \
             else None
@@ -3544,8 +3768,8 @@ def check_gen1_kernels(eng, reps, names, fast=False, untimed=()):
             label = _mode_label(n) if fast else _gen1_label(n, a)
             timed.setdefault(label, (a, k))
         for label, (a, k) in timed.items():
-            ms = time_cuda(lambda: kern(*a, **k), reps)
-            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+            ms = _time_gen1(n, kern, a, k, reps)
+            plain_ms = _time_gen1(n, plain, a, k, reps)
             lib = None
             if n == "hist_window":
                 lib = index_add_ms(a, reps)
@@ -3553,9 +3777,7 @@ def check_gen1_kernels(eng, reps, names, fast=False, untimed=()):
                 lib = sort_sum_ms(a, reps)
             elif n == "admit_heads":
                 lib = heads_amin_ms(a, reps)
-            nbytes, nops = gen1_work(
-                f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
-                kern(*a, **k))
+            nbytes, nops = _gen1_bound(n, a, k, kern)
             rows.append(kernel_row(
                 label, max(errs), ms, plain_ms, nbytes, nops, lib,
                 flops=H100_F32_FLOPS if fast else H100_F64_FLOPS))
@@ -3974,10 +4196,11 @@ def check_gen1_batch_kernels(ctx, reps, batch):
     def one():
         holder[0] = step_mod.step(net, cfg, holder[0], spawn)
     calls = record_gen1_calls(one, GEN1_KERNELS)
+    log_cross_funnel("gen1-batch", calls["cross_pass"])
     rows = []
     for n in GEN1_KERNELS:
         mod = kernels.MODULES[n]
-        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        kern, plain = getattr(mod, n), _gen1_plain(n, mod)
         assert calls[n], f"{n}: no call recorded"
         rel_tol = 1e-6 if n == "update_location" else None
         errs = []
@@ -3988,14 +4211,14 @@ def check_gen1_batch_kernels(ctx, reps, batch):
         log(f"[kernels] {n}: {len(calls[n])} calls at B={batch} equal to the "
             f"plain version ({how})")
         a, k = calls[n][-1] if n == "leader_scan" else calls[n][0]
-        ms = time_cuda(lambda: kern(*a, **k), reps)
-        plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+        ms = _time_gen1(n, kern, a, k, reps)
+        plain_ms = _time_gen1(n, plain, a, k, reps)
         lib = None
         if n == "update_location":
             lib = sort_sum_ms(a, reps)
         elif n == "admit_heads":
             lib = heads_amin_ms(a, reps)
-        nbytes, nops = gen1_work(n, a, k, kern(*a, **k))
+        nbytes, nops = _gen1_bound(n, a, k, kern)
         label = f"{n}@batch"
         rows.append(kernel_row(label, max(errs), ms, plain_ms, nbytes, nops,
                                lib))
@@ -4140,6 +4363,17 @@ def run_gen1_env(cfg_path, batch, warmup, steps, pool):
 
     def one():
         env.step(env.max_pressure_actions())
+    # G4 on every call of one more step, and its funnel
+    g4 = kernels.MODULES["cross_pass"]
+    calls = record_gen1_calls(one, ("cross_pass",))["cross_pass"]
+    assert calls, "cross_pass: no call recorded on [gen1-env]"
+    for a, k in calls:
+        _batch_args_ok("cross_pass", a, k, batch)
+        _check_call("cross_pass", g4.cross_pass, cross_plain_by_envs, a, k,
+                    None)
+    log(f"[kernels] cross_pass: {len(calls)} calls of one more [gen1-env] "
+        f"step at B={batch} equal to the plain version (bitwise)")
+    log_cross_funnel("gen1-env", calls)
     res = _gen1_batch_report("gen1-env", one, launches, steps, batch, dt,
                              GEN1_KERNELS + ("lane_counts", "phase_scores"))
     res.update(warmup=warmup, vehicles=veh, pool=pool,
@@ -4362,23 +4596,27 @@ def run_gen1_lc_batch(ctx, batch, steps):
 
 def check_gen1_lcb_kernels(ctx, reps, batch):
     """On every call of one more [gen1-lc-batch] step: G5-G8 (every mode
-    of G7 and G8) and G15 against their plain versions, each call asserted
-    to span the `batch` envs: bitwise, G5's speed sums within 1e-6
-    relative (float32, as pinned). Timed on the first call of each kernel
-    and mode (rows <name>@lcbatch), G5 beside index_add_; G15 has no one
-    library call that computes its function."""
+    of G7 and G8), G15 (kernel and plain version each on a fresh copy of
+    the state it writes in place) and G4 against their plain versions,
+    each call asserted to span the `batch` envs: bitwise, G5's speed sums
+    within 1e-6 relative (float32, as pinned); G4's funnel printed. Timed
+    on the first call of each kernel and mode (rows <name>@lcbatch; G15
+    each call on a fresh copy), G5 beside index_add_; G4 and G15 have no
+    one library call that computes their function."""
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.core import step as step_mod
     net, cfg, spawn, holder = ctx
 
     def one():
         holder[0] = step_mod.step(net, cfg, holder[0], spawn)
-    calls = record_gen1_calls(one, GEN1_LC_KERNELS)
+    names = GEN1_LC_KERNELS + ("cross_pass",)
+    calls = record_gen1_calls(one, names)
     del holder[:]
+    log_cross_funnel("gen1-lc-batch", calls["cross_pass"])
     rows = []
-    for n in GEN1_LC_KERNELS:
+    for n in names:
         mod = kernels.MODULES[n]
-        kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
+        kern, plain = getattr(mod, n), _gen1_plain(n, mod)
         assert calls[n], f"{n}: no call recorded"
         rel_tol = 1e-6 if n == "hist_window" else None
         errs = []
@@ -4392,12 +4630,10 @@ def check_gen1_lcb_kernels(ctx, reps, batch):
         for a, k in calls[n]:
             timed.setdefault(_gen1_label(n, a), (a, k))
         for label, (a, k) in timed.items():
-            ms = time_cuda(lambda: kern(*a, **k), reps)
-            plain_ms = time_cuda(lambda: plain(*a, **k), reps)
+            ms = _time_gen1(n, kern, a, k, reps)
+            plain_ms = _time_gen1(n, plain, a, k, reps)
             lib = index_add_ms(a, reps) if n == "hist_window" else None
-            nbytes, nops = gen1_work(
-                f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
-                kern(*a, **k))
+            nbytes, nops = _gen1_bound(n, a, k, kern)
             rows.append(kernel_row(label + "@lcbatch", max(errs), ms,
                                    plain_ms, nbytes, nops, lib))
     return rows
@@ -4547,7 +4783,7 @@ def main():
     gen1_launches, gen1_res, eng, _ = run_gen1(cfg_path, GEN1_WARMUP,
                                             GEN1_STEPS)
     log(f"[gen1] {json.dumps(gen1_res)}")
-    rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS)
+    rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS, tag="gen1")
     del eng
     torch.cuda.empty_cache()
     # gen-1 lane change under the DURATION router
@@ -4565,7 +4801,8 @@ def main():
         names=GEN1_KERNELS + GEN1_LC_KERNELS)
     log(f"[gen1-lc] {json.dumps(glc_res)}")
     rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS,
-                               untimed=("spawn_slots", "admit_heads"))
+                               untimed=("spawn_slots", "admit_heads",
+                                        "cross_pass"), tag="gen1-lc")
     # what [gen1-lc-batch] starts from: the warm state, the pool, tables
     glc_ctx = (eng.net, eng._spawn_dev, eng.cfg, glc_warm)
     del eng, glc_warm
@@ -4583,7 +4820,8 @@ def main():
         cfg_path, GEN1_WARMUP, GEN1_STEPS, tag="gen1-fast", exact=False,
         modes=GEN1_FAST_MODES)
     log(f"[gen1-fast] {json.dumps(fast_res)}")
-    rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS, fast=True)
+    rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS, fast=True,
+                               tag="gen1-fast")
     del eng
     torch.cuda.empty_cache()
     lcd = prepare(os.path.join(fix, "config_2x2_lc.json"),

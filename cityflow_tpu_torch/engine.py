@@ -14,9 +14,11 @@ and replay files. Three steps serve it:
   (ring_backend.RingShell), where the scenario fits the ring layout
   ("auto" falls back to gen-1 fast mode where it does not).
 
-State tensors are never written in place, here, in the shells or in the
-steps: a snapshot shares them with the engine, and the capacity-growth
-retry runs a step again from the state it started from.
+No state tensor the engine holds is written in place, here, in the shells
+or in the steps (G15 shadow_insert writes the step's own state in place,
+whose per-slot leaves G11 spawn_slots made fresh): a snapshot shares them
+with the engine, and the capacity-growth retry runs a step again from the
+state it started from.
 """
 
 import copy
@@ -48,8 +50,8 @@ FETCHED = ("active", "running", "dis", "speed", "drv", "prev_drv", "route",
 
 class Archive:
     """In-memory snapshot (reference: src/engine/archive.{h,cpp}). The
-    engine never writes state tensors in place, so a snapshot holds the
-    state by reference."""
+    engine never writes a state tensor it holds in place, so a snapshot
+    holds the state by reference."""
 
     def __init__(self, state: SimState, host_aux: dict):
         self.state = state

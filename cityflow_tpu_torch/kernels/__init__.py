@@ -37,7 +37,8 @@ counter:
   G14 phase_scores   gen-1 intersection pressure, MaxPressure phase
                      pressures and choice, the DQN's per-phase features
   G15 shadow_insert  gen-1 lane change: the shadows into each env's first
-                     free slots, every per-slot leaf written
+                     free slots, in place (the pairs' rows of every
+                     per-slot leaf)
   T1 tpl_params      vehicle template index -> template parameters
   R1 notify_winners  ring step: each cross's notifier and its canPass
                      terms, the blocker-cycle flag (the foe exchange's

@@ -32,6 +32,7 @@ from cityflow_tpu_torch.kernels.notify_cross import OWN
 
 launches = 0
 launches_f32 = 0       # float32 (fast-mode) launches among them
+I32_MAX = 2 ** 31 - 1
 TABLES = ("lnk_cross_d", "lnk_cross_valid", "lnk_cross_foetype",
           "lnk_cross_foe_pos", "ll_type", "ll_is_turn")
 
@@ -43,14 +44,15 @@ class _Args(ctypes.Structure):
         "ll_is_turn", "o_exists", "o_yield", "o_cleared", "o_cyc", "o_dpos",
         "o_dist", "o_reach", "o_ent", "o_pri", "o_idx", "interval", "v_isr",
         "any_fail", "ff_d", "new_blocker")]
-        + [(n, ctypes.c_longlong) for n in ("B", "V", "LL", "KC", "NP",
-                                            "fp32")])
+        + [(n, ctypes.c_int) for n in ("B", "V", "LL", "KC", "NP", "fp32")])
 
 
 def cross_pass_plain(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok,
-                     own, net):
+                     own, net, masks=False):
     """Plain PyTorch version: the JAX package's (..., V, KC) slabs, the
-    foe side gathered through lnk_cross_foe_pos."""
+    foe side gathered through lnk_cross_foe_pos. With `masks`, also the
+    (..., V, KC) terms of the decision (for counting what the kernel's
+    lazy order reads: chip_smoke.cross_funnel)."""
     p = params
     dt = net["interval"]
     LL = net["lnk_cross_d"].shape[0]
@@ -109,7 +111,23 @@ def cross_pass_plain(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok,
                                ff_d - dls - p[..., P_YIELD], dt)
     v_isr = torch.where(any_fail, ref_min(v_isr, v_stop), v_isr)
     new_blocker = torch.where(blk_ok & any_fail, ff_foe, -1)
+    if masks:
+        return (v_isr, any_fail, ff_d, new_blocker), dict(
+            valid=cvalid, considered=cvalid & (d_onl >= dls[..., None]),
+            self_yield=self_yield, exists=erows(foe["exists"]),
+            foe_yield=erows(foe["yield"]), t1_gt_t2=(t1 > t2).expand_as(t2),
+            t1_eq_t2=(t1 == t2).expand_as(t2), dpos=foe_dpos,
+            reach_eq=fr == sr, ent_eq=my_ent == foe_ent, y0=y0, fail=fail)
     return v_isr, any_fail, ff_d, new_blocker
+
+
+def offsets_fit(B, V, NP, LL, KC):
+    """The kernel's offsets are 32-bit: B * V * NP (the params) and B * LL
+    * KC (G3's tables) must fit, or this raises (the CPU path too, so that
+    the tests see the refusal)."""
+    if max(B * V * NP, B * LL * KC) > I32_MAX:
+        raise ValueError(f"cross_pass: B={B} V={V} NP={NP} LL={LL} KC={KC} "
+                         "do not fit the kernel's 32-bit offsets")
 
 
 def cross_pass(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own,
@@ -139,6 +157,7 @@ def cross_pass(the_ll, dls, speed, params, ent, pri, next_turn, blk_ok, own,
         if tuple(t.shape) != lead[:-1] + (LL, KC):
             raise ValueError(f"cross_pass: own[{k!r}] {tuple(t.shape)} != "
                              f"{lead[:-1] + (LL, KC)}")
+    offsets_fit(*lead, params.shape[-1], LL, KC)
     if cpu:
         return cross_pass_plain(the_ll, dls, speed, params, ent, pri,
                                 next_turn, blk_ok, own, net)

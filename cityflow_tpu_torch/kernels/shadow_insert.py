@@ -16,8 +16,13 @@ left sets OV_SLOTS in its own overflow.
 shadow_insert(st, st2, do_change, target, MS): `st` the state before the
 plan (its active flags, uids and seq_counter), `st2` the planned state
 whose leaves the shadows copy, do_change (B, V) bool and target (B, V)
-i32 from G7. Returns the new per-slot leaves, seq_counter and overflow
-(new tensors; neither state is written).
+i32 from G7. It writes IN PLACE st2's per-slot leaves (the pairs' rows
+only), seq_counter and overflow, and returns them. `st` may share tensors
+with `st2` (plan_lane_change's st2 is st with the plan's fields
+replaced): every value is read before it is written. A changer must be
+active and a free slot is not, so no row is both read and written; the
+step meets this (tests/test_torch_shadow_cases.py). A caller that keeps
+`st2`'s leaves passes copies.
 """
 
 import ctypes
@@ -25,7 +30,7 @@ import ctypes
 import torch
 
 from cityflow_tpu_torch.core.state import OV_SLOTS, SLOT_FILL
-from cityflow_tpu_torch.core.step import _first_true, _scat_drop, egat
+from cityflow_tpu_torch.core.step import _first_true
 from cityflow_tpu_torch.kernels import _lib
 from cityflow_tpu_torch.kernels.spawn_slots import MAX_LEAVES, _bits
 
@@ -55,48 +60,78 @@ def leaf_kind(k):
     return KIND.get(k, K_CONST if k in SET else K_COPY)
 
 
+SI_TILE = 256 * 16        # slots one block scans a tile (csrc: SI_THREADS)
+MAX_NCH = 256             # chunks an env
+I32_MAX = 2 ** 31 - 1
+
+
+class _Leaf(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p), ("width", ctypes.c_int),
+                ("kind", ctypes.c_int), ("cbits", ctypes.c_longlong)]
+
+
 class _Args(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "do_change", "active", "target", "uid", "seq", "overflow", "pairs",
-        "seq_out", "overflow_out")]
-        + [("src", ctypes.c_void_p * MAX_LEAVES),
-           ("dst", ctypes.c_void_p * MAX_LEAVES),
-           ("width", ctypes.c_longlong * MAX_LEAVES),
-           ("kind", ctypes.c_longlong * MAX_LEAVES),
-           ("cbits", ctypes.c_longlong * MAX_LEAVES)]
-        + [(n, ctypes.c_longlong) for n in ("B", "V", "MS", "nleaf",
-                                            "fp32")])
+    _fields_ = ([("leaf", _Leaf * MAX_LEAVES)]
+                + [(n, ctypes.c_void_p) for n in (
+                    "do_change", "active", "target", "uid", "seq_in",
+                    "seq_out", "overflow", "cnt", "pos")]
+                + [(n, ctypes.c_int) for n in ("B", "V", "MS", "nleaf", "nch",
+                                               "chunk")])
+
+
+def chunks(B, V):
+    """(chunks an env, slots a chunk) of the scan: about 1024 blocks over
+    the B envs, a chunk a multiple of SI_TILE and at most MAX_NCH an env."""
+    tiles = max(1, -(-V // SI_TILE))
+    nch = min(tiles, max(1, -(-1024 // B)), MAX_NCH)
+    chunk = -(-tiles // nch) * SI_TILE
+    return -(-max(V, 1) // chunk), chunk
 
 
 def shadow_insert_plain(st, st2, do_change, target, MS):
     """Plain PyTorch version: the JAX package's insert (lanechange.py:
-    228-291) along each env's slot axis: an int-cumsum compaction for the
-    changers and the free slots, one drop-row scatter per leaf."""
-    V = st.dis.shape[-1]
+    228-291) along each env's slot axis (an int-cumsum compaction for the
+    changers and the free slots), in place: every new value read first,
+    then written into the pairs' rows with index_put_ (a boolean mask
+    picks the pairs: a host sync, which the kernel does not make)."""
+    B = do_change.shape[0]
     changers = _first_true(do_change, MS)
     free = _first_true(~st.active, MS)
     ok = (changers >= 0) & (free >= 0)
     ov = torch.any((changers >= 0) & (free < 0), -1)
-    src = torch.where(ok, changers, V)
-    dst = torch.where(ok, free, V)
-    src_c = src.clamp(0, V - 1)
-    uid_src = egat(st.uid, src_c)
-    val = {K_DRV: egat(target, src_c), K_PRIORITY: SHADOW_BIT + uid_src,
-           K_UID: uid_src | SHADOW_BIT, K_SEQ: st.seq_counter[:, None],
-           K_PARTNER: src}
-    out = {}
+    env = torch.arange(B, device=ok.device)[:, None].expand(ok.shape)[ok]
+    src, dst = changers[ok].long(), free[ok].long()
+    uid_src = st.uid[env, src]
+    val = {K_DRV: target[env, src], K_PRIORITY: SHADOW_BIT + uid_src,
+           K_UID: uid_src | SHADOW_BIT, K_SEQ: st.seq_counter[env],
+           K_PARTNER: src.to(torch.int32)}
+    new = {}
     for k in LEAVES:
-        a = getattr(st2, k)
         kind = leaf_kind(k)
-        v = (egat(a, src_c) if kind == K_COPY
-             else SET[k] if kind == K_CONST else val[kind])
-        out[k] = _scat_drop(a, dst, v)
-    # link real -> shadow
-    out["partner"] = _scat_drop(out["partner"], src, dst)
-    out["seq_counter"] = st.seq_counter + 1
-    out["overflow"] = st2.overflow | torch.where(ov, OV_SLOTS, 0).to(
-        torch.int32)
+        new[k] = (getattr(st2, k)[env, src] if kind == K_COPY
+                  else SET[k] if kind == K_CONST else val[kind])
+    seq = st.seq_counter + 1
+    ovf = st2.overflow | torch.where(ov, OV_SLOTS, 0).to(torch.int32)
+    for k in LEAVES:
+        getattr(st2, k)[env, dst] = new[k]
+    st2.partner[env, src] = dst.to(torch.int32)      # link real -> shadow
+    st2.seq_counter.copy_(seq)
+    st2.overflow.copy_(ovf)
+    return _written(st2)
+
+
+def _written(st2):
+    out = {k: getattr(st2, k) for k in LEAVES}
+    out["seq_counter"], out["overflow"] = st2.seq_counter, st2.overflow
     return out
+
+
+def offsets_fit(B, V):
+    """The kernel's slot offsets are 32-bit: B * V must fit, or this
+    raises (the CPU path too, so that the tests see the refusal)."""
+    if B * V > I32_MAX:
+        raise ValueError(f"shadow_insert: B={B} V={V} do not fit the "
+                         "kernel's 32-bit offsets")
 
 
 def shadow_insert(st, st2, do_change, target, MS):
@@ -105,18 +140,20 @@ def shadow_insert(st, st2, do_change, target, MS):
     leaves = [getattr(st2, k) for k in LEAVES]
     i32, b8 = (torch.int32,), (torch.bool,)
     _lib.check_args("shadow_insert", do_change, st.active, target, st.uid,
-                    st.seq_counter, st2.overflow, st.dis, st2.dis,
-                    dtypes=[b8, b8, i32, i32, i32, i32, _lib.FLOATS,
-                            _lib.FLOATS], cuda=not cpu)
+                    st.seq_counter, st2.seq_counter, st2.overflow, st.dis,
+                    st2.dis, dtypes=[b8, b8, i32, i32, i32, i32, i32,
+                                     _lib.FLOATS, _lib.FLOATS], cuda=not cpu)
     _lib.check_args("shadow_insert", *leaves, cuda=not cpu)
     BV = tuple(st.active.shape)
     if len(BV) != 2 or any(tuple(t.shape[:2]) != BV for t in leaves) \
             or tuple(do_change.shape) != BV or tuple(target.shape) != BV \
             or tuple(st.uid.shape) != BV \
             or tuple(st.seq_counter.shape) != BV[:1] \
+            or tuple(st2.seq_counter.shape) != BV[:1] \
             or tuple(st2.overflow.shape) != BV[:1]:
         raise ValueError("shadow_insert: per-slot leaves must be (B, V, "
                          "...) with the scalars (B,)")
+    offsets_fit(*BV)
     if cpu:
         return shadow_insert_plain(st, st2, do_change, target, MS)
     return _launch(st, st2, do_change, target, MS)
@@ -125,26 +162,28 @@ def shadow_insert(st, st2, do_change, target, MS):
 def _launch(st, st2, do_change, target, MS):
     global launches, launches_f32
     B, V = st.active.shape
-    dev = st.dis.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = {k: torch.empty_like(getattr(st2, k)) for k in LEAVES}
-    out["seq_counter"] = torch.empty(B, **i32)
-    out["overflow"] = torch.empty(B, **i32)
-    pairs = torch.empty((B, 2, max(MS, 1)), **i32)
-    a = _Args(*(t.data_ptr() for t in (
-        do_change, st.active, target, st.uid, st.seq_counter, st2.overflow,
-        pairs, out["seq_counter"], out["overflow"])))
+    nch, chunk = chunks(B, V)
+    i32 = dict(dtype=torch.int32, device=st.dis.device)
+    cnt = torch.empty((B, nch, 2), **i32)
+    pos = torch.empty((B, nch, 2, max(MS, 1)), **i32)
+    a = _Args()
     for i, k in enumerate(LEAVES):
-        src = getattr(st2, k)
-        a.src[i] = src.data_ptr()
-        a.dst[i] = out[k].data_ptr()
-        a.width[i] = src[0, 0].numel() * src.element_size()
-        a.kind[i] = leaf_kind(k)
-        a.cbits[i] = _bits(SET[k], src.dtype) if k in SET else 0
-    a.B, a.V, a.MS, a.nleaf = B, V, MS, len(LEAVES)
-    a.fp32 = _lib.fp32("shadow_insert", st.dis, st2.dis, st2.params)
+        t = getattr(st2, k)
+        L = a.leaf[i]
+        L.p = t.data_ptr()
+        L.width = t[0, 0].numel() * t.element_size()
+        L.kind = leaf_kind(k)
+        L.cbits = _bits(SET[k], t.dtype) if k in SET else 0
+    for n, t in (("do_change", do_change), ("active", st.active),
+                 ("target", target), ("uid", st.uid),
+                 ("seq_in", st.seq_counter), ("seq_out", st2.seq_counter),
+                 ("overflow", st2.overflow), ("cnt", cnt), ("pos", pos)):
+        setattr(a, n, t.data_ptr())
+    a.B, a.V, a.MS, a.nleaf, a.nch, a.chunk = B, V, MS, len(LEAVES), nch, \
+        chunk
+    fp32 = _lib.fp32("shadow_insert", st.dis, st2.dis, st2.params)
     _lib.check(_lib.lib().shadow_insert(ctypes.byref(a), _lib.stream_ptr(
         st.dis)), "shadow_insert")
     launches += 1
-    launches_f32 += a.fp32
-    return out
+    launches_f32 += fp32
+    return _written(st2)

@@ -1,5 +1,6 @@
 """Seeded edge cases of K4 ring_commit, T1 tpl_params, K3 car_follow, K2
-cross_caps, L2 lc_receive and G12 admit_heads.
+cross_caps, L2 lc_receive, G12 admit_heads, L3 lc_insert, L1 lc_signal,
+G4 cross_pass and G15 shadow_insert.
 
 The same cases feed the CPU tests (tests/test_torch_commit_cases.py,
 tests/test_torch_follow_cases.py, tests/test_torch_receive_cases.py and
@@ -20,6 +21,11 @@ show right on the CPU.
         args, kw = receive_args(case, device)    # lc_receive(*args, **kw)
     for name, case in admit_cases():
         args = admit_args(case, device)          # admit_heads(*args)
+    for name, case in cross_cases():
+        args = cross_args(case, device)          # cross_pass(*args)
+    for name, case in shadow_cases():
+        args = shadow_args(case, device)         # shadow_insert(*args),
+                                                 # fresh tensors each call
 
 Each case is a dict of numpy arrays and ints, made from its own seed
 (commit_case(name), tpl_case(name): one case without the others).
@@ -59,6 +65,11 @@ approach rows' single enter time.
 L2 (RECEIVE_CASES) and G12 (ADMIT_CASES): the edges each generator's
 docstring names, at B = 1, 3, 128 and 130; L2 at S = 1, 40 and rings
 longer than its kernel's table of 48 receivers, G12 in f64 and f32.
+
+G4 (CROSS_CASES) and G15 (SHADOW_CASES): the edges their generators'
+docstrings name, at B = 1, 3, 128 and 130 in f32 and f64; G4 at KC = 1
+to 20, G15 at MS = 1 to 200 with
+pools of several scan chunks and misaligned views.
 """
 
 import numpy as np
@@ -1022,3 +1033,296 @@ def signal_args(case, device):
     kw = {} if case["tpl"] is None else {
         k: T(case[k]) for k in ("tpl", "table", "olt_len")}
     return args, kw
+
+
+# ---- G4 cross_pass ---------------------------------------------------------
+
+# the vehicle parameter columns G4 reads (compiler/net.py P_*) and a base
+# vehicle: len, maxNegAcc, usualPosAcc, usualNegAcc, maxSpeed, yieldDistance,
+# turnSpeed
+_CP_COLS = (1, 4, 5, 6, 8, 10, 11)
+_CP_BASE = (5.0, 4.5, 2.5, 2.5, 16.0, 5.0, 8.0)
+# own-side table values of a crafted cross (keys of notify_cross.OWN)
+_NO_FOE = dict(exists=False)
+_YIELD_NOW = dict(exists=True, **{"yield": False}, cyc=False)   # fails
+_CYCLE = dict(exists=True, **{"yield": False}, cyc=True)        # passes
+
+
+def _tie(**kw):
+    """A foe at the cross on the same reach step (3), types equal."""
+    return dict(dict(exists=True, **{"yield": True}, dpos=True, cyc=False,
+                     reach=3, cleared=True), **kw)
+
+
+# crafted vehicles, one a slot from slot 0 on, each on its own lanelink
+# row: (vehicle fields, row type, [(cd, foetype, own values, valid), ...])
+# (a cross list longer than KC is cut: its last failure moves to KC - 1)
+def _cp_crafts(KC):
+    base = dict(speed=1.0, dls=-10.0, ent=2, pri=3, blk_ok=True)
+    tie = dict(speed=10.0, dls=0.0, maxspd=8.0, ent=2, pri=3, blk_ok=True)
+    fail_last = [(2.0 + k, 2, _NO_FOE, True) for k in range(KC - 1)] + [
+        (2.0 + KC, 2, _YIELD_NOW, True)]
+    return [
+        (dict(base, the_ll=-1), 2, []),                       # no lanelink
+        (base, 2, fail_last),                                 # fails at KC-1
+        (dict(base, blk_ok=False), 2,                         # fails at 0,
+         [(3.0, 2, _YIELD_NOW, True)]),                       # no blocker
+        (base, 2, [(2.0 + k, 2, _CYCLE, True)                 # no failure
+                   for k in range(KC)]),
+        (tie, 2, [(25.0, 2, _tie(ent=3), True)]),             # ent: pass
+        (tie, 2, [(25.0, 2, _tie(ent=1), True)]),             # ent: fail
+        (tie, 2, [(25.0, 2, _tie(ent=2, dist=30.0), True)]),  # dist: pass
+        (tie, 2, [(25.0, 2, _tie(ent=2, dist=20.0), True)]),  # dist: fail
+        (tie, 2, [(25.0, 2, _tie(ent=2, dist=25.0, pri=2), True)]),  # pri
+        (tie, 2, [(25.0, 2, _tie(ent=2, dist=25.0, pri=3), True)]),  # pri
+        (base, 2, [                                           # the types
+            (3.0, 1, dict(exists=True, **{"yield": True}), True),
+            (4.0, 3, dict(exists=True, **{"yield": True}, dpos=False,
+                          cleared=True), True),
+            (5.0, 3, dict(exists=True, **{"yield": True}, dpos=False,
+                          cleared=False, cyc=True), True),
+            (6.0, 2, dict(exists=True, **{"yield": True}, dpos=False,
+                          cleared=False, cyc=False), True)]),
+        (tie, 1, [                                            # t1 < t2 on
+            (25.0, 2, _tie(reach=4), True),                   # reach steps
+            (31.0, 2, _tie(reach=4, cyc=True), True),
+            (35.0, 2, _tie(reach=2), True)]),
+        (dict(base, dls=20.0), 2, [                           # behind, then
+            (5.0, 2, _YIELD_NOW, True),                       # invalid
+            (22.0, 2, _YIELD_NOW, False),
+            (30.0, 2, _YIELD_NOW, True)]),
+        (dict(base, dls=np.nan), 2, [(3.0, 2, _YIELD_NOW, True)]),
+        (dict(base, dls=-0.0, speed=-0.0), 2, [               # d1 = 0: no
+            (0.0, 2, _YIELD_NOW, True),                       # yield, then
+            (10.0, 2, _YIELD_NOW, True)]),                    # -0.0 speed
+        (dict(base, speed=np.nan), 2, [(3.0, 2, _YIELD_NOW, True)]),
+    ]
+
+
+def _cross_case(rng, B, V, LL, KC, fp, dt=1.0):
+    """One seeded G4 case: B envs of V vehicles over LL lanelinks of KC
+    crosses. The first len(_cp_crafts) vehicles of every env are crafted,
+    each on its own row (foe_pos pointing into the row itself): no
+    lanelink, the first failure at KC - 1, at 0 without blk_ok, no
+    failure, the reach ties broken by ent, then dist, then pri both ways,
+    t1 >, < and = t2 with dpos / cleared, crosses behind the vehicle and
+    invalid ones, NaN and -0.0 in dls and speed. The rest are random:
+    distances before and on the lanelink (some equal to a cross's), speeds
+    from 0, parameters around a base vehicle, NaN and -0.0 sprinkled,
+    G3's tables with every flag mixed and small ent / pri ranges (ties)."""
+    t = np.float32 if fp == "f32" else np.float64
+    E = LL * KC
+    crafts = _cp_crafts(KC)
+    nc = len(crafts)
+    assert LL > nc and V > nc
+    cd = np.sort(rng.uniform(0.0, 40.0, (LL, KC)), axis=1)
+    cvalid = rng.random((LL, KC)) < 0.85
+    cvalid[LL - 1] = False                      # a lanelink without crosses
+    foetype = rng.integers(1, 4, (LL, KC)).astype(np.int32)
+    foe_pos = rng.integers(0, E, (LL, KC)).astype(np.int32)
+    ll_type = rng.integers(1, 4, LL).astype(np.int32)
+    ll_is_turn = rng.random(LL) < 0.4
+    own = {"exists": rng.random((B, E)) < 0.75,
+           "yield": rng.random((B, E)) < 0.5,
+           "cleared": rng.random((B, E)) < 0.35,
+           "cyc": rng.random((B, E)) < 0.2,
+           "dpos": rng.random((B, E)) < 0.5,
+           "dist": rng.uniform(-10.0, 40.0, (B, E)),
+           "reach": rng.integers(0, 8, (B, E)).astype(np.int32),
+           "ent": rng.integers(0, 4, (B, E)).astype(np.int32),
+           "pri": rng.integers(0, 6, (B, E)).astype(np.int32),
+           "idx": rng.integers(-1, V, (B, E)).astype(np.int32)}
+    the_ll = rng.integers(-1, LL, (B, V)).astype(np.int32)
+    dls = rng.uniform(-25.0, 35.0, (B, V))
+    on = the_ll >= 0
+    eq = on & (rng.random((B, V)) < 0.05)       # dls at a cross's distance
+    dls[eq] = cd[the_ll[eq], rng.integers(0, KC, int(eq.sum()))]
+    speed = np.where(rng.random((B, V)) < 0.1, 0.0,
+                     rng.uniform(0.0, 16.0, (B, V)))
+    for a in (dls, speed):
+        r = rng.random((B, V))
+        a[r < 0.03] = np.nan
+        a[(r >= 0.03) & (r < 0.06)] = -0.0
+    params = rng.uniform(0.5, 10.0, (B, V, 12))
+    params[..., list(_CP_COLS)] = np.array(_CP_BASE) * rng.uniform(
+        0.7, 1.3, (B, V, len(_CP_COLS)))
+    ent = rng.integers(0, 4, (B, V)).astype(np.int32)
+    pri = rng.integers(0, 6, (B, V)).astype(np.int32)
+    next_turn = rng.random((B, V)) < 0.4
+    blk_ok = rng.random((B, V)) < 0.7
+    for v, (veh, t1, crosses) in enumerate(crafts):
+        r = v                                   # the vehicle's own row
+        ll_type[r], ll_is_turn[r] = t1, False
+        cvalid[r] = False
+        foe_pos[r] = r * KC + np.arange(KC)
+        for k, (d, t2, vals, valid) in enumerate(crosses[:KC]):
+            cd[r, k], foetype[r, k], cvalid[r, k] = d, t2, valid
+            own["exists"][:, r * KC + k] = False
+            for key, x in vals.items():
+                own[key][:, r * KC + k] = x
+        # the rest of the row past the crafted crosses: distances beyond
+        for k in range(len(crosses[:KC]), KC):
+            cd[r, k] = 100.0 + k
+        veh = dict(veh)
+        the_ll[:, v] = veh.pop("the_ll", r)
+        params[:, v, list(_CP_COLS)] = _CP_BASE
+        if "maxspd" in veh:
+            params[:, v, 8] = veh.pop("maxspd")
+        for key, x in veh.items():
+            {"speed": speed, "dls": dls, "ent": ent, "pri": pri,
+             "blk_ok": blk_ok}[key][:, v] = x
+        next_turn[:, v] = False
+    own = {k: (a.astype(t) if a.dtype.kind == "f" else a).reshape(B, LL, KC)
+           for k, a in own.items()}
+    return dict(
+        the_ll=the_ll, dls=dls.astype(t), speed=speed.astype(t),
+        params=params.astype(t), ent=ent, pri=pri, next_turn=next_turn,
+        blk_ok=blk_ok, own=own, net=dict(
+            lnk_cross_d=cd.astype(t), lnk_cross_valid=cvalid,
+            lnk_cross_foetype=foetype, lnk_cross_foe_pos=foe_pos,
+            ll_type=ll_type, ll_is_turn=ll_is_turn,
+            interval=np.array(dt, t)),
+        ncraft=nc)
+
+
+# name -> (B, V, LL, KC, float type, keywords of _cross_case)
+CROSS_SPECS = {
+    "B1_V37_KC5_f64": (1, 37, 24, 5, "f64", {}),
+    "B3_V130_KC8_f32": (3, 130, 30, 8, "f32", {}),
+    "B128_V256_KC6_f32": (128, 256, 24, 6, "f32", {}),
+    "B130_V200_KC9_f64": (130, 200, 20, 9, "f64", dict(dt=0.5)),
+    "B3_V64_KC1_f64": (3, 64, 20, 1, "f64", {}),
+    "B128_V100_KC20_f64": (128, 100, 40, 20, "f64", {}),
+    "B1_V1001_KC4_f32": (1, 1001, 64, 4, "f32", dict(dt=0.5)),
+}
+CROSS_CASES = tuple(CROSS_SPECS)
+
+
+def cross_case(name, seed=0):
+    """The G4 case `name` (one of CROSS_CASES), from its own seed."""
+    B, V, LL, KC, fp, kw = CROSS_SPECS[name]
+    return _cross_case(np.random.default_rng(
+        [seed, 6000 + CROSS_CASES.index(name)]), B, V, LL, KC, fp, **kw)
+
+
+def cross_cases(seed=0):
+    """(name, case) for each of CROSS_CASES."""
+    for name in CROSS_CASES:
+        yield name, cross_case(name, seed)
+
+
+def cross_args(case, device):
+    """The case as cross_pass' arguments on `device`."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    return tuple(T(case[k]) for k in (
+        "the_ll", "dls", "speed", "params", "ent", "pri", "next_turn",
+        "blk_ok")) + ({k: T(v) for k, v in case["own"].items()},
+                      {k: T(v) for k, v in case["net"].items()})
+
+
+# ---- G15 shadow_insert -----------------------------------------------------
+
+def _shadow_case(rng, B, V, MS, fp, offset=False, crowd=()):
+    """One seeded G15 case: B envs of V slots, each env its own share of
+    active slots and of changers among them (env 0 none where B > 1; a
+    B = 1 case draws its own), every per-slot leaf random in its dtype
+    (uids near INT32_MAX among them: 2^30 + uid wraps), seq_counter and
+    overflow bits random. Env min(1, B - 1) has a changer in its last slot
+    and a free slot at 0; the envs in `crowd` have more changers than MS
+    and fewer free slots than changers (OV_SLOTS). Changers are active
+    (the step's precondition)."""
+    from cityflow_tpu_torch.core.state import SIM_BOOL, SIM_FLOAT, SLOT_FILL
+    t = np.float32 if fp == "f32" else np.float64
+    p_act = rng.uniform(0.3, 0.95, (B, 1))
+    p_chg = rng.uniform(0.0, 0.2, (B, 1))
+    if B > 1:
+        p_chg[0] = 0.0
+    active = rng.random((B, V)) < p_act
+    do_change = active & (rng.random((B, V)) < p_chg)
+    e = min(1, B - 1)
+    active[e, 0], do_change[e, 0] = False, False
+    active[e, V - 1] = do_change[e, V - 1] = True
+    for c in crowd:
+        active[c] = True
+        active[c, rng.choice(V, max(1, MS // 3), replace=False)] = False
+        do_change[c] = active[c] & (rng.random(V) < 0.5)
+    leaves = {}
+    for k in SLOT_FILL:
+        shape = (B, V, 12) if k == "params" else (B, V)
+        if k in SIM_BOOL:
+            leaves[k] = rng.random(shape) < 0.5
+        elif k in SIM_FLOAT:
+            leaves[k] = rng.uniform(-50.0, 300.0, shape).astype(t)
+        else:
+            leaves[k] = rng.integers(-5, 2000, shape).astype(np.int32)
+    leaves["active"] = active
+    uid = rng.integers(0, 10 ** 6, (B, V)).astype(np.int32)
+    big = rng.random((B, V)) < 0.05
+    uid[big] = rng.choice(np.int32([2 ** 31 - 1, 2 ** 30 - 1, 2 ** 30]),
+                          int(big.sum()))
+    leaves["uid"] = np.where(active, uid, -1).astype(np.int32)
+    return dict(
+        leaves=leaves, do_change=do_change,
+        target=rng.integers(0, 60, (B, V)).astype(np.int32),
+        seq_counter=rng.integers(0, 2 ** 31 - 2, B).astype(np.int32),
+        overflow=rng.choice(np.int32([0, 0, 2, 4, 8, 1]), B),
+        MS=MS, offset=offset)
+
+
+# name -> (B, V, MS, float type, keywords of _shadow_case)
+SHADOW_SPECS = {
+    "B1_V37_MS4_f64": (1, 37, 4, "f64", {}),
+    "B1_V64_MS1_f32": (1, 64, 1, "f32", {}),
+    "B1_V512_MS16_f64_crowd": (1, 512, 16, "f64", dict(crowd=(0,))),
+    "B3_V130_MS8_f32": (3, 130, 8, "f32", dict(crowd=(2,))),
+    "B3_V9000_MS64_f64": (3, 9000, 64, "f64", {}),
+    "B1_V20000_MS200_f32": (1, 20000, 200, "f32", {}),
+    "B128_V512_MS16_f32": (128, 512, 16, "f32", dict(crowd=(5, 127))),
+    "B130_V256_MS8_f64": (130, 256, 8, "f64", dict(crowd=(129,))),
+    "B3_V64_MS4_f32_offset": (3, 64, 4, "f32", dict(offset=True)),
+}
+SHADOW_CASES = tuple(SHADOW_SPECS)
+
+
+def shadow_case(name, seed=0):
+    """The G15 case `name` (one of SHADOW_CASES), from its own seed."""
+    B, V, MS, fp, kw = SHADOW_SPECS[name]
+    return _shadow_case(np.random.default_rng(
+        [seed, 7000 + SHADOW_CASES.index(name)]), B, V, MS, fp, **kw)
+
+
+def shadow_cases(seed=0):
+    """(name, case) for each of SHADOW_CASES."""
+    for name in SHADOW_CASES:
+        yield name, shadow_case(name, seed)
+
+
+def shadow_args(case, device):
+    """The case as shadow_insert's arguments on `device`, fresh tensors on
+    every call (G15 writes them in place): (st, st2, do_change, target,
+    MS) with st2 = st and the plan's fields replaced, lc_target being
+    `target` itself, as plan_lane_change passes them; with `offset` every
+    tensor a view one element into a larger buffer."""
+    import torch
+    from cityflow_tpu_torch.core.state import SIM_FIELDS, SimState
+    T = lambda a: _tensor(np.array(a), device, case["offset"])  # copies
+    lv = case["leaves"]
+    B = case["do_change"].shape[0]
+    f = lv["dis"].dtype
+    small = {"phase": np.zeros((B, 1), np.int32),
+             "phase_remain": np.zeros((B, 1), f),
+             "last_of_drv": np.full((B, 1), -1, np.int32),
+             "hist_ring_num": np.zeros((B, 1, 1), f),
+             "hist_ring_ssum": np.zeros((B, 1, 1), f),
+             "hist_num": np.zeros((B, 1), f), "hist_ssum": np.zeros((B, 1), f),
+             "cum_travel": np.zeros(B, f)}
+    vals = {k: lv[k] if k in lv else small.get(k, np.zeros(B, np.int32))
+            for k in SIM_FIELDS}
+    vals["seq_counter"], vals["overflow"] = case["seq_counter"], \
+        case["overflow"]
+    st = SimState(**{k: T(v) for k, v in vals.items()})
+    target = T(case["target"])
+    st2 = st.replace_fields(lc_target=target, lc_changing=T(
+        lv["lc_changing"] | case["do_change"]), lc_lgap=T(lv["lc_lgap"]))
+    return st, st2, T(case["do_change"]), target, case["MS"]

@@ -296,12 +296,14 @@ def test_lc_plan_modes_match_jax(recorded, case):
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[1]}@{c[0]}")
 def test_plan_lane_change_with_shadow_insert_matches_jax(recorded, case):
-    """G6 + G7 + the plain shadow insert: every SimState leaf."""
+    """G6 + G7 + the plain shadow insert: every SimState leaf. The insert
+    writes the state it is given in place: it gets a copy."""
     eng, rec = recorded
     r = rec[case]
     arr = _arr(eng, r["st"])[0]
+    st = r["st"].map(torch.clone)
     st2 = ts.squeeze(tlc.plan_lane_change(eng._net_dev, eng.cfg,
-                                          *ts.lift((r["st"], arr))))
+                                          *ts.lift((st, arr))))
     _eq_state("st2", sim_state_to_numpy(st2), r["jax"]["st2"])
 
 

@@ -165,11 +165,12 @@ def test_plan_and_shadow_insert_batched_match_jax(recorded, which):
     """G6 + G7 (signal, receive, decide) + the shadow insert over the
     batch against vmap of plan_lane_change: every SimState leaf bitwise.
     With env 1's pool full, its changers find no slot: OV_SLOTS in its
-    own overflow only, the other envs as in the batch."""
+    own overflow only, the other envs as in the batch. The insert writes
+    the state it is given in place: it gets a copy."""
     net, cfg = recorded["net"], recorded["cfg"]
     st = recorded["st" if which == "batch" else which]
     arr = _arr(net, cfg, st)[0]
-    st2 = tlc.plan_lane_change(net, cfg, st, arr)
+    st2 = tlc.plan_lane_change(net, cfg, st.map(torch.clone), arr)
     want = recorded["jax"][which]["st2"]
     _eq_state("st2", sim_state_to_numpy(st2), want)
     if which == "full":
