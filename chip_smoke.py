@@ -30,8 +30,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             overflow bits, kernel and plain each on a fresh copy of the
             state it writes in place), L1 (neighbour columns out of
             order, NaN and -0.0 distances, S = 1, 40 and 200), G4 (every
-            branch of the decision, reach ties, KC = 1-20) and G15 (in place, each on a fresh copy; too few
-            free slots, several scan chunks) bit for bit
+            branch of the decision, reach ties, KC = 1-20), G15 (in
+            place, each on a fresh copy; too few free slots, several scan
+            chunks), L4 (both modes; S = 1-800, C = 1-4, uids near
+            INT32_MAX, stale and unpaired matches) and G3 (f32 / f64,
+            KC = 1-20, k_link = 1-40, ties, tails at the cross distance,
+            NaN and -0.0, table gaps) bit for bit
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -68,19 +72,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   agree-lc  lane change, B=1 on the card against the plain port on the
             CPU on tests/fixtures/config_1x1s_lc.json, 80 steps: vehicles
             keyed by (uid, shadow), drift within 2e-3, equal (changing,
-            shadow) counts, changes happen
+            shadow) counts, changes happen; every L4 call on the card (the
+            B=1 layout of the ring Engine's step, both modes) bit for bit
+            against its plain version
   lc        the lane-change path on benchmarks/config_30x30_lc.json at
             B=128, lane slots 40 (tools/bench.run_ring_ladder, asserted not
             halved): LC_WARMUP warm-up steps, then 40 timed; the main
-            path's asserts, plus L1-L4 and both lane-change modes launched
-            and shadows on the rings in the timed window
+            path's asserts, plus L1-L4 (L4's match and gather modes) and
+            both lane-change modes launched and shadows on the rings in
+            the timed window
   kernels   (lane change) L1-L4 and the lane-change modes of K3 / K4
             against their plain versions on the inputs of one more step of
             the lc path's own state (L1, L3, L4 and K4 exact; L2's yv and
             K3 within 1e-5, their not-bitwise counts printed), timed (L3,
             which writes its state in place, on a fresh copy each call);
-            how many neighbour columns L1 read by its linear count; R1-R7
-            and K3's ring-leader mode as on [main]
+            L4: one match and two gathers a step, the match's leaves
+            unchanged as the commit's pair rounds start and end, each
+            gather at the match's match, and L4's time a step (all three
+            calls) beside its bound; how many neighbour columns L1 read by
+            its linear count; R1-R7 and K3's ring-leader mode as on
+            [main]
   agree-mixed  non-uniform vehicle templates, B=1 card against CPU on
             tests/fixtures/config_2x2_mixed.json, 100 steps, skc=99
   mixed     the main path on the 30x30 grid with three vehicle templates
@@ -94,7 +105,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             (T1, K2 exact; K3 within 1e-5), timed, T1 beside the library
             gather table[:, cols][tpl]
   agree-mixed-lc  tests/fixtures/config_1x1s_mixed_lc.json, 80 steps,
-            sl=12, sk=6, skc=99, B=1 card against CPU as [agree-lc]
+            sl=12, sk=6, skc=99, B=1 card against CPU as [agree-lc], L4
+            checked as there
   mixed-lc  config_30x30_lc.json staged with the three templates at B=128,
             build_sim's shadow-insert cap for such a scenario: LC_WARMUP
             warm-up steps (the first step with shadows printed), 40 timed;
@@ -104,11 +116,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             within the cap; the window, which runs without that probe, is
             held to the cap by overflow == 0)
   kernels   (templates, lane change) on every call of one more [mixed-lc]
-            step: T1, K2, L1, K4 and L3 (with the tpl channel) exact, K3
-            (template mode, with v_yield too) and L2 within 1e-5, against
-            their plain versions; L1, L2 and K3 at the v_yield lane call
-            timed, L3 on fresh copies (row lc_insert@mixed-lc, and at the
-            peak insert demand and at LCI 8); L1's linear counts
+            step: T1, K2, L1, K4, L3 (with the tpl channel) and L4 (both
+            modes) exact, K3 (template mode, with v_yield too) and L2
+            within 1e-5, against their plain versions; L1, L2 and K3 at
+            the v_yield lane call timed, L3 on fresh copies (row
+            lc_insert@mixed-lc, and at the peak insert demand and at LCI
+            8), L4's modes (rows lc_partner@mixed-lc,
+            lc_partner@gather:mixed-lc) and its time a step; L1's linear
+            counts
   agree-rl  the RL env (rl/env.RingVecEnv), B=1 on the card against the
             plain port on the CPU on tests/fixtures/config_4x4_rl.json, 60
             steps with MaxPressure every 5: equal actions at every decision,
@@ -237,12 +252,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             G5-G8 and G15 launched; [gen1-batch]'s prints
   kernels   (batched lane change) on every call of one more [gen1-lc-batch]
             step, each asserted to span the batch: G5-G8 (every mode),
-            G15 (in place: kernel and plain version each on a fresh copy)
-            and G4 against their plain versions (bitwise; G5's speed sums
+            G15 (in place: kernel and plain version each on a fresh copy),
+            G4 and G3 against their plain versions (bitwise; G5's speed sums
             within 1e-6 relative), timed (rows <name>@lcbatch; G15 on a
             fresh copy each call), G5 beside index_add_; G15 is also
             checked and timed at one env on [gen1-lc] (f64) and
-            [agree-gen1-lc-fast] (f32), G4 checked on [gen1-lc]. Each
+            [agree-gen1-lc-fast] (f32), G3 and G4 checked on [gen1-lc];
+            every G3 call checked asserts G1's table compacted. Each
             gen-1 path that checks G4 prints its funnel first: the
             crosses it considered, how many passed on !self_yield, on
             !o_exists, on t1 > t2, and how many needed reach_steps
@@ -347,7 +363,8 @@ RING_CALLS = ("gather_rows", "cross_caps", "car_follow", "ring_commit",
               "front_leaders_lc", "pack_forward", "pack_entrants",
               "pack_candidates", "pack_approach", "tpl_params")
 LC_KERNELS = ("lc_signal", "lc_receive", "lc_insert", "lc_partner")
-LC_MODES = ("car_follow@lc", "ring_commit@lc", "ring_exits@pairs",
+LC_MODES = ("lc_partner@gather", "car_follow@lc", "ring_commit@lc",
+            "ring_exits@pairs",
             "ring_exits@finish", "ring_admit@lc", "route_rows@lc",
             "front_leaders@ctx", "gap_refresh")
 AGREE_MIXED_STEPS = 100             # card-vs-CPU steps on the mixed fixture
@@ -383,7 +400,11 @@ REPLACES = {
                   "receiveSignal, yieldSpeed)",
     "lc_insert": "cityflow_tpu/core/ring_lc.py:369-531 (lc_phase: winners, "
                  "shadow inserts)",
-    "lc_partner": "cityflow_tpu/core/ring_lc.py:534-567 (partner_fetch)",
+    "lc_partner": "cityflow_tpu/core/ring_lc.py:534-567 (partner_fetch: "
+                  "the uid match, kept for the step's later calls)",
+    "lc_partner@gather": "cityflow_tpu/core/ring_lc.py:534-567 "
+                         "(partner_fetch in the commit's pair rounds, "
+                         "ring.py:1484-1529: the fetch at the match)",
     "car_follow@lc": "cityflow_tpu/core/ring.py:1042-1092 (min_chain under "
                      "lane_change: v_yield, raw)",
     "ring_commit@lc": "cityflow_tpu/core/ring.py:1815-1857 (commit_l under "
@@ -500,7 +521,8 @@ REPLACES = {
 # regions under vmap (parallel/batch.py:48)
 GEN1_LCB_ROWS = ("hist_window", "lc_probe", "lc_plan", "lc_plan@receive",
                  "lc_plan@decide", "lc_plan@yield", "lc_commit",
-                 "lc_commit@commit", "shadow_insert", "cross_pass")
+                 "lc_commit@commit", "shadow_insert", "cross_pass",
+                 "notify_cross")
 REPLACES.update({f"{n}@lcbatch": REPLACES[n] + " under vmap "
                  "(parallel/batch.py:48), float32" for n in GEN1_LCB_ROWS})
 # the ring step's regions (R1-R4), a row per ring path that runs them
@@ -517,6 +539,9 @@ RING_PATH_NOTE = {"lc": " under lane_change", "mixed": " with templates",
 REPLACES.update(RING_REPLACES)
 REPLACES["lc_insert@mixed-lc"] = REPLACES["lc_insert"] \
     + " with templates (a shadow copies its template)"
+REPLACES["lc_partner@mixed-lc"] = REPLACES["lc_partner"] + " with templates"
+REPLACES["lc_partner@gather:mixed-lc"] = REPLACES["lc_partner@gather"] \
+    + " with templates"
 REPLACES.update({f"{n}@{p}": v + RING_PATH_NOTE[p]
                  for n, v in RING_REPLACES.items() for p in RING_PATH_NOTE})
 for _p in ("", ":mixed-lc"):
@@ -887,11 +912,17 @@ def check_kernel_cases():
     130, KC = 1 to 20: every branch of the decision, reach ties, NaN and
     -0.0) and G15 (in place:
     each on its own fresh copy; no changer, more changers than MS, too few
-    free slots, MS = 1, several scan chunks, misaligned views)."""
+    free slots, MS = 1, several scan chunks, misaligned views), L4 (both
+    modes: the match, then the gather at the kernel's match, of the same
+    channels and of others; B = 1, 3, 40, 128 and 130, S = 1 to 800, C =
+    1 to 4) and G3 (f32 and f64, B = 1, 3, 128 and 130, KC = 1 to 20,
+    k_link = 1 to 240: blocks of 8 and 16 threads too, no candidate, ties, tails at the cross distance, NaN
+    and -0.0, table gaps)."""
     import torch
     from cityflow_tpu_torch.kernels import (
         admit_heads, car_follow, cross_caps, cross_pass, lc_insert,
-        lc_receive, lc_signal, ring_commit, shadow_insert, tpl_params)
+        lc_receive, lc_signal, notify_cross, ring_commit, shadow_insert,
+        tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -960,15 +991,46 @@ def check_kernel_cases():
             shadow_insert.shadow_insert_plain(*kc.shadow_args(case, "cuda")))
         assert bad == 0, f"shadow_insert[{name}]: {bad} values differ"
         n += 1
+    for name, case in kc.partner_cases():
+        check_partner_case(name, case)
+        n += 1
+    for name, case in kc.notify_cases():
+        a = kc.notify_args(case, "cuda")
+        _, bad = _bitwise(f"notify_cross[{name}]",
+                          notify_cross.notify_cross(*a),
+                          notify_cross.notify_cross_plain(*a))
+        assert bad == 0, f"notify_cross[{name}]: {bad} values differ"
+        n += 1
     torch.cuda.synchronize()
     cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
              kc.ADMIT_CASES, kc.RECEIVE_CASES, kc.INSERT_CASES,
-             kc.SIGNAL_CASES, kc.CROSS_CASES, kc.SHADOW_CASES)
-    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 / G4 / G15 "
+             kc.SIGNAL_CASES, kc.CROSS_CASES, kc.SHADOW_CASES,
+             kc.PARTNER_CASES, kc.NOTIFY_CASES)
+    log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 / G4 / G15 / L4 "
+        f"/ G3 "
         f"seeded edge cases: {n} of "
         f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
         f"not_bitwise={nbit}; the rest bitwise) "
         f"({'; '.join(', '.join(c) for c in cases)})")
+
+
+def check_partner_case(name, case):
+    """L4 on one seeded case, bit for bit against its plain version: the
+    match mode (values, found, match), then the gather mode at the
+    kernel's match, of the same channels and of the channels reversed
+    (so each is read at rows the match found for it in no call)."""
+    from cityflow_tpu_torch.kernels import lc_partner as l4
+    from cityflow_tpu_torch.tools import kernel_cases as kc
+    a = kc.partner_args(case, "cuda")
+    got = l4.lc_partner(*a)
+    _, bad = _bitwise(f"lc_partner[{name}]", got, l4.lc_partner_plain(*a))
+    assert bad == 0, f"lc_partner[{name}]: {bad} values differ"
+    match, chans, tabs = got[2], a[5], a[6]
+    for ch in (chans, chans[::-1]):
+        _, bad = _bitwise(f"lc_partner@gather[{name}]",
+                          l4.lc_partner_gather(match, ch, tabs),
+                          l4.lc_partner_gather_plain(match, ch, tabs))
+        assert bad == 0, f"lc_partner@gather[{name}]: {bad} values differ"
 
 
 # ---------------------------------------------------------------------------
@@ -1003,6 +1065,36 @@ def rel_close(name, got, want, tol=1e-5):
     assert bool((d <= tol * w.abs()).all()), f"{name}: beyond {tol} relative"
     rel = float((d / w.abs().clamp_min(1e-30)).max()) if d.numel() else 0.0
     return rel, int((d > 0).sum())
+
+
+@contextlib.contextmanager
+def partner_checked():
+    """While open, every L4 call on CUDA tensors (both modes) also runs its
+    plain version on the same inputs, which it must equal bit for bit;
+    yields the counts of calls checked per mode. The plain versions count
+    no launch."""
+    from cityflow_tpu_torch.core import ring_lc
+    from cityflow_tpu_torch.kernels import lc_partner as l4
+    names = ("lc_partner", "lc_partner_gather")
+    orig = {n: getattr(ring_lc, n) for n in names}
+    n_calls = {n: 0 for n in names}
+
+    def checked(n):
+        def fn(*a):
+            got = orig[n](*a)
+            if a[0].is_cuda:
+                _, bad = _bitwise(n, got, getattr(l4, n + "_plain")(*a))
+                assert bad == 0, f"{n}: {bad} values differ from the plain"
+                n_calls[n] += 1
+            return got
+        return fn
+    try:
+        for n in names:
+            setattr(ring_lc, n, checked(n))
+        yield n_calls
+    finally:
+        for n in names:
+            setattr(ring_lc, n, orig[n])
 
 
 def check_agreement(net, steps, tag="agree", **kw):
@@ -1067,7 +1159,8 @@ def _patch_points():
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
     return [(ring_mod, n) for n in RING_CALLS] \
-        + [(ring_lc, n) for n in LC_KERNELS + ("gap_refresh",)]
+        + [(ring_lc, n) for n in LC_KERNELS + ("lc_partner_gather",
+                                               "gap_refresh")]
 
 
 @contextlib.contextmanager
@@ -1309,11 +1402,17 @@ def check_commit_calls(tag, sim, state, reps):
 # lane-change kernels on the lc path's own inputs
 # ---------------------------------------------------------------------------
 
+# the leaves L4's match is made on; its gathers read them as they were
+PARTNER_LEAVES = ("l_uid", "l_sh", "l_dir", "l_chg", "n_l")
+
+
 def record_lc_calls(sim, state):
     """One more batched step of the lc path with the lane-change wrappers
     recording their arguments (cloned, tables by reference): every L1-L4
-    call, both K3 calls with v_yield (lane rows and approach rows) and the
-    K4 call with the delete mask."""
+    call (L4 in both modes), both K3 calls with v_yield (lane rows and
+    approach rows) and the K4 call with the delete mask; and, under
+    "pair_leaves", copies of L4's leaves as the commit's pair rounds
+    start and as they end."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
     keep_ids = {id(v) for v in sim.tables.values()}
@@ -1332,21 +1431,32 @@ def record_lc_calls(sim, state):
     wanted = {
         "car_follow": lambda a, k: "v_yield" in k,
         "ring_commit": lambda a, k: k.get("dmask") is not None}
+    every = LC_KERNELS + ("lc_partner_gather",)
     points = [(m, n) for m, n in _patch_points()
-              if n in LC_KERNELS or n in wanted]
+              if n in every or n in wanted]
     orig = {n: getattr(m, n) for m, n in points}
     calls = {}
 
     def rec(n):
         def fn(*a, **k):
-            if n in LC_KERNELS or wanted[n](a, k):
+            if n in every or wanted[n](a, k):
                 calls.setdefault(n, []).append(clone((a, k)))
             return orig[n](*a, **k)
         return fn
 
+    pairs = ring_mod._lc_pairs
+
+    def pairs_rec(net, cfg, rs, *a):
+        snap = lambda: {k: getattr(rs, k).clone() for k in PARTNER_LEAVES}
+        calls.setdefault("pair_leaves", []).append(snap())
+        out = pairs(net, cfg, rs, *a)
+        calls["pair_leaves"].append(snap())
+        return out
+
     try:
         for m, n in points:
             setattr(m, n, rec(n))
+        ring_mod._lc_pairs = pairs_rec
         s, mid = ring_mod.ring_step_p1_batched(sim.tables, sim.cfg,
                                                fresh(state), sim.q)
         ring_mod.ring_step_p2_batched(sim.tables, sim.cfg, s, mid)
@@ -1354,7 +1464,30 @@ def record_lc_calls(sim, state):
     finally:
         for m, n in points:
             setattr(m, n, orig[n])
+        ring_mod._lc_pairs = pairs
     return calls
+
+
+def check_partner_calls(tag, calls):
+    """L4 on one recorded lane-change step: one match and two gathers; the
+    leaves the match was made on unchanged as the pair rounds start and
+    as they end; each gather given the match's own match."""
+    import torch
+    from cityflow_tpu_torch.kernels import lc_partner as l4
+    assert len(calls["lc_partner"]) == 1, "L4: not one match a step"
+    assert len(calls["lc_partner_gather"]) == 2, "L4: not two gathers"
+    (a, _), = calls["lc_partner"]
+    made_on = dict(zip(PARTNER_LEAVES, (a[0], a[1], a[2], a[4], a[3])))
+    for snap in calls["pair_leaves"]:
+        for k in PARTNER_LEAVES:
+            assert torch.equal(snap[k], made_on[k]), \
+                f"[{tag}] {k} changed between L4's match and its gathers"
+    match = l4.lc_partner_plain(*a)[2]
+    for g, _ in calls["lc_partner_gather"]:
+        assert torch.equal(g[0], match), f"[{tag}] a gather's match differs"
+    log(f"[{tag}] L4: one match and two gathers on one step; l_uid, l_sh, "
+        f"l_dir, l_chg and n_l equal to the match's as the pair rounds "
+        f"start and end; each gather at the match's match")
 
 
 def _flat(x):
@@ -1397,9 +1530,11 @@ def check_lc_kernels(sim, state, reps):
         ring_commit)
     mods = {"lc_signal": lc_signal, "lc_receive": lc_receive,
             "lc_insert": lc_insert, "lc_partner": lc_partner,
+            "lc_partner_gather": lc_partner,
             "car_follow": car_follow, "ring_commit": ring_commit}
     tol = {"lc_receive": 1e-5, "car_follow": 1e-5}
     calls = record_lc_calls(sim, state)
+    check_partner_calls("lc", calls)
     rows = []
     for n, mod in mods.items():
         assert calls.get(n), f"{n}: no lane-change call recorded"
@@ -1409,7 +1544,7 @@ def check_lc_kernels(sim, state, reps):
             e, nb = _compare(n, lc_call(kern, n, a, k),
                              lc_call(plain, n, a, k), tol.get(n, 0.0))
             err, nbit = max(err, e), nbit + nb
-        label = n if n in LC_KERNELS else n + "@lc"
+        label = PARTNER_LABEL.get(n, n if n in LC_KERNELS else n + "@lc")
         log(f"[kernels] {label}: {len(calls[n])} calls checked, "
             f"max_abs_err={err} not_bitwise={nbit}")
         if n == "lc_signal":
@@ -1424,8 +1559,31 @@ def check_lc_kernels(sim, state, reps):
         nbytes, nops = lc_work(n, a, k)
         if label in PR12_MS:
             log(f"[kernels] {label}: ms={ms:.4f} (PR 12: {PR12_MS[label]})")
-        rows.append(kernel_row(label, err, ms, plain_ms, nbytes, nops, None))
+        row = kernel_row(label, err, ms, plain_ms, nbytes, nops, None)
+        if n == "lc_partner":
+            row["launches_of"] = ("lc", ["lc_partner"], ["lc_partner@gather"])
+        rows.append(row)
+    log_partner_step("lc", calls, reps)
     return rows
+
+
+# L4's row names: the match mode under the kernel's, the gather mode's
+PARTNER_LABEL = {"lc_partner_gather": "lc_partner@gather"}
+
+
+def log_partner_step(tag, calls, reps):
+    """L4's device time a step: each of the step's calls (the match and
+    both gathers) timed, summed, beside the bound of each."""
+    from cityflow_tpu_torch.kernels import lc_partner as l4
+    tot, bound = 0.0, 0.0
+    for n in ("lc_partner", "lc_partner_gather"):
+        fn = getattr(l4, n)
+        for a, k in calls[n]:
+            tot += time_cuda(lambda: fn(*a, **k), reps)
+            bound += lc_work(n, a, k)[0] / H100_BYTES_PER_S * 1e3
+    log(f"[{tag}] L4 a step (one match, two gathers): {tot:.4f} ms, bound "
+        f"{bound:.4f} ms (the earlier three searches: 2.572 ms a [lc] "
+        f"step, PERF.md row 15g)")
 
 
 def insert_copy(a):
@@ -1566,14 +1724,24 @@ def lc_work(n, a, k):
     if n == "lc_insert":
         return insert_work(a), 0
     if n == "lc_partner":
+        # the match: every row's uid, sh, dir and chg, n_l, the tables; the
+        # channels at the rows with a match; C values, found and the match
+        # out
         uid, sh, l_dir, n_l, chg, chans, tabs = a
         S, N, B = uid.shape
         C = len(chans)
         ins = nb(uid, sh, l_dir, n_l, chg) + 8 * N
-        # the channels only at the rows that find their partner
         from cityflow_tpu_torch.kernels.lc_partner import lc_partner_plain
-        found = lc_partner_plain(uid, sh, l_dir, n_l, chg, chans, tabs)[1]
-        return ins + 4 * C * int(found.sum()) + S * N * B * (4 * C + 1), 0
+        hits = int((lc_partner_plain(*a)[2] >= 0).sum())
+        return ins + 4 * C * hits + S * N * B * (4 * C + 1 + 2), 0
+    if n == "lc_partner_gather":
+        # the gather: the match, the tables, the channels at the rows with
+        # a match, C values out
+        match, chans, tabs = a
+        C = len(chans)
+        hits = int((match >= 0).sum())
+        return (nb(match) + 8 * match.shape[1] + 4 * C * hits
+                + match.numel() * 4 * C), 0
     if n == "car_follow":
         return k3_work(a, k)
     if n == "ring_commit":
@@ -1595,7 +1763,8 @@ def record_tpl_calls(sim, state, lc):
     recording their arguments (cloned, tables by reference): every T1
     call, and every call in the template mode of K2, K3 and, with lane
     change, L1 and L2; with lane change also every L3 call, which carries
-    the tpl channel (K4's calls: check_commit_calls)."""
+    the tpl channel, and every L4 call in both modes (K4's calls:
+    check_commit_calls)."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
     from cityflow_tpu_torch.core import ring_lc
@@ -1612,7 +1781,8 @@ def record_tpl_calls(sim, state, lc):
             return type(x)(clone(v) for v in x)
         return x
 
-    every = ["tpl_params"] + (["lc_insert"] if lc else [])
+    every = ["tpl_params"] + (["lc_insert", "lc_partner", "lc_partner_gather"]
+                              if lc else [])
     names = every + ["cross_caps", "car_follow"] \
         + (["lc_signal", "lc_receive"] if lc else [])
     points = [(m, n) for m, n in _patch_points() if n in names]
@@ -1655,7 +1825,7 @@ def tpl_work(n, a, k):
     if n == "lc_signal":
         nbytes, nops = lc_work("lc_signal", a, k)
         return nbytes + nb(k["tpl"], k["olt_len"]), nops
-    if n in ("lc_receive", "lc_insert"):
+    if n in ("lc_receive", "lc_insert", "lc_partner", "lc_partner_gather"):
         return lc_work(n, a, k)
     raise KeyError(n)
 
@@ -1707,31 +1877,36 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
     exact; K3 and L2 within 1e-5, their not-bitwise counts printed; L3,
     which writes its state in place, kernel and plain each on a fresh copy
     of the call). Rows: without lane change T1, K2@tpl and K3@tpl; with it
-    L1@tpl, L2@tpl, K3@tpl+lc and lc_insert@mixed-lc. Each is timed on
-    its largest call (K3 at the lane rows, with v_yield on the
-    lane-change path; L3 on a fresh copy each call), T1 beside the
+    L1@tpl, L2@tpl, K3@tpl+lc, lc_insert@mixed-lc, and L4's two modes
+    (lc_partner@mixed-lc, lc_partner@gather:mixed-lc; bitwise, and its
+    time a step printed). Each is timed on its largest call (K3 at the
+    lane rows, with v_yield on the lane-change path; L3 on a fresh copy
+    each call; L4 on the step's first call of each mode), T1 beside the
     library gather table[:, cols][tpl]. With `lci` (the measured insert
     demand) L3 is also timed at that cap and at its maximum, 8."""
     import torch
     from cityflow_tpu_torch import kernels
     calls = record_tpl_calls(sim, state, lc)
     tol = {"car_follow": 1e-5, "lc_receive": 1e-5}
+    partner = ("lc_partner", "lc_partner_gather")
     checked = ("tpl_params", "cross_caps", "car_follow") \
-        + (("lc_signal", "lc_receive", "lc_insert")
+        + (("lc_signal", "lc_receive", "lc_insert") + partner
            if lc else ())
-    timed = ("lc_signal", "lc_receive", "car_follow", "lc_insert") if lc \
-        else ("tpl_params", "cross_caps", "car_follow")
+    timed = ("lc_signal", "lc_receive", "car_follow", "lc_insert") \
+        + partner if lc else ("tpl_params", "cross_caps", "car_follow")
     rows = []
     for n in checked:
         assert calls.get(n), f"{n}: no template-path call recorded"
-        mod = kernels.MODULES[n]
+        mod = kernels.MODULES["lc_partner" if n in partner else n]
         kern, plain = getattr(mod, n), getattr(mod, n + "_plain")
         err, nbit = 0.0, 0
         for a, k in calls[n]:
             e, nb_ = _compare(n, lc_call(kern, n, a, k),
                               lc_call(plain, n, a, k), tol.get(n, 0.0))
             err, nbit = max(err, e), nbit + nb_
-        label = {"tpl_params": n, "lc_insert": "lc_insert@mixed-lc"}.get(
+        label = {"tpl_params": n, "lc_insert": "lc_insert@mixed-lc",
+                 "lc_partner": "lc_partner@mixed-lc",
+                 "lc_partner_gather": "lc_partner@gather:mixed-lc"}.get(
             n, n + "@tpl")
         yld = sum("v_yield" in k for _, k in calls[n])
         log(f"[kernels] {label} on the {'mixed-lc' if lc else 'mixed'} "
@@ -1746,8 +1921,8 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
             a, k = next(c for c in calls[n] if len(c[0][2]) == 3
                         and ("v_yield" in c[1]) == lc)
             label += "+lc" if lc else ""
-        elif n == "lc_insert":
-            a, k = calls[n][0]            # one call a step
+        elif n in ("lc_insert", "lc_partner", "lc_partner_gather"):
+            a, k = calls[n][0]            # the step's first
         else:
             a, k = max(calls[n], key=lambda c: c[0][0].numel())
         if n == "lc_insert":
@@ -1767,7 +1942,13 @@ def check_tpl_kernels(sim, state, reps, lc, lci=None):
         row = kernel_row(label, err, ms, plain_ms, nbytes, nops, lib)
         if n == "lc_insert":
             row["launches_of"] = ("mixed-lc", ["lc_insert"], [])
+        elif n in partner:
+            row["launches_of"] = ("mixed-lc", ["lc_partner@gather"], []) \
+                if n != "lc_partner" else \
+                ("mixed-lc", ["lc_partner"], ["lc_partner@gather"])
         rows.append(row)
+    if lc:
+        log_partner_step("mixed-lc", calls, reps)
     if lci is not None:
         from cityflow_tpu_torch.kernels.lc_insert import MAX_LCI, lc_insert
         a, _ = calls["lc_insert"][0]
@@ -1938,8 +2119,8 @@ def ring_work(n, a, k, out):
                    *a[3:7]) + nb(*out.values())), 0
     if n == "ring_exits_finish":
         rs = a[2]
-        return (nb(rs.n_l, rs.l_sh, rs.l_chg, *a[3:11])
-                + int(out["n_rm"].sum() - a[11].sum()) * 4
+        return (nb(rs.n_l, rs.l_sh, rs.l_chg, *a[3:10])
+                + int(out["n_rm"].sum() - a[10].sum()) * 4
                 + nb(*out.values())), 0
     if n == "route_rows":
         ef = a[2]
@@ -3440,6 +3621,54 @@ def shadow_work(a):
         row_in + sum(width.values()) + 4) + B * 16, 2 * do_change.numel()
 
 
+def notify_work(a, out):
+    """Bytes and operations of one G3 call, as its data needs them: the
+    net tables (the cross distances once for every env); per (lanelink,
+    env) the end lane's rear slot and, where there is one, its prev, and
+    where that names the lanelink its dis and len; the start lane's front
+    slot and, where there is one, its next drivable, and where that and
+    ll_avail (read per lanelink) admit it its dis; the link table's slots
+    up to the first empty one (G1 compacts the table: chip_smoke asserts
+    it on every call) and the dis and len of its vehicles; per distinct
+    notifier of a lanelink its other six pack terms, ent and pri, and
+    the end vehicle's seven where some cross has none; the ten outputs.
+    Operations: two comparisons per kept candidate and cross, 60 per
+    cross for the notifier's terms."""
+    import torch
+    net, arr, veh_next, ll_avail, fattrs, iattrs, L = a
+    fs = fattrs.element_size()
+    LL, KC = net["lnk_cross_d"].shape
+    B, V = veh_next.shape
+    K = arr["link_veh"].shape[-1]
+    env = torch.arange(B, device=veh_next.device)[:, None]
+    l_drv = L + torch.arange(LL, device=veh_next.device)
+    last = arr["last_of"].index_select(-1, net["ll_end"])      # (B, LL)
+    first = arr["first_of"].index_select(-1, net["ll_start"])
+    row = lambda slot: fattrs[env, slot.clamp(min=0).long()]   # (B, LL, NA)
+    e_ok = (last >= 0) & (row(last)[..., 9].to(torch.int32) == l_drv)
+    nxt = veh_next[env, first.clamp(min=0).long()]
+    s_ok = (first >= 0) & (nxt == l_drv) & ll_avail
+    occ = arr["link_veh"] >= 0
+    n_occ = occ.sum(-1)
+    slots = torch.clamp(n_occ + 1, max=K)
+    # distinct notifiers per (env, lanelink), and lanelinks with a cross
+    # that has none
+    idx = out["idx"].long()
+    key = (env[..., None] * LL + torch.arange(LL, device=idx.device)[
+        :, None]) * (V + 1) + idx + 1
+    n_win = int(torch.unique(key[idx >= 0]).numel())
+    n_none = int((idx < 0).any(-1).sum())
+    tables = LL * (KC * fs + 4 + 4 + 1 + fs) + L * fs
+    ins = (tables + B * LL * (4 + 4 + 1) + int((last >= 0).sum()) * fs
+           + int(e_ok.sum()) * 2 * fs + int((first >= 0).sum()) * 4
+           + int(s_ok.sum()) * fs + int(slots.sum()) * 4
+           + int(n_occ.sum()) * 2 * fs + n_win * (6 * fs + 8)
+           + n_none * 7 * fs)
+    kept = int(e_ok.sum()) + int(s_ok.sum()) + int(n_occ.sum())
+    return ins + B * LL * KC * (5 + fs + 16), 2 * kept * KC \
+        + 60 * B * LL * KC
+
+
 def gen1_work(n, a, k, out):
     """Bytes (each input read once, each output written once, as this
     call's data needs them) and operations of one G kernel call; `n` is
@@ -3509,29 +3738,7 @@ def gen1_work(n, a, k, out):
         return (mask.numel() * (1 + 4 + fs) + m * (12 + 3 * fs)
                 + m * (8 + 3 * fs)), m * 20
     if n == "notify_cross":
-        net, arr, veh_next, ll_avail, fattrs, iattrs, L = a
-        fs = fattrs.element_size()
-        LL, KC = net["lnk_cross_d"].shape
-        K = arr["link_veh"].shape[-1]
-        V = veh_next.shape[-1]
-        nenv = veh_next.numel() // V
-        pack = fattrs.shape[-1] * fs + iattrs.shape[-1] * 4
-        # the link tables' vehicle column, the distance and length of the
-        # occupied entries, per link its lanes' rear / front slots and
-        # lengths, and the packs of every vehicle that wins a cross or
-        # stands at a link's ends (each env's own)
-        ends = torch.cat([
-            arr["last_of"].index_select(-1, net["ll_end"]),
-            arr["first_of"].index_select(-1, net["ll_start"]),
-            out["idx"].reshape(out["idx"].shape[:-2] + (-1,))], -1)
-        env = torch.arange(nenv, device=ends.device).view(
-            ends.shape[:-1] + (1,)) if ends.dim() > 1 else 0
-        nveh = int(torch.unique((ends + env * V)[ends >= 0]).numel())
-        ins = (LL * KC * fs + nenv * LL * K * 4
-               + int((arr["link_veh"] >= 0).sum()) * 2 * fs
-               + nenv * LL * (4 * 4 + 2 * fs + 2) + nveh * (pack + 4))
-        return ins + nenv * LL * KC * (5 + fs + 16), \
-            nenv * LL * KC * (3 * (K + 2) + 60)
+        return notify_work(a, out)
     if n == "cross_pass":
         # what the lazy decision reads (cross_funnel), not every foe term
         # of every cross up to the first failure
@@ -3703,6 +3910,11 @@ def _check_call(n, kern, plain, a, k, rel_tol):
     version (G15 each on its own fresh copy), every output bitwise, except
     float outputs within `rel_tol` relative where it is not None; returns
     the largest absolute difference."""
+    if n == "notify_cross":
+        # G1's lanelink table: each link's vehicles in its first rows
+        full = a[1]["link_veh"] >= 0
+        assert bool((full[..., 1:] <= full[..., :-1]).all()), \
+            "notify_cross: G1's lanelink table is not compacted"
     got = [t for t in _flat(_gen1_call(n, kern, a, k)) if t is not None]
     want = [t for t in _flat(_gen1_call(n, plain, a, k)) if t is not None]
     assert len(got) == len(want), f"{n}: outputs differ in number"
@@ -4597,19 +4809,19 @@ def run_gen1_lc_batch(ctx, batch, steps):
 def check_gen1_lcb_kernels(ctx, reps, batch):
     """On every call of one more [gen1-lc-batch] step: G5-G8 (every mode
     of G7 and G8), G15 (kernel and plain version each on a fresh copy of
-    the state it writes in place) and G4 against their plain versions,
+    the state it writes in place), G4 and G3 against their plain versions,
     each call asserted to span the `batch` envs: bitwise, G5's speed sums
     within 1e-6 relative (float32, as pinned); G4's funnel printed. Timed
     on the first call of each kernel and mode (rows <name>@lcbatch; G15
-    each call on a fresh copy), G5 beside index_add_; G4 and G15 have no
-    one library call that computes their function."""
+    each call on a fresh copy), G5 beside index_add_; G3, G4 and G15 have
+    no one library call that computes their function."""
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.core import step as step_mod
     net, cfg, spawn, holder = ctx
 
     def one():
         holder[0] = step_mod.step(net, cfg, holder[0], spawn)
-    names = GEN1_LC_KERNELS + ("cross_pass",)
+    names = GEN1_LC_KERNELS + ("cross_pass", "notify_cross")
     calls = record_gen1_calls(one, names)
     del holder[:]
     log_cross_funnel("gen1-lc-batch", calls["cross_pass"])
@@ -4641,6 +4853,11 @@ def check_gen1_lcb_kernels(ctx, reps, batch):
 
 def main():
     t_start = time.time()
+
+    def mark(tag):
+        # where the script's wall time goes (it must stay well inside the
+        # 1200 s a run is given)
+        log(f"[time] {tag} from {time.time() - t_start:.1f} s")
     if not os.path.isdir(os.path.join(HERE, "cityflow_tpu_torch")):
         print("chip_smoke: the cityflow_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -4679,10 +4896,13 @@ def main():
         f"LPI={c.LPI} KC={c.KC} IL={c.IL} OL={c.OL} LNp={c.LNp} "
         f"LKp={c.LKp} SL={c.SL} SK={c.SK} AP={c.AP} XK={c.XK}")
 
+    mark("kernels")
     rows = check_kernels(sim, BATCH, REPS)
     del sim
     torch.cuda.empty_cache()
+    mark("agree")
     check_agreement(net, AGREE_STEPS, sl=40)
+    mark("main")
     main_launches, res, mn_sim, mn_state = run_path(
         "main", cfg_path, BATCH, WARMUP, STEPS, MAIN_KERNELS)
     log(f"[main] {json.dumps(res)}")
@@ -4692,10 +4912,16 @@ def main():
     del mn_sim, mn_state
     torch.cuda.empty_cache()
 
-    # the fixture's `dir` names the machine it was written on: stage it
-    check_agreement(compile_scenario(prepare(os.path.join(
-        HERE, "tests", "fixtures", "config_1x1s_lc.json"))), AGREE_LC_STEPS,
-        tag="agree-lc", sl=12, sk=6, skc=99)
+    mark("agree-lc, lc")
+    # the fixture's `dir` names the machine it was written on: stage it;
+    # L4 at one env (the ring Engine's step) against its plain version
+    with partner_checked() as l4_calls:
+        check_agreement(compile_scenario(prepare(os.path.join(
+            HERE, "tests", "fixtures", "config_1x1s_lc.json"))),
+            AGREE_LC_STEPS, tag="agree-lc", sl=12, sk=6, skc=99)
+    log(f"[agree-lc] L4 at B=1 bitwise against its plain version: "
+        f"{l4_calls}")
+    assert all(l4_calls.values()), "[agree-lc] an L4 mode was not called"
     lc_cfg = prepare(os.path.join(HERE, "benchmarks", "config_30x30_lc.json"))
     lc_launches, lc_res, lc_sim, lc_state = run_path(
         "lc", lc_cfg, BATCH, LC_WARMUP, STEPS,
@@ -4708,6 +4934,7 @@ def main():
     del lc_sim, lc_state
     torch.cuda.empty_cache()
 
+    mark("agree-mixed, mixed, mixed-lc")
     # non-uniform vehicle templates: the three vehicles of the mixed
     # fixture over the 30x30 flows, with and without lane change
     fix = os.path.join(HERE, "tests", "fixtures")
@@ -4727,9 +4954,13 @@ def main():
     rows += check_front_kernels(m_sim, m_state, REPS, "mixed")
     del m_sim, m_state
     torch.cuda.empty_cache()
-    check_agreement(compile_scenario(prepare(os.path.join(
-        fix, "config_1x1s_mixed_lc.json"))), AGREE_LC_STEPS,
-        tag="agree-mixed-lc", sl=12, sk=6, skc=99)
+    with partner_checked() as l4_calls:
+        check_agreement(compile_scenario(prepare(os.path.join(
+            fix, "config_1x1s_mixed_lc.json"))), AGREE_LC_STEPS,
+            tag="agree-mixed-lc", sl=12, sk=6, skc=99)
+    log(f"[agree-mixed-lc] L4 at B=1 bitwise against its plain version: "
+        f"{l4_calls}")
+    assert all(l4_calls.values()), "[agree-mixed-lc] an L4 mode not called"
     mlc_cfg = prepare(os.path.join(HERE, "benchmarks",
                                    "config_30x30_lc.json"),
                       name="config_30x30_lc_mixed", templates=templates)
@@ -4752,6 +4983,7 @@ def main():
     del ml_sim, ml_state
     torch.cuda.empty_cache()
 
+    mark("agree-rl, rl, dqn")
     # the RL control path (fixtures staged like the lane-change one)
     check_agreement_rl(prepare(os.path.join(fix, "config_4x4_rl.json")),
                        AGREE_RL_STEPS)
@@ -4772,6 +5004,7 @@ def main():
     del env
     torch.cuda.empty_cache()
 
+    mark("golden-gen1, gen1")
     # the gen-1 exact Engine (G9 and G10 on its path too)
     kernels.reset_launches()
     check_golden_gen1()
@@ -4786,6 +5019,7 @@ def main():
     rows += check_gen1_kernels(eng, REPS, GEN1_KERNELS, tag="gen1")
     del eng
     torch.cuda.empty_cache()
+    mark("gen1-lc")
     # gen-1 lane change under the DURATION router
     shadow_steps = check_agreement_gen1(
         prepare(os.path.join(fix, "config_2x2_lc.json"),
@@ -4802,12 +5036,14 @@ def main():
     log(f"[gen1-lc] {json.dumps(glc_res)}")
     rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS,
                                untimed=("spawn_slots", "admit_heads",
-                                        "cross_pass"), tag="gen1-lc")
+                                        "cross_pass", "notify_cross"),
+                               tag="gen1-lc")
     # what [gen1-lc-batch] starts from: the warm state, the pool, tables
     glc_ctx = (eng.net, eng._spawn_dev, eng.cfg, glc_warm)
     del eng, glc_warm
     torch.cuda.empty_cache()
 
+    mark("gen1-fast")
     # Engine(exact=False): gen-1 fast mode (float32) ...
     from cityflow_tpu_torch.engine import Engine
     fast = dict(exact=False, backend="gen1")
@@ -4836,6 +5072,7 @@ def main():
         assert lcf_launches[k] > 0, f"{k} idle on [agree-gen1-lc-fast]"
     rows += check_gen1_kernels(card, REPS, GEN1_LC_KERNELS, fast=True)
     del card
+    mark("ring-engine")
     # ... and the ring Engine
     ring_agree_launches, _ = check_agreement_fast(
         "agree-ring-engine",
@@ -4850,6 +5087,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("gen1-batch, gen1-env, gen1-dqn")
     # the batched gen-1 step (a leading env axis) and its RL surface
     check_agreement_gen1_batch(four, AGREE_GEN1B_STEPS, AGREE_GEN1B_BATCH)
     check_agreement_gen1_env(prepare(os.path.join(fix, "config_4x4_rl.json")),
@@ -4873,6 +5111,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("gen1-lc-batch")
     # batched gen-1 lane change and the DURATION history
     for exact in (True, False):
         check_agreement_gen1_lc_batch(lcd, AGREE_GEN1_LCB_STEPS, exact)

@@ -20,7 +20,8 @@ net["outer_src"]):
 
   refresh_gaps   R6 gap_refresh
   lc_phase       L1 lc_signal -> L2 lc_receive -> L3 lc_insert
-  partner_fetch  L4 lc_partner
+  partner_fetch  L4 lc_partner (the match mode; partner_gather: the gather
+                 mode, at a match kept from it)
 """
 
 import torch
@@ -28,7 +29,8 @@ import torch
 from cityflow_tpu_torch.compiler.net import P_LEN, P_MAXNEGACC, P_MAXSPEED
 from cityflow_tpu_torch.kernels.gap_refresh import gap_refresh
 from cityflow_tpu_torch.kernels.lc_insert import lc_insert
-from cityflow_tpu_torch.kernels.lc_partner import lc_partner
+from cityflow_tpu_torch.kernels.lc_partner import (lc_partner,
+                                                   lc_partner_gather)
 from cityflow_tpu_torch.kernels.lc_receive import lc_receive
 from cityflow_tpu_torch.kernels.lc_signal import lc_signal
 
@@ -83,9 +85,22 @@ def lc_phase(net, cfg, rs, fx):
     return rs, ov
 
 
-def partner_fetch(net, rs, chans):
+def partner_fetch(net, rs, chans, with_match=False):
     """For every paired row (a changing real, or a shadow), its partner's
     values of `chans` ((SL, LNp, B) float32 each) by uid match in the
-    partner lane column. Returns ([fetched ...], found mask)."""
-    return lc_partner(rs.l_uid, rs.l_sh, rs.l_dir, rs.n_l, rs.l_chg,
-                      [c.to(torch.float32).contiguous() for c in chans], net)
+    partner lane column. Returns ([fetched ...], found mask), and with
+    `with_match` also the match (where each row's partner lies, for
+    partner_gather on the same l_uid, l_sh, l_dir and n_l)."""
+    vals, found, match = lc_partner(
+        rs.l_uid, rs.l_sh, rs.l_dir, rs.n_l, rs.l_chg, _f32(chans), net)
+    return (vals, found, match) if with_match else (vals, found)
+
+
+def partner_gather(net, match, chans):
+    """partner_fetch's values of other channels at a match it returned,
+    with no search: the leaves it matched on must not have changed."""
+    return lc_partner_gather(match, _f32(chans), net)
+
+
+def _f32(chans):
+    return [c.to(torch.float32).contiguous() for c in chans]

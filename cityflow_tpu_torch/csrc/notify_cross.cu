@@ -6,22 +6,50 @@
 // Replaces notify_cross in cityflow_tpu/core/step.py (:467-594), which the
 // TPU runs in (KC, LL) layout as a K2 = k_link + 2 round where-chain, a
 // one-hot einsum on the MXU to fetch the winner's 10 float channels, and a
-// static permutation (lnk_cross_foe_pos) to the foe side. Here one thread
-// owns one (link, slot): it walks the K2 candidates (the end lane's rear
-// vehicle, the link's first k_link vehicles from G1's table, the start
-// lane's front vehicle) keeping the first strict maximum, reads the
-// winner's channels directly and writes the own-side row. No permutation
-// pass runs: G4 reads the foe side through lnk_cross_foe_pos.
+// static permutation (lnk_cross_foe_pos) to the foe side. No permutation
+// pass runs here: G4 reads the foe side through lnk_cross_foe_pos.
 //
-// B envs at once: the env is blockIdx.y; at_env moves the per-env arrays
-// (last_of, first_of, veh_next, ll_avail, the packs, G1's link tables and
-// the outputs) to that env's rows, the net tables are shared.
+// A group of NC_G = 8 threads owns one (lanelink, env); four groups share
+// a warp, so a warp keeps four lanelinks' loads in flight (of 4, 8, 16
+// and 32 threads a group, 8 was the fastest at one env and at B = 128 on
+// the H100: PERF.md, Findings). The group first reads its
+// candidates once, for all the link's crosses, with the pack terms the
+// notifier's entries need and the parts of canYield and getReachSteps
+// that do not depend on the cross: lanes 0 and 1 the end lane's rear
+// vehicle and the start lane's front vehicle (a chain of three loads
+// each, beside which the other lanes read the first table rows), then
+// the link's k_link table rows, G a round. The end vehicle is kept in
+// slot 0 whatever it is (its pack is the plain version's default, index
+// 0, where a cross has no notifier), the start vehicle in slot 1, and a
+// table row only where it holds a vehicle (a ballot ranks the kept rows,
+// in order, after them): an empty row could never be `better`. Empty
+// rows are checked one by one, so the kernel does not rely on G1
+// compacting its table. Then the warp's lanes take its groups' (cross,
+// lanelink) cells, which lie contiguous in every output, a lane a cell,
+// so that each store is a run of 32 (of 16 or 8 where k_link is so large
+// that the wrapper gives a block only 2 or 1 groups): a cell keeps the
+// first strict
+// maximum over the candidates its distance admits in the plain version's
+// order (the end vehicle where e_ok and tail < d, each row where tail <=
+// d, the start vehicle where s_ok) and writes the ten own-side entries
+// from shared memory, reach steps from the branch it selects only.
 //
-// Bound: bytes. A thread reads its cross distance, the link's table row
-// (k_link x 12 values) and two vehicles' packs, and writes 10 values.
+// B envs at once: the env is blockIdx.y; the env offsets of the per-env
+// arrays are 32-bit, computed once per thread (the wrapper refuses B * V
+// * NA, B * LL * K * NA, B * LL * KC and B * D past 2^31); the net tables
+// are shared. Inputs are read through __ldg.
+//
+// Bound: bytes. Per (lanelink, env) the two end slots, their packs' terms
+// and the start vehicle's next drivable, ll_avail, the link table's slots
+// up to the first empty one and the dis and len of its vehicles; per
+// (lanelink, cross) the cross distance (shared by the envs) and each
+// distinct winner's pack terms and ent / pri; the ten outputs.
 #include "gen1.cuh"
 
 using namespace gen1;
+
+constexpr int NC_THREADS = 256;
+constexpr int NC_LGG = 3, NC_G = 1 << NC_LGG;     // threads a group
 
 struct NotifyArgs {
   const void* d;            // (LL, KC) T cross distance on the link
@@ -29,17 +57,17 @@ struct NotifyArgs {
   const int* ll_end;        // (LL,)
   const int* ll_start;      // (LL,)
   const uint8_t* ll_is_turn;  // (LL,)
-  const int* last_of;       // (D,)
-  const int* first_of;      // (D,)
-  const int* veh_next;      // (V,)
-  const uint8_t* ll_avail;  // (LL,)
-  const void* fattrs;       // (V, NA) T
-  const int* iattrs;        // (V, NI)
-  const int* link_veh;      // (LL, K)
-  const void* link_fattr;   // (LL, K, NA) T
-  const int* link_iattr;    // (LL, K, NI)
+  const int* last_of;       // (B, D)
+  const int* first_of;      // (B, D)
+  const int* veh_next;      // (B, V)
+  const uint8_t* ll_avail;  // (B, LL)
+  const void* fattrs;       // (B, V, NA) T
+  const int* iattrs;        // (B, V, NI)
+  const int* link_veh;      // (B, LL, K)
+  const void* link_fattr;   // (B, LL, K, NA) T
+  const int* link_iattr;    // (B, LL, K, NI)
   const void* interval;     // () T
-  uint8_t* exists;          // (LL, KC) each
+  uint8_t* exists;          // (B, LL, KC) each
   uint8_t* yld;
   uint8_t* cleared;
   uint8_t* cyc;
@@ -49,124 +77,226 @@ struct NotifyArgs {
   int* ent;
   int* pri;
   int* idx;
-  long long B, LL, KC, K, NA, NI, V, L, D, fp32;
+  int B, LL, KC, K, NA, NI, V, L, D, fp32;
 };
 
-// the arguments of env b: the per-env arrays moved to that env's rows
-__device__ NotifyArgs at_env(NotifyArgs a, long long b) {
-  long long fs = a.fp32 ? 4 : 8, D = a.D, E = a.LL * a.KC;
-  a.last_of += b * D;
-  a.first_of += b * D;
-  a.veh_next += b * a.V;
-  a.ll_avail += b * a.LL;
-  a.fattrs = (const char*)a.fattrs + b * a.V * a.NA * fs;
-  a.iattrs += b * a.V * a.NI;
-  a.link_veh += b * a.LL * a.K;
-  a.link_fattr = (const char*)a.link_fattr + b * a.LL * a.K * a.NA * fs;
-  a.link_iattr += b * a.LL * a.K * a.NI;
-  a.exists += b * E;
-  a.yld += b * E;
-  a.cleared += b * E;
-  a.cyc += b * E;
-  a.dpos += b * E;
-  a.dist = (char*)a.dist + b * E * fs;
-  a.reach += b * E;
-  a.ent += b * E;
-  a.pri += b * E;
-  a.idx += b * E;
-  return a;
+// a candidate: its slot, front position, the tail compared with the
+// cross distance, the pack terms of the
+// notifier's entries, and the parts of canYield and getReachSteps that do
+// not depend on the cross (the brake distance, distance_until_speed, the
+// first ceil of the accelerating branch), each computed as the plain
+// version computes it
+template <typename T>
+struct Cand {
+  T pk, tail, len, speed, yld, cyc, upa, target, min_brake, dts, rb1;
+  int v, ent, pri;
+};
+
+template <typename T>
+__device__ __forceinline__ void pack_terms(Cand<T>& c, const T* fa,
+                                           const int* ia, bool is_turn,
+                                           T dt) {
+  c.len = __ldg(fa + A_LEN);
+  c.speed = __ldg(fa + A_SPEED);
+  const T maxneg = __ldg(fa + A_MAXNEG);
+  c.yld = __ldg(fa + A_YIELD);
+  c.cyc = __ldg(fa + A_CYC);
+  c.upa = __ldg(fa + A_UPA);
+  c.target = __ldg(fa + (is_turn ? A_TURNSPD : A_MAXSPD));
+  c.ent = __ldg(ia);
+  c.pri = __ldg(ia + 1);
+  c.min_brake = T(0.5) * c.speed * c.speed / maxneg;
+  c.dts = distance_until_speed(c.speed, c.target, c.upa, dt);
+  c.rb1 = ceil((c.target - c.speed) / c.upa / dt);
+}
+
+// reach_steps (gen1.cuh) at distance d, only the branch it selects
+template <typename T>
+__device__ __forceinline__ int reach_at(const Cand<T>& c, T d, T dt) {
+  if (d <= T(0)) return 0;
+  T r;
+  if (c.speed > c.target)
+    r = ceil(d / ((c.speed > T(0)) ? c.speed : T(1)));
+  else if (c.dts > d)
+    r = ceil((sqrt(tmax(c.speed * c.speed + T(2) * c.upa * d, T(0))) -
+              c.speed) / c.upa / dt);
+  else
+    r = c.rb1 + ceil((d - c.dts) / c.target / dt);
+  return xla_to_i32(r);
 }
 
 template <typename T>
-__global__ void notify_cross_kernel(const NotifyArgs a0) {
-  const NotifyArgs a = at_env(a0, blockIdx.y);
-  const T* D = (const T*)a.d;
+__global__ void __launch_bounds__(NC_THREADS)
+notify_cross_kernel(const NotifyArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int lgg = NC_LGG, G = NC_G;
+  const int K = a.K, SLOTS = K + 2;         // a group's: the end vehicle,
+                                            // the start vehicle, the rows
+  const int gi = threadIdx.x & (G - 1);              // lane in the group
+  const int grp = threadIdx.x >> lgg;                // group in the block
+  const int lane = threadIdx.x & 31;
+  const int gbase = lane & ~(G - 1);                 // group's first lane
+  const unsigned gmask = ((1u << G) - 1) << gbase;
+  // the warp's threads (a block of fewer than 32 is one part-warp)
+  const unsigned wmask = blockDim.x >= 32 ? 0xffffffffu
+                                          : (1u << blockDim.x) - 1;
+  const int groups = (int)(blockDim.x >> lgg);
+  const int l = (int)blockIdx.x * groups + grp;
+  const bool live = l < a.LL;
+  const int b = (int)blockIdx.y;
+  const int eD = b * a.D, eV = b * a.V, eLL = b * a.LL;
+  const T* fattrs = (const T*)a.fattrs + eV * a.NA;
+  const int* iattrs = a.iattrs + eV * a.NI;
   const T* drv_len = (const T*)a.drv_len;
-  const T* fattrs = (const T*)a.fattrs;
-  const T* lfat = (const T*)a.link_fattr;
-  const T dt = *(const T*)a.interval;
-  long long total = a.LL * a.KC;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    long long l = e / a.KC;
-    T d = D[e];
-    T ll_len = drv_len[a.L + l];
-    int last_slot = a.last_of[a.ll_end[l]];
-    long long ls = clampll(last_slot, 0, a.V - 1);
-    const T* lfa = fattrs + ls * a.NA;
-    const int* lia = a.iattrs + ls * a.NI;
-    int first_slot = a.first_of[a.ll_start[l]];
-    long long fs = clampll(first_slot, 0, a.V - 1);
-    const T* ffa = fattrs + fs * a.NA;
-    const int* fia = a.iattrs + fs * a.NI;
-    int l_drv = (int)(a.L + l);
-    bool e_ok = last_slot >= 0 && xla_to_i32(lfa[A_PREV]) == l_drv;
-    bool s_ok = first_slot >= 0 && a.veh_next[fs] == l_drv &&
-                a.ll_avail[l] != 0;
-
-    T best_p = T(-1e30);
-    int best_v = -1, best_ent = 0, best_pri = 0;
-    const T* bfa = lfa;  // the winner's pack (candidate 0 when none)
-    // candidate 0: the end lane's rear vehicle, still on this link
-    if (e_ok && ll_len + lfa[A_DIS] - lfa[A_LEN] < d) {
-      T pk = ll_len + lfa[A_DIS];
-      if (pk > best_p) {
-        best_p = pk;
-        best_v = last_slot;
-        best_ent = lia[0];
-        best_pri = lia[1];
+  // per group: slot 0 the end vehicle (also the default pack), slot 1
+  // the start vehicle, then the kept table rows in order; after all
+  // groups' slots, per group the kept rows' count and the two flags
+  Cand<T>* cands = reinterpret_cast<Cand<T>*>(smem_raw);
+  Cand<T>* mine = cands + grp * SLOTS;
+  int* info = reinterpret_cast<int*>(cands + groups * SLOTS);
+  const int l_drv = a.L + l;
+  const bool is_turn = live && __ldg(a.ll_is_turn + l) != 0;
+  const T dt = __ldg((const T*)a.interval);
+  // the two end vehicles, lanes 0 and 1, each a chain of three loads:
+  // their own slot, so that the table rows' loads overlap them
+  if (live && gi < 2) {
+    Cand<T> c;
+    const bool end = gi == 0;
+    const int lane_of = __ldg((end ? a.ll_end : a.ll_start) + l);
+    const int slot = __ldg((end ? a.last_of : a.first_of) + eD + lane_of);
+    const int s = (int)clampll(slot, 0, a.V - 1);
+    const T* fa = fattrs + s * a.NA;
+    pack_terms(c, fa, iattrs + s * a.NI, is_turn, dt);
+    const T dis = __ldg(fa + A_DIS);
+    c.v = slot;
+    bool keep;
+    if (end) {
+      keep = slot >= 0 && xla_to_i32(__ldg(fa + A_PREV)) == l_drv;
+      c.pk = __ldg(drv_len + l_drv) + dis;
+      c.tail = c.pk - c.len;
+    } else {
+      keep = slot >= 0 && __ldg(a.veh_next + eV + s) == l_drv &&
+             __ldg(a.ll_avail + eLL + l) != 0;
+      c.pk = -(__ldg(drv_len + lane_of) - dis);
+      c.tail = T(0);
+    }
+    mine[gi] = c;
+    info[groups + 2 * grp + gi] = keep;
+  }
+  // the table rows front to back, the first G - 2 beside the end
+  // vehicles, then G a round; kept rows ranked by a ballot
+  int n = 0;
+  for (int j0 = -2; j0 < K; j0 += G) {
+    const int j = j0 + gi;
+    bool keep = false;
+    Cand<T> c;
+    if (live && j >= 0 && j < K) {
+      const int row = (eLL + l) * K + j;
+      c.v = __ldg(a.link_veh + row);
+      keep = c.v >= 0;
+      if (keep) {
+        const T* fa = (const T*)a.link_fattr + row * a.NA;
+        pack_terms(c, fa, a.link_iattr + row * a.NI, is_turn, dt);
+        c.pk = __ldg(fa + A_DIS);
+        c.tail = c.pk - c.len;
       }
     }
-    // candidates 1..K: the link's vehicles front to back
-    for (long long j = 0; j < a.K; ++j) {
-      long long row = l * a.K + j;
-      int lv = a.link_veh[row];
-      const T* fa = lfat + row * a.NA;
-      if (lv >= 0 && fa[A_DIS] - fa[A_LEN] <= d) {
-        T pk = fa[A_DIS];
-        if (pk > best_p) {
-          best_p = pk;
-          best_v = lv;
-          best_ent = a.link_iattr[row * a.NI];
-          best_pri = a.link_iattr[row * a.NI + 1];
-          bfa = fa;
+    const unsigned kept = __ballot_sync(wmask, keep) & gmask;
+    if (keep) mine[2 + n + __popc(kept & ((1u << lane) - 1))] = c;
+    n += __popc(kept);
+  }
+  if (gi == 0 && live) info[grp] = n;
+  __syncwarp();
+  // the cells of the warp's groups, contiguous in every output (the
+  // groups' lanelinks are), a lane a cell: each store a run of W, the
+  // warp's threads (fewer than 32 where the candidates of 4 groups do not
+  // fit the shared memory)
+  const int W = (int)min(32u, blockDim.x);
+  const int ng = W >> lgg;                            // groups a warp
+  const int g0 = grp & ~(ng - 1);                     // the warp's first
+  const int cells = ng * a.KC;
+  const int q = W / a.KC, r = W - q * a.KC;
+  const T* D = (const T*)a.d;
+  int g = lane / a.KC, kc = lane - g * a.KC;
+  for (int cell = lane; cell < cells; cell += W) {
+    const int lg = (int)blockIdx.x * groups + g0 + g;
+    if (lg < a.LL) {
+      const Cand<T>* gc = cands + (g0 + g) * SLOTS;
+      const T d = __ldg(D + lg * a.KC + kc);
+      // the candidates in the plain version's order: the end vehicle
+      // (tail < d), the table rows (tail <= d), the start vehicle
+      T best_p = T(-1e30);
+      int best = -1;
+      if (info[groups + 2 * (g0 + g)] && gc[0].tail < d &&
+          gc[0].pk > best_p) {
+        best_p = gc[0].pk;
+        best = 0;
+      }
+      const int nk = info[g0 + g];
+      for (int i = 2; i < 2 + nk; ++i) {
+        if (gc[i].tail <= d && gc[i].pk > best_p) {
+          best_p = gc[i].pk;
+          best = i;
         }
       }
-    }
-    // candidate K + 1: the start lane's front vehicle, about to enter
-    if (s_ok) {
-      T pk = -(drv_len[a.ll_start[l]] - ffa[A_DIS]);
-      if (pk > best_p) {
-        best_p = pk;
-        best_v = first_slot;
-        best_ent = fia[0];
-        best_pri = fia[1];
-        bfa = ffa;
+      if (info[groups + 2 * (g0 + g) + 1] && gc[1].pk > best_p) {
+        best_p = gc[1].pk;
+        best = 1;
       }
+      const Cand<T>& c = gc[best >= 0 ? best : 0];
+      const T ndist = d - best_p;
+      const int o = (eLL + lg) * a.KC + kc;
+      a.exists[o] = best >= 0;
+      // canYield (vehicle.cpp:284-287) with the brake distance kept
+      a.yld[o] = ((ndist > T(0)) && (c.min_brake < ndist - c.yld)) ||
+                 ((ndist < T(0)) && (ndist + c.len < T(0)));
+      a.cleared[o] = ndist + c.len < T(0);
+      a.cyc[o] = c.cyc > T(0);
+      a.dpos[o] = ndist > T(0);
+      ((T*)a.dist)[o] = ndist;
+      a.reach[o] = reach_at(c, ndist, dt);
+      a.ent[o] = best >= 0 ? c.ent : 0;
+      a.pri[o] = best >= 0 ? c.pri : 0;
+      a.idx[o] = best >= 0 ? c.v : -1;
     }
-    T ndist = d - best_p;
-    T target = a.ll_is_turn[l] ? bfa[A_TURNSPD] : bfa[A_MAXSPD];
-    a.exists[e] = best_v >= 0;
-    a.yld[e] = can_yield(bfa[A_SPEED], bfa[A_MAXNEG], bfa[A_YIELD],
-                         bfa[A_LEN], ndist);
-    a.cleared[e] = ndist + bfa[A_LEN] < T(0);
-    a.cyc[e] = bfa[A_CYC] > T(0);
-    a.dpos[e] = ndist > T(0);
-    ((T*)a.dist)[e] = ndist;
-    a.reach[e] = reach_steps(bfa[A_SPEED], ndist, target, bfa[A_UPA], dt);
-    a.ent[e] = best_ent;
-    a.pri[e] = best_pri;
-    a.idx[e] = best_v;
+    g += q;
+    kc += r;
+    if (kc >= a.KC) {
+      kc -= a.KC;
+      ++g;
+    }
   }
 }
 
 extern "C" int notify_cross(const NotifyArgs* args, void* stream) {
   const NotifyArgs a = *args;
-  long long total = a.LL * a.KC;
-  if (total == 0 || a.B == 0) return 0;
-  const int threads = 128;
-  GEN1_LAUNCH(notify_cross_kernel, a,
-              dim3(grid_blocks(total, threads), (unsigned)a.B), threads, 0,
-              (cudaStream_t)stream);
+  if (a.LL == 0 || a.KC == 0 || a.B == 0) return 0;
+  // as many groups a block as fill NC_THREADS and keep their candidates
+  // within 48 KB of shared memory (one group past it opts in)
+  const size_t per_group = (size_t)(a.K + 2) *
+      (a.fp32 ? sizeof(Cand<float>) : sizeof(Cand<double>)) + 3 * 4;
+  int groups = NC_THREADS >> NC_LGG;
+  while (groups > 1 && groups * per_group > 48 * 1024) groups >>= 1;
+  const size_t smem = groups * per_group;
+  const dim3 grid((unsigned)((a.LL + groups - 1) / groups), (unsigned)a.B);
+  const unsigned threads = (unsigned)groups << NC_LGG;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
+  if (a.fp32) {
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(notify_cross_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e == cudaSuccess)
+      notify_cross_kernel<float><<<grid, threads, smem, st>>>(a);
+  } else {
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(notify_cross_kernel<double>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e == cudaSuccess)
+      notify_cross_kernel<double><<<grid, threads, smem, st>>>(a);
+  }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -60,9 +60,8 @@ struct RingExitsArgs {
   // pair-stage inputs
   const uint8_t* leave_in;  // (SL, LNp, B)
   const float* pA;
-  const uint8_t* pf2;
+  const uint8_t* pf;        // L4's found mask, both pair stages
   const float *abort_in, *finish_in, *pAb, *pFin;
-  const uint8_t* pf3;
   const float* pB;
   const int* n_rm_in;       // (B,)
   const float* t_rm_in;
@@ -230,7 +229,7 @@ __global__ void ring_pairs_kernel(const RingExitsArgs a) {
       const int dir = a.l_dir[r];
       const bool chanA = lv && !last;
       const bool abort =
-          occ && shv && !last && (chanA || (a.pf2[r] && a.pA[r] > 0.5f));
+          occ && shv && !last && (chanA || (a.pf[r] && a.pA[r] > 0.5f));
       const float max_off = dir > 0 ? mo_out : mo_in;
       const float off = tmin(
           fabsf(a.l_off[r] +
@@ -260,14 +259,14 @@ __global__ void ring_finish_kernel(const RingExitsArgs a) {
       const bool abort = a.abort_in[r] > 0.5f;
       const bool pAb = a.pAb[r] > 0.5f, pFin = a.pFin[r] > 0.5f;
       const bool pB = a.pB[r] > 0.5f;
-      const bool pf2 = a.pf2[r] != 0, pf3 = a.pf3[r] != 0;
-      const bool finish = a.finish_in[r] > 0.5f && !(pf3 && pAb);
+      const bool pf = a.pf[r] != 0;
+      const bool finish = a.finish_in[r] > 0.5f && !(pf && pAb);
       const bool cm = abort && !lv;
       const bool chg_real = occ && a.l_chg[r] && !shv;
       a.die_mid[r] = finish || cm;
-      a.promote[r] = occ && shv && !abort && pf3 && pFin;
-      a.unlink_real[r] = chg_real && (!pf2 || (pf3 && pAb) || pB);
-      a.unlink_sh[r] = occ && shv && (!pf2 || pB);
+      a.promote[r] = occ && shv && !abort && pf && pFin;
+      a.unlink_real[r] = chg_real && (!pf || pAb || pB);
+      a.unlink_sh[r] = occ && shv && (!pf || pB);
       if (cm) {
         ++ncm;
         tcm += now - a.l_enter[r];

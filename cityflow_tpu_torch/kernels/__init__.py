@@ -11,7 +11,9 @@ counter:
   L1 lc_signal       lane-change signals, target leader / follower, gaps
   L2 lc_receive      signal arbitration, yield speed, change decision
   L3 lc_insert       shadow winners per lane and the rank-preserving inserts
-  L4 lc_partner      real / shadow partner values by uid match
+  L4 lc_partner      real / shadow partner values by uid match (match
+                     mode: the search, kept as a match; gather mode: other
+                     channels at that match)
   O1 lane_stats      per-lane waiting counts, the lane-history window, the
                      time in flight (observations)
   O2 phase_pressure  MaxPressure pressures and actions, DQN phase features
@@ -59,7 +61,8 @@ counter:
                      pack) straight from the rings
 
 R1, R3 and R4 count their template / lane-change calls apart as
-<name>@tpl / <name>@lc, R2 its two lane-change stages as ring_exits@pairs
+<name>@tpl / <name>@lc, L4 its gather mode as lc_partner@gather, R2 its
+two lane-change stages as ring_exits@pairs
 and ring_exits@finish, R5 its lane-change mode as front_leaders@ctx, R6
 its template calls as gap_refresh@tpl, R7 its modes as ring_pack@entrant,
 ring_pack@candidate and ring_pack@approach (the rest are forward packs).
@@ -121,6 +124,7 @@ FAST_KERNELS = ("leader_scan", "blocker_cycles", "update_location")
 # modes of a kernel counted apart as well (module, counter)
 MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "ring_commit@lc": (ring_commit, "launches_lc"),
+         "lc_partner@gather": (lc_partner, "launches_gather"),
          "lane_stats@hist": (lane_stats, "launches_hist"),
          "lane_stats@obs": (lane_stats, "launches_obs"),
          "phase_pressure@features": (phase_pressure, "launches_features"),

@@ -101,7 +101,7 @@ def lib():
                                   ctypes.c_uint, vp]
         L.gather_rows.restype = ctypes.c_int
         for name in ("cross_caps", "car_follow", "ring_commit", "lc_signal",
-                     "lc_receive", "lc_insert", "lc_partner", "lane_stats",
+                     "lc_receive", "lc_insert", "lane_stats",
                      "phase_pressure", "arrange", "leader_scan",
                      "notify_cross", "cross_pass", "tpl_params",
                      "hist_window", "lc_probe", "blocker_cycles",
@@ -113,7 +113,7 @@ def lib():
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int
         for name in ("lc_plan", "lc_commit", "ring_exits", "front_leaders",
-                     "ring_pack"):                     # (args, mode, stream)
+                     "ring_pack", "lc_partner"):       # (args, mode, stream)
             fn = getattr(L, name)
             fn.argtypes = [vp, ctypes.c_int, vp]
             fn.restype = ctypes.c_int

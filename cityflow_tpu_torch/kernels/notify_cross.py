@@ -30,6 +30,7 @@ from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
 launches_f32 = 0       # float32 (fast-mode) launches among them
+I32_MAX = 2 ** 31 - 1
 OWN = ("exists", "yield", "cleared", "cyc", "dpos", "dist", "reach", "ent",
        "pri", "idx")
 _BOOL = ("exists", "yield", "cleared", "cyc", "dpos")
@@ -41,7 +42,7 @@ class _Args(ctypes.Structure):
         "first_of", "veh_next", "ll_avail", "fattrs", "iattrs", "link_veh",
         "link_fattr", "link_iattr", "interval", "exists", "yld", "cleared",
         "cyc", "dpos", "dist", "reach", "ent", "pri", "idx")]
-        + [(n, ctypes.c_longlong) for n in (
+        + [(n, ctypes.c_int) for n in (
             "B", "LL", "KC", "K", "NA", "NI", "V", "L", "D", "fp32")])
 
 
@@ -131,6 +132,17 @@ def notify_cross_plain(net, arr, veh_next, ll_avail, fattrs, iattrs, L):
         "ent": best_ent, "pri": best_pri, "idx": best_v}
 
 
+def offsets_fit(B, V, NA, LL, K, KC, D):
+    """The kernel's offsets are 32-bit: B * V * NA (the packs), B * LL * K
+    * NA (the link table), B * LL * KC (the outputs) and B * D must fit,
+    or this raises (the CPU path too, so that the tests see the
+    refusal)."""
+    if max(B * V * NA, B * LL * K * NA, B * LL * KC, B * D) > I32_MAX:
+        raise ValueError(f"notify_cross: B={B} V={V} NA={NA} LL={LL} K={K} "
+                         f"KC={KC} D={D} do not fit the kernel's 32-bit "
+                         "offsets")
+
+
 def notify_cross(net, arr, veh_next, ll_avail, fattrs, iattrs, L):
     """G3 on CUDA tensors, the plain version on CPU tensors."""
     d = net["lnk_cross_d"]
@@ -158,6 +170,8 @@ def notify_cross(net, arr, veh_next, ll_avail, fattrs, iattrs, L):
         raise ValueError("notify_cross: link tables must be (..., LL, "
                          f"k_link, .) and ll_avail (..., LL), LL = {LL}, "
                          "with veh_next's env axis")
+    offsets_fit(lead[0], fattrs.shape[1], fattrs.shape[-1], LL, K, KC,
+                arr["last_of"].shape[-1])
     if cpu:
         return notify_cross_plain(net, arr, veh_next, ll_avail, fattrs,
                                   iattrs, L)

@@ -56,8 +56,8 @@ class _Args(ctypes.Structure):
         "ln_len", "lk_len", "ln_maxoff_out", "ln_maxoff_in", "i_n_phases",
         "i_virtual", "i_phase_offset", "phase_time",
         # pair-stage inputs
-        "leave_in", "pA", "pf2", "abort_in", "finish_in", "pAb", "pFin",
-        "pf3", "pB", "n_rm_in", "t_rm_in",
+        "leave_in", "pA", "pf", "abort_in", "finish_in", "pAb", "pFin",
+        "pB", "n_rm_in", "t_rm_in",
         # outputs
         "dis_l", "leave", "x_l", "exited", "chanA", "chanB", "leave_k",
         "x_k", "blk", "phase_out", "remain_out", "abort_sh", "finish_pre",
@@ -177,7 +177,7 @@ def ring_exits_plain(cfg, net, rs, mid):
     return out
 
 
-def ring_exits_pairs_plain(cfg, net, rs, new_spd_l, leave, pA, pf2):
+def ring_exits_pairs_plain(cfg, net, rs, new_spd_l, leave, pA, pf):
     """Plain PyTorch version of the second stage (JAX ring.py:1497-1512):
     abort_sh and finish_pre as float32 (the round-2 partner channels) and
     the lateral offset new_off."""
@@ -189,7 +189,7 @@ def ring_exits_pairs_plain(cfg, net, rs, new_spd_l, leave, pA, pf2):
     pA = pA > 0.5
     # a shadow aborts when it or its real crosses into a link (abort wins
     # over a same-step finish)
-    abort_sh = occ_l & sh & ~rs.l_last & (chanA | (pf2 & pA))
+    abort_sh = occ_l & sh & ~rs.l_last & (chanA | (pf & pA))
     dirn = rs.l_dir.to(F32)
     max_off = torch.where(rs.l_dir > 0, net["ln_maxoff_out"][:, None],
                           net["ln_maxoff_in"][:, None])
@@ -202,7 +202,7 @@ def ring_exits_pairs_plain(cfg, net, rs, new_spd_l, leave, pA, pf2):
 
 
 def ring_exits_finish_plain(cfg, net, rs, leave, abort_sh, finish_pre, pAb,
-                            pFin, pf3, pf2, pB, n_rm, t_rm):
+                            pFin, pf, pB, n_rm, t_rm):
     """Plain PyTorch version of the third stage (JAX ring.py:1515-1529,
     1545-1550)."""
     dt = net["ring_f32"][len(cfg.params)]
@@ -211,14 +211,14 @@ def ring_exits_finish_plain(cfg, net, rs, leave, abort_sh, finish_pre, pAb,
     chg_real = occ_l & rs.l_chg & ~sh
     abort_sh, finish_pre = abort_sh > 0.5, finish_pre > 0.5
     pAb, pFin, pB = pAb > 0.5, pFin > 0.5, pB > 0.5
-    finish = finish_pre & ~(pf3 & pAb)
+    finish = finish_pre & ~(pf & pAb)
     cm = abort_sh & ~leave
     tt = rs.step.to(F32) * dt - rs.l_enter
     return dict(
         die_mid=finish | cm,
-        promote=occ_l & sh & ~abort_sh & pf3 & pFin,
-        unlink_real=chg_real & (~pf2 | (pf3 & pAb) | pB),
-        unlink_sh=occ_l & sh & (~pf2 | pB),
+        promote=occ_l & sh & ~abort_sh & pf & pFin,
+        unlink_real=chg_real & (~pf | pAb | pB),
+        unlink_sh=occ_l & sh & (~pf | pB),
         n_rm=n_rm + cm.to(I32).sum((0, 1), dtype=I32),
         t_rm=t_rm + torch.where(cm, tt, 0.0).sum((0, 1)))
 
@@ -271,22 +271,22 @@ def ring_exits(cfg, net, rs, mid):
     return _launch_exits(cfg, net, rs, mid)
 
 
-def ring_exits_pairs(cfg, net, rs, new_spd_l, leave, pA, pf2):
+def ring_exits_pairs(cfg, net, rs, new_spd_l, leave, pA, pf):
     """R2's second stage (lane change) on CUDA tensors, the plain version
     on CPU tensors. Returns dict(abort_sh, finish_pre, new_off)."""
     cpu = rs.n_l.device.type == "cpu"
     _check_state("ring_exits_pairs", cfg, rs,
-                 [rs.l_chg, rs.l_dir, rs.l_off, new_spd_l, leave, pA, pf2],
+                 [rs.l_chg, rs.l_dir, rs.l_off, new_spd_l, leave, pA, pf],
                  [(torch.bool,), (I32,), (F32,), (F32,), (torch.bool,),
                   (F32,), (torch.bool,)], cpu)
     if cpu:
         return ring_exits_pairs_plain(cfg, net, rs, new_spd_l, leave, pA,
-                                      pf2)
-    return _launch_pairs(cfg, net, rs, new_spd_l, leave, pA, pf2)
+                                      pf)
+    return _launch_pairs(cfg, net, rs, new_spd_l, leave, pA, pf)
 
 
 def ring_exits_finish(cfg, net, rs, leave, abort_sh, finish_pre, pAb, pFin,
-                      pf3, pf2, pB, n_rm, t_rm):
+                      pf, pB, n_rm, t_rm):
     """R2's third stage (lane change) on CUDA tensors, the plain version on
     CPU tensors. Returns dict(die_mid, promote, unlink_real, unlink_sh,
     n_rm, t_rm)."""
@@ -294,15 +294,15 @@ def ring_exits_finish(cfg, net, rs, leave, abort_sh, finish_pre, pAb, pFin,
     b8 = (torch.bool,)
     _check_state("ring_exits_finish", cfg, rs,
                  [rs.l_chg, rs.l_enter, rs.step, leave, abort_sh, finish_pre,
-                  pAb, pFin, pf3, pf2, pB, n_rm, t_rm],
+                  pAb, pFin, pf, pB, n_rm, t_rm],
                  [b8, (F32,), (I32,), b8, (F32,), (F32,), (F32,), (F32,), b8,
-                  b8, (F32,), (I32,), (F32,)], cpu)
+                  (F32,), (I32,), (F32,)], cpu)
     if cpu:
         return ring_exits_finish_plain(cfg, net, rs, leave, abort_sh,
-                                       finish_pre, pAb, pFin, pf3, pf2, pB,
-                                       n_rm, t_rm)
+                                       finish_pre, pAb, pFin, pf, pB, n_rm,
+                                       t_rm)
     return _launch_finish(cfg, net, rs, leave, abort_sh, finish_pre, pAb,
-                          pFin, pf3, pf2, pB, n_rm, t_rm)
+                          pFin, pf, pB, n_rm, t_rm)
 
 
 def _call(cfg, net, mode, B, like, T=None, inp=None, outs=None):
@@ -364,7 +364,7 @@ def _launch_exits(cfg, net, rs, mid):
     return out
 
 
-def _launch_pairs(cfg, net, rs, new_spd_l, leave, pA, pf2):
+def _launch_pairs(cfg, net, rs, new_spd_l, leave, pA, pf):
     SL, LNp = cfg.SL, cfg.LNp
     B = rs.n_l.shape[-1]
     dev = rs.n_l.device
@@ -373,12 +373,12 @@ def _launch_pairs(cfg, net, rs, new_spd_l, leave, pA, pf2):
     T = dict(n_l=rs.n_l, l_last=rs.l_last, l_sh=rs.l_sh, l_chg=rs.l_chg,
              l_dir=rs.l_dir, l_off=rs.l_off, new_spd_l=new_spd_l)
     _call(cfg, net, "pairs", B, rs.n_l, T=T,
-          inp=dict(leave_in=leave, pA=pA, pf2=pf2), outs=out)
+          inp=dict(leave_in=leave, pA=pA, pf=pf), outs=out)
     return out
 
 
-def _launch_finish(cfg, net, rs, leave, abort_sh, finish_pre, pAb, pFin, pf3,
-                   pf2, pB, n_rm, t_rm):
+def _launch_finish(cfg, net, rs, leave, abort_sh, finish_pre, pAb, pFin, pf,
+                   pB, n_rm, t_rm):
     SL, LNp = cfg.SL, cfg.LNp
     B = rs.n_l.shape[-1]
     dev = rs.n_l.device
@@ -390,7 +390,7 @@ def _launch_finish(cfg, net, rs, leave, abort_sh, finish_pre, pAb, pFin, pf3,
              step=rs.step)
     _call(cfg, net, "finish", B, rs.n_l, T=T,
           inp=dict(leave_in=leave, abort_in=abort_sh, finish_in=finish_pre,
-                   pAb=pAb, pFin=pFin, pf3=pf3, pf2=pf2, pB=pB,
+                   pAb=pAb, pFin=pFin, pf=pf, pB=pB,
                    n_rm_in=n_rm, t_rm_in=t_rm),
           outs=dict(out, npart=torch.empty((LNp, B), dtype=I32, device=dev),
                     tpart=torch.empty((LNp, B), dtype=F32, device=dev)))

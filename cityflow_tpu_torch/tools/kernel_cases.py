@@ -1326,3 +1326,277 @@ def shadow_args(case, device):
     st2 = st.replace_fields(lc_target=target, lc_changing=T(
         lv["lc_changing"] | case["do_change"]), lc_lgap=T(lv["lc_lgap"]))
     return st, st2, T(case["do_change"]), target, case["MS"]
+
+
+# ---- L4 lc_partner ---------------------------------------------------------
+
+# uids near INT32_MAX that float32 cannot tell apart (f32 rounds each to
+# 2^31): the int32 compare must
+_BIG_UIDS = np.int32([2 ** 31 - 1, 2 ** 31 - 2, 2 ** 31 - 3])
+
+
+def _road_tables(rng, N):
+    """(inner_src, outer_src) of N lane columns cut into roads of 1-4
+    lanes: inner = the column before in the road, outer = the one after,
+    -1 at a road's edges (a one-lane road has neither)."""
+    inner = np.full(N, -1, np.int32)
+    outer = np.full(N, -1, np.int32)
+    first = 0
+    while first < N:
+        n = min(int(rng.integers(1, 5)), N - first)
+        for i in range(n):
+            if i > 0:
+                inner[first + i] = first + i - 1
+            if i < n - 1:
+                outer[first + i] = first + i + 1
+        first += n
+    return inner, outer
+
+
+def _partner_case(rng, B, S, N, C):
+    """One seeded L4 case: B envs of N lane columns of S slots. uids from a
+    few values (so that rows find same-uid rows with either shadow flag
+    before, at and after their partner, occupied or stale past n_l) and
+    from _BIG_UIDS; sh, chg and dir (-1 / 0 / +1, also toward a side the
+    lane lacks) random on every row, occupied or not; n_l from 0 to S; C
+    float32 channels with NaN and -0.0. Env 0 lane 0 is crafted where S
+    allows: its partners at the outer column's slot 0 and at the inner
+    column's n_l - 1 behind a same-uid, same-flag row; a row whose partner
+    uid differs by one near INT32_MAX behind one that matches; a stale
+    match past n_l; a match on a row that is not paired (dir 0)."""
+    inner, outer = _road_tables(rng, N)
+    inner[0], outer[0] = -1, -1
+    if N >= 3:                         # lane 1 between lanes 0 and 2
+        inner[:3], outer[:3] = (-1, 0, 1), (1, 2, -1)
+    shape = (S, N, B)
+    uid = rng.integers(0, 6, shape).astype(np.int32)
+    big = rng.random(shape) < 0.05
+    uid[big] = rng.choice(_BIG_UIDS, int(big.sum()))
+    sh = rng.random(shape) < 0.35
+    chg = rng.random(shape) < 0.4
+    l_dir = rng.choice(np.int32([-1, 0, 1]), shape, p=[0.4, 0.2, 0.4])
+    n_l = rng.integers(0, S + 1, (N, B)).astype(np.int32)
+    n_l[rng.random((N, B)) < 0.1] = S
+    chans = []
+    for _ in range(C):
+        x = rng.uniform(-50.0, 300.0, shape).astype(np.float32)
+        r = rng.random(shape)
+        x[r < 0.03] = np.nan
+        x[(r >= 0.03) & (r < 0.06)] = -0.0
+        chans.append(x)
+    if N >= 3 and S >= 6:
+        # lane 1 of env 0 looks at lanes 0 (inner) and 2 (outer)
+        n_l[:3, 0] = (4, S, 3)
+        rows = [  # (slot, uid, sh, chg, dir) of lane 1
+            (0, 101, False, True, 1),    # outer partner at slot 0
+            (1, 102, True, True, 1),     # shadow: inner partner at 3 = n-1
+            (2, 103, False, True, 0),    # not paired (dir 0): still fetched
+            (3, 104, True, True, 1),     # inner: 104 only past n_l
+            (4, 2 ** 31 - 2, False, True, 1)]  # outer: 2^31 - 1 first
+        for s, u, f, c, d in rows:
+            uid[s, 1, 0], sh[s, 1, 0], chg[s, 1, 0], l_dir[s, 1, 0] = \
+                u, f, c, d
+        uid[:, 0, 0], uid[:, 2, 0] = 7, 7      # no stray matches
+        uid[0, 2, 0], sh[0, 2, 0] = 101, True
+        uid[0, 0, 0], sh[0, 0, 0] = 102, True  # same flag: not it
+        uid[3, 0, 0], sh[3, 0, 0] = 102, False
+        uid[1, 0, 0], sh[1, 0, 0] = 103, True
+        uid[4, 0, 0], sh[4, 0, 0] = 104, False  # past n_l = 4
+        uid[1, 2, 0], sh[1, 2, 0] = 2 ** 31 - 1, True
+        uid[2, 2, 0], sh[2, 2, 0] = 2 ** 31 - 2, True
+    return dict(uid=uid, sh=sh, l_dir=l_dir, n_l=n_l, chg=chg, chans=chans,
+                inner_src=inner, outer_src=outer)
+
+
+# name -> (B, S, N, C): S = 300 at B = 128 needs more than 48 KB of staging
+# (the kernel opts in), S = 800 more than a block's 227 KB at 32 envs (the
+# kernel narrows its env tile)
+PARTNER_SPECS = {
+    "B1_S40_C1": (1, 40, 24, 1),
+    "B3_S12_C2": (3, 12, 30, 2),
+    "B128_S40_C2": (128, 40, 16, 2),
+    "B130_S7_C3": (130, 7, 20, 3),
+    "B1_S1_C4": (1, 1, 9, 4),
+    "B3_S33_C4": (3, 33, 12, 4),
+    "B128_S300_C1": (128, 300, 4, 1),
+    "B40_S800_C2": (40, 800, 3, 2),
+}
+PARTNER_CASES = tuple(PARTNER_SPECS)
+
+
+def partner_case(name, seed=0):
+    """The L4 case `name` (one of PARTNER_CASES), from its own seed."""
+    B, S, N, C = PARTNER_SPECS[name]
+    return _partner_case(np.random.default_rng(
+        [seed, 8000 + PARTNER_CASES.index(name)]), B, S, N, C)
+
+
+def partner_cases(seed=0):
+    """(name, case) for each of PARTNER_CASES."""
+    for name in PARTNER_CASES:
+        yield name, partner_case(name, seed)
+
+
+def partner_args(case, device):
+    """The case as lc_partner's arguments on `device`; the gather mode
+    takes the match it returns and the same channels."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    return (T(case["uid"]), T(case["sh"]), T(case["l_dir"]), T(case["n_l"]),
+            T(case["chg"]), [T(c) for c in case["chans"]],
+            {k: T(case[k]) for k in ("inner_src", "outer_src")})
+
+
+# ---- G3 notify_cross -------------------------------------------------------
+
+_NA, _NI = 10, 2
+# a base pack: dis, len, speed, maxNegAcc, yieldDistance, usualPosAcc,
+# turnSpeed, maxSpeed, cyc, prev
+_NC_BASE = (0.0, 5.0, 8.0, 4.5, 5.0, 2.5, 8.0, 16.0, 0.0, 0.0)
+
+
+def _packs(rng, shape, t):
+    """Random attribute packs (shape + (10,)) around the base vehicle: dis
+    from -5 to 60 with NaN and -0.0, speeds from 0, cyc 0 or 1."""
+    fa = np.array(_NC_BASE) * rng.uniform(0.6, 1.4, shape + (_NA,))
+    fa[..., 0] = rng.uniform(-5.0, 60.0, shape)
+    fa[..., 2] = np.where(rng.random(shape) < 0.2, 0.0,
+                          rng.uniform(0.0, 16.0, shape))
+    fa[..., 8] = rng.random(shape) < 0.3
+    r = rng.random(shape)
+    fa[..., 0][r < 0.03] = np.nan
+    fa[..., 0][(r >= 0.03) & (r < 0.06)] = -0.0
+    return fa.astype(t)
+
+
+def _notify_case(rng, B, V, L, LL, KC, K, fp, gaps=False, dt=1.0):
+    """One seeded G3 case: B envs of V slots over L lanes and LL
+    lanelinks of KC crosses, k_link = K. Random: each link's end and start
+    lanes and length, its cross distances (sorted, some equal to a
+    candidate's tail), the end lanes' rear and start lanes' front slots
+    (-1 too), whose prev (A_PREV) names the link or not, whose next
+    drivable is the link or not, ll_avail, each link's first n of K table
+    rows (n from 0 to K; with `gaps`, rows left empty in between, which
+    G1 never does), packs with NaN and -0.0 in dis, ties in front
+    position. Crafted, in every env: link 0 has no candidate (e_ok fails
+    by A_PREV, s_ok by veh_next), link 1's start vehicle fails s_ok by
+    ll_avail alone, link 2's first two table rows tie in front position,
+    link 3's crosses sit at candidate 0's tail (tail < d fails) and at a
+    table row's tail (tail <= d holds), link 4's rows have NaN and -0.0
+    dis."""
+    t = np.float32 if fp == "f32" else np.float64
+    D = L + LL
+    drv_len = np.concatenate([rng.uniform(20.0, 300.0, L),
+                              rng.uniform(5.0, 30.0, LL)]).astype(t)
+    ll_end = rng.integers(0, L, LL).astype(np.int32)
+    ll_start = rng.integers(0, L, LL).astype(np.int32)
+    ll_is_turn = rng.random(LL) < 0.4
+    cd = np.sort(rng.uniform(-2.0, 30.0, (LL, KC)), axis=1)
+    fattrs = _packs(rng, (B, V), t)
+    iattrs = rng.integers(0, 5, (B, V, _NI)).astype(np.int32)
+    last_of = rng.integers(-1, V, (B, D)).astype(np.int32)
+    first_of = rng.integers(-1, V, (B, D)).astype(np.int32)
+    veh_next = rng.integers(-1, D, (B, V)).astype(np.int32)
+    ll_avail = rng.random((B, LL)) < 0.7
+    # a rear vehicle still on its link half of the time, a front vehicle
+    # whose next drivable is the link half of the time
+    for l in range(LL):
+        s = last_of[:, ll_end[l]]
+        on = (s >= 0) & (rng.random(B) < 0.5)
+        fattrs[on, s[on], 9] = L + l
+        s = first_of[:, ll_start[l]]
+        on = (s >= 0) & (rng.random(B) < 0.5)
+        veh_next[on, s[on]] = L + l
+    n = rng.integers(0, K + 1, (B, LL))
+    lv = np.where(np.arange(K) < n[..., None],
+                  rng.integers(0, V, (B, LL, K)), -1).astype(np.int32)
+    if gaps:
+        lv[rng.random((B, LL, K)) < 0.3] = -1
+    lfa = _packs(rng, (B, LL, K), t)
+    lia = rng.integers(0, 5, (B, LL, K, _NI)).astype(np.int32)
+    tie = rng.random((B, LL, K)) < 0.1        # ties with the row before
+    lfa[..., 1:, 0] = np.where(tie[..., 1:], lfa[..., :-1, 0],
+                               lfa[..., 1:, 0])
+    # some crosses exactly at a random candidate's tail in env 0
+    pick = rng.random((LL, KC)) < 0.1
+    rows = lfa[0, :, 0, 0] - lfa[0, :, 0, 1]
+    cd = np.where(pick & ~np.isnan(rows)[:, None], rows[:, None], cd)
+    # crafted links: the end / start lanes of links 0-4 are lanes 0-4 /
+    # 5-9, lane j's vehicle in env b is slot (b + j) % V
+    if LL >= 5 and L >= 10 and V >= 10:
+        ll_end[:5], ll_start[:5] = np.arange(5), np.arange(5, 10)
+        eb = np.arange(B)
+        slot = lambda j: (eb + j) % V
+        for j in range(5):
+            last_of[:, j], first_of[:, 5 + j] = slot(j), slot(5 + j)
+            fattrs[eb, slot(j), 9] = L + j          # on its link: e_ok
+            veh_next[eb, slot(5 + j)] = L + j       # entering it
+        fattrs[eb, slot(0), 9] = L + 7           # link 0: e_ok fails by
+        veh_next[eb, slot(5)] = L + 7            # prev, s_ok by next
+        lv[:, 0] = -1                            # and no table row
+        ll_avail[:, 0] = True
+        ll_avail[:, 1] = False                   # link 1: s_ok by avail
+        lv[:, 1:5] = np.where(np.arange(K) < 2, (eb % V)[:, None, None],
+                              -1)
+        lfa[:, 2, :2, 0] = 12.0                  # link 2: a tie at 12
+        lfa[:, 2, :2, 1] = 4.0
+        lfa[:, 3, 0, 0], lfa[:, 3, 0, 1] = 9.0, 4.0   # tail 5
+        if K > 1:
+            lfa[:, 4, 0, 0], lfa[:, 4, 1, 0] = np.nan, -0.0
+        # link 3's crosses: at candidate 0's tail (ll_len + dis - len,
+        # strict: not eligible) and at table row 0's tail (eligible)
+        fattrs[eb, slot(3), 0], fattrs[eb, slot(3), 1] = -3.0, 4.0
+        cd[3, 0] = (drv_len[L + 3] + t(-3.0)) - t(4.0)
+        if KC > 1:
+            cd[3, 1] = 5.0
+    return dict(
+        net=dict(lnk_cross_d=cd.astype(t), drv_len=drv_len, ll_end=ll_end,
+                 ll_start=ll_start, ll_is_turn=ll_is_turn,
+                 cross_ll=np.zeros((1, 2), np.int32),
+                 interval=np.array(dt, t)),
+        arr=dict(last_of=last_of, first_of=first_of, link_veh=lv,
+                 link_fattr=lfa, link_iattr=lia),
+        veh_next=veh_next, ll_avail=ll_avail, fattrs=fattrs, iattrs=iattrs,
+        L=L)
+
+
+# name -> (B, V, L, LL, KC, K, float type, keywords of _notify_case)
+NOTIFY_SPECS = {
+    "B1_KC20_K16_f64": (1, 64, 12, 24, 20, 16, "f64", {}),
+    "B3_KC5_K8_f32": (3, 50, 10, 16, 5, 8, "f32", {}),
+    "B128_KC6_K4_f32": (128, 40, 10, 12, 6, 4, "f32", {}),
+    "B130_KC3_K1_f64": (130, 20, 10, 8, 3, 1, "f64", dict(dt=0.5)),
+    "B3_KC1_K40_f64": (3, 80, 10, 10, 1, 40, "f64", {}),
+    "B1_KC9_K2_f32_gaps": (1, 30, 12, 20, 9, 2, "f32", dict(gaps=True)),
+    "B3_KC20_K8_f64_gaps": (3, 60, 10, 14, 20, 8, "f64", dict(gaps=True)),
+    # k_link so large that a block holds 2 groups (16 threads) or 1 (8):
+    # the crosses of a link take more rounds of the part-warp
+    "B3_KC20_K128_f64": (3, 200, 10, 10, 20, 128, "f64", {}),
+    "B1_KC20_K240_f64": (1, 300, 10, 6, 20, 240, "f64", {}),
+    "B3_KC20_K218_f32": (3, 250, 10, 8, 20, 218, "f32", {}),
+}
+NOTIFY_CASES = tuple(NOTIFY_SPECS)
+
+
+def notify_case(name, seed=0):
+    """The G3 case `name` (one of NOTIFY_CASES), from its own seed."""
+    B, V, L, LL, KC, K, fp, kw = NOTIFY_SPECS[name]
+    return _notify_case(np.random.default_rng(
+        [seed, 9000 + NOTIFY_CASES.index(name)]), B, V, L, LL, KC, K, fp,
+        **kw)
+
+
+def notify_cases(seed=0):
+    """(name, case) for each of NOTIFY_CASES."""
+    for name in NOTIFY_CASES:
+        yield name, notify_case(name, seed)
+
+
+def notify_args(case, device):
+    """The case as notify_cross' arguments on `device`."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    return ({k: T(v) for k, v in case["net"].items()},
+            {k: T(v) for k, v in case["arr"].items()}, T(case["veh_next"]),
+            T(case["ll_avail"]), T(case["fattrs"]), T(case["iattrs"]),
+            case["L"])

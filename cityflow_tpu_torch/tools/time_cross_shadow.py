@@ -116,8 +116,9 @@ def case_rows(reps):
     return rows
 
 
-def gen1_calls(path):
-    """{kernel: recorded calls} of one step of gen1 / gen1-batch."""
+def gen1_calls(path, names=("cross_pass",)):
+    """{kernel: recorded calls} of one step of gen1 / gen1-batch, of the
+    kernels `names`."""
     from cityflow_tpu_torch.core.state import pad_state
     from cityflow_tpu_torch.engine import Engine
     from cityflow_tpu_torch.parallel.batch import (
@@ -131,17 +132,18 @@ def gen1_calls(path):
         eng.next_step()
     import chip_smoke as cs
     if not fast:
-        return cs.record_gen1_calls(eng.next_step, ("cross_pass",))
+        return cs.record_gen1_calls(eng.next_step, names)
     cfg, net, spawn = eng.cfg, eng._net_dev, eng._spawn_dev
     stb = init_batch_state(cfg, pad_state(eng.state, cfg.max_vehicles),
                            BATCH)
     del eng
     step_b = make_batched_step(net, cfg, with_obs=False)
-    return cs.record_gen1_calls(lambda: step_b(stb, spawn), ("cross_pass",))
+    return cs.record_gen1_calls(lambda: step_b(stb, spawn), names)
 
 
-def lc_calls():
-    """({kernel: calls} of gen1-lc's step 1961, of gen1-lc-batch's)."""
+def lc_calls(names=("cross_pass", "shadow_insert")):
+    """({kernel: calls} of gen1-lc's step 1961, of gen1-lc-batch's), of
+    the kernels `names`."""
     import dataclasses
     from cityflow_tpu_torch.carry import (
         net_tensors, sim_state_from_numpy, sim_state_to_numpy)
@@ -158,7 +160,6 @@ def lc_calls():
         eng.next_step()
     warm = eng.state
     import chip_smoke as cs
-    names = ("cross_pass", "shadow_insert")
     one = cs.record_gen1_calls(eng.next_step, names)
     cfg = dataclasses.replace(eng.cfg, exact=False)
     net = net_tensors(eng.net, torch.float32, eng.device)

@@ -24,10 +24,10 @@ from cityflow_tpu.compiler.net import compile_scenario as jax_compile
 from cityflow_tpu.core import ring as jax_ring
 
 from cityflow_tpu_torch import ring_sim
-from cityflow_tpu_torch.carry import mid_from_numpy, ring_state_from_numpy
+from cityflow_tpu_torch.carry import ring_state_from_numpy
 from cityflow_tpu_torch.compiler.net import compile_scenario
 from cityflow_tpu_torch.core import ring
-from test_torch_ring import assert_close, jax_leaves, port_leaves
+from test_torch_ring import assert_close, jax_leaves, p2_mid, port_leaves
 
 torch.set_num_threads(2)
 
@@ -99,7 +99,7 @@ def test_history_per_phase_matches_jax(duration_run):
             _close(f"{case} step {t} mid {k}", v, tmid[k].numpy())
         tst2 = ring.ring_step_p2(
             tsim.tables, tsim.cfg, ring_state_from_numpy(rs1, "cpu"),
-            mid_from_numpy(mid, "cpu"))
+            p2_mid(mid, tmid))
         assert set(st2) == set(port_leaves(tst2))
         for k, v in st2.items():
             _close(f"{case} step {t} p2 {k}", v, getattr(tst2, k).numpy())

@@ -25,10 +25,11 @@ from cityflow_tpu.core import ring as jax_ring
 from cityflow_tpu.core import ring_lc as jax_lc
 
 from cityflow_tpu_torch import ring_sim
-from cityflow_tpu_torch.carry import mid_from_numpy, ring_state_from_numpy
+from cityflow_tpu_torch.carry import ring_state_from_numpy
 from cityflow_tpu_torch.compiler.net import compile_scenario
 from cityflow_tpu_torch.core import ring, ring_lc
-from test_torch_ring import assert_close, jax_leaves, port_leaves, vehicles
+from test_torch_ring import (assert_close, jax_leaves, p2_mid, port_leaves,
+                             vehicles)
 
 torch.set_num_threads(2)
 
@@ -124,12 +125,14 @@ def test_lc_per_phase_matches_jax(lc_pair, jax_lc_run):
             tsim.tables, tsim.cfg, ring_state_from_numpy(st, "cpu"), tsim.q)
         for k, v in rs1.items():
             assert_close(f"step {t} p1 {k}", v, getattr(trs1, k).numpy())
-        assert set(mid) == set(tmid)
+        # the port's mid also keeps L4's match for p2 (JAX's p2 searches
+        # again); p2 below runs from JAX's mid with the port's match
+        assert set(mid) == set(tmid) - set(ring.LC_MATCH_KEYS)
         for k, v in mid.items():
             assert_close(f"step {t} mid {k}", v, tmid[k].numpy())
         tst2 = ring.ring_step_p2(
             tsim.tables, tsim.cfg, ring_state_from_numpy(rs1, "cpu"),
-            mid_from_numpy(mid, "cpu"))
+            p2_mid(mid, tmid))
         for k, v in st2.items():
             assert_close(f"step {t} p2 {k}", v, getattr(tst2, k).numpy())
         for k in ring.LC_FIELDS:

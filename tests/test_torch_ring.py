@@ -42,6 +42,14 @@ def port_leaves(st):
     return {k: v.numpy() for k, v in st.leaves().items()}
 
 
+def p2_mid(mid, tmid):
+    """JAX's p1 mid as the port's p2 takes it: under lane change with the
+    L4 match (ring.LC_MATCH_KEYS) that the port's p1 on the same state
+    keeps in its own mid (JAX's p2 searches again)."""
+    return dict(mid_from_numpy(mid, "cpu"),
+                **{k: tmid[k] for k in ring.LC_MATCH_KEYS if k in tmid})
+
+
 def build_pair(config, steps, skc=None):
     jsim = jax_ring_sim.build_sim(jax_compile(config), horizon=steps + 8,
                                   skc=skc)
@@ -121,7 +129,7 @@ def test_per_phase_matches_jax_40_steps(pair40, jax_run40):
                          not_bitwise)
         tst2 = ring.ring_step_p2(
             tsim.tables, tsim.cfg, ring_state_from_numpy(jax_leaves(rs1), "cpu"),
-            mid_from_numpy(mid, "cpu"))
+            p2_mid(mid, tmid))
         for k, v in jax_leaves(st2).items():
             assert_close(f"step {t} p2 {k}", v, getattr(tst2, k).numpy(),
                          not_bitwise)

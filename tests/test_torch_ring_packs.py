@@ -31,10 +31,10 @@ from cityflow_tpu.core import ring as jax_ring
 from cityflow_tpu.core import ring_lc as jax_lc
 
 from cityflow_tpu_torch import ring_sim
-from cityflow_tpu_torch.carry import mid_from_numpy, ring_state_from_numpy
+from cityflow_tpu_torch.carry import ring_state_from_numpy
 from cityflow_tpu_torch.compiler.net import P_LEN, P_MINGAP, compile_scenario
 from cityflow_tpu_torch.core import ring, ring_lc
-from test_torch_ring import assert_close, jax_leaves
+from test_torch_ring import assert_close, jax_leaves, p2_mid
 
 torch.set_num_threads(2)
 
@@ -273,7 +273,9 @@ def test_step_outputs_match_jax_on_full_empty_and_tied_rings(scen, name):
                                    sc.tsim.q)
     for k, v in rs1.items():
         assert_close(f"p1 {k}", v, getattr(trs1, k).numpy())
-    assert set(mid) == set(tmid)
+    # the port's mid also keeps L4's match for p2 (JAX's p2 searches
+    # again)
+    assert set(mid) == set(tmid) - set(ring.LC_MATCH_KEYS)
     for k, v in mid.items():
         assert_close(f"mid {k}", v, tmid[k].numpy())
     # the full ring's front slots and tail moved through K3's ring mode
@@ -284,7 +286,7 @@ def test_step_outputs_match_jax_on_full_empty_and_tied_rings(scen, name):
         jt, sc.jsim.cfg, _jstate(rs1),
         {k: jnp.asarray(v) for k, v in mid_np.items()}))
     got = ring.ring_step_p2(tt, cfg, ring_state_from_numpy(rs1, "cpu"),
-                            mid_from_numpy(mid_np, "cpu"))
+                            p2_mid(mid_np, tmid))
     for k, v in want.items():
         g = getattr(got, k).numpy()
         if k == "cum_travel":

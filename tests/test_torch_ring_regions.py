@@ -27,12 +27,12 @@ from cityflow_tpu.compiler.net import compile_scenario as jax_compile
 from cityflow_tpu.core import ring as jax_ring
 
 from cityflow_tpu_torch import ring_sim
-from cityflow_tpu_torch.carry import mid_from_numpy, ring_state_from_numpy
+from cityflow_tpu_torch.carry import ring_state_from_numpy
 from cityflow_tpu_torch.compiler.net import (
     P_LEN, P_MINGAP, compile_scenario)
 from cityflow_tpu_torch.core import ring
 from cityflow_tpu_torch.core.state import OV_HOPS, OV_REMOVE, OV_SLOTS
-from test_torch_ring import assert_close, jax_leaves
+from test_torch_ring import assert_close, jax_leaves, p2_mid
 
 torch.set_num_threads(2)
 
@@ -100,11 +100,13 @@ class _Run:
                                  ring_state_from_numpy(leaves, "cpu"),
                                  self.tsim.q)
 
-    def p2_port(self, rs1, mid, cfg=None, tabs=None):
+    def p2_port(self, rs1, mid, tmid, cfg=None, tabs=None):
+        """p2 from JAX's state and mid, with the L4 match of the port's p1
+        mid `tmid` (from the state p1 ran on)."""
         return ring.ring_step_p2(tabs or self.tsim.tables,
                                  cfg or self.tsim.cfg,
                                  ring_state_from_numpy(rs1, "cpu"),
-                                 mid_from_numpy(mid, "cpu"))
+                                 p2_mid(mid, tmid))
 
 
 _RUNS = {}
@@ -127,15 +129,18 @@ def _check_p1(run, leaves, cfg_j=None, cfg_t=None, tabs=(None, None)):
     trs1, tmid = run.p1_port(leaves, cfg_t, tabs[1])
     for k, v in rs1.items():
         assert_close(f"p1 {k}", v, getattr(trs1, k).numpy())
-    assert set(mid) == set(tmid)
+    # the port's mid also keeps L4's match for p2 (JAX's p2 searches
+    # again)
+    assert set(mid) == set(tmid) - set(ring.LC_MATCH_KEYS)
     for k, v in mid.items():
         assert_close(f"mid {k}", v, tmid[k].numpy())
     return rs1, mid, tmid
 
 
-def _check_p2(run, rs1, mid, cfg_j=None, cfg_t=None, tabs=(None, None)):
+def _check_p2(run, rs1, mid, tmid, cfg_j=None, cfg_t=None,
+              tabs=(None, None)):
     want = run.p2_jax(rs1, mid, cfg_j, tabs[0])
-    got = run.p2_port(rs1, mid, cfg_t, tabs[1])
+    got = run.p2_port(rs1, mid, tmid, cfg_t, tabs[1])
     for k, v in want.items():
         g = getattr(got, k).numpy()
         if k == "cum_travel":
@@ -242,8 +247,8 @@ def test_notify_winners_on_blocker_chains_and_tied_tails(runs):
     assert base_mid["k_fail"].any()
     assert not torch.equal(base_mid["k_fail"], mid["k_fail"])
     # and JAX and the port agree on them, phase by phase
-    rs1, jmid, _ = _check_p1(run, crafted)
-    _check_p2(run, rs1, jmid)
+    rs1, jmid, tmid = _check_p1(run, crafted)
+    _check_p2(run, rs1, jmid, tmid)
 
 
 # ---------------------------------------------------------------------------
@@ -308,14 +313,14 @@ def test_admission_edges_with_templates(runs):
     rng = np.random.default_rng(3)
     st, (e_full, e_tie, e_end) = _admission_edges(
         run, run.states[AT["mixed"]][0], rng)
-    rs1, mid, _ = _check_p1(run, st)
+    rs1, mid, tmid = _check_p1(run, st)
     el_cur = rs1["el_cursor"]
     assert el_cur[e_full] == st["el_cursor"][e_full]       # refused
     assert el_cur[e_tie] == st["el_cursor"][e_tie]         # tied: refused
     assert el_cur[e_end] == st["el_cursor"][e_end]         # no row
     assert int(mid["ov"]) & OV_SLOTS
     assert (el_cur > st["el_cursor"]).sum() > 0            # others admit
-    _check_p2(run, rs1, mid)
+    _check_p2(run, rs1, mid, tmid)
 
 
 def _gap_branches(run, st, rs1, tb):
@@ -369,11 +374,11 @@ def test_admission_edges_and_gap_branches_with_lane_change(runs):
                                      in_src[np.clip(lk_start, 0, None)], -1)
                 st["n_k"][np.isin(from_lane, el[due])] = 0
                 tabs = short
-        rs1, mid, _ = _check_p1(run, st, tabs=tabs)
+        rs1, mid, tmid = _check_p1(run, st, tabs=tabs)
         for k, v in _gap_branches(run, st, rs1,
                                   tabs[1] or run.tsim.tables).items():
             seen[k] += v
-        _check_p2(run, rs1, mid, tabs=tabs)
+        _check_p2(run, rs1, mid, tmid, tabs=tabs)
     assert all(v > 0 for v in seen.values()), seen
     assert cfg.lane_change
 
@@ -394,13 +399,13 @@ def test_exits_abort_and_finish_in_one_step_and_deep_crossings(runs):
     events = {}
     orig = ring.ring_exits_finish
 
-    def spy(cfg_, net, rs, leave, abort_sh, finish_pre, pAb, pFin, pf3,
+    def spy(cfg_, net, rs, leave, abort_sh, finish_pre, pAb, pFin, pf,
             *a):
         out = orig(cfg_, net, rs, leave, abort_sh, finish_pre, pAb, pFin,
-                   pf3, *a)
+                   pf, *a)
         events["abort"] = int(((abort_sh > 0.5) & ~leave).sum())
         events["finish"] = int(((finish_pre > 0.5)
-                                & ~(pf3 & (pAb > 0.5))).sum())
+                                & ~(pf & (pAb > 0.5))).sum())
         return out
     tb = {k: v.numpy() for k, v in run.tsim.tables.items()}
     in_src = tb["in_src"].reshape(-1)
@@ -408,10 +413,12 @@ def test_exits_abort_and_finish_in_one_step_and_deep_crossings(runs):
     from_lane = np.where(start >= 0, in_src[np.clip(start, 0, None)], -1)
     done = False
     for t in range(5, len(run.states)):
-        _, rs1, mid = run.states[t]
+        st0, rs1, mid = run.states[t]
         occ = np.arange(cfg.SL)[:, None] < rs1["n_l"][None]
         real = occ & rs1["l_chg"] & ~rs1["l_sh"]
         real[XK:] = False
+        if real.any():
+            _, tmid = run.p1_port(st0)
         for s, p in np.argwhere(real):
             # the real heads into a link (not its route's end: the
             # fixture changes lanes on last roads, so the pair's flags and
@@ -436,7 +443,7 @@ def test_exits_abort_and_finish_in_one_step_and_deep_crossings(runs):
             nd[:XK + 1, q] = ln_len[q] + 1.0 + np.arange(XK + 1, 0, -1)
             ring.ring_exits_finish = spy
             try:
-                want = _check_p2(run, rs, m)
+                want = _check_p2(run, rs, m, tmid)
             finally:
                 ring.ring_exits_finish = orig
             assert int(want["overflow"]) & OV_HOPS
@@ -470,7 +477,8 @@ def test_route_rows_with_more_exits_than_ti(runs, name):
     occ = n_k[:, g] > 0
     assert occ.sum() > cfg_t.TI, occ.sum()
     nd[0, occ, g] = lk_len[occ, g] + 0.5
-    want = _check_p2(run, rs1, mid, cfg_j, cfg_t)
+    _, tmid = run.p1_port(st)
+    want = _check_p2(run, rs1, mid, tmid, cfg_j, cfg_t)
     assert int(want["overflow"]) & OV_REMOVE
 
 
