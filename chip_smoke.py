@@ -495,7 +495,9 @@ REPLACES = {
     "spawn_slots@f32": "cityflow_tpu/core/step.py:329-396 (spawn_vehicles, "
                        "float32)",
     "spawn_slots@batch": "cityflow_tpu/core/step.py:329-396 "
-                         "(spawn_vehicles under vmap, float32)",
+                         "(spawn_vehicles under vmap, float32; the state "
+                         "donated as parallel/batch.py:92 donates it: in "
+                         "place)",
     "admit_heads": "cityflow_tpu/core/step.py:398-443 (admit_waiting up to "
                    "the leader scan: scatter-min heads, lane pack)",
     "admit_heads@f32": "cityflow_tpu/core/step.py:398-443 (admit_waiting up "
@@ -512,6 +514,9 @@ REPLACES = {
                            "(phase_pressures, max_pressure_phases)",
     "phase_scores@features": "cityflow_tpu/rl/dqn.py:60-85, :143-150 "
                              "(build_intersection_obs features, reward)",
+    "phase_scores@features:gen1-dqn": "cityflow_tpu/rl/dqn.py:60-85, "
+                                      ":143-150 (build_intersection_obs "
+                                      "features, reward; the learner's B)",
     "shadow_insert": "cityflow_tpu/core/lanechange.py:228-291 (the shadow "
                      "insert: nonzero(size=MS) x2, ~40 drop scatters)",
     "shadow_insert@f32": "cityflow_tpu/core/lanechange.py:228-291 (the "
@@ -522,7 +527,7 @@ REPLACES = {
 GEN1_LCB_ROWS = ("hist_window", "lc_probe", "lc_plan", "lc_plan@receive",
                  "lc_plan@decide", "lc_plan@yield", "lc_commit",
                  "lc_commit@commit", "shadow_insert", "cross_pass",
-                 "notify_cross")
+                 "notify_cross", "spawn_slots")
 REPLACES.update({f"{n}@lcbatch": REPLACES[n] + " under vmap "
                  "(parallel/batch.py:48), float32" for n in GEN1_LCB_ROWS})
 # the ring step's regions (R1-R4), a row per ring path that runs them
@@ -917,12 +922,19 @@ def check_kernel_cases():
     channels and of others; B = 1, 3, 40, 128 and 130, S = 1 to 800, C =
     1 to 4) and G3 (f32 and f64, B = 1, 3, 128 and 130, KC = 1 to 20,
     k_link = 1 to 240: blocks of 8 and 16 threads too, no candidate, ties, tails at the cross distance, NaN
-    and -0.0, table gaps)."""
+    and -0.0, table gaps), G11 in both forms (copying; in place, kernel
+    and plain each on its own fresh copy: full pools, fewer free slots
+    than due rows, windows clamped at the table's end, nothing due, free
+    slots past several scan tiles, MS = 1, V not a multiple of 16,
+    misaligned views (in place only: the copying form refuses them); f32
+    and f64, B = 1 to 130) and G5 in both forms
+    (hist_t below, at and past the ring's length, empty lanes and envs,
+    f32 and f64, B = 1 to 130, misaligned views)."""
     import torch
     from cityflow_tpu_torch.kernels import (
-        admit_heads, car_follow, cross_caps, cross_pass, lc_insert,
-        lc_receive, lc_signal, notify_cross, ring_commit, shadow_insert,
-        tpl_params)
+        admit_heads, car_follow, cross_caps, cross_pass, hist_window,
+        lc_insert, lc_receive, lc_signal, notify_cross, ring_commit,
+        shadow_insert, spawn_slots, tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -994,6 +1006,28 @@ def check_kernel_cases():
     for name, case in kc.partner_cases():
         check_partner_case(name, case)
         n += 1
+    for name, case in kc.spawn_cases():
+        for inplace in (name not in kc.SPAWN_COPY_CASES, True):
+            _, bad = _bitwise(
+                f"spawn_slots[{name}]",
+                spawn_slots.spawn_slots(*kc.spawn_args(case, "cuda"),
+                                        inplace=inplace),
+                spawn_slots.spawn_slots_plain(*kc.spawn_args(case, "cuda"),
+                                              inplace=inplace))
+            assert bad == 0, f"spawn_slots[{name}]: {bad} values differ " \
+                f"(inplace={inplace})"
+        n += 1
+    for name, case in kc.hist_cases():
+        for inplace in (False, True):
+            _, bad = _bitwise(
+                f"hist_window[{name}]",
+                hist_window.hist_window(*kc.hist_args(case, "cuda"),
+                                        inplace=inplace),
+                hist_window.hist_window_plain(*kc.hist_args(case, "cuda"),
+                                              inplace=inplace))
+            assert bad == 0, f"hist_window[{name}]: {bad} values differ " \
+                f"(inplace={inplace})"
+        n += 1
     for name, case in kc.notify_cases():
         a = kc.notify_args(case, "cuda")
         _, bad = _bitwise(f"notify_cross[{name}]",
@@ -1005,9 +1039,10 @@ def check_kernel_cases():
     cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
              kc.ADMIT_CASES, kc.RECEIVE_CASES, kc.INSERT_CASES,
              kc.SIGNAL_CASES, kc.CROSS_CASES, kc.SHADOW_CASES,
-             kc.PARTNER_CASES, kc.NOTIFY_CASES)
+             kc.PARTNER_CASES, kc.NOTIFY_CASES, kc.SPAWN_CASES,
+             kc.HIST_CASES)
     log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 / G4 / G15 / L4 "
-        f"/ G3 "
+        f"/ G3 / G11 / G5 (both forms each) "
         f"seeded edge cases: {n} of "
         f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
         f"not_bitwise={nbit}; the rest bitwise) "
@@ -1972,9 +2007,10 @@ RING_WRAPPERS = ("notify_winners", "ring_admit", "ring_exits",
 
 
 def fresh(state):
-    """A copy of a batched ring state: the batched entries write theirs in
-    place (R3's admission), so a phase that steps again from a state it
-    keeps steps from a copy."""
+    """A copy of a batched state (ring or gen-1): the batched entries
+    write theirs in place (R3's admission; G11, G5 and G15 on the gen-1
+    step), so a phase that steps again from a state it keeps steps from a
+    copy."""
     return state.map(lambda x: x.clone())
 
 
@@ -3361,6 +3397,8 @@ def run_gen1(cfg_path, warmup, steps, tag="gen1", names=GEN1_KERNELS,
     assert int(st.overflow) & ~eng._ov == 0
     for k in names + tuple(modes):
         assert launches[k] > 0, f"kernel {k} was not launched on {tag}"
+    for k in ("spawn_slots@inplace", "hist_window@inplace"):
+        assert launches[k] == 0, f"{k} on {tag}: the Engine keeps its state"
     per_step = {k: launches[k] / steps for k in launches
                 if launches[k] and k.split("@")[0] in names}
     ms = dt * 1e3 / steps
@@ -3426,55 +3464,71 @@ def gen1_profile(step, nsteps, wall_ms, tag):
                 device_busy=dev_ms / wall_ms)
 
 
+# the gen-1 kernels that write some of their arguments in place: G15
+# always, G11 and G5 in their in-place form (the state donated)
+GEN1_WRITERS = ("shadow_insert", "spawn_slots", "hist_window")
+
+
+def gen1_written(n, a, k):
+    """The tensors the call (a, k) of G kernel n writes in place (none for
+    a call that writes no argument)."""
+    if n == "shadow_insert":
+        from cityflow_tpu_torch.kernels.shadow_insert import LEAVES
+        return [getattr(a[1], f) for f in LEAVES + ("seq_counter",
+                                                     "overflow")]
+    if n == "spawn_slots" and k.get("inplace"):
+        from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
+        return [getattr(a[0], f) for f in LEAVES + ("spawn_cursor",
+                                                     "overflow")]
+    if n == "hist_window" and k.get("inplace"):
+        return list(a[3:7])
+    return []
+
+
 def record_gen1_calls(step, names):
     """One more call of step() with the wrappers of `names` recording
-    their arguments as they were at the call. G15 writes the step's own
-    state in place, so its arguments are recorded on a copy
-    (shadow_copy), and where it runs (the lane-change paths), every
-    argument recorded before it in the step that shares storage with a
-    leaf it writes is replaced by a copy taken just before it writes
-    (as_before). No other gen-1 kernel writes a tensor in place."""
+    their arguments as they were at the call. G15, and G11 and G5 where
+    the state is donated, write some of their arguments in place: their
+    arguments are recorded on a copy (fresh_args), and before each such
+    call, every argument recorded earlier in the step that shares storage
+    with a tensor it writes is replaced by a copy taken just before it
+    writes (as_before), whether or not that kernel is among `names`. No
+    other gen-1 kernel writes a tensor in place."""
     import torch
-    from cityflow_tpu_torch.kernels import shadow_insert as g15
-    points = _gen1_points(names)
-    orig = {n: getattr(m, n) for m, n in points}
-    orig_g15 = g15.shadow_insert
-    calls = {n: [] for _, n in points}
+    from cityflow_tpu_torch import kernels
+    mods = {n: kernels.MODULES[n] for n in tuple(names) + GEN1_WRITERS}
+    orig = {n: getattr(m, n) for n, m in mods.items()}
+    calls = {n: [] for n in names}
 
     def rec(n):
         def fn(*a, **k):
-            calls[n].append((a, k))
+            written = gen1_written(n, a, k)
+            if written:
+                as_before(calls, written)
+            if n in calls:
+                calls[n].append((fresh_args(n, a, k), k))
             return orig[n](*a, **k)
         return fn
-
-    def g15_rec(*a, **k):
-        as_before(calls, a[1])
-        if "shadow_insert" in calls:
-            calls["shadow_insert"].append((shadow_copy(a), k))
-        return orig_g15(*a, **k)
     try:
-        for m, n in points:
+        for n, m in mods.items():
             setattr(m, n, rec(n))
-        g15.shadow_insert = g15_rec
         step()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     finally:
-        for m, n in points:
+        for n, m in mods.items():
             setattr(m, n, orig[n])
-        g15.shadow_insert = orig_g15
     return calls
 
 
-def as_before(calls, st2):
+def as_before(calls, written):
     """Replace, in the arguments recorded so far, every tensor that shares
-    storage with a leaf G15 is about to write in st2 by a copy (one copy
-    per tensor, so arguments that were one tensor stay one)."""
+    storage with a tensor of `written` (about to be written in place) by
+    a copy (one copy per tensor, so arguments that were one tensor stay
+    one)."""
     import dataclasses
     import torch
-    from cityflow_tpu_torch.kernels.shadow_insert import LEAVES
-    ptrs = {getattr(st2, f).untyped_storage().data_ptr()
-            for f in LEAVES + ("seq_counter", "overflow")}
+    ptrs = {t.untyped_storage().data_ptr() for t in written}
     memo = {}
 
     def fix(x):
@@ -3496,6 +3550,30 @@ def as_before(calls, st2):
         return x
     for n, cs in calls.items():
         calls[n] = [(fix(a), fix(k)) for a, k in cs]
+
+
+def fresh_args(n, a, k):
+    """The arguments of call (a, k) of G kernel n with what it writes in
+    place copied (shadow_copy, spawn_copy, the G5 rings and sums), so that
+    a call on the copy sees the state as the recorded call did; a call
+    that writes no argument keeps its own."""
+    if n == "shadow_insert":
+        return shadow_copy(a)
+    if n == "spawn_slots" and k.get("inplace"):
+        return spawn_copy(a)
+    if n == "hist_window" and k.get("inplace"):
+        return a[:3] + tuple(t.clone() for t in a[3:7]) + a[7:]
+    return a
+
+
+def spawn_copy(a):
+    """G11's arguments with the state's per-slot leaves, spawn_cursor and
+    overflow (what its in-place form writes) copied."""
+    from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
+    st = a[0]
+    return (st.replace_fields(**{f: getattr(st, f).clone() for f in
+                                 LEAVES + ("spawn_cursor", "overflow")}),
+            ) + tuple(a[1:])
 
 
 def shadow_copy(a):
@@ -3748,12 +3826,15 @@ def gen1_work(n, a, k, out):
         last_of, leader, speed, ring_num = a[:4]
         fs = speed.element_size()
         B, HL1, L = ring_num.shape
-        # per env and lane its rear slot and the two sums in and out; both
-        # rings in and out (the function returns new rings); per running
-        # lane vehicle its leader and speed; two adds per vehicle, four per
-        # lane
+        # per env and lane its rear slot and the two sums in and out, the
+        # new ring row out and, once the ring is full, the old row in; per
+        # running lane vehicle its leader and speed; two adds per vehicle,
+        # four per lane. The copying form also reads and writes both whole
+        # rings (the wrapper's copies).
         nveh = int((lane_of(last_of, leader, L) < L).sum())
-        return B * L * (4 + 4 * fs) + 4 * B * HL1 * L * fs \
+        nfull = int((a[7] >= HL1).sum())
+        rings = 0 if k.get("inplace") else 4 * B * HL1 * L * fs
+        return B * L * (4 + 6 * fs) + nfull * L * 2 * fs + rings \
             + nveh * (4 + fs), 2 * nveh + 4 * B * L
     if n == "lc_probe":
         running, drv, dis, last_of, leader, net, L = a
@@ -3772,18 +3853,7 @@ def gen1_work(n, a, k, out):
     if n == "shadow_insert":
         return shadow_work(a)
     if n == "spawn_slots":
-        st, tbl, flow_params, MS = a[0], a[1], a[2], a[4]
-        from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
-        nenv = st.active.numel() // st.active.shape[-1]
-        fs = st.dis.element_size()
-        # every per-slot leaf read once and written once, the free flags
-        # read once more by the scan, each env's MS spawn rows and their
-        # flow parameters; a compare per slot
-        state = sum(getattr(st, k).numel() * getattr(st, k).element_size()
-                    for k in LEAVES)
-        return 2 * state + st.active.numel() + nenv * MS * (
-            5 * 4 + flow_params.shape[1] * fs) + nenv * 16, \
-            st.active.numel()
+        return spawn_work(a, k, out)
     if n == "admit_heads":
         (active, running, drv, uid, dis, params, leader, gap, list_seq,
          last_of, seq_counter, L) = a
@@ -3843,6 +3913,36 @@ def gen1_work(n, a, k, out):
     raise KeyError(n)
 
 
+def spawn_work(a, k, out):
+    """(bytes, operations) of one G11 call. In place: per env the free
+    flags up to its MS-th free slot (all of them where it has fewer), the
+    step column of its MS window rows, per due row its four other columns
+    and flow parameters, per written row every per-slot leaf's row, the
+    three per-env scalars in and two out; a compare per flag read. The
+    copying form: every per-slot leaf read once and written once, the free
+    flags read once more by the scan, each env's MS spawn rows and their
+    flow parameters; a compare per slot."""
+    import torch
+    from cityflow_tpu_torch.kernels.spawn_slots import LEAVES
+    st, tbl, flow_params, MS = a[0], a[1], a[2], a[4]
+    nenv, V = st.active.shape
+    fs = st.dis.element_size()
+    NP = flow_params.shape[1]
+    if not k.get("inplace"):
+        state = sum(getattr(st, f).numel() * getattr(st, f).element_size()
+                    for f in LEAVES)
+        return 2 * state + st.active.numel() + nenv * MS * (
+            5 * 4 + NP * fs) + nenv * 16, st.active.numel()
+    c = torch.cumsum((~st.active).to(torch.int32), -1)
+    flags = int(torch.clamp((c < MS).sum(-1) + 1, max=V).sum())
+    due = int((out["spawn_cursor"] - st.spawn_cursor).sum())
+    written = int((out["active"] & ~st.active).sum())
+    row = sum(getattr(st, f)[0, 0].numel() * getattr(st, f).element_size()
+              for f in LEAVES)
+    return flags + nenv * MS * 4 + due * (4 * 4 + NP * fs) + written * row \
+        + nenv * 20, flags
+
+
 def _gen1_label(n, a):
     """A G kernel call's row name: the kernel, or kernel@mode for the
     modes of G7 and G8 after the first."""
@@ -3867,25 +3967,28 @@ def _gen1_plain(n, mod):
 
 def _gen1_call(n, fn, a, k):
     """fn (kernel or plain version of G kernel n) on recorded call (a, k):
-    G15 on a fresh copy of what it writes in place."""
-    return fn(*shadow_copy(a), **k) if n == "shadow_insert" else fn(*a, **k)
+    a call that writes its arguments in place on a fresh copy of them."""
+    return fn(*fresh_args(n, a, k), **k)
 
 
 def _time_gen1(n, fn, a, k, reps):
-    """time_cuda of fn on (a, k); G15 each call on a fresh copy
-    (time_cuda_fresh, the copies untimed)."""
-    if n == "shadow_insert":
-        return time_cuda_fresh(lambda: shadow_copy(a),
+    """time_cuda of fn on (a, k); a call that writes its arguments in
+    place each time on a fresh copy (time_cuda_fresh, the copies
+    untimed)."""
+    if gen1_written(n, a, k):
+        return time_cuda_fresh(lambda: fresh_args(n, a, k),
                                lambda x: fn(*x, **k), reps)
     return time_cuda(lambda: fn(*a, **k), reps)
 
 
 def _gen1_bound(n, a, k, kern):
     """gen1_work of a recorded call (G4 and G15 count from their
-    arguments; the others from the kernel's outputs too)."""
+    arguments; the others from the kernel's outputs too, each on a fresh
+    copy where it writes in place)."""
     return gen1_work(
         f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
-        None if n in ("cross_pass", "shadow_insert") else kern(*a, **k))
+        None if n in ("cross_pass", "shadow_insert")
+        else _gen1_call(n, kern, a, k))
 
 
 def log_cross_funnel(tag, calls):
@@ -3932,7 +4035,7 @@ def _check_call(n, kern, plain, a, k, rel_tol):
 def check_gen1_kernels(eng, reps, names, fast=False, untimed=(), tag=None):
     """The kernels of `names` and `untimed` against their plain versions on
     every call of one more step of a gen-1 path, bitwise (fast mode: G10's
-    unordered finish sum and G5's speed sums within 1e-6 relative); those
+    unordered finish sum within 1e-6 relative); those
     of `names` timed on the first call of each kernel and mode (G2 on its
     last: the leader update over every leaderless vehicle). On a fast path one row per kernel,
     its float32 or fast mode, and G9 and G10 also in exact mode on the
@@ -3950,8 +4053,7 @@ def check_gen1_kernels(eng, reps, names, fast=False, untimed=(), tag=None):
         mod = kernels.MODULES[n]
         kern, plain = getattr(mod, n), _gen1_plain(n, mod)
         assert calls[n], f"{n}: no call recorded"
-        rel_tol = 1e-6 if fast and n in ("update_location", "hist_window") \
-            else None
+        rel_tol = 1e-6 if fast and n == "update_location" else None
         errs = [_check_call(n, kern, plain, a, k, rel_tol)
                 for a, k in calls[n]]
         if fast and n == "blocker_cycles":
@@ -4366,6 +4468,8 @@ def run_gen1_batch(cfg_path, batch, warmup, steps):
     envs_equal(stb)
     for k in GEN1_KERNELS:
         assert launches[k] > 0, f"kernel {k} was not launched on gen1-batch"
+    assert launches["spawn_slots@inplace"] == launches["spawn_slots"], \
+        "[gen1-batch] a G11 call copied the pool (the state is donated)"
     holder = [stb]
 
     def one():
@@ -4405,10 +4509,12 @@ def check_gen1_batch_kernels(ctx, reps, batch):
     from cityflow_tpu_torch.core import step as step_mod
     net, cfg, spawn, holder = ctx
 
-    def one():
-        holder[0] = step_mod.step(net, cfg, holder[0], spawn)
+    def one():              # the path's own step: the state donated
+        holder[0] = step_mod.step(net, cfg, holder[0], spawn, donate=True)
     calls = record_gen1_calls(one, GEN1_KERNELS)
     log_cross_funnel("gen1-batch", calls["cross_pass"])
+    assert all(k.get("inplace") for _, k in calls["spawn_slots"]), \
+        "[gen1-batch] G11 did not run in place"
     rows = []
     for n in GEN1_KERNELS:
         mod = kernels.MODULES[n]
@@ -4434,6 +4540,8 @@ def check_gen1_batch_kernels(ctx, reps, batch):
         label = f"{n}@batch"
         rows.append(kernel_row(label, max(errs), ms, plain_ms, nbytes, nops,
                                lib))
+    check_copy_form("gen1-batch", "spawn_slots", *calls["spawn_slots"][0],
+                    reps)
     st = holder[0]
     L, D = cfg.num_lanes, cfg.num_drivables
     g13, g14 = kernels.MODULES["lane_counts"], kernels.MODULES["phase_scores"]
@@ -4480,6 +4588,27 @@ def check_gen1_batch_kernels(ctx, reps, batch):
                                batch * LL * (P if mode != "pressure" else 1),
                                None))
     return rows
+
+
+def check_copy_form(tag, n, a, k, reps):
+    """The copying form (inplace=False, the Engine's) of the recorded
+    in-place call (a, k) of G11 or G5 on the same inputs: its outputs
+    bitwise equal to the in-place form's, its kernel timed and its bound
+    (the copying count) logged beside the path's in-place row. The path
+    does not launch this form, so it has no row of the kernel table."""
+    from cityflow_tpu_torch import kernels
+    kern = getattr(kernels.MODULES[n], n)
+    kc = dict(k, inplace=False)
+    for i, (g, w) in enumerate(zip(_flat(_gen1_call(n, kern, a, kc)),
+                                   _flat(_gen1_call(n, kern, a, k)))):
+        assert bitwise_equal(g, w), f"{n}: the two forms differ ({i})"
+    ms = _time_gen1(n, kern, a, kc, reps)
+    nbytes, nops = _gen1_bound(n, a, kc, kern)
+    bound = max(nbytes / H100_BYTES_PER_S, nops / H100_F32_FLOPS) * 1e3
+    log(f"[kernels] {n} copying form on [{tag}]'s call (equal to the "
+        f"in-place form bitwise; not launched on this path): ms={ms:.4f} "
+        f"bound_ms={bound:.4f}")
+    return ms
 
 
 def heads_amin_ms(a, reps):
@@ -4571,6 +4700,8 @@ def run_gen1_env(cfg_path, batch, warmup, steps, pool):
     envs_equal(st)
     for k in GEN1_KERNELS + GEN1_RL_KERNELS:
         assert launches[k] > 0, f"kernel {k} was not launched on gen1-env"
+    assert launches["spawn_slots@inplace"] == launches["spawn_slots"], \
+        "[gen1-env] a G11 call copied the pool (the state is donated)"
     assert changed > 0, "the controller changed no phase in the window"
 
     def one():
@@ -4593,13 +4724,16 @@ def run_gen1_env(cfg_path, batch, warmup, steps, pool):
     return launches, res, warm
 
 
-def run_gen1_dqn(cfg_path, batch, iters, warm):
+def run_gen1_dqn(cfg_path, batch, iters, warm, reps):
     """rl/dqn.train on `cfg_path` at `batch` envs for `iters` iterations
     (5 steps each) from the warm one-env state `warm` copied into the
     batch, the launch counts set to 0 just before and read just after;
     the ms of each iteration after the first (the first also pays train's
     set-up), and the mean of those after the second. Some iteration's
-    reward must not be zero (vehicles wait)."""
+    reward must not be zero (vehicles wait). G14's features mode is held
+    against its plain version on the last such call of the run, bitwise,
+    and timed there: the row phase_scores@features:gen1-dqn, the path's
+    own B."""
     import math
     import torch
     from cityflow_tpu_torch import kernels
@@ -4608,15 +4742,27 @@ def run_gen1_dqn(cfg_path, batch, iters, warm):
     start = int(warm.step[0])
     state = init_batch_state(None, warm.map(lambda x: x[0]), batch)
     stamps, last = [], {}
+    g14 = kernels.MODULES["phase_scores"]
+    orig, feat = g14.phase_scores, []
+
+    def g14_rec(*a, **k):
+        if a[3] == "features":
+            feat[:] = [a]
+        return orig(*a, **k)
 
     def on_iter(i, metrics, state):
         torch.cuda.synchronize()
         stamps.append(time.time())
         last["state"] = state
     kernels.reset_launches()
-    t0 = time.time()
-    hist = dqn.train(cfg_path, iters=iters, on_iter=on_iter, state=state)
-    wall = time.time() - t0
+    g14.phase_scores = g14_rec
+    try:
+        t0 = time.time()
+        hist = dqn.train(cfg_path, iters=iters, on_iter=on_iter,
+                         state=state)
+        wall = time.time() - t0
+    finally:
+        g14.phase_scores = orig
     launches = kernels.launch_counts()
     ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     steady = sum(ms[1:]) / max(len(ms) - 1, 1)
@@ -4634,10 +4780,23 @@ def run_gen1_dqn(cfg_path, batch, iters, warm):
     assert int(st.overflow.max()) == 0, "overflow flags set"
     for k in GEN1_KERNELS + ("phase_scores@features",):
         assert launches[k] > 0, f"kernel {k} was not launched on gen1-dqn"
+    assert launches["spawn_slots@inplace"] == launches["spawn_slots"], \
+        "[gen1-dqn] a G11 call copied the pool (the state is donated)"
+    w, net, P, mode = a = feat[0]
+    got, want = orig(*a), g14.phase_scores_plain(*a)
+    for g_, w_ in zip(_flat(got), _flat(want)):
+        assert bitwise_equal(g_, w_), "phase_scores@features:gen1-dqn"
+    kms = time_cuda(lambda: orig(*a), reps)
+    plain_ms = time_cuda(lambda: g14.phase_scores_plain(*a), reps)
+    tab = sum(net[t].numel() * net[t].element_size() for t in g14.TABLES)
+    outs = sum(t.numel() * t.element_size() for t in _flat(got))
+    row = kernel_row("phase_scores@features:gen1-dqn", 0.0, kms, plain_ms,
+                     w.numel() * 4 + tab + outs,
+                     w.shape[0] * net["ll_start"].shape[0] * P, None)
     return launches, dict(B=batch, iters=iters, start_step=start,
                           pool=warm.active.shape[-1], ms_after_the_first=ms,
                           ms_per_iteration=steady, losses=losses,
-                          mean_rewards=rewards)
+                          mean_rewards=rewards), [row]
 
 
 def lcb_warm_batch(cfg_path, exact, at, pool):
@@ -4693,7 +4852,7 @@ def check_agreement_gen1_lc_batch(cfg_path, steps, exact):
     step_g = make_batched_step(net, cfg, with_obs=False)
     step_c = make_batched_step(net_c, cfg, with_obs=False)
     g, c = stb, stb.map(lambda x: x.cpu())
-    alone = [stb.map(lambda x, b=b: x[b:b + 1].contiguous())
+    alone = [stb.map(lambda x, b=b: x[b:b + 1].clone())
              for b in range(B)]
     shadow_steps, worst = 0, 0.0
     kernels.reset_launches()
@@ -4794,6 +4953,9 @@ def run_gen1_lc_batch(ctx, batch, steps):
     for k in GEN1_KERNELS + GEN1_LC_KERNELS:
         assert launches[k] > 0, f"kernel {k} was not launched on " \
             "gen1-lc-batch"
+    for k in ("spawn_slots", "hist_window"):
+        assert launches[k + "@inplace"] == launches[k], \
+            f"[gen1-lc-batch] a {k} call copied (the state is donated)"
     holder = [stb]
     del stb
 
@@ -4807,37 +4969,40 @@ def run_gen1_lc_batch(ctx, batch, steps):
 
 
 def check_gen1_lcb_kernels(ctx, reps, batch):
-    """On every call of one more [gen1-lc-batch] step: G5-G8 (every mode
-    of G7 and G8), G15 (kernel and plain version each on a fresh copy of
-    the state it writes in place), G4 and G3 against their plain versions,
-    each call asserted to span the `batch` envs: bitwise, G5's speed sums
-    within 1e-6 relative (float32, as pinned); G4's funnel printed. Timed
-    on the first call of each kernel and mode (rows <name>@lcbatch; G15
-    each call on a fresh copy), G5 beside index_add_; G3, G4 and G15 have
-    no one library call that computes their function."""
+    """On every call of one more [gen1-lc-batch] step (the path's own: the
+    state donated): G5-G8 (every mode of G7 and G8), G11, G15, G4 and G3
+    against their plain versions, each call asserted to span the `batch`
+    envs, bitwise (G11, G5 and G15 write in place: kernel and plain
+    version each on a fresh copy of what they write); G4's funnel
+    printed. Timed on the first call of each kernel and mode (rows
+    <name>@lcbatch; G5, G11 and G15 each call on a fresh copy), G5 beside
+    index_add_; G3, G4, G11 and G15 have no one library call that
+    computes their function. G11's and G5's copying forms are checked and
+    timed on the same calls (check_copy_form)."""
     from cityflow_tpu_torch import kernels
     from cityflow_tpu_torch.core import step as step_mod
     net, cfg, spawn, holder = ctx
 
-    def one():
-        holder[0] = step_mod.step(net, cfg, holder[0], spawn)
-    names = GEN1_LC_KERNELS + ("cross_pass", "notify_cross")
+    def one():              # the path's own step: the state donated
+        holder[0] = step_mod.step(net, cfg, holder[0], spawn, donate=True)
+    names = GEN1_LC_KERNELS + ("spawn_slots", "cross_pass", "notify_cross")
     calls = record_gen1_calls(one, names)
     del holder[:]
     log_cross_funnel("gen1-lc-batch", calls["cross_pass"])
+    for n in ("spawn_slots", "hist_window"):
+        assert all(k.get("inplace") for _, k in calls[n]), \
+            f"[gen1-lc-batch] {n} did not run in place"
     rows = []
     for n in names:
         mod = kernels.MODULES[n]
         kern, plain = getattr(mod, n), _gen1_plain(n, mod)
         assert calls[n], f"{n}: no call recorded"
-        rel_tol = 1e-6 if n == "hist_window" else None
         errs = []
         for a, k in calls[n]:
             _batch_args_ok(n, a, k, batch)
-            errs.append(_check_call(n, kern, plain, a, k, rel_tol))
-        how = "within 1e-6 relative" if rel_tol else "bitwise"
+            errs.append(_check_call(n, kern, plain, a, k, None))
         log(f"[kernels] {n}: {len(calls[n])} calls at B={batch} equal to the "
-            f"plain version ({how})")
+            f"plain version (bitwise)")
         timed = {}
         for a, k in calls[n]:
             timed.setdefault(_gen1_label(n, a), (a, k))
@@ -4848,6 +5013,8 @@ def check_gen1_lcb_kernels(ctx, reps, batch):
             nbytes, nops = _gen1_bound(n, a, k, kern)
             rows.append(kernel_row(label + "@lcbatch", max(errs), ms,
                                    plain_ms, nbytes, nops, lib))
+    for n in ("spawn_slots", "hist_window"):
+        check_copy_form("gen1-lc-batch", n, *calls[n][0], reps)
     return rows
 
 
@@ -5104,8 +5271,9 @@ def main():
     log(f"[gen1-env] {json.dumps(env_res)}")
     gc.collect()
     torch.cuda.empty_cache()
-    gdqn_launches, gdqn_res = run_gen1_dqn(cfg_path, GEN1_DQN_BATCH,
-                                           GEN1_DQN_ITERS, warm)
+    gdqn_launches, gdqn_res, gdqn_rows = run_gen1_dqn(
+        cfg_path, GEN1_DQN_BATCH, GEN1_DQN_ITERS, warm, REPS)
+    rows += gdqn_rows
     del warm
     log(f"[gen1-dqn] {json.dumps(gdqn_res)}")
     gc.collect()
@@ -5161,8 +5329,9 @@ def main():
             r["launches"] = (env_launches[name]
                              - env_launches["phase_scores@phases"]
                              - env_launches["phase_scores@features"])
-        elif name == "phase_scores@features":
-            r["launches"] = gdqn_launches[name]
+        elif name in ("phase_scores@features",
+                      "phase_scores@features:gen1-dqn"):
+            r["launches"] = gdqn_launches["phase_scores@features"]
         elif name.split("@")[0] in ("lane_counts", "phase_scores"):
             r["launches"] = env_launches[name]
         elif name in TPL_MODES:

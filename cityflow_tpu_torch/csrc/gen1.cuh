@@ -253,6 +253,57 @@ __device__ __forceinline__ void copy_bytes(char* d, const char* s,
   }
 }
 
+// w bytes from s to d in the widest word (8, 4 or 1 bytes) that both
+// addresses and w are aligned to: a view may start one element into its
+// buffer. (copy_bytes above picks by w alone; testing the addresses there
+// cost G11's copying form, which reads its leaf pointers from the
+// parameter struct at a run-time index, a 1776-byte stack frame and 3-4.5x
+// its time, so this test is for kernels whose descriptors sit in shared
+// memory: G11's in-place form and G15.)
+__device__ __forceinline__ void copy_row(char* d, const char* s, int w) {
+  const unsigned al = (unsigned)(((uintptr_t)d | (uintptr_t)s | w) & 7u);
+  if (al == 0) {
+    for (int i = 0; i < w; i += 8)
+      *(long long*)(d + i) = *(const long long*)(s + i);
+  } else if ((al & 3u) == 0) {
+    for (int i = 0; i < w; i += 4) *(int*)(d + i) = *(const int*)(s + i);
+  } else {
+    for (int i = 0; i < w; ++i) d[i] = s[i];
+  }
+}
+
+// bit i of the result: byte i of w is 1 (bool bytes are 0 / 1)
+__device__ __forceinline__ unsigned byte_bits(unsigned w) {
+  w &= 0x01010101u;
+  return (w | (w >> 7) | (w >> 14) | (w >> 21)) & 0xFu;
+}
+
+// exclusive scan of x over a block of NT threads (a multiple of 32); *total
+// the sum; wsum: NT / 32 ints of shared memory. Every thread of the block
+// calls it.
+template <int NT>
+__device__ __forceinline__ int block_scan(int x, int* total, int* wsum) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) wsum[w] = inc;
+  __syncthreads();
+  int base = 0, tot = 0;
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) {
+    const int s = wsum[i];
+    base += i < w ? s : 0;
+    tot += s;
+  }
+  __syncthreads();
+  *total = tot;
+  return base + inc - x;
+}
+
 __host__ __device__ __forceinline__ unsigned grid_blocks(long long n,
                                                          int threads) {
   long long b = (n + threads - 1) / threads;

@@ -8,12 +8,16 @@
 // ring. Here one thread owns one lane and sums its vehicles in one fixed
 // order, G1's per-drivable order walked from the rear (last_of) along the
 // leader chain, so the speed sums are the same on every run; there is no
-// float atomic. The new ring is a copy of the old one made by the
-// wrapper; the kernel writes its row `slot` and reads the old row first.
+// float atomic. The outputs are either the inputs themselves (in place,
+// where the caller donates its state) or new sums and a copy of each ring
+// made by the wrapper; either way a thread reads its (env, lane)'s old
+// ring row and sums before it writes the new ones at the same addresses,
+// so the in-place form needs no other synchronisation.
 //
 // Bound: bytes. Per lane: its rear slot, then per vehicle its leader and
-// speed (12 bytes); the old ring row and sums in, the new row and sums
-// out (64 bytes per lane).
+// speed; the old ring row and sums in, the new row and sums out (in
+// float32, 4 + 32 bytes per lane and env, 8 per vehicle). The copying
+// form also moves both rings once more (the wrapper's copies).
 //
 // B envs at once: the env is blockIdx.y, and at_env moves every per-env
 // pointer (last_of, the slots, the rings, the sums, hist_t) to that env's
@@ -33,7 +37,7 @@ struct HistWindowArgs {
   const int* hist_t;        // () calls so far
   void* out_num;            // (L,) T new window sums
   void* out_ssum;           // (L,) T
-  void* ring_num_out;       // (HL1, L) T copy of ring_num; row slot written
+  void* ring_num_out;       // (HL1, L) T ring_num or a copy; row slot written
   void* ring_ssum_out;      // (HL1, L) T
   long long B, L, D, HL1, V, fp32;
 };

@@ -42,9 +42,11 @@
 //   2. A shadow copies its real's row while the real's partner is
 //      written: partner is K_PARTNER, never copied. A real is active and
 //      a shadow's slot was free, so no row is both read and written.
-//   3. plan_lane_change's state belongs to the step (G11 spawn_slots gave
-//      every per-slot leaf a fresh tensor, G12 and the leader scan the
-//      rest), so the step's caller's state is never written.
+//   3. plan_lane_change's state belongs to the step: where the caller
+//      keeps its state (core/step.step, donate=False), G11 spawn_slots
+//      gave every per-slot leaf a fresh tensor and G12 and the leader scan
+//      the rest, so that state is never written; where the caller donates
+//      it (the batched entries), G11 and G15 both write it.
 //
 // Bound: bytes. The change and active flags (read until both lists are
 // full), per pair its real's copied row and the shadow's whole row, the
@@ -82,36 +84,6 @@ struct ShadowArgs {
   int B, V, MS, nleaf, nch, chunk;
 };
 
-// exclusive block scan of x over SI_THREADS threads; *total the sum. Every
-// thread of the block calls it.
-__device__ __forceinline__ int block_scan(int x, int* total, int* wsum) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int inc = x;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) wsum[w] = inc;
-  __syncthreads();
-  int base = 0, tot = 0;
-#pragma unroll
-  for (int i = 0; i < SI_WARPS; ++i) {
-    const int s = wsum[i];
-    base += i < w ? s : 0;
-    tot += s;
-  }
-  __syncthreads();
-  *total = tot;
-  return base + inc - x;
-}
-
-// bit i of the result: byte i of w is 1 (bool bytes are 0 / 1)
-__device__ __forceinline__ unsigned byte_bits(unsigned w) {
-  w &= 0x01010101u;
-  return (w | (w >> 7) | (w >> 14) | (w >> 21)) & 0xFu;
-}
-
 template <int W>
 __global__ void __launch_bounds__(SI_THREADS)
 shadow_scan(const ShadowArgs a) {
@@ -142,7 +114,8 @@ shadow_scan(const ShadowArgs a) {
       }
     }
     int tot;
-    const int ex = block_scan(__popc(mch) | (__popc(mfr) << 16), &tot, wsum);
+    const int ex = block_scan<SI_THREADS>(__popc(mch) | (__popc(mfr) << 16),
+                                          &tot, wsum);
     int r = run_ch + (ex & 0xFFFF);
     for (; mch && r < a.MS; mch &= mch - 1) out_ch[r++] = s0 + __ffs(mch) - 1;
     r = run_fr + (ex >> 16);
@@ -154,25 +127,6 @@ shadow_scan(const ShadowArgs a) {
     int* n = a.cnt + (b * a.nch + c) * 2;
     n[0] = min(run_ch, a.MS);
     n[1] = min(run_fr, a.MS);
-  }
-}
-
-// w bytes from s to d in the widest word (8, 4 or 1 bytes) that both
-// addresses and w are aligned to: a view may start one element into its
-// buffer. (gen1.cuh's copy_bytes picks by w alone; testing the addresses
-// there cost G11, which reads its leaf pointers from the parameter
-// struct at a run-time index, a 1776-byte stack frame and 3-4.5x its
-// time, so the test stays here, where the descriptors sit in shared
-// memory.)
-__device__ __forceinline__ void copy_row(char* d, const char* s, int w) {
-  const unsigned al = (unsigned)(((uintptr_t)d | (uintptr_t)s | w) & 7u);
-  if (al == 0) {
-    for (int i = 0; i < w; i += 8)
-      *(long long*)(d + i) = *(const long long*)(s + i);
-  } else if ((al & 3u) == 0) {
-    for (int i = 0; i < w; i += 4) *(int*)(d + i) = *(const int*)(s + i);
-  } else {
-    for (int i = 0; i < w; ++i) d[i] = s[i];
   }
 }
 
@@ -204,8 +158,10 @@ shadow_write(const ShadowArgs a) {
   const int t = threadIdx.x;
   const int* n = a.cnt + (b * a.nch + t) * 2;
   int tot_ch, tot_fr;
-  const int ex_ch = block_scan(t < a.nch ? n[0] : 0, &tot_ch, wsum);
-  const int ex_fr = block_scan(t < a.nch ? n[1] : 0, &tot_fr, wsum);
+  const int ex_ch =
+      block_scan<SI_THREADS>(t < a.nch ? n[0] : 0, &tot_ch, wsum);
+  const int ex_fr =
+      block_scan<SI_THREADS>(t < a.nch ? n[1] : 0, &tot_fr, wsum);
   if (t < a.nch) {
     pre[0][t] = ex_ch;
     pre[1][t] = ex_fr;

@@ -15,10 +15,12 @@ and replay files. Three steps serve it:
   ("auto" falls back to gen-1 fast mode where it does not).
 
 No state tensor the engine holds is written in place, here, in the shells
-or in the steps (G15 shadow_insert writes the step's own state in place,
-whose per-slot leaves G11 spawn_slots made fresh): a snapshot shares them
-with the engine, and the capacity-growth retry runs a step again from the
-state it started from.
+or in the steps: the engine calls the gen-1 step with donate=False (G11
+spawn_slots and G5 hist_window make fresh leaves and rings, and G15
+shadow_insert writes only those), because a snapshot shares the state's
+tensors with the engine and the capacity-growth retry runs a step again
+from the state it started from. The batched entries donate their state
+instead (core/step.py).
 """
 
 import copy
@@ -181,7 +183,7 @@ class Engine:
             # the step takes a batch: this env is a batch of one
             new = step_mod.squeeze(step_mod.step(
                 self._net_dev, self.cfg, step_mod.lift(prev),
-                self._spawn_dev))
+                self._spawn_dev, donate=False))
             ov_all = int(new.overflow)
             ov = ov_all & ~self._ov
             if ov == 0:

@@ -21,7 +21,8 @@ counter:
   G2 leader_scan     gen-1 leader scan past the drivable's end
   G3 notify_cross    gen-1 cross notifiers and their canPass terms
   G4 cross_pass      gen-1 cross loop of getAction (canPass, first fail)
-  G5 hist_window     gen-1 DURATION lane history (Lane::updateHistory)
+  G5 hist_window     gen-1 DURATION lane history (Lane::updateHistory;
+                     copying form or in place)
   G6 lc_probe        gen-1 lane change: neighbours on the side lanes
   G7 lc_plan         gen-1 lane change: signals, arbitration, gap validity,
                      yieldSpeed (modes signal / receive / decide / yield)
@@ -31,7 +32,8 @@ counter:
   G9 blocker_cycles  gen-1 deadlock test along the blocker chains
   G10 update_location  gen-1 finish statistics and transfer order
   G11 spawn_slots    gen-1 spawn: the due spawn rows into each env's first
-                     free slots, every per-slot leaf written
+                     free slots (copying form: every per-slot leaf
+                     written anew; in-place form: the spawned rows only)
   G12 admit_heads    gen-1 handleWaiting: each lane's FIFO head, its
                      admission, its leader and gap behind the rear vehicle
   G13 lane_counts    gen-1 observations: per-lane counts and waiting, per-
@@ -80,7 +82,9 @@ float32 launches of G1-G8, G10-G12 and G15 are counted apart as
 Every G kernel takes B envs' slot pools at once (a leading env axis, the
 env on the kernel's grid); one env is a batch of one. G13's calls with the per-drivable
 counts count apart as lane_counts@drivables, G14's modes as
-phase_scores@phases and phase_scores@features.
+phase_scores@phases and phase_scores@features. G11's and G5's in-place
+calls (the state donated by the batched entries) count apart as
+spawn_slots@inplace and hist_window@inplace.
 
 A wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors; the library is built at first use (kernels/_lib.py).
@@ -143,6 +147,8 @@ MODES = {"car_follow@lc": (car_follow, "launches_lc"),
          "lane_counts@drivables": (lane_counts, "launches_drivables"),
          "phase_scores@phases": (phase_scores, "launches_phases"),
          "phase_scores@features": (phase_scores, "launches_features"),
+         "spawn_slots@inplace": (spawn_slots, "launches_inplace"),
+         "hist_window@inplace": (hist_window, "launches_inplace"),
          "notify_winners@tpl": (notify_winners, "launches_tpl"),
          "ring_exits@pairs": (ring_exits, "launches_pairs"),
          "ring_exits@finish": (ring_exits, "launches_finish"),

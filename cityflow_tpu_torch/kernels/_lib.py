@@ -105,7 +105,8 @@ def lib():
                      "phase_pressure", "arrange", "leader_scan",
                      "notify_cross", "cross_pass", "tpl_params",
                      "hist_window", "lc_probe", "blocker_cycles",
-                     "update_location", "spawn_slots", "admit_heads",
+                     "update_location", "spawn_slots",
+                     "spawn_slots_inplace", "admit_heads",
                      "lane_counts", "phase_scores", "shadow_insert",
                      "notify_winners", "ring_admit", "route_rows",
                      "gap_refresh"):
@@ -139,6 +140,18 @@ def fp32(name, *tensors):
     if len(kinds) > 1:
         raise ValueError(f"{name}: float tensors of several dtypes {kinds}")
     return int(kinds == {torch.float32})
+
+
+def check_disjoint(name, tensors):
+    """Raise unless the contiguous tensors' bytes do not overlap, so that
+    an in-place write of one leaves the others as they were (views of one
+    buffer may share its storage where their bytes are apart)."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors if t.numel())
+    for (_, end), (lo, _) in zip(spans, spans[1:]):
+        if lo < end:
+            raise ValueError(f"{name}: in place, the tensors it writes must "
+                             "not overlap in memory")
 
 
 def check(rc, name):

@@ -6,11 +6,16 @@ Inputs: G1's last_of (B, D) and leader (B, V) (i32) of the arrangement the
 call belongs to, speed (B, V) f64, the ring rows ring_num / ring_ssum
 (B, HL1, L) f64, the window sums hist_num / hist_ssum (B, L) f64 and
 hist_t (B,) i32 (each env's calls so far); float32 for f64 in fast mode.
-Returns (hist_num, hist_ssum, ring_num, ring_ssum), new tensors: each
-env's per-lane vehicle count and speed sum of this call go into its ring
-row hist_t % HL1 (its own hist_t: envs need not step in lockstep), and
-each window sum becomes sum - old row + this call's (the old row counts
-once the ring is full).
+Returns (hist_num, hist_ssum, ring_num, ring_ssum): each env's per-lane
+vehicle count and speed sum of this call go into its ring row hist_t %
+HL1 (its own hist_t: envs need not step in lockstep), and each window sum
+becomes sum - old row + this call's (the old row counts once the ring is
+full). With inplace=False (the caller keeps its state) they are new
+tensors, the rings copies whose one row is written; with inplace=True
+(the caller donates its state) the four inputs themselves, written in
+place: each env's one ring row and its sums, nothing else (the four must
+not overlap in memory). The in-place launches count apart as
+hist_window@inplace.
 
 Each lane's vehicles are summed in one fixed order: G1's per-drivable
 order walked from the rear along the leader chain. The JAX package adds
@@ -27,6 +32,7 @@ from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
 launches_f32 = 0       # float32 (fast-mode) launches among them
+launches_inplace = 0   # in-place launches among them
 
 
 class _Args(ctypes.Structure):
@@ -53,23 +59,29 @@ def lane_sums_plain(last_of, leader, speed, L):
 
 
 def hist_window_plain(last_of, leader, speed, ring_num, ring_ssum, hist_num,
-                      hist_ssum, hist_t):
+                      hist_ssum, hist_t, inplace=False):
     """Plain PyTorch version: the lane walk vectorised over envs and
     lanes, then JAX's window update (sum - old + cur) and each env's ring
-    row swap."""
+    row swap (in place: sub_ / add_ in the same order, scatter_)."""
     B, HL1, L = ring_num.shape
     cur_n, cur_s = lane_sums_plain(last_of, leader, speed, L)
     row = (hist_t % HL1).long().view(B, 1, 1).expand(B, 1, L)
     full = (hist_t >= HL1)[:, None]
     old_n = torch.where(full, ring_num.gather(1, row)[:, 0], 0.0)
     old_s = torch.where(full, ring_ssum.gather(1, row)[:, 0], 0.0)
-    return (hist_num - old_n + cur_n, hist_ssum - old_s + cur_s,
-            ring_num.scatter(1, row, cur_n[:, None]),
-            ring_ssum.scatter(1, row, cur_s[:, None]))
+    if not inplace:
+        return (hist_num - old_n + cur_n, hist_ssum - old_s + cur_s,
+                ring_num.scatter(1, row, cur_n[:, None]),
+                ring_ssum.scatter(1, row, cur_s[:, None]))
+    hist_num.sub_(old_n).add_(cur_n)
+    hist_ssum.sub_(old_s).add_(cur_s)
+    ring_num.scatter_(1, row, cur_n[:, None])
+    ring_ssum.scatter_(1, row, cur_s[:, None])
+    return hist_num, hist_ssum, ring_num, ring_ssum
 
 
 def hist_window(last_of, leader, speed, ring_num, ring_ssum, hist_num,
-                hist_ssum, hist_t):
+                hist_ssum, hist_t, inplace=False):
     """G5 on CUDA tensors, the plain version on CPU tensors."""
     cpu = speed.device.type == "cpu"
     i32, f64 = (torch.int32,), _lib.FLOATS
@@ -90,32 +102,41 @@ def hist_window(last_of, leader, speed, ring_num, ring_ssum, hist_num,
             or last_of.shape[0] != B or last_of.shape[1] < L:
         raise ValueError("hist_window: shapes do not fit (B, HL1, L) rings, "
                          "(B, L) sums, (B, V) slots and a (B,) hist_t")
+    if inplace:
+        _lib.check_disjoint("hist_window", (
+            ring_num, ring_ssum, hist_num, hist_ssum, last_of, leader, speed,
+            hist_t))
     if cpu:
         return hist_window_plain(last_of, leader, speed, ring_num,
-                                 ring_ssum, hist_num, hist_ssum, hist_t)
+                                 ring_ssum, hist_num, hist_ssum, hist_t,
+                                 inplace)
     return _launch(last_of, leader, speed, ring_num, ring_ssum, hist_num,
-                   hist_ssum, hist_t)
+                   hist_ssum, hist_t, inplace)
 
 
 def _launch(last_of, leader, speed, ring_num, ring_ssum, hist_num,
-            hist_ssum, hist_t):
-    global launches, launches_f32
+            hist_ssum, hist_t, inplace):
+    global launches, launches_f32, launches_inplace
     fp32 = _lib.fp32("hist_window", speed, ring_num, ring_ssum, hist_num,
                      hist_ssum)
     B, HL1, L = ring_num.shape
-    out_num = torch.empty_like(hist_num)
-    out_ssum = torch.empty_like(hist_ssum)
-    # a new ring each call (the step writes none of its inputs): a copy
-    # whose row hist_t % HL1 the kernel overwrites
-    ring_num_out = ring_num.clone()
-    ring_ssum_out = ring_ssum.clone()
+    if inplace:
+        # each thread reads its (env, lane)'s old row and sums before it
+        # writes the new ones at the same addresses
+        out = (hist_num, hist_ssum, ring_num, ring_ssum)
+    else:
+        # new sums, and new rings: copies whose row hist_t % HL1 the
+        # kernel overwrites
+        out = (torch.empty_like(hist_num), torch.empty_like(hist_ssum),
+               ring_num.clone(), ring_ssum.clone())
     a = _Args(*(t.data_ptr() for t in (
         last_of, leader, speed, ring_num, ring_ssum, hist_num, hist_ssum,
-        hist_t, out_num, out_ssum, ring_num_out, ring_ssum_out)),
+        hist_t, *out)),
         B, L, last_of.shape[1], HL1, speed.shape[1], fp32)
     _lib.check(_lib.lib().hist_window(ctypes.byref(a),
                                       _lib.stream_ptr(speed)),
                "hist_window")
     launches += 1
     launches_f32 += fp32
-    return out_num, out_ssum, ring_num_out, ring_ssum_out
+    launches_inplace += inplace
+    return out

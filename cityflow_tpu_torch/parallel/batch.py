@@ -8,6 +8,12 @@ launches once over all envs with the env on its grid (core/step.py). The
 net tables and the spawn table are shared by every env (JAX's
 in_axes=None). No host read-back inside a step or a rollout.
 
+The batched entries donate the state they are given (the JAX package's
+make_rollout donates it, donate_argnums): the step writes its leaves and
+history rings in place (core/step.step, donate=True), so a caller drops
+the state it hands over, or hands over a copy to keep it.
+init_batch_state makes contiguous copies of one env's state.
+
 The JAX package's make_sharded_step (the env axis over a device mesh) is
 not ported yet (ROADMAP.md, multi-device).
 """
@@ -47,9 +53,9 @@ def init_batch_state(cfg: StepConfig, base_state: SimState,
 def make_batched_step(net, cfg: StepConfig, with_obs: bool = True,
                       rl_actions: bool = False):
     """Returns step_b(state_B, spawn_tbl[, phases]) -> (state_B, obs_B or
-    None): one step of every env. With rl_actions, phases (B, I) set each
-    env's lights first; otherwise phases, when given, are (I,) and set
-    every env's."""
+    None): one step of every env, state_B donated (written in place). With
+    rl_actions, phases (B, I) set each env's lights first; otherwise
+    phases, when given, are (I,) and set every env's."""
 
     def step_b(state, spawn_tbl, phases=None):
         if phases is not None:
@@ -58,7 +64,7 @@ def make_batched_step(net, cfg: StepConfig, with_obs: bool = True,
                 phases = phases.expand(state.phase.shape)
             state = state.replace_fields(
                 phase=phases.to(torch.int32).contiguous())
-        state = step_mod.step(net, cfg, state, spawn_tbl)
+        state = step_mod.step(net, cfg, state, spawn_tbl, donate=True)
         if with_obs:
             return state, observe.observations(net, cfg, state)
         return state, None
@@ -69,11 +75,11 @@ def make_batched_step(net, cfg: StepConfig, with_obs: bool = True,
 def make_rollout(net, cfg: StepConfig, n_steps: int):
     """rollout(state_B, spawn_tbl) -> state_B after n_steps batched steps,
     queued on the device without a host read-back (the JAX package scans
-    them in one program)."""
+    them in one program); state_B donated, as JAX's rollout donates it."""
 
     def rollout(state, spawn_tbl):
         for _ in range(n_steps):
-            state = step_mod.step(net, cfg, state, spawn_tbl)
+            state = step_mod.step(net, cfg, state, spawn_tbl, donate=True)
         return state
 
     return rollout

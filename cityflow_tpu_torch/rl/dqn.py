@@ -162,7 +162,8 @@ def make_dqn_train_step(net_dev, cfg, max_phases: int, hidden: int = 64,
         -> (params, opt, state_B, gen, metrics)
     One iteration advances every env by one action interval and applies
     one Double-DQN TD(0) update to the shared Q-MLP against `target` (the
-    caller copies params into it every few iterations)."""
+    caller copies params into it every few iterations). state_B is
+    donated: the steps write it in place."""
     from cityflow_tpu_torch.core import step as step_mod
     _, obs_dim = build_intersection_obs(net_dev, cfg, max_phases)
     n_phases = net_dev["n_phases"]
@@ -172,7 +173,7 @@ def make_dqn_train_step(net_dev, cfg, max_phases: int, hidden: int = 64,
         actions = eps_greedy(params, obs, n_phases, gen, eps)
         state = state.replace_fields(phase=actions.contiguous())
         for _ in range(sim_steps_per_action):
-            state = step_mod.step(net_a, cfg, state, spawn_tbl)
+            state = step_mod.step(net_a, cfg, state, spawn_tbl, donate=True)
         obs_next, up = _features(net_a, cfg, state, max_phases)
         # reward: minus the upstream waiting of each intersection
         rewards = -up / 10.0
@@ -200,8 +201,8 @@ def train(config_path: str, batch: int = 16, iters: int = 20,
     target network synced every 10 iterations. on_iter(i, metrics,
     state), when given, runs after each iteration. `state`, when given, is
     the batch to start from instead (a warm-up's, on `device`, from the
-    same scenario's spawn sequence): its env count and pool replace
-    `batch` and `max_vehicles`."""
+    same scenario's spawn sequence; donated: the steps write it in place):
+    its env count and pool replace `batch` and `max_vehicles`."""
     from cityflow_tpu_torch.carry import net_tensors
     from cityflow_tpu_torch.compiler.net import compile_scenario
     from cityflow_tpu_torch.compiler.spawn import SpawnGenerator

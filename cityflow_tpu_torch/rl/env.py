@@ -79,19 +79,22 @@ class CityFlowVecEnv:
         self.state = None
 
     def reset(self):
-        """Every env back to the scenario's initial state; returns the
-        observations."""
+        """Every env back to the scenario's initial state (contiguous
+        copies); returns the observations."""
         self.state = init_batch_state(self.cfg, self._st0, self.batch)
         return observe.observations(self._net_dev, self.cfg, self.state)
 
     def step(self, phases):
         """phases: (B, I) int -> (obs dict, reward (B,)): the phases held
-        for action_interval steps."""
+        for action_interval steps. The step writes the previous self.state
+        in place (donated, as the JAX package's batched entries donate
+        it)."""
         phases = torch.as_tensor(phases, device=self.device)
         st = self.state.replace_fields(
             phase=phases.to(torch.int32).contiguous())
         for _ in range(self.action_interval):
-            st = step_mod.step(self._net_dev, self.cfg, st, self._spawn)
+            st = step_mod.step(self._net_dev, self.cfg, st, self._spawn,
+                               donate=True)
         self.state = st
         obs = observe.observations(self._net_dev, self.cfg, st)
         reward = -obs["lane_waiting"].to(torch.float32).sum(-1)

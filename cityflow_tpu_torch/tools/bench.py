@@ -134,8 +134,8 @@ def run_gen1(args, net, batch, device=None, on_step=None):
     # The JAX bench splits the step in four jitted parts above 2000
     # lanelinks to keep each XLA compile within budget; eager PyTorch
     # compiles nothing, so the port runs the monolithic step everywhere.
-    def step_b(s):
-        return step_mod.step(net_dev, cfg, s, spawn)
+    def step_b(s):                      # the batched state is donated
+        return step_mod.step(net_dev, cfg, s, spawn, donate=True)
 
     print(f"[stage] build_s={build_s:.1f}", file=sys.stderr, flush=True)
     one = init_batch_state(cfg, st0, 1)

@@ -1,6 +1,7 @@
 """Seeded edge cases of K4 ring_commit, T1 tpl_params, K3 car_follow, K2
 cross_caps, L2 lc_receive, G12 admit_heads, L3 lc_insert, L1 lc_signal,
-G4 cross_pass and G15 shadow_insert.
+G4 cross_pass, G15 shadow_insert, L4 lc_partner, G3 notify_cross, G11
+spawn_slots and G5 hist_window.
 
 The same cases feed the CPU tests (tests/test_torch_commit_cases.py,
 tests/test_torch_follow_cases.py, tests/test_torch_receive_cases.py and
@@ -26,6 +27,10 @@ show right on the CPU.
     for name, case in shadow_cases():
         args = shadow_args(case, device)         # shadow_insert(*args),
                                                  # fresh tensors each call
+    for name, case in spawn_cases():             # spawn_slots(*args,
+        args = spawn_args(case, device)          # inplace=...), fresh
+    for name, case in hist_cases():              # hist_window(*args,
+        args = hist_args(case, device)           # inplace=...), fresh
 
 Each case is a dict of numpy arrays and ints, made from its own seed
 (commit_case(name), tpl_case(name): one case without the others).
@@ -70,6 +75,12 @@ G4 (CROSS_CASES) and G15 (SHADOW_CASES): the edges their generators'
 docstrings name, at B = 1, 3, 128 and 130 in f32 and f64; G4 at KC = 1
 to 20, G15 at MS = 1 to 200 with
 pools of several scan chunks and misaligned views.
+
+G11 (SPAWN_CASES, both forms; SPAWN_COPY_CASES are those the copying
+form takes) and G5 (HIST_CASES, both forms): the edges their
+generators' docstrings name, at B = 1 to 130 in f32 and f64; G11 at
+MS = 1 to 64 on pools of 16 to 9000 slots, G5 at rings of 4 to 241
+rows, each env at its own hist_t.
 """
 
 import numpy as np
@@ -1600,3 +1611,230 @@ def notify_args(case, device):
             {k: T(v) for k, v in case["arr"].items()}, T(case["veh_next"]),
             T(case["ll_avail"]), T(case["fattrs"]), T(case["iattrs"]),
             case["L"])
+
+
+# ---- G11 spawn_slots -------------------------------------------------------
+
+_SP_NF = 5
+_SP_STEPS = 12
+
+
+def _slot_leaves(rng, B, V, t):
+    """Every per-slot leaf of B envs of V slots, random in its dtype."""
+    from cityflow_tpu_torch.core.state import SIM_BOOL, SIM_FLOAT, SLOT_FILL
+    leaves = {}
+    for k in SLOT_FILL:
+        shape = (B, V, 12) if k == "params" else (B, V)
+        if k in SIM_BOOL:
+            leaves[k] = rng.random(shape) < 0.5
+        elif k in SIM_FLOAT:
+            leaves[k] = rng.uniform(-50.0, 300.0, shape).astype(t)
+        else:
+            leaves[k] = rng.integers(-5, 2000, shape).astype(np.int32)
+    return leaves
+
+
+def _spawn_case(rng, B, V, MS, fp, offset=False, full=(), few=(), end=(),
+                none=(), late=()):
+    """One seeded G11 case: a spawn table of _SP_STEPS steps in order, each
+    with 0 to MS + 3 rows (a step may hold more rows than one window), then
+    MS rows of step -1 (spawn_table's padding; 2 where `end` names an env,
+    so that a window reaches past the table's end); B envs, each at a step
+    that has rows with its cursor at that step's first row, every
+    per-slot leaf random in its dtype, its own share of free slots and
+    overflow bits. The envs in `full` have no free slot (OV_SLOTS), those
+    in `few` fewer free slots than due rows, those in `end` the last step
+    and a cursor past n - MS (the window clamped to the table's end, uid
+    from the cursor itself), those in `none` a step without rows (nothing
+    due), those in `late` their first 80% of slots taken (the scan walks
+    several tiles)."""
+    t = np.float32 if fp == "f32" else np.float64
+    counts = rng.integers(0, MS + 4, _SP_STEPS)
+    counts[[0, _SP_STEPS - 1]] = [0, max(1, counts[-1])]
+    counts[1] = max(counts[1], MS // 3 + 2)
+    steps = np.repeat(np.arange(_SP_STEPS), counts).astype(np.int32)
+    pad = 2 if end else MS
+    n = steps.size + pad
+    tbl = dict(
+        step=np.concatenate([steps, np.full(pad, -1, np.int32)]),
+        flow=rng.integers(0, _SP_NF, n).astype(np.int32),
+        priority=rng.choice(np.int32([0, 7, 2 ** 31 - 1, -5, 123456]), n),
+        first_drv=rng.integers(0, 500, n).astype(np.int32),
+        route=rng.integers(0, 300, n).astype(np.int32))
+    first = np.concatenate([[0], np.cumsum(counts)])
+    has = np.nonzero(counts)[0]
+    step = rng.choice(has, B).astype(np.int32)
+    cursor = first[step].astype(np.int32)
+    leaves = _slot_leaves(rng, B, V, t)
+    active = rng.random((B, V)) < rng.uniform(0.2, 0.9, (B, 1))
+    for b in full:
+        active[b] = True
+    for b in few:
+        step[b], cursor[b] = 1, first[1]
+        active[b] = True
+        active[b, rng.choice(V, max(1, MS // 3), replace=False)] = False
+    for b in end:
+        step[b], cursor[b] = _SP_STEPS - 1, n - 1
+    for b in none:
+        step[b], cursor[b] = 0, first[0]
+    for b in late:
+        active[b, :int(0.8 * V)] = True
+    leaves["active"] = active
+    return dict(leaves=leaves, step=step, cursor=cursor, tbl=tbl,
+                overflow=rng.choice(np.int32([0, 0, 2, 4, 8, 1]), B),
+                flow_params=rng.uniform(0.5, 30.0, (_SP_NF, 12)).astype(t),
+                interval=t(0.5), MS=MS, offset=offset)
+
+
+# name -> (B, V, MS, float type, keywords of _spawn_case)
+SPAWN_SPECS = {
+    "B1_V16_MS4_f64": (1, 16, 4, "f64", {}),
+    "B3_V64_MS8_f32_mixed": (3, 64, 8, "f32", dict(few=(1,), none=(2,))),
+    "B2_V32_MS8_f64_full": (2, 32, 8, "f64", dict(full=(0,), few=(1,))),
+    "B3_V48_MS6_f32_end": (3, 48, 6, "f32", dict(end=(0, 2))),
+    "B2_V40_MS4_f64_none": (2, 40, 4, "f64", dict(none=(0, 1))),
+    "B3_V100_MS5_f32": (3, 100, 5, "f32", dict(late=(1,))),
+    "B4_V9000_MS64_f32_late": (4, 9000, 64, "f32",
+                               dict(late=(0, 3), few=(2,))),
+    "B128_V512_MS16_f32": (128, 512, 16, "f32",
+                           dict(full=(5,), few=(6,), none=(7,), end=(127,))),
+    "B130_V256_MS8_f64": (130, 256, 8, "f64", dict(late=(129,))),
+    "B3_V64_MS1_f32_offset": (3, 64, 1, "f32", dict(offset=True, few=(0,))),
+}
+SPAWN_CASES = tuple(SPAWN_SPECS)
+# the cases of both forms: the copying form refuses views one element in
+# (spawn_slots.row_words_aligned), the in-place form takes every case
+SPAWN_COPY_CASES = tuple(n for n in SPAWN_CASES
+                         if not SPAWN_SPECS[n][4].get("offset"))
+
+
+def spawn_case(name, seed=0):
+    """The G11 case `name` (one of SPAWN_CASES), from its own seed."""
+    B, V, MS, fp, kw = SPAWN_SPECS[name]
+    return _spawn_case(np.random.default_rng(
+        [seed, 10000 + SPAWN_CASES.index(name)]), B, V, MS, fp, **kw)
+
+
+def spawn_cases(seed=0):
+    """(name, case) for each of SPAWN_CASES."""
+    for name in SPAWN_CASES:
+        yield name, spawn_case(name, seed)
+
+
+def _sim_state(leaves, B, f, T, **scalars):
+    """A SimState of B envs from the per-slot `leaves` and the per-env
+    `scalars` (numpy), the other fields one wide, each through T."""
+    from cityflow_tpu_torch.core.state import SIM_FIELDS, SimState
+    small = {"phase": np.zeros((B, 1), np.int32),
+             "phase_remain": np.zeros((B, 1), f),
+             "last_of_drv": np.full((B, 1), -1, np.int32),
+             "hist_ring_num": np.zeros((B, 1, 1), f),
+             "hist_ring_ssum": np.zeros((B, 1, 1), f),
+             "hist_num": np.zeros((B, 1), f), "hist_ssum": np.zeros((B, 1), f),
+             "cum_travel": np.zeros(B, f), **scalars}
+    return SimState(**{k: T(leaves[k] if k in leaves
+                            else small.get(k, np.zeros(B, np.int32)))
+                       for k in SIM_FIELDS})
+
+
+def spawn_args(case, device):
+    """The case as spawn_slots' arguments on `device` (st, spawn_tbl,
+    flow_params, interval, MS), fresh tensors on every call (the in-place
+    form writes them); with `offset` every tensor a view one element into
+    a larger buffer."""
+    T = lambda a: _tensor(np.array(a), device, case["offset"])  # copies
+    lv = case["leaves"]
+    B = case["step"].shape[0]
+    f = lv["dis"].dtype
+    st = _sim_state(lv, B, f, T, step=case["step"],
+                    spawn_cursor=case["cursor"], overflow=case["overflow"])
+    import torch
+    return (st, {k: T(v) for k, v in case["tbl"].items()},
+            T(case["flow_params"]),
+            torch.tensor(case["interval"], device=device), case["MS"])
+
+
+# ---- G5 hist_window --------------------------------------------------------
+
+def _hist_case(rng, B, V, L, D, HL1, fp, hist_t, offset=False, empty=()):
+    """One seeded G5 case: per env a random share of running vehicles on a
+    random two thirds of its D drivables (lanes first: L of them, so some
+    lanes are empty), each drivable's vehicles a chain from its rear
+    (last_of) along `leader` to its front (leader -1); the other slots'
+    leaders random (never walked); speeds random, some 0; each env's ring
+    rows filled up to its own hist_t (below, at and past HL1: the wrap),
+    the window sums their totals. The envs in `empty` have no vehicle."""
+    t = np.float32 if fp == "f32" else np.float64
+    running = np.zeros((B, V), bool)
+    drv = rng.integers(-1, D, (B, V)).astype(np.int32)
+    leader = rng.integers(-1, V, (B, V)).astype(np.int32)
+    last_of = np.full((B, D), -1, np.int32)
+    for b in range(B):
+        if b in empty:
+            continue
+        slots = rng.choice(V, rng.integers(0, V + 1), replace=False)
+        used = rng.choice(D, max(1, 2 * D // 3), replace=False)
+        dv = rng.choice(used, slots.size)
+        for d in used:
+            vs = slots[dv == d]            # front first
+            if vs.size:
+                leader[b, vs] = np.concatenate([[-1], vs[:-1]])
+                last_of[b, d] = vs[-1]
+        running[b, slots] = True
+        drv[b, slots] = dv
+    speed = rng.uniform(0.0, 25.0, (B, V)).astype(t)
+    speed[rng.random((B, V)) < 0.1] = 0.0
+    hist_t = np.asarray(hist_t, np.int32)
+    num = np.zeros((B, HL1, L), t)
+    for b in range(B):
+        num[b, :min(int(hist_t[b]), HL1)] = rng.integers(
+            0, 12, (min(int(hist_t[b]), HL1), L))
+    ssum = (num * rng.uniform(0.0, 16.7, num.shape)).astype(t)
+    return dict(last_of=last_of, leader=leader, speed=speed, ring_num=num,
+                ring_ssum=ssum, hist_num=num.sum(1).astype(t),
+                hist_ssum=ssum.sum(1).astype(t), hist_t=hist_t,
+                running=running, drv=drv, L=L, offset=offset)
+
+
+def _hist_ts(B, HL1):
+    """hist_t of B envs: below, at and past HL1, several rings round."""
+    base = [0, 3, HL1 - 1, HL1, HL1 + 2, 3 * HL1 + 1]
+    return [base[b % len(base)] + b // len(base) for b in range(B)]
+
+
+# name -> (B, V, L, D, HL1, float type, keywords of _hist_case)
+HIST_SPECS = {
+    "B1_V16_L4_H5_f64": (1, 16, 4, 6, 5, "f64", {}),
+    "B4_V64_L10_H5_f64": (4, 64, 10, 14, 5, "f64", {}),
+    "B3_V200_L30_H241_f64": (3, 200, 30, 40, 241, "f64", {}),
+    "B2_V40_L6_H4_f64_empty": (2, 40, 6, 8, 4, "f64", dict(empty=(0,))),
+    "B3_V130_L17_H9_f32": (3, 130, 17, 20, 9, "f32", {}),
+    "B128_V256_L40_H7_f32": (128, 256, 40, 50, 7, "f32", dict(empty=(9,))),
+    "B130_V96_L12_H241_f64": (130, 96, 12, 15, 241, "f64", {}),
+    "B3_V64_L8_H5_f32_offset": (3, 64, 8, 10, 5, "f32", dict(offset=True)),
+}
+HIST_CASES = tuple(HIST_SPECS)
+
+
+def hist_case(name, seed=0):
+    """The G5 case `name` (one of HIST_CASES), from its own seed."""
+    B, V, L, D, HL1, fp, kw = HIST_SPECS[name]
+    return _hist_case(np.random.default_rng(
+        [seed, 11000 + HIST_CASES.index(name)]), B, V, L, D, HL1, fp,
+        _hist_ts(B, HL1), **kw)
+
+
+def hist_cases(seed=0):
+    """(name, case) for each of HIST_CASES."""
+    for name in HIST_CASES:
+        yield name, hist_case(name, seed)
+
+
+def hist_args(case, device):
+    """The case as hist_window's arguments on `device`, fresh tensors on
+    every call (the in-place form writes them); with `offset` every tensor
+    a view one element into a larger buffer."""
+    T = lambda a: _tensor(np.array(a), device, case["offset"])  # copies
+    return tuple(T(case[k]) for k in (
+        "last_of", "leader", "speed", "ring_num", "ring_ssum", "hist_num",
+        "hist_ssum", "hist_t"))

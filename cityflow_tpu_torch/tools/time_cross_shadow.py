@@ -138,7 +138,8 @@ def gen1_calls(path, names=("cross_pass",)):
                            BATCH)
     del eng
     step_b = make_batched_step(net, cfg, with_obs=False)
-    return cs.record_gen1_calls(lambda: step_b(stb, spawn), names)
+    # the batched step writes its state (donated): it steps a copy
+    return cs.record_gen1_calls(lambda: step_b(cs.fresh(stb), spawn), names)
 
 
 def lc_calls(names=("cross_pass", "shadow_insert")):
@@ -170,7 +171,9 @@ def lc_calls(names=("cross_pass", "shadow_insert")):
     stb = init_batch_state(cfg, st, BATCH)
     del st
     step_b = make_batched_step(net, cfg, with_obs=False)
-    return one, cs.record_gen1_calls(lambda: step_b(stb, spawn), names)
+    # the batched step writes its state (donated): it steps a copy
+    return one, cs.record_gen1_calls(lambda: step_b(cs.fresh(stb), spawn),
+                                     names)
 
 
 def main(argv=None):

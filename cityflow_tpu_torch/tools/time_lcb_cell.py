@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's [gen1-lc-batch] cell on its own, with what holds each
-step: the wall time per batched step, the device's kernel time per step,
-the host's time to issue one step and the host syncs.
+"""chip_smoke.py's [gen1-lc-batch] cell (or, with --cell gen1-batch, its
+[gen1-batch] cell) on its own, with what holds each step: the wall time
+per batched step, the device's kernel time per step, the host's time to
+issue one step and the host syncs.
 
     python3 cityflow_tpu_torch/tools/time_lcb_cell.py [--root DIR] \
-        [--batch 128] [--steps 40] [--windows 2] [--out FILE]
+        [--cell gen1-lc-batch|gen1-batch] [--batch 128] [--steps 40] \
+        [--windows 2] [--out FILE]
+
+The [gen1-batch] cell: config_30x30.json in fast mode, one Engine run
+past the timed steps at one env (its pool then covers them), its state
+after GEN1B_WARMUP steps in that pool copied into the batch.
 
 The cell: config_30x30_lc.json under DURATION, one exact Engine warmed
 1960 steps at one env, its state cast to float32 in a pool of 131072
 slots and copied into a batch of 128, then `windows` windows of `steps`
-timed batched steps (parallel/batch.make_batched_step; each window's
-wall time, one synchronize at its end; the first window is chip_smoke's).
+timed batched steps (parallel/batch.make_batched_step, which steps the
+state forward and never again from a kept one; each window's wall time,
+one synchronize at its end; the first window is chip_smoke's) and the
+peak device memory allocated over them.
 Then 3 steps each issued after a synchronize: the host's time to return
 from the step call (the launches queue; the device runs behind), and 3
 steps under torch.profiler: the device's kernel time per step, the host
@@ -34,27 +42,39 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 WARMUP = 1960
 POOL = 131072
+GEN1B_WARMUP = 300
 
 
-def run(root, batch, steps, windows):
+def warm_batch(root, cell, batch, horizon):
+    """(net, cfg, spawn, batched state, warm-up seconds) of the cell."""
     import dataclasses
     import torch
-    import cityflow_tpu_torch
     from cityflow_tpu_torch.carry import (
         net_tensors, sim_state_from_numpy, sim_state_to_numpy)
     from cityflow_tpu_torch.core.state import pad_state
     from cityflow_tpu_torch.engine import Engine
-    from cityflow_tpu_torch.parallel.batch import (
-        init_batch_state, make_batched_step)
+    from cityflow_tpu_torch.parallel.batch import init_batch_state
     from cityflow_tpu_torch.tools.scenario import prepare
+    t0 = time.time()
+    if cell == "gen1-batch":
+        eng = Engine(prepare(os.path.join(root, "benchmarks",
+                                          "config_30x30.json")),
+                     exact=False, backend="gen1",
+                     spawn_horizon=GEN1B_WARMUP + horizon)
+        for i in range(GEN1B_WARMUP + horizon):
+            eng.next_step()
+            if i + 1 == GEN1B_WARMUP:
+                snap = eng.state
+        cfg, net, spawn = eng.cfg, eng._net_dev, eng._spawn_dev
+        stb = init_batch_state(cfg, pad_state(snap, cfg.max_vehicles), batch)
+        torch.cuda.synchronize()
+        return net, cfg, spawn, stb, time.time() - t0
     cfg_path = prepare(os.path.join(root, "benchmarks",
                                     "config_30x30_lc.json"),
                        name="config_30x30_lc_duration",
                        routerType="DURATION")
-    nprobe = 3
-    t0 = time.time()
     eng = Engine(cfg_path, exact=True, backend="gen1",
-                 spawn_horizon=WARMUP + windows * steps + 2 * nprobe + 16)
+                 spawn_horizon=WARMUP + horizon)
     for _ in range(WARMUP):
         eng.next_step()
     torch.cuda.synchronize()
@@ -67,9 +87,19 @@ def run(root, batch, steps, windows):
     one = sim_state_from_numpy(sim_state_to_numpy(
         pad_state(eng.state, pool)), dev, torch.float32)
     del eng
-    stb = init_batch_state(cfg, one, batch)
-    del one
+    return net, cfg, spawn, init_batch_state(cfg, one, batch), warm_s
+
+
+def run(root, batch, steps, windows, cell="gen1-lc-batch"):
+    import torch
+    import cityflow_tpu_torch
+    from cityflow_tpu_torch.parallel.batch import make_batched_step
+    nprobe = 3
+    net, cfg, spawn, stb, warm_s = warm_batch(
+        root, cell, batch, windows * steps + 2 * nprobe + 16)
     step_b = make_batched_step(net, cfg, with_obs=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     wall_ms = []
     for _ in range(windows):
         torch.cuda.synchronize()
@@ -78,6 +108,7 @@ def run(root, batch, steps, windows):
             stb = step_b(stb, spawn)[0]
         torch.cuda.synchronize()
         wall_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    peak = torch.cuda.max_memory_allocated()
     overflow = int(stb.overflow.max())
     veh = int(stb.running[0].sum())
     issue_ms = []
@@ -105,18 +136,21 @@ def run(root, batch, steps, windows):
                    w in e.key for w in ("Malloc", "Free", "Memcpy",
                                         "Synchronize"))}
     return dict(package=os.path.dirname(cityflow_tpu_torch.__file__),
-                batch=batch, steps=steps, ms_per_step=wall_ms,
+                cell=cell, batch=batch, steps=steps, ms_per_step=wall_ms,
                 device_ms_per_step=device_ms,
                 device_busy=device_ms / wall_ms[0],
                 host_issue_ms=issue_ms,
                 host_syncs_per_step=count("aten::_local_scalar_dense"),
                 runtime_calls_per_step=runtime, vehicles_per_env=veh,
-                pool=pool, overflow=overflow, warm_s=warm_s)
+                pool=cfg.max_vehicles, overflow=overflow, warm_s=warm_s,
+                peak_bytes=peak)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--cell", default="gen1-lc-batch",
+                    choices=("gen1-lc-batch", "gen1-batch"))
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--windows", type=int, default=2)
@@ -126,7 +160,7 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         sys.exit("time_lcb_cell: no CUDA device")
-    res = run(args.root, args.batch, args.steps, args.windows)
+    res = run(args.root, args.batch, args.steps, args.windows, args.cell)
     line = json.dumps(res)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -97,7 +97,8 @@ def gen1_rows(path, reps):
             stb = init_batch_state(cfg, pad_state(eng.state,
                                                   cfg.max_vehicles), BATCH)
             del eng
-            make_batched_step(net, cfg, with_obs=False)(stb, spawn)
+            # the batched step writes its state (donated): it steps a copy
+            make_batched_step(net, cfg, with_obs=False)(cs.fresh(stb), spawn)
         else:
             eng.next_step()
         torch.cuda.synchronize()

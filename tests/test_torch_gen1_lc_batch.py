@@ -323,7 +323,10 @@ def test_batched_lc_step_equals_single_env_steps(warm, exact):
     cfg = dataclasses.replace(eng.cfg, max_vehicles=stb.active.shape[1])
     net, spawn = eng._net_dev, eng._spawn_dev
     step_b = make_batched_step(net, cfg, with_obs=False)
-    singles = [stb.map(lambda t, b=b: t[b]) for b in range(len(WARM))]
+    # the batched step writes the state it is given (donated): it steps a
+    # copy of the module's batch, and each env alone from its own copy
+    stb = stb.map(torch.clone)
+    singles = [stb.map(lambda t, b=b: t[b].clone()) for b in range(len(WARM))]
     shadow_steps = 0
     for t in range(STEPS):
         stb = step_b(stb, spawn)[0]
