@@ -35,7 +35,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             chunks), L4 (both modes; S = 1-800, C = 1-4, uids near
             INT32_MAX, stale and unpaired matches) and G3 (f32 / f64,
             KC = 1-20, k_link = 1-40, ties, tails at the cross distance,
-            NaN and -0.0, table gaps) bit for bit
+            NaN and -0.0, table gaps) bit for bit; O2 in both modes (P =
+            1 to MAX_P = 64, ties, offsets clipped, 0 phases) and R2's
+            exits stage (in place, each on a fresh copy; empty and full
+            lanes, crossings past XK, the invalid clamp, removals, link
+            blockers, lights over k_phase passes, B = 1, 3, 128 and 130)
+            bit for bit (R2's t_rm within 1e-6 relative), with its 32-bit
+            and its 64-bit offsets, and R2 refusing a strided view of the
+            distances it writes
   agree     B=1 on the card (kernels) against the plain port on the CPU,
             20 steps: same vehicles on the same drivables, |dis| and
             |speed| within 2e-3, same finished count
@@ -53,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             ring_admit and R4 route_rows against their plain versions on
             every call of one more step of the main path's own state
             (bitwise; R2's t_rm within 1e-6 relative), timed (R3 on a
-            fresh copy of its state each call) beside their bounds; the
+            fresh copy of its state each call, R2 on a fresh copy of the
+            distances it clamps in place) beside their bounds; the
             same on [lc] (with R2's pair stages @pairs / @finish),
             [mixed] and [mixed-lc] (rows <kernel>@<path>); then R5
             front_leaders (approach mode; with lane change also its
@@ -144,7 +152,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             (integer outputs exact, float sums within 1e-5 relative), timed
   dqn       rl/ring_dqn.make_ring_dqn_split_step from the rl path's state:
             4 iterations of 5 steps at eps 0.3; asserts a finite loss, the
-            step advanced by 20, overflow 0, O2's features mode launched
+            step advanced by 20, overflow 0, O2's features mode launched;
+            then every O2 call of one more iteration bitwise against its
+            plain version, the first timed
   golden-gen1  the gen-1 exact Engine (engine.Engine, float64) on the card
             against the reference goldens (tests/goldens, read here):
             grid4x4 300 steps, grid2x2_mixed 200, grid4x4_rl 200 under the
@@ -253,9 +263,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   kernels   (batched lane change) on every call of one more [gen1-lc-batch]
             step, each asserted to span the batch: G5-G8 (every mode),
             G15 (in place: kernel and plain version each on a fresh copy),
-            G4 and G3 against their plain versions (bitwise; G5's speed sums
-            within 1e-6 relative), timed (rows <name>@lcbatch; G15 on a
-            fresh copy each call), G5 beside index_add_; G15 is also
+            G4, G3 and G1 against their plain versions (bitwise; G5's
+            speed sums within 1e-6 relative), timed (rows
+            <name>@lcbatch; G15 on a fresh copy each call), G5 beside
+            index_add_; G15 is also
             checked and timed at one env on [gen1-lc] (f64) and
             [agree-gen1-lc-fast] (f32), G3 and G4 checked on [gen1-lc];
             every G3 call checked asserts G1's table compacted. Each
@@ -527,7 +538,7 @@ REPLACES = {
 GEN1_LCB_ROWS = ("hist_window", "lc_probe", "lc_plan", "lc_plan@receive",
                  "lc_plan@decide", "lc_plan@yield", "lc_commit",
                  "lc_commit@commit", "shadow_insert", "cross_pass",
-                 "notify_cross", "spawn_slots")
+                 "notify_cross", "spawn_slots", "arrange")
 REPLACES.update({f"{n}@lcbatch": REPLACES[n] + " under vmap "
                  "(parallel/batch.py:48), float32" for n in GEN1_LCB_ROWS})
 # the ring step's regions (R1-R4), a row per ring path that runs them
@@ -933,8 +944,8 @@ def check_kernel_cases():
     import torch
     from cityflow_tpu_torch.kernels import (
         admit_heads, car_follow, cross_caps, cross_pass, hist_window,
-        lc_insert, lc_receive, lc_signal, notify_cross, ring_commit,
-        shadow_insert, spawn_slots, tpl_params)
+        lc_insert, lc_receive, lc_signal, notify_cross, phase_pressure,
+        ring_commit, ring_exits, shadow_insert, spawn_slots, tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -1035,18 +1046,92 @@ def check_kernel_cases():
                           notify_cross.notify_cross_plain(*a))
         assert bad == 0, f"notify_cross[{name}]: {bad} values differ"
         n += 1
+    for name, case in kc.pressure_cases():
+        for features in (False, True):
+            a = kc.pressure_args(case, "cuda")
+            _, bad = _bitwise(
+                f"phase_pressure[{name}]",
+                phase_pressure.phase_pressure(*a, features=features),
+                phase_pressure.phase_pressure_plain(*a, features=features))
+            assert bad == 0, f"phase_pressure[{name}]: {bad} values " \
+                f"differ (features={features})"
+        n += 1
+    trm = 0.0
+    for name, case in kc.exits_cases():
+        want = ring_exits.ring_exits_plain(*kc.exits_args(case, "cuda"))
+        for wide in (False, True):
+            a = kc.exits_args(case, "cuda")
+            with exits_offsets(wide):
+                got = ring_exits.ring_exits(*a)
+            tag = f"{name}@64-bit" if wide else name
+            assert got["dis_l"] is a[3]["new_dis_l"], \
+                f"ring_exits[{tag}]: the clamp not in place"
+            trm = max(trm, check_exits_case(tag, got, want))
+        n += 1
+    # a view of the new distances that is not contiguous is refused
+    a = kc.exits_args(kc.exits_case(kc.EXITS_CASES[0]), "cuda")
+    nd = a[3]["new_dis_l"]
+    wide = torch.empty(nd.shape[:-1] + (2 * nd.shape[-1],), dtype=nd.dtype,
+                       device=nd.device)
+    a[3]["new_dis_l"] = wide[..., ::2]
+    try:
+        ring_exits.ring_exits(*a)
+        raise AssertionError("ring_exits took a strided new_dis_l")
+    except ValueError:
+        pass
     torch.cuda.synchronize()
     cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
              kc.ADMIT_CASES, kc.RECEIVE_CASES, kc.INSERT_CASES,
              kc.SIGNAL_CASES, kc.CROSS_CASES, kc.SHADOW_CASES,
              kc.PARTNER_CASES, kc.NOTIFY_CASES, kc.SPAWN_CASES,
-             kc.HIST_CASES)
+             kc.HIST_CASES, kc.PRESSURE_CASES, kc.EXITS_CASES)
     log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 / G4 / G15 / L4 "
-        f"/ G3 / G11 / G5 (both forms each) "
-        f"seeded edge cases: {n} of "
+        f"/ G3 / G11 / G5 (both forms each) / O2 (both modes) / R2 exits "
+        f"(32- and 64-bit offsets) seeded edge cases: {n} of "
         f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
-        f"not_bitwise={nbit}; the rest bitwise) "
+        f"not_bitwise={nbit}; R2's t_rm max_rel={trm}; the rest bitwise, "
+        f"R2's NaN distances as NaN) "
         f"({'; '.join(', '.join(c) for c in cases)})")
+
+
+@contextlib.contextmanager
+def exits_offsets(wide):
+    """With `wide`, R2's exits kernel takes 64-bit offsets everywhere
+    (ring_exits.OFFSET_LIMIT 0): the instantiation that rings of 2^31
+    elements or more take, held to the plain version on smaller ones."""
+    from cityflow_tpu_torch.kernels import ring_exits
+    lim = ring_exits.OFFSET_LIMIT
+    if wide:
+        ring_exits.OFFSET_LIMIT = 0
+    try:
+        yield
+    finally:
+        ring_exits.OFFSET_LIMIT = lim
+
+
+def check_exits_case(name, got, want):
+    """R2's exits stage on one seeded case against its plain version:
+    every output equal bit for bit (a NaN new distance against any NaN:
+    the clamp leaves a NaN as it is, torch.minimum may rewrite its
+    payload), t_rm within 1e-6 relative; the clamp written in place.
+    Returns t_rm's largest relative difference."""
+    import torch
+    assert set(got) == set(want), f"ring_exits[{name}]: output keys differ"
+    rel = 0.0
+    for key in sorted(want):
+        if key == "t_rm":
+            rel, _ = rel_close(f"ring_exits[{name}].t_rm", got[key],
+                               want[key], 1e-6)
+            continue
+        g, w = got[key], want[key]
+        assert g.shape == w.shape and g.dtype == w.dtype, \
+            f"ring_exits[{name}].{key}: {g.shape} {g.dtype} vs {w.shape} " \
+            f"{w.dtype}"
+        same = (g.view(torch.int32) == w.view(torch.int32)) \
+            | (g.isnan() & w.isnan()) if g.dtype == torch.float32 else g == w
+        bad = int((~same).sum())
+        assert bad == 0, f"ring_exits[{name}].{key}: {bad} values differ"
+    return rel
 
 
 def check_partner_case(name, case):
@@ -2022,11 +2107,18 @@ def admit_copy(rs):
                                 if getattr(rs, f) is not None})
 
 
+def exits_copy(mid):
+    """mid with the new distances R2's exits stage clamps in place
+    copied (the rest shared)."""
+    return dict(mid, new_dis_l=mid["new_dis_l"].clone())
+
+
 def record_ring_calls(sim, state):
     """One more batched step from a copy of `state` with the R1-R4 wrappers
-    recording their arguments: R3's state as it was before the call (the
-    leaves it writes copied), every other argument by reference (nothing
-    in the step writes them after the call)."""
+    recording their arguments: R3's state and R2's new distances as they
+    were before the call (what the call writes in place copied), every
+    other argument by reference (nothing in the step writes them after
+    the call)."""
     import torch
     from cityflow_tpu_torch.core import ring as ring_mod
     orig = {n: getattr(ring_mod, n) for n in RING_WRAPPERS}
@@ -2036,6 +2128,8 @@ def record_ring_calls(sim, state):
         def fn(*a, **k):
             kept = a[:2] + (admit_copy(a[2]),) + a[3:] \
                 if n == "ring_admit" else a
+            if n == "ring_exits":
+                kept = a[:3] + (exits_copy(a[3]),)
             calls[n].append((kept, k))
             return orig[n](*a, **k)
         return fn
@@ -2055,7 +2149,11 @@ def record_ring_calls(sim, state):
 
 def _ring_call(fn, n, a, k):
     """One call of an R wrapper or its plain version; R3 on a fresh copy of
-    its recorded state, returning the OV bits and the leaves it wrote."""
+    its recorded state, returning the OV bits and the leaves it wrote; R2's
+    exits stage on a fresh copy of its recorded new distances (its dis_l
+    is that copy, clamped)."""
+    if n == "ring_exits":
+        return fn(*a[:3], exits_copy(a[3]), **k)
     if n != "ring_admit":
         return fn(*a, **k)
     rs = admit_copy(a[2])
@@ -2139,16 +2237,7 @@ def ring_work(n, a, k, out):
             per_entry += 1 + 4 + 4 + 4
         return EL * B * per_entry + admitted * (slot + 4), 0
     if n == "ring_exits":
-        rs, mid = a[2], a[3]
-        occ_l, occ_k = int(rs.n_l.sum()), int(rs.n_k.sum())
-        nbytes = (nb(mid["new_dis_l"], rs.n_l, rs.n_k, mid["ap_fail"],
-                     mid["ap_red"], mid["ap_ffo"], rs.phase,
-                     rs.phase_remain)
-                  + occ_l * (4 + 1 + 1 + (rs.l_sh is not None))
-                  + int(out["n_rm"].sum()) * 4       # the removed's enter
-                  + occ_k * (4 + 1 + 4)              # nd_k, fail, foe
-                  + nb(*(v for key, v in out.items() if key != "ov")))
-        return nbytes, 0
+        return exits_work(a, out)[0], 0
     if n == "ring_exits_pairs":
         rs = a[2]
         return (nb(rs.n_l, rs.l_sh, rs.l_last, rs.l_chg, rs.l_dir, rs.l_off,
@@ -2163,6 +2252,74 @@ def ring_work(n, a, k, out):
         exits = int(ef.sum())
         return (nb(ef, *out) + exits * 4 * (2 + out[0].shape[0])), 0
     raise KeyError(n)
+
+
+def exits_work(a, out):
+    """R2's exits stage: (bytes the in-place call moves as this data reads
+    them, the copying count). The first: n_l and n_k; each occupied lane
+    slot's new distance, and last where it is past the lane's end (or the
+    length is NaN), nxt where such a slot is not last, the clamp written
+    where it applies; sh where a slot leaves (lane change); the removed
+    vehicles' enter times; each occupied link slot's distance, k_fail up
+    to the front-most failure and its foe; the approach rows walked while
+    the blocker is negative (ap_fail, ap_red where it fails, ap_ffo where
+    both hold); the lights; every output but the new distances. The
+    copying count (the earlier kernel's): the whole new-distance ring
+    read and dis_l written, each occupied lane slot's nxt, last and sh,
+    the link blocker inputs of every occupied slot and the whole approach
+    rows. `a` holds the new distances as they were before the call."""
+    import torch
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts
+                         if t is not None)
+    cfg, net, rs, mid = a
+    nd = mid["new_dis_l"]
+    SL, LNp, B = nd.shape
+    dev = nd.device
+    occ = torch.arange(SL, device=dev)[:, None, None] < rs.n_l[None]
+    ln = net["ln_len"][:, None]
+    hot = occ & ~(nd <= ln) & ~nd.isnan()
+    live = hot & ~rs.l_last
+    inval = live & (rs.l_nxt < 0)
+    XKl = out["exited"].shape[0]
+    lv = out["leave"][:XKl]
+    outs = nb(*(v for key, v in out.items() if key not in ("dis_l", "ov")))
+    lane = (nb(rs.n_l, rs.step) + 4 * int(occ.sum()) + int(hot.sum())
+            + 4 * int(live.sum()) + 4 * int(inval.sum())
+            + (int(lv.sum()) if rs.l_sh is not None else 0)
+            + 4 * int(out["n_rm"].sum()))
+    SK, LKp = cfg.SK, cfg.LKp
+    m = rs.n_k.clamp(0, SK)
+    occk = torch.arange(SK, device=dev)[:, None, None] < rs.n_k[None]
+    fail = mid["k_fail"].reshape(SK, LKp, B) & occk
+    found = fail.any(0)
+    first = fail.to(torch.int32).argmax(0)
+    foe = mid["k_fffoe"].reshape(SK, LKp, B).gather(0, first[None])[0]
+    v = torch.where(found, foe, -1)
+    apf = mid["ap_fail"].reshape(-1, LKp, B)
+    apr = mid["ap_red"].reshape(-1, LKp, B)
+    apo = mid["ap_ffo"].reshape(-1, LKp, B)
+    ap_bytes = 0
+    for r in reversed(range(apf.shape[0])):
+        walk = v < 0
+        hit = walk & apf[r]
+        take = hit & ~apr[r]
+        ap_bytes += int(walk.sum()) + int(hit.sum()) + 4 * int(take.sum())
+        v = torch.where(take, apo[r], v)
+    link = (nb(rs.n_k) + 4 * int(occk.sum())
+            + int(torch.where(found, first + 1, m).sum())
+            + 4 * int(found.sum()) + ap_bytes)
+    lights = 0 if cfg.rl_traffic_light else nb(
+        rs.phase, rs.phase_remain, net["i_n_phases"], net["i_virtual"],
+        net["i_phase_offset"])
+    nbytes = lane + link + lights + outs + nb(out["ov"])
+    occ_l, occ_k = int(rs.n_l.sum()), int(rs.n_k.sum())
+    copying = (nb(nd, rs.n_l, rs.n_k, mid["ap_fail"], mid["ap_red"],
+                  mid["ap_ffo"], rs.phase, rs.phase_remain)
+               + occ_l * (4 + 1 + 1 + (rs.l_sh is not None))
+               + int(out["n_rm"].sum()) * 4
+               + occ_k * (4 + 1 + 4)
+               + nb(*(v for key, v in out.items() if key != "ov")))
+    return nbytes, copying
 
 
 def check_ring_kernels(sim, state, reps, path):
@@ -2190,6 +2347,13 @@ def check_ring_kernels(sim, state, reps, path):
         want = _ring_call(plain, n, a, k)
         torch.cuda.synchronize()
         err, nbit = _ring_compare(n, got, want)
+        if n == "ring_exits":
+            with exits_offsets(True):
+                got64 = _ring_call(kern, n, a, k)
+            err64, nbit64 = _ring_compare(f"{n}@64-bit", got64, want)
+            del got64
+            log(f"[kernels] ring_exits ({path}) with 64-bit offsets: "
+                f"max_abs_err={err64} not_bitwise={nbit64}")
         nbytes, nops = ring_work(n, a, k, got)
         admitted = int((got[2] - a[2].el_cursor).sum()) \
             if n == "ring_admit" else 0
@@ -2214,6 +2378,20 @@ def check_ring_kernels(sim, state, reps, path):
             plain_ms = time_cuda_fresh(setup, lambda x: plain(*x, **k), reps)
             log(f"[kernels] {label}: admitted {admitted} of "
                 f"{a[2].el_cursor.numel()} entry lanes x envs")
+        elif n == "ring_exits":
+            # in place: each call on a fresh copy of the new distances
+            setup = lambda: a[:3] + (exits_copy(a[3]),)
+            ms = time_cuda_fresh(setup, lambda x: kern(*x, **k), reps)
+            plain_ms = time_cuda_fresh(setup, lambda x: plain(*x, **k), reps)
+            with exits_offsets(True):
+                ms64 = time_cuda_fresh(setup, lambda x: kern(*x, **k), reps)
+            got = _ring_call(kern, n, a, k)
+            inplace, copying = exits_work(a, got)
+            del got
+            log(f"[kernels] {label}: bound_ms (in place, as this data reads "
+                f"it)={inplace / H100_BYTES_PER_S * 1e3:.4f} copying "
+                f"count={copying / H100_BYTES_PER_S * 1e3:.4f}; ms with "
+                f"64-bit offsets={ms64:.4f}")
         else:
             ms = time_cuda(lambda: kern(*a, **k), reps)
             plain_ms = time_cuda(lambda: plain(*a, **k), reps)
@@ -3000,18 +3178,33 @@ def check_rl_kernels(env, reps):
     nlanes = int(torch.unique(lanes[lanes >= 0]).numel())
     G = tabs["g_n_phases"].shape[0]
     LPI = ss.shape[0] // G
+    # the function needs the seven index tables once; the kernel reads
+    # instead its lane tables (per intersection lane its id and the
+    # counts of the phases it sums: cp, with features also cs and cup)
+    # and g_n_phases. The bound takes the smaller of the two counts, the
+    # other is logged beside it
     tab_bytes = sum(tabs[k].numel() * 4 for k in o2.TABLES)
+    lanes_t = o2.lane_tables(tabs)[0]
+    n_ent = int((lanes_t >= 0).sum())
+    passes = -(-P // 16)
     for features, name in ((False, "phase_pressure"),
                            (True, "phase_pressure@features")):
+        lane_bytes = lanes_t.numel() * 4 + G * 4 \
+            + n_ent * passes * (66 if features else 32)
         a = (w, tabs, P, I, features)
         got, want = o2.phase_pressure(*a), o2.phase_pressure_plain(*a)
         for g_, w_ in zip(got, want):
-            assert torch.equal(g_, w_), f"{name} differs"
+            assert bitwise_equal(g_, w_), f"{name} differs"
         ms = time_cuda(lambda: o2.phase_pressure(*a), reps)
         plain = time_cuda(lambda: o2.phase_pressure_plain(*a), reps)
         outs = sum(t.numel() * t.element_size() for t in got)
+        counts = {"the seven index tables": tab_bytes,
+                  "the lane tables": lane_bytes}
+        for what, nb in counts.items():
+            ms_ = (4 * nlanes * B + nb + outs) / H100_BYTES_PER_S * 1e3
+            log(f"[kernels] {name}: bound_ms with {what}={ms_:.4f}")
         rows.append(kernel_row(name, 0.0, ms, plain,
-                               4 * nlanes * B + tab_bytes + outs,
+                               4 * nlanes * B + min(counts.values()) + outs,
                                2 * G * B * P * LPI, None))
     return rows
 
@@ -3057,9 +3250,37 @@ def run_dqn(env, iters):
     assert int(st.overflow.max()) == 0, "overflow flags set"
     for k in ("phase_pressure@features", "lane_stats"):
         assert launches[k] > 0, f"kernel {k} was not launched on dqn"
+    # O2 on the learner's own calls: one more iteration (from a copy)
+    # with the calls recorded, each held bitwise to the plain version
+    from cityflow_tpu_torch.core import ring_observe
+    from cityflow_tpu_torch.kernels import phase_pressure as o2
+    calls, orig = [], ring_observe.phase_pressure
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    ring_observe.phase_pressure = rec
+    try:
+        train_iter(sim.tables, params, target, opt, fresh(st), sim.q, gen,
+                   0.3)
+        torch.cuda.synchronize()
+    finally:
+        ring_observe.phase_pressure = orig
+    assert calls, "[dqn] no O2 call recorded"
+    for a, k in calls:
+        for g_, w_ in zip(o2.phase_pressure(*a, **k),
+                          o2.phase_pressure_plain(*a, **k)):
+            assert bitwise_equal(g_, w_), "[dqn] O2 differs"
+    a, k = calls[0]
+    o2_ms = time_cuda(lambda: o2.phase_pressure(*a, **k), REPS)
+    o2_plain = time_cuda(lambda: o2.phase_pressure_plain(*a, **k), REPS)
+    log(f"[dqn] phase_pressure@features: {len(calls)} calls of one "
+        f"iteration bitwise; on its first: ms={o2_ms:.4f} "
+        f"plain_ms={o2_plain:.4f} (B={a[0].shape[-1]}, "
+        f"features={k.get('features')})")
     return launches, dict(iters=iters, ms_per_iteration=sum(ms) / iters,
                           first_ms=ms[0], later_ms_mean=steady,
-                          losses=losses)
+                          losses=losses, o2_ms=o2_ms, o2_plain_ms=o2_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -4970,8 +5191,8 @@ def run_gen1_lc_batch(ctx, batch, steps):
 
 def check_gen1_lcb_kernels(ctx, reps, batch):
     """On every call of one more [gen1-lc-batch] step (the path's own: the
-    state donated): G5-G8 (every mode of G7 and G8), G11, G15, G4 and G3
-    against their plain versions, each call asserted to span the `batch`
+    state donated): G5-G8 (every mode of G7 and G8), G11, G15, G4, G3 and
+    G1 against their plain versions, each call asserted to span the `batch`
     envs, bitwise (G11, G5 and G15 write in place: kernel and plain
     version each on a fresh copy of what they write); G4's funnel
     printed. Timed on the first call of each kernel and mode (rows
@@ -4985,7 +5206,8 @@ def check_gen1_lcb_kernels(ctx, reps, batch):
 
     def one():              # the path's own step: the state donated
         holder[0] = step_mod.step(net, cfg, holder[0], spawn, donate=True)
-    names = GEN1_LC_KERNELS + ("spawn_slots", "cross_pass", "notify_cross")
+    names = GEN1_LC_KERNELS + ("spawn_slots", "cross_pass", "notify_cross",
+                               "arrange")
     calls = record_gen1_calls(one, names)
     del holder[:]
     log_cross_funnel("gen1-lc-batch", calls["cross_pass"])

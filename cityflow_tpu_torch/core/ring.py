@@ -35,8 +35,9 @@ place. On a CPU tensor each of those takes its plain PyTorch version.
 
 The batched entries write their input state in place (R3's admission, the
 history rows), as the JAX package's batched entries donate theirs: their
-caller does not reuse the state it passed in. The single-env entries copy
-what is written first.
+caller does not reuse the state it passed in. p2 also writes p1's
+mid["new_dis_l"] (R2's clamp of the invalid vehicles). The single-env
+entries copy what is written first.
 
 Layout: lane rings (SL, LNp, B), link rings (SK, LKp, B) with
 LNp = OL * I and LKp = LPI * G; B is contiguous, so neighbouring threads of
@@ -932,8 +933,10 @@ def ring_step_p1(net, cfg: RingConfig, rs: RingState, q):
 
 
 def ring_step_p2(net, cfg: RingConfig, rs: RingState, mid):
-    return ring_step_p2_batched(net, cfg, _batch1(rs),
-                                _map_mid(mid, _unsqueeze)).map(_squeeze)
+    mid_b = _map_mid(mid, _unsqueeze)
+    # R2 clamps the new distances in place: the caller's mid stays as it was
+    mid_b["new_dis_l"] = mid_b["new_dis_l"].clone()
+    return ring_step_p2_batched(net, cfg, _batch1(rs), mid_b).map(_squeeze)
 
 
 def ring_step(net, cfg: RingConfig, rs: RingState, q, debug: bool = False):

@@ -47,9 +47,10 @@ counter:
   R1 notify_winners  ring step: each cross's notifier and its canPass
                      terms, the blocker-cycle flag (the foe exchange's
                      input)
-  R2 ring_exits      ring step: crossings, leave prefixes, removals and
-                     their sums, the lane-change pair flags (stages pairs /
-                     finish), the blocker commit, the lights
+  R2 ring_exits      ring step: crossings (the invalid clamp in place),
+                     leave prefixes, removals and their sums, the
+                     lane-change pair flags (stages pairs / finish), the
+                     blocker commit, the lights
   R3 ring_admit      ring step: spawn and admission, in place
   R4 route_rows      ring step: the route rows of the link -> lane
                      transfers

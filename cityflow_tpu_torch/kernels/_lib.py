@@ -118,6 +118,8 @@ def lib():
             fn = getattr(L, name)
             fn.argtypes = [vp, ctypes.c_int, vp]
             fn.restype = ctypes.c_int
+        L.ring_exits_groups.argtypes = [ll, ll, ll, vp, vp]
+        L.ring_exits_groups.restype = ctypes.c_int
         _lib = L
         return _lib
 

@@ -15,6 +15,13 @@ ph is valid when ph < g_n_phases[g].
                    waiting on each phase's available start lanes, its
                    pressure (0 where not valid), the start-lane waiting of
                    all links
+
+The kernel reads none of those tables: the wrapper derives from them,
+once per net, each intersection's distinct lanes and per lane the counts
+of its links that start there, that start there and are available in
+each phase, and that less those that end there (lane_tables, kept in the
+tables' dict); the kernel sums each lane's waiting count times its
+counts, a thread per (intersection, env).
 """
 
 import ctypes
@@ -30,18 +37,91 @@ MAX_P = 64              # phases per intersection (csrc/phase_pressure.cu)
 F32, I32 = torch.float32, torch.int32
 TABLES = ("start_src", "in_src", "end_src", "rl_src", "phase_rl_avail",
           "g_phase_offset", "g_n_phases")
+LANES, COEF = "o2_lanes", "o2_coef"   # the kernel's tables in `tabs`
+CW, CS, CP = 136, 8, 72  # a lane's int16 counts: cup, cs[ph], cp[ph]
 
 
 class _Args(ctypes.Structure):
     _fields_ = ([("mode", ctypes.c_int)]
-                + [(k, ctypes.c_void_p) for k in (
-                    "w", "start_src", "in_src", "end_src", "rl_src",
-                    "avail", "g_off", "g_nph")]
-                + [(k, ctypes.c_longlong) for k in (
-                    "G", "I", "LPI", "ILG", "N", "B", "TP", "MAXRL")]
+                + [(k, ctypes.c_void_p) for k in ("w", "lanes", "coef",
+                                                  "g_nph")]
+                + [(k, ctypes.c_longlong) for k in ("G", "I", "E", "N",
+                                                    "B")]
                 + [("P", ctypes.c_int)]
                 + [(k, ctypes.c_void_p) for k in (
                     "press", "actions", "fw", "fp", "w_up")])
+
+
+def _link_lanes(tabs):
+    """Per link row l * G + g: its start lane (in_src[start_src], -1 for
+    none), its end lane (end_src) and (MAX_P, LPI * G) bool, the link
+    available in phase ph: phase_rl_avail[clip(g_phase_offset[col] + ph,
+    0, TP - 1), rl] > 0.5 for rl_src = rl * G + col (never for -1)."""
+    G = tabs["g_n_phases"].shape[0]
+    ss, ins = tabs["start_src"], tabs["in_src"].reshape(-1)
+    ILG = ins.numel()
+    ok = (ss >= 0) & (ss < ILG)
+    start = torch.where(ok, ins[ss.clamp(0, max(ILG - 1, 0)).long()], -1) \
+        if ILG else torch.full_like(ss, -1)
+    rl = tabs["rl_src"]
+    pra = tabs["phase_rl_avail"]
+    TP = pra.shape[0]
+    rl_row = (rl.clamp(min=0) // G).long()
+    rl_col = (rl.clamp(min=0) % G).long()
+    ph = torch.arange(MAX_P, device=rl.device)[:, None]
+    row = (tabs["g_phase_offset"][rl_col][None] + ph).clamp(0, TP - 1)
+    av = (rl >= 0)[None] & (pra[row.long(), rl_row[None]] > 0.5)
+    return start.long(), tabs["end_src"].long(), av
+
+
+def _build(tabs):
+    G = tabs["g_n_phases"].shape[0]
+    dev = tabs["start_src"].device
+    if G == 0:
+        return (torch.zeros((0, 1), dtype=I32, device=dev),
+                torch.zeros((0, 1, CW), dtype=torch.int16, device=dev))
+    start, end, av = _link_lanes(tabs)
+    LPI = start.shape[0] // G
+    if LPI >= 2 ** 15:
+        raise ValueError(f"phase_pressure: {LPI} links an intersection")
+    g_of = torch.arange(start.shape[0], device=dev) % G
+    N1 = int(torch.cat([start, end]).max().clamp(min=0)) + 1
+    key = lambda lane: g_of * N1 + lane
+    vs, ve = start >= 0, end >= 0
+    uk = torch.unique(torch.cat([key(start)[vs], key(end)[ve]]))
+    ug, ul = uk // N1, uk % N1
+    cnt = torch.bincount(ug, minlength=G)
+    E = max(int(cnt.max()) if uk.numel() else 0, 1)
+    pos = torch.arange(uk.numel(), device=dev) - (cnt.cumsum(0) - cnt)[ug]
+    lanes = torch.full((G, E), -1, dtype=I32, device=dev)
+    lanes[ug, pos] = ul.to(I32)
+    coef = torch.zeros((G, E, CW), dtype=torch.int32, device=dev)
+    avt = av.T.to(torch.int32)                         # (LPI * G, MAX_P)
+
+    def add(valid, lane, cols, vals):
+        i = torch.searchsorted(uk, key(lane)[valid])
+        full = torch.zeros((i.numel(), CW), dtype=torch.int32, device=dev)
+        for c, v in zip(cols, vals):
+            full[:, c] = v
+        coef.index_put_((ug[i], pos[i]), full, accumulate=True)
+    add(vs, start, (0, slice(CS, CS + MAX_P), slice(CP, CP + MAX_P)),
+        (1, avt[vs], avt[vs]))
+    add(ve, end, (slice(CP, CP + MAX_P),), (-avt[ve],))
+    return lanes, coef.to(torch.int16)
+
+
+def lane_tables(tabs):
+    """The kernel's tables: lanes (G, E) int32, each intersection's
+    distinct start and end lanes (-1 pads), and coef (G, E, CW) int16, per
+    lane the counts of the intersection's links that start there (word
+    0), that start there and are available in phase ph (word CS + ph), and
+    that less those that end there and are available in ph (word CP + ph),
+    for every ph < MAX_P. Static net structure, as the tables they come
+    from (nothing writes those after the net is built): built on first use
+    and kept in tabs[LANES] / tabs[COEF]."""
+    if LANES not in tabs:
+        tabs[LANES], tabs[COEF] = _build(tabs)
+    return tabs[LANES], tabs[COEF]
 
 
 def _take(x, idx):
@@ -104,17 +184,11 @@ def phase_pressure(w, tabs, P, I, features=False):
         raise ValueError(f"phase_pressure: I={I} < G={G}")
     if cpu:
         return phase_pressure_plain(w, tabs, P, I, features)
-    TP, MAXRL = tabs["phase_rl_avail"].shape
     dev = w.device
-    kw = dict(w=w.data_ptr(), start_src=tabs["start_src"].data_ptr(),
-              in_src=tabs["in_src"].data_ptr(),
-              end_src=tabs["end_src"].data_ptr(),
-              rl_src=tabs["rl_src"].data_ptr(),
-              avail=tabs["phase_rl_avail"].data_ptr(),
-              g_off=tabs["g_phase_offset"].data_ptr(),
+    lanes, coef = lane_tables(tabs)
+    kw = dict(w=w.data_ptr(), lanes=lanes.data_ptr(), coef=coef.data_ptr(),
               g_nph=tabs["g_n_phases"].data_ptr(), G=G, I=I,
-              LPI=tabs["start_src"].shape[0] // max(G, 1),
-              ILG=tabs["in_src"].numel(), N=N, B=B, TP=TP, MAXRL=MAXRL, P=P)
+              E=lanes.shape[1], N=N, B=B, P=P)
     if features:
         fw = torch.empty((G, P, B), dtype=F32, device=dev)
         fp = torch.empty((G, P, B), dtype=F32, device=dev)

@@ -5,7 +5,9 @@ Three stages, each one launch (lane change runs all three, around L4's
 two partner rounds; without it only the first):
 
 ring_exits (the exits, JAX ring.py:1462-1483, 1530-1566, 1908-1929):
-  lanes   an invalid vehicle's new distance clamped to its lane's length;
+  lanes   an invalid vehicle's new distance clamped to its lane's length,
+          IN PLACE in mid["new_dis_l"] (only this stage reads it; it comes
+          back as dis_l);
           the front prefix of slots < XK that crosses the lane end
           (leave), its length x_l, which of them are removed (route end;
           under lane change also shadows) and which exit into a link, the
@@ -29,6 +31,12 @@ ring_exits_finish (JAX :1515-1529, 1545-1550): the finishes that a
 t_rm is a float sum: the kernel sums each lane's slots, then the lanes in
 a fixed order of its own (the plain version and JAX in torch.sum's /
 XLA's order); counts are exact.
+
+The exits kernel reads each lane's and link's slots only up to its count,
+and the other fields only where its result depends on them (past the
+lane's end, up to the front-most failing blocker); lanes, links and
+lights take blocks of their own, and the per-env sums come from one
+partial per block of 32 envs (exit_groups) in a second launch.
 """
 
 import ctypes
@@ -44,12 +52,16 @@ launches_finish = 0    # and ring_exits_finish
 F32 = torch.float32
 I32 = torch.int32
 MODES = {"exits": 0, "pairs": 1, "finish": 2}
+# the exits kernel takes 32-bit offsets where every ring, table and
+# partial holds fewer elements than this (the kernel caps it at 2^31 - 1),
+# else 64-bit ones; 0 makes it take 64-bit ones everywhere
+OFFSET_LIMIT = 2 ** 31 - 1
 
 
 class _Args(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         # state and mid
-        "new_dis_l", "n_l", "l_nxt", "l_last", "l_sh", "l_chg", "l_dir",
+        "n_l", "l_nxt", "l_last", "l_sh", "l_chg", "l_dir",
         "l_off", "l_enter", "step", "nd_k", "n_k", "k_fail", "k_fffoe",
         "ap_fail", "ap_red", "ap_ffo", "phase", "remain", "new_spd_l",
         # tables
@@ -62,10 +74,10 @@ class _Args(ctypes.Structure):
         "dis_l", "leave", "x_l", "exited", "chanA", "chanB", "leave_k",
         "x_k", "blk", "phase_out", "remain_out", "abort_sh", "finish_pre",
         "new_off", "die_mid", "promote", "unlink_real", "unlink_sh",
-        "n_rm", "t_rm", "ov", "npart", "tpart")] \
+        "n_rm", "t_rm", "ov", "npart", "tpart", "dpart")] \
         + [(n, ctypes.c_longlong) for n in (
             "SL", "LNp", "SK", "LKp", "B", "I", "AP", "XKl", "XKe", "PT",
-            "k_phase", "lc", "lights")] \
+            "k_phase", "lc", "lights", "off_lim")] \
         + [("dt", ctypes.c_float)]
 
 
@@ -91,9 +103,10 @@ def ring_exits_plain(cfg, net, rs, mid):
     invalid_l = occ_l & (rs.l_nxt < 0) & ~rs.l_last
     ln_len_b = net["ln_len"][:, None]
     # invalid vehicles never cross the lane end (v_inv stops them; the
-    # clamp guards fp edges so they cannot fall off the ring)
-    new_dis_l = torch.where(invalid_l, torch.minimum(new_dis_l, ln_len_b),
-                            new_dis_l)
+    # clamp guards fp edges so they cannot fall off the ring); written in
+    # place, as the kernel does
+    new_dis_l.copy_(torch.where(
+        invalid_l, torch.minimum(new_dis_l, ln_len_b), new_dis_l))
     cross_l = occ_l & (new_dis_l > ln_len_b)
     pref = torch.ones((LNp, B), dtype=torch.bool, device=dev)
     leave_pref_l = []
@@ -227,9 +240,9 @@ def ring_exits_finish_plain(cfg, net, rs, leave, abort_sh, finish_pre, pAb,
 # wrappers
 # ---------------------------------------------------------------------------
 
-_T = ("new_dis_l", "n_l", "l_nxt", "l_last", "l_sh", "l_chg", "l_dir",
-      "l_off", "l_enter", "step", "nd_k", "n_k", "k_fail", "k_fffoe",
-      "ap_fail", "ap_red", "ap_ffo", "phase", "remain", "new_spd_l")
+_T = ("n_l", "l_nxt", "l_last", "l_sh", "l_chg", "l_dir", "l_off",
+      "l_enter", "step", "nd_k", "n_k", "k_fail", "k_fffoe", "ap_fail",
+      "ap_red", "ap_ffo", "phase", "remain", "new_spd_l")
 _NET = ("ln_len", "lk_len", "ln_maxoff_out", "ln_maxoff_in", "i_n_phases",
         "i_virtual", "i_phase_offset", "phase_time")
 
@@ -250,7 +263,9 @@ def _check_state(name, cfg, rs, tensors, dtypes, cpu):
 def ring_exits(cfg, net, rs, mid):
     """R2's first stage on CUDA tensors, the plain version on CPU tensors.
     Returns dict(dis_l, leave, x_l, exited, n_rm, t_rm, leave_k, x_k, blk,
-    phase, remain, ov [, chanA, chanB])."""
+    phase, remain, ov [, chanA, chanB]). Writes the clamp of the invalid
+    vehicles into mid["new_dis_l"] (contiguous, or refused), which comes
+    back as dis_l."""
     SK, LKp, AP = cfg.SK, cfg.LKp, cfg.AP
     B = rs.n_l.shape[-1]
     cpu = rs.n_l.device.type == "cpu"
@@ -321,13 +336,25 @@ def _call(cfg, net, mode, B, like, T=None, inp=None, outs=None):
                 I=cfg.I, AP=cfg.AP, XKl=min(XK, cfg.SL), XKe=min(XK, cfg.SK),
                 PT=net["phase_time"].shape[0], k_phase=cfg.k_phase,
                 lc=int(cfg.lane_change),
-                lights=int(not cfg.rl_traffic_light), dt=cfg.interval)
+                lights=int(not cfg.rl_traffic_light), off_lim=OFFSET_LIMIT,
+                dt=cfg.interval)
     a = _Args(**{k: vals.get(k) for k in names})
     _lib.check(_lib.lib().ring_exits(ctypes.byref(a), MODES[mode],
                                      _lib.stream_ptr(like)), "ring_exits")
     launches += 1
     launches_pairs += int(mode == "pairs")
     launches_finish += int(mode == "finish")
+
+
+def exit_groups(B, LNp, LKp):
+    """(lane groups, link groups) of the exits kernel at B envs: the rows
+    of the per-(group, env) partials it writes (csrc/ring_exits.cu
+    ex_geom)."""
+    nlg, nkg = ctypes.c_longlong(), ctypes.c_longlong()
+    _lib.check(_lib.lib().ring_exits_groups(B, LNp, LKp, ctypes.byref(nlg),
+                                            ctypes.byref(nkg)),
+               "ring_exits_groups")
+    return nlg.value, nkg.value
 
 
 def _launch_exits(cfg, net, rs, mid):
@@ -338,23 +365,26 @@ def _launch_exits(cfg, net, rs, mid):
     XKl, XKe = min(cfg.XK, SL), min(cfg.XK, SK)
     e = lambda *s, dt=F32: torch.empty(s, dtype=dt, device=dev)
     b8 = torch.bool
-    out = dict(dis_l=e(SL, LNp, B), leave=e(SL if lc else XKl, LNp, B, dt=b8),
+    out = dict(dis_l=mid["new_dis_l"],
+               leave=e(SL if lc else XKl, LNp, B, dt=b8),
                x_l=e(LNp, B, dt=I32), exited=e(XKl, LNp, B, dt=b8),
                n_rm=e(B, dt=I32), t_rm=e(B), leave_k=e(XKe, LKp, B, dt=b8),
                x_k=e(LKp, B, dt=I32), blk=e(LKp, B, dt=I32),
-               ov=torch.zeros((B,), dtype=I32, device=dev))
+               ov=e(B, dt=I32))
     if lc:
         out.update(chanA=e(SL, LNp, B), chanB=e(SL, LNp, B))
     lights = not cfg.rl_traffic_light
     if lights:
         out.update(phase=e(cfg.I, B, dt=I32), remain=e(cfg.I, B))
-    T = dict(new_dis_l=mid["new_dis_l"], n_l=rs.n_l, l_nxt=rs.l_nxt,
+    T = dict(n_l=rs.n_l, l_nxt=rs.l_nxt,
              l_last=rs.l_last, l_sh=rs.l_sh, l_enter=rs.l_enter,
              step=rs.step, nd_k=mid["nd_k3"], n_k=rs.n_k,
              k_fail=mid["k_fail"], k_fffoe=mid["k_fffoe"],
              ap_fail=mid["ap_fail"], ap_red=mid["ap_red"],
              ap_ffo=mid["ap_ffo"], phase=rs.phase, remain=rs.phase_remain)
-    scratch = dict(npart=e(LNp, B, dt=I32), tpart=e(LNp, B))
+    nlg, nkg = exit_groups(B, LNp, LKp)
+    scratch = dict(npart=e(nlg, B, dt=I32), tpart=e(nlg, B),
+                   dpart=e(nlg + nkg, B, dt=I32))
     outs = {k: v for k, v in out.items() if k not in ("phase", "remain")}
     _call(cfg, net, "exits", B, rs.n_l, T=T,
           outs=dict(outs, phase_out=out.get("phase"),

@@ -1,7 +1,8 @@
 """Seeded edge cases of K4 ring_commit, T1 tpl_params, K3 car_follow, K2
 cross_caps, L2 lc_receive, G12 admit_heads, L3 lc_insert, L1 lc_signal,
 G4 cross_pass, G15 shadow_insert, L4 lc_partner, G3 notify_cross, G11
-spawn_slots and G5 hist_window.
+spawn_slots, G5 hist_window, O2 phase_pressure and R2 ring_exits (its
+exits stage).
 
 The same cases feed the CPU tests (tests/test_torch_commit_cases.py,
 tests/test_torch_follow_cases.py, tests/test_torch_receive_cases.py and
@@ -31,6 +32,12 @@ show right on the CPU.
         args = spawn_args(case, device)          # inplace=...), fresh
     for name, case in hist_cases():              # hist_window(*args,
         args = hist_args(case, device)           # inplace=...), fresh
+    for name, case in pressure_cases():
+        args = pressure_args(case, device)       # phase_pressure(*args,
+                                                 # features=...)
+    for name, case in exits_cases():
+        args = exits_args(case, device)          # ring_exits(*args),
+                                                 # fresh tensors each call
 
 Each case is a dict of numpy arrays and ints, made from its own seed
 (commit_case(name), tpl_case(name): one case without the others).
@@ -81,6 +88,12 @@ form takes) and G5 (HIST_CASES, both forms): the edges their
 generators' docstrings name, at B = 1 to 130 in f32 and f64; G11 at
 MS = 1 to 64 on pools of 16 to 9000 slots, G5 at rings of 4 to 241
 rows, each env at its own hist_t.
+
+O2 (PRESSURE_CASES, both modes) and R2's exits stage (EXITS_CASES, in
+place): the edges their generators' docstrings name; O2 at P = 1 to
+MAX_P = 64, B = 1 to 130 and up to 300 links an intersection, R2 at
+B = 1 to 130, SL = 1 to 40, XK = 1 to 4, with and without lane change
+and the lights, and a view one element in.
 """
 
 import numpy as np
@@ -1838,3 +1851,234 @@ def hist_args(case, device):
     return tuple(T(case[k]) for k in (
         "last_of", "leader", "speed", "ring_num", "ring_ssum", "hist_num",
         "hist_ssum", "hist_t"))
+
+
+# ---- O2 phase_pressure -----------------------------------------------------
+
+# phase_rl_avail values: at, just above and below the 0.5 threshold, NaN
+_AV_SET = np.float32([0.0, 1.0, 0.5, 0.50001, 0.49999, np.nan, 1.0, 0.0])
+
+
+def _pressure_case(rng, B, P, G, LPI, virt=2, IL=4, TP=None, MAXRL=None,
+                   wmax=6):
+    """One seeded O2 case: G real and `virt` virtual intersections, LPI
+    links each over N = 4 * (G + virt) lanes. Random: in_src (-1 too),
+    start_src, end_src and rl_src (-1 each on some links; rl_src's
+    column another intersection's on some), phase_rl_avail from 0, 1, 0.5
+    and NaN, g_phase_offset from below 0 to past TP - P (clipped at both
+    ends), g_n_phases from 0 to P + 2, waiting counts 0 to `wmax` (ties
+    between phases). Crafted: intersection 0 has 0 phases (all -inf,
+    action 0); intersection 1's phases 0 and 1 have equal availability
+    (a tie: the first wins) and its offset sits at TP - 1 (every phase
+    clipped to the last row); the last intersection has every link's
+    rl_src -1."""
+    I = G + virt
+    N = 4 * I
+    TP = TP or P + 5
+    MAXRL = MAXRL or LPI + 2
+    in_src = rng.integers(-1, N, (IL, G)).astype(np.int32)
+    start_src = rng.integers(-1, IL * G, LPI * G).astype(np.int32)
+    end_src = rng.integers(-1, N, LPI * G).astype(np.int32)
+    rl = rng.integers(0, MAXRL, LPI * G)
+    col = np.tile(np.arange(G), LPI)
+    other = rng.random(LPI * G) < 0.2
+    col = np.where(other, rng.integers(0, G, LPI * G), col)
+    rl_src = np.where(rng.random(LPI * G) < 0.1, -1,
+                      rl * G + col).astype(np.int32)
+    pra = _AV_SET[rng.integers(0, len(_AV_SET), (TP, MAXRL))]
+    g_off = rng.integers(-3, TP, G).astype(np.int32)
+    g_nph = rng.integers(0, P + 3, G).astype(np.int32)
+    w = rng.integers(0, wmax + 1, (N, B)).astype(np.int32)
+    g_nph[0] = 0
+    if G > 1:
+        g_nph[1] = max(P, 2)
+        g_off[1] = TP - 1
+        # links of intersection 1 whose roadlinks are its own: the same
+        # row for every phase (offset clipped), so phases 0 and 1 tie
+        mine = (col == 1) & (rl_src >= 0)
+        rl_src[np.arange(LPI * G) % G == 1] = np.where(
+            mine[np.arange(LPI * G) % G == 1],
+            rl_src[np.arange(LPI * G) % G == 1], -1)
+    if G > 2:
+        rl_src[np.arange(LPI * G) % G == G - 1] = -1
+    return dict(w=w, P=P, I=I, tabs=dict(
+        start_src=start_src, in_src=in_src, end_src=end_src,
+        rl_src=rl_src, phase_rl_avail=pra, g_phase_offset=g_off,
+        g_n_phases=g_nph))
+
+
+# name -> (B, P, G, LPI, keywords of _pressure_case)
+PRESSURE_SPECS = {
+    "B1_P1_G5_L3": (1, 1, 5, 3, {}),
+    "B3_P5_G7_L12": (3, 5, 7, 12, {}),
+    "B128_P8_G9_L12": (128, 8, 9, 12, dict(wmax=2)),
+    "B130_P33_G6_L5": (130, 33, 6, 5, {}),
+    "B3_P64_G4_L7": (3, 64, 4, 7, dict(TP=80)),
+    "B1_P16_G40_L2": (1, 16, 40, 2, dict(virt=0)),
+    # more lanes an intersection than a block stages at once (8 for 32
+    # rows of 4 envs, 64 for 4 rows of 32 envs)
+    "B3_P4_G5_L40": (3, 4, 5, 40, {}),
+    "B33_P17_G20_L300": (33, 17, 20, 300, dict(MAXRL=40)),
+}
+PRESSURE_CASES = tuple(PRESSURE_SPECS)
+
+
+def pressure_case(name, seed=0):
+    """The O2 case `name` (one of PRESSURE_CASES), from its own seed."""
+    B, P, G, LPI, kw = PRESSURE_SPECS[name]
+    return _pressure_case(np.random.default_rng(
+        [seed, 12000 + PRESSURE_CASES.index(name)]), B, P, G, LPI, **kw)
+
+
+def pressure_cases(seed=0):
+    """(name, case) for each of PRESSURE_CASES."""
+    for name in PRESSURE_CASES:
+        yield name, pressure_case(name, seed)
+
+
+def pressure_args(case, device):
+    """The case as phase_pressure's (w, tabs, P, I) on `device` (a fresh
+    tables dict: the wrapper keeps its link table there)."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    return (T(case["w"]), {k: T(v) for k, v in case["tabs"].items()},
+            case["P"], case["I"])
+
+
+# ---- R2 ring_exits (the exits stage) ---------------------------------------
+
+def _exits_case(rng, B, SL, XK, lc=False, lights=True, N=24, LPI=3, G=4,
+                SK=6, AP=2, virt=2, k_phase=3, offset=False, dt=1.0):
+    """One seeded R2 exits case: N lanes of SL slots, LPI * G links of SK
+    slots, AP approach rows, G + virt intersections, B envs. Random per
+    (lane, env): n_l from 0 to SL (empty and full lanes on purpose), the
+    occupied slots' new distances front first around the lane's length
+    (the first few past it, so the leave prefix runs), some crossing at a
+    slot >= XK behind one that does not (OV_HOPS; none in every fourth
+    env, from env 1), NaN and -0.0 among them, garbage in the free slots;
+    last, nxt (-1 with last unset: the invalid clamp, past the end and
+    not), sh under lane change, enter
+    times and steps. Links: n_k from 0 to SK, their distances alike,
+    several failing slots (occupied and not) with foes from -1, failing
+    red and non-red approach rows. Lights: phases and remaining times
+    around 0 (k_phase passes), intersections with 0, 1 and several phases
+    and virtual ones; `lights` False is RL control (the lights kept)."""
+    I = G + virt
+    LK = LPI * G
+    ln_len = rng.uniform(20.0, 200.0, N).astype(np.float32)
+    lk_len = rng.uniform(5.0, 30.0, LK).astype(np.float32)
+    n_l = rng.integers(0, SL + 1, (N, B)).astype(np.int32)
+    n_l[0] = 0
+    n_l[1] = SL
+    # front first: the first k slots past the end, then descending
+    k = rng.integers(0, XK + 2, (N, B))
+    pos = np.arange(SL)[:, None, None]
+    past = ln_len[None, :, None] + rng.uniform(0.01, 12.0, (SL, N, B))
+    before = ln_len[None, :, None] - rng.uniform(0.01, 1.0, (SL, N, B)) \
+        * pos * 5.0 - rng.uniform(0.0, 3.0, (SL, N, B))
+    nd = np.where(pos < k[None], past, before)
+    # a slot past the end behind one that is not (past the prefix)
+    deep = (rng.random((SL, N, B)) < 0.03) & (np.arange(B) % 4 != 1)
+    nd = np.where(deep, past, nd)
+    r = rng.random((SL, N, B))
+    nd[r < 0.01] = np.nan
+    nd[(r >= 0.01) & (r < 0.02)] = -0.0
+    free = pos >= n_l[None]
+    nd = np.where(free & (rng.random((SL, N, B)) < 0.5),
+                  ln_len[None, :, None] + 50.0, nd).astype(np.float32)
+    l_last = rng.random((SL, N, B)) < 0.3
+    l_nxt = rng.integers(0, 2 * LK, (SL, N, B)).astype(np.int32)
+    inval = rng.random((SL, N, B)) < 0.25
+    l_nxt[inval] = -1
+    l_sh = (rng.random((SL, N, B)) < 0.3) if lc else None
+    l_enter = rng.uniform(0.0, 240.0, (SL, N, B)).astype(np.float32)
+    step = rng.integers(500, 900, B).astype(np.int32)
+    n_k = rng.integers(0, SK + 1, (LK, B)).astype(np.int32)
+    posk = np.arange(SK)[:, None, None]
+    kk = rng.integers(0, XK + 2, (LK, B))
+    ndk = np.where(posk < kk[None],
+                   lk_len[None, :, None] + rng.uniform(0.01, 5.0,
+                                                       (SK, LK, B)),
+                   lk_len[None, :, None] - rng.uniform(0.1, 3.0,
+                                                       (SK, LK, B)) * posk)
+    ndk = np.where((rng.random((SK, LK, B)) < 0.03)
+                   & (np.arange(B) % 4 != 1),
+                   lk_len[None, :, None] + 1.0, ndk).astype(np.float32)
+    k_fail = rng.random((SK, LPI, G, B)) < 0.3
+    k_fffoe = rng.integers(-1, 40, (SK, LPI, G, B)).astype(np.int32)
+    ap_fail = rng.random((AP, LPI, G, B)) < 0.5
+    ap_red = rng.random((AP, LPI, G, B)) < 0.4
+    ap_ffo = rng.integers(-1, 40, (AP, LPI, G, B)).astype(np.int32)
+    i_nph = rng.integers(0, 5, I).astype(np.int32)
+    i_nph[:3] = (0, 1, 4)
+    i_virtual = np.zeros(I, bool)
+    i_virtual[G:] = True
+    i_virtual[2] = rng.random() < 0.5
+    PT = int(i_nph.sum()) + 2
+    i_off = np.concatenate([[0], np.cumsum(i_nph)[:-1]]).astype(np.int32)
+    phase_time = rng.uniform(0.3, 3.0, PT).astype(np.float32)
+    phase = (rng.integers(0, 8, (I, B)) % np.maximum(i_nph, 1)[:, None]) \
+        .astype(np.int32)
+    remain = rng.uniform(-2.0, 2.5, (I, B)).astype(np.float32)
+    params = (0.0,) * 3
+    return dict(
+        cfg=dict(SL=SL, SK=SK, LNp=N, LKp=LK, G=G, LPI=LPI, AP=AP, XK=XK,
+                 I=I, k_phase=k_phase, lane_change=lc,
+                 rl_traffic_light=not lights, params=params, interval=dt),
+        net=dict(ln_len=ln_len, lk_len=lk_len,
+                 ln_maxoff_out=np.full(N, 1.5, np.float32),
+                 ln_maxoff_in=np.full(N, 1.5, np.float32),
+                 i_n_phases=i_nph, i_virtual=i_virtual,
+                 i_phase_offset=i_off, phase_time=phase_time,
+                 ring_f32=np.array(params + (dt,), np.float32)),
+        rs=dict(n_l=n_l, l_last=l_last, l_nxt=l_nxt, l_sh=l_sh,
+                l_enter=l_enter, step=step, n_k=n_k, phase=phase,
+                phase_remain=remain),
+        mid=dict(new_dis_l=nd, nd_k3=ndk.reshape(SK, LPI, G, B),
+                 k_fail=k_fail, k_fffoe=k_fffoe, ap_fail=ap_fail,
+                 ap_red=ap_red, ap_ffo=ap_ffo),
+        offset=offset)
+
+
+# name -> (B, SL, XK, keywords of _exits_case)
+EXITS_SPECS = {
+    "B1_S8_XK2": (1, 8, 2, {}),
+    "B3_S40_XK2_lc": (3, 40, 2, dict(lc=True)),
+    "B128_S40_XK2": (128, 40, 2, dict(N=70)),
+    "B130_S12_XK3_lc": (130, 12, 3, dict(lc=True, k_phase=2, dt=0.5)),
+    "B3_S1_XK1": (3, 1, 1, dict(SK=1)),
+    "B3_S40_XK2_rl": (3, 40, 2, dict(lights=False)),
+    # more lanes and links than one block's group (256 at B = 3)
+    "B3_S20_XK2_wide": (3, 20, 2, dict(N=300, LPI=5, G=60, virt=3)),
+    "B1_S30_XK4_lc_wide": (1, 30, 4, dict(lc=True, N=1100, LPI=6, G=200)),
+    # every tensor a view one element into a larger buffer (in place)
+    "B3_S16_XK2_offset": (3, 16, 2, dict(offset=True, lc=True)),
+}
+EXITS_CASES = tuple(EXITS_SPECS)
+
+
+def exits_case(name, seed=0):
+    """The R2 exits case `name` (one of EXITS_CASES), from its own seed."""
+    B, SL, XK, kw = EXITS_SPECS[name]
+    return _exits_case(np.random.default_rng(
+        [seed, 13000 + EXITS_CASES.index(name)]), B, SL, XK, **kw)
+
+
+def exits_cases(seed=0):
+    """(name, case) for each of EXITS_CASES."""
+    for name in EXITS_CASES:
+        yield name, exits_case(name, seed)
+
+
+def exits_args(case, device):
+    """The case as ring_exits' (cfg, net, rs, mid) on `device`, fresh
+    tensors on every call (the exits stage clamps mid["new_dis_l"] in
+    place); cfg, net and rs carry only what the stage reads."""
+    from types import SimpleNamespace
+    T = lambda a: None if a is None else _tensor(np.array(a), device,
+                                                 case["offset"])
+    mid = {k: T(v) for k, v in case["mid"].items()}
+    return (SimpleNamespace(**case["cfg"]),
+            {k: T(v) for k, v in case["net"].items()},
+            SimpleNamespace(**{k: T(v) for k, v in case["rs"].items()}),
+            mid)
