@@ -184,8 +184,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             GEN1_LC_STEPS timed; [gen1]'s prints for G1-G12 and the modes
             of G7 and G8, shadows in the window (must be > 0)
   kernels   (gen-1 lane change) G5-G8 (every mode of G7 and G8), G15,
-            G11 and G12 against their plain versions, bitwise, on every
-            call of one more [gen1-lc] step; G5-G8 and G15 timed, G5
+            G11, G12, G4, G3 and G1 against their plain versions, bitwise,
+            on every call of one more [gen1-lc] step; G5-G8 and G15 timed, G5
             beside the library's index_add_
   agree-fast  Engine(exact=False, backend="gen1") (float32) on
             tests/fixtures/config_4x4.json, 200 steps, card against CPU:
@@ -237,13 +237,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
             MaxPressure every 5, copied into the batch, GEN1B_STEPS timed
             steps with max_pressure_actions() every 5th; [gen1-batch]'s
             asserts, G13 / G14 launched and a phase changed by the
-            controller; G4 on every call of one more step against its
-            plain version (bitwise), and its funnel
+            controller; G4, G3 and G1 on every call of one more step
+            against their plain versions (bitwise), and G4's funnel
   gen1-dqn  rl/dqn.train on config_30x30.json at B=16 from [gen1-env]'s
             warm state (one env at step GEN1B_WARMUP under MaxPressure,
             copied into the batch), 4 iterations of 5 steps: finite losses,
             a reward that is not zero, overflow 0, ms per iteration after
-            the second
+            the second; then G1 and G3 on every call of one more
+            iteration from its final state (bitwise, not timed)
   agree-gen1-lc-batch  make_batched_step with lane change and the
             DURATION history on tests/fixtures/config_2x2_lc.json at B=4:
             one Engine's states at steps AGREE_GEN1_LCB_AT (past the first
@@ -932,8 +933,15 @@ def check_kernel_cases():
     modes: the match, then the gather at the kernel's match, of the same
     channels and of others; B = 1, 3, 40, 128 and 130, S = 1 to 800, C =
     1 to 4) and G3 (f32 and f64, B = 1, 3, 128 and 130, KC = 1 to 20,
-    k_link = 1 to 240: blocks of 8 and 16 threads too, no candidate, ties, tails at the cross distance, NaN
-    and -0.0, table gaps), G11 in both forms (copying; in place, kernel
+    k_link = 1 to 240: blocks of 8 and 16 threads too, no candidate, ties,
+    tails at the cross distance, NaN and -0.0, links past k_link; the
+    candidates from sorted_idx / drv_off and the leaves), G1 (f32 and
+    f64, B = 1, 3, 128 and 130: ties in -dis and list_seq, -0.0 against
+    +0.0, NaN, a bucket past a rank block, exactly k_link and k_link + 1
+    on a lanelink, empty drivables and envs, V off the tile), G7's yield
+    mode (no receiver, every slot one, a sender leading its receiver, no
+    target follower, negative caps, rows off a 16-byte word), G11 in both
+    forms (copying; in place, kernel
     and plain each on its own fresh copy: full pools, fewer free slots
     than due rows, windows clamped at the table's end, nothing due, free
     slots past several scan tiles, MS = 1, V not a multiple of 16,
@@ -943,9 +951,10 @@ def check_kernel_cases():
     f32 and f64, B = 1 to 130, misaligned views)."""
     import torch
     from cityflow_tpu_torch.kernels import (
-        admit_heads, car_follow, cross_caps, cross_pass, hist_window,
-        lc_insert, lc_receive, lc_signal, notify_cross, phase_pressure,
-        ring_commit, ring_exits, shadow_insert, spawn_slots, tpl_params)
+        admit_heads, arrange, car_follow, cross_caps, cross_pass,
+        hist_window, lc_insert, lc_plan, lc_receive, lc_signal,
+        notify_cross, phase_pressure, ring_commit, ring_exits,
+        shadow_insert, spawn_slots, tpl_params)
     from cityflow_tpu_torch.tools import kernel_cases as kc
     n = 0
     for name, case in kc.follow_cases():
@@ -1046,6 +1055,19 @@ def check_kernel_cases():
                           notify_cross.notify_cross_plain(*a))
         assert bad == 0, f"notify_cross[{name}]: {bad} values differ"
         n += 1
+    for name, case in kc.arrange_cases():
+        a = kc.arrange_args(case, "cuda")
+        _, bad = _bitwise(f"arrange[{name}]", arrange.arrange(*a),
+                          arrange.arrange_plain(*a))
+        assert bad == 0, f"arrange[{name}]: {bad} values differ"
+        n += 1
+    for name, case in kc.yield_cases():
+        st, net = kc.yield_args(case, "cuda")
+        _, bad = _bitwise(f"lc_plan@yield[{name}]",
+                          lc_plan.lc_plan("yield", st, net, 1),
+                          lc_plan.lc_plan_plain("yield", st, net, 1))
+        assert bad == 0, f"lc_plan@yield[{name}]: {bad} values differ"
+        n += 1
     for name, case in kc.pressure_cases():
         for features in (False, True):
             a = kc.pressure_args(case, "cuda")
@@ -1083,10 +1105,12 @@ def check_kernel_cases():
     cases = (kc.FOLLOW_CASES, kc.CAPS_CASES, kc.COMMIT_CASES, kc.TPL_CASES,
              kc.ADMIT_CASES, kc.RECEIVE_CASES, kc.INSERT_CASES,
              kc.SIGNAL_CASES, kc.CROSS_CASES, kc.SHADOW_CASES,
-             kc.PARTNER_CASES, kc.NOTIFY_CASES, kc.SPAWN_CASES,
-             kc.HIST_CASES, kc.PRESSURE_CASES, kc.EXITS_CASES)
+             kc.PARTNER_CASES, kc.NOTIFY_CASES, kc.ARRANGE_CASES,
+             kc.YIELD_CASES, kc.SPAWN_CASES, kc.HIST_CASES,
+             kc.PRESSURE_CASES, kc.EXITS_CASES)
     log(f"[kernels] K3 / K2 / K4 / T1 / G12 / L2 / L3 / L1 / G4 / G15 / L4 "
-        f"/ G3 / G11 / G5 (both forms each) / O2 (both modes) / R2 exits "
+        f"/ G3 / G1 / G7 yield / G11 / G5 (both forms each) / O2 (both "
+        f"modes) / R2 exits "
         f"(32- and 64-bit offsets) seeded edge cases: {n} of "
         f"{sum(map(len, cases))} equal (L2's yv max_abs_err={err} "
         f"not_bitwise={nbit}; R2's t_rm max_rel={trm}; the rest bitwise, "
@@ -3923,33 +3947,33 @@ def shadow_work(a):
 def notify_work(a, out):
     """Bytes and operations of one G3 call, as its data needs them: the
     net tables (the cross distances once for every env); per (lanelink,
-    env) the end lane's rear slot and, where there is one, its prev, and
-    where that names the lanelink its dis and len; the start lane's front
-    slot and, where there is one, its next drivable, and where that and
-    ll_avail (read per lanelink) admit it its dis; the link table's slots
-    up to the first empty one (G1 compacts the table: chip_smoke asserts
-    it on every call) and the dis and len of its vehicles; per distinct
-    notifier of a lanelink its other six pack terms, ent and pri, and
-    the end vehicle's seven where some cross has none; the ten outputs.
-    Operations: two comparisons per kept candidate and cross, 60 per
-    cross for the notifier's terms."""
+    env) the end lane's rear slot and, where there is one, its prev_drv,
+    and where that names the lanelink its dis and len; the start lane's
+    front slot and, where there is one, its next drivable, and where that
+    and ll_avail (read per lanelink) admit it its dis; the lanelink's two
+    offsets in drv_off, its first min(k_link, count) slots in sorted_idx
+    and their dis and len; per distinct notifier of a lanelink its other
+    five terms (speed, maxNegAcc, yieldDistance, usualPosAcc, the target
+    speed), cyc, ent and pri, and the end vehicle's where some cross has
+    none; the ten outputs. Operations: two comparisons per kept candidate
+    and cross, 60 per cross for the notifier's terms."""
     import torch
-    net, arr, veh_next, ll_avail, fattrs, iattrs, L = a
-    fs = fattrs.element_size()
+    net, arr, veh_next, ll_avail, leaves, L, K = a
+    dis = leaves["dis"]
+    fs = dis.element_size()
     LL, KC = net["lnk_cross_d"].shape
     B, V = veh_next.shape
-    K = arr["link_veh"].shape[-1]
     env = torch.arange(B, device=veh_next.device)[:, None]
     l_drv = L + torch.arange(LL, device=veh_next.device)
     last = arr["last_of"].index_select(-1, net["ll_end"])      # (B, LL)
     first = arr["first_of"].index_select(-1, net["ll_start"])
-    row = lambda slot: fattrs[env, slot.clamp(min=0).long()]   # (B, LL, NA)
-    e_ok = (last >= 0) & (row(last)[..., 9].to(torch.int32) == l_drv)
-    nxt = veh_next[env, first.clamp(min=0).long()]
+    at = lambda x, slot: x[env, slot.clamp(min=0).long()]
+    e_ok = (last >= 0) & (at(leaves["prev_drv"], last) == l_drv)
+    nxt = at(veh_next, first)
     s_ok = (first >= 0) & (nxt == l_drv) & ll_avail
-    occ = arr["link_veh"] >= 0
-    n_occ = occ.sum(-1)
-    slots = torch.clamp(n_occ + 1, max=K)
+    off = arr["drv_off"]
+    n_link = torch.clamp(off[:, L + 1:L + LL + 1] - off[:, L:L + LL],
+                         max=K)
     # distinct notifiers per (env, lanelink), and lanelinks with a cross
     # that has none
     idx = out["idx"].long()
@@ -3958,14 +3982,33 @@ def notify_work(a, out):
     n_win = int(torch.unique(key[idx >= 0]).numel())
     n_none = int((idx < 0).any(-1).sum())
     tables = LL * (KC * fs + 4 + 4 + 1 + fs) + L * fs
-    ins = (tables + B * LL * (4 + 4 + 1) + int((last >= 0).sum()) * fs
+    ins = (tables + B * LL * (4 + 4 + 1 + 8) + int((last >= 0).sum()) * 4
            + int(e_ok.sum()) * 2 * fs + int((first >= 0).sum()) * 4
-           + int(s_ok.sum()) * fs + int(slots.sum()) * 4
-           + int(n_occ.sum()) * 2 * fs + n_win * (6 * fs + 8)
-           + n_none * 7 * fs)
-    kept = int(e_ok.sum()) + int(s_ok.sum()) + int(n_occ.sum())
+           + int(s_ok.sum()) * fs + int(n_link.sum()) * (4 + 2 * fs)
+           + n_win * (5 * fs + 9) + n_none * (5 * fs + 1))
+    kept = int(e_ok.sum()) + int(s_ok.sum()) + int(n_link.sum())
     return ins + B * LL * KC * (5 + fs + 16), 2 * kept * KC \
         + 60 * B * LL * KC
+
+
+def arrange_pack_count(a, out):
+    """Bytes of one G1 call as the former count took them, with the
+    attribute packs (10 floats and 2 ints a vehicle) and its dense
+    lanelink tables: every table row written, the occupied rows' packs
+    read, beside the recounted bound (logged, not used)."""
+    import torch
+    running, drv, dis, list_seq, D, L, k_link = a
+    fs = dis.element_size()
+    V = running.numel()
+    nenv = V // running.shape[-1]
+    nrun = int(running.sum())
+    off = out["drv_off"]
+    nt = int(torch.clamp(off[:, L + 1:] - off[:, L:-1], max=k_link).sum())
+    per_row = 4 + 10 * fs + 2 * 4
+    ins = V + nrun * (4 + fs + 4) + nt * (per_row - 4)
+    outs = 8 * V + 8 * D * nenv + nenv * max(D - L, 1) * k_link * per_row \
+        + nenv
+    return ins + outs
 
 
 def gen1_work(n, a, k, out):
@@ -4001,7 +4044,10 @@ def gen1_work(n, a, k, out):
         outs = V * (1 + 8) + nenv * (3 * 4 + fs)
         return ins + outs, nt2 * 3 + V * 4
     if n == "arrange":
-        running, drv, dis, list_seq, D, L, k_link, fattrs, iattrs = a
+        # the running flags, each running slot's drivable, distance and
+        # ticket in; sorted_idx and leader over the slots, first_of,
+        # last_of and drv_off over the drivables, the overflow flag out
+        running, drv, dis, list_seq, D, L, k_link = a
         fs = dis.element_size()
         V = running.numel()
         nenv = V // running.shape[-1]
@@ -4009,11 +4055,8 @@ def gen1_work(n, a, k, out):
             running.shape[:-1] + (1,)) if running.dim() > 1 else 0
         run = (drv + env * D)[running].long()
         nrun = int(run.numel())
-        nt = int((out["link_veh"] >= 0).sum())
-        per_row = 4 + fattrs.shape[-1] * fs + iattrs.shape[-1] * 4
-        ins = V + nrun * (4 + fs + 4) + nt * (per_row - 4)
-        outs = 8 * V + 8 * D * nenv + out["link_veh"].numel() * per_row \
-            + nenv
+        ins = V + nrun * (4 + fs + 4)
+        outs = 8 * V + nenv * (8 * D + 4 * (D + 1)) + nenv
         # each vehicle compares itself with the others of its drivable
         ops = int((torch.bincount(run, minlength=D * nenv) ** 2).sum())
         return ins + outs, ops
@@ -4115,11 +4158,7 @@ def gen1_work(n, a, k, out):
             # tfollower, plan, speed, a param and the two gaps in; the
             # kept signal and the decision out
             return V * (37 + 4 * fs) + V * 5, V * 12
-        # yield: each slot's sender, speed and a param in, its cap out;
-        # per receiver its sender's speed, param, gap, target leader and
-        # follower, and that follower's speed and param
-        nrecv = int((st.lc_recv >= 0).sum())
-        return V * (4 + 3 * fs) + nrecv * (8 + 5 * fs), V * 30
+        return yield_work(st, fs)
     if n.startswith("lc_commit"):
         if mode == "tail":
             # every slot's running flag, offset and end flag in and its
@@ -4132,6 +4171,36 @@ def gen1_work(n, a, k, out):
         # commit: thirteen per-slot fields in, ten out
         return V * (27 + fs) + V * (24 + fs), V * 10
     raise KeyError(n)
+
+
+def yield_work(st, fs):
+    """(bytes, operations) of one G7 yield call: each slot's lc_recv in
+    and its cap out; per receiver its own speed and maxNegAcc and its
+    sender's target leader, and where that is not the receiver the
+    sender's speed, maxNegAcc, follower gap and target follower, and
+    that follower's speed and maxNegAcc where there is one. The former
+    count read each slot's speed and param too and each receiver's sender
+    fields whatever the target leader: yield_pack_count."""
+    import torch
+    V = st.lc_recv.numel()
+    recv = st.lc_recv >= 0
+    src = st.lc_recv.clamp(min=0).long()
+    tl = st.lc_tleader.gather(-1, src)
+    me = torch.arange(st.lc_recv.shape[-1], device=src.device)
+    cap = recv & (tl != me)
+    tf = st.lc_tfollower.gather(-1, src)
+    n_r, n_c = int(recv.sum()), int(cap.sum())
+    n_f = int((cap & (tf >= 0)).sum())
+    return V * (4 + fs) + n_r * (2 * fs + 4) + n_c * (3 * fs + 4) \
+        + n_f * 2 * fs, n_c * 30
+
+
+def yield_pack_count(st, fs):
+    """Bytes of one G7 yield call as the former count took them (logged
+    beside the recounted bound)."""
+    V = st.lc_recv.numel()
+    nrecv = int((st.lc_recv >= 0).sum())
+    return V * (4 + 3 * fs) + nrecv * (8 + 5 * fs)
 
 
 def spawn_work(a, k, out):
@@ -4202,14 +4271,35 @@ def _time_gen1(n, fn, a, k, reps):
     return time_cuda(lambda: fn(*a, **k), reps)
 
 
-def _gen1_bound(n, a, k, kern):
+def _gen1_bound(n, a, k, kern, label=None):
     """gen1_work of a recorded call (G4 and G15 count from their
     arguments; the others from the kernel's outputs too, each on a fresh
-    copy where it writes in place)."""
-    return gen1_work(
-        f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k,
-        None if n in ("cross_pass", "shadow_insert")
-        else _gen1_call(n, kern, a, k))
+    copy where it writes in place). G1's and G7 yield's recounted bounds
+    are logged beside the former counts of the same call, G3's with the
+    bytes it reads from the leaves and G1's offsets."""
+    out = None if n in ("cross_pass", "shadow_insert") \
+        else _gen1_call(n, kern, a, k)
+    nbytes, nops = gen1_work(
+        f"{n}@{a[0]}" if n in ("lc_plan", "lc_commit") else n, a, k, out)
+    tag = label or n
+    if n == "arrange":
+        log(f"[bound] {tag}: {nbytes} bytes "
+            f"({nbytes / H100_BYTES_PER_S * 1e3:.4f} ms); the former "
+            f"count, with the packs and lanelink tables, "
+            f"{arrange_pack_count(a, out)}")
+    elif n == "lc_plan" and a[0] == "yield":
+        st = a[1]
+        old = yield_pack_count(st, st.dis.element_size())
+        ms = lambda x: f"{x / H100_BYTES_PER_S * 1e3:.4f}"
+        log(f"[bound] {tag}: {nbytes} bytes ({ms(nbytes)} ms); the "
+            f"former count {old} ({ms(old)} ms); receivers "
+            f"{int((st.lc_recv >= 0).sum())} of {st.lc_recv.numel()}")
+    elif n == "notify_cross":
+        log(f"[bound] {tag}: {nbytes} bytes "
+            f"({nbytes / H100_BYTES_PER_S * 1e3:.4f} ms) with its candidates "
+            f"read through drv_off / sorted_idx and their terms from the "
+            f"leaves")
+    return nbytes, nops
 
 
 def log_cross_funnel(tag, calls):
@@ -4235,10 +4325,10 @@ def _check_call(n, kern, plain, a, k, rel_tol):
     float outputs within `rel_tol` relative where it is not None; returns
     the largest absolute difference."""
     if n == "notify_cross":
-        # G1's lanelink table: each link's vehicles in its first rows
-        full = a[1]["link_veh"] >= 0
-        assert bool((full[..., 1:] <= full[..., :-1]).all()), \
-            "notify_cross: G1's lanelink table is not compacted"
+        # G1's offsets: non-decreasing, the last the env's running count
+        off = a[1]["drv_off"]
+        assert bool((off[:, 1:] >= off[:, :-1]).all()) and bool(
+            (off[:, 0] == 0).all()), "notify_cross: drv_off not offsets"
     got = [t for t in _flat(_gen1_call(n, kern, a, k)) if t is not None]
     want = [t for t in _flat(_gen1_call(n, plain, a, k)) if t is not None]
     assert len(got) == len(want), f"{n}: outputs differ in number"
@@ -4312,7 +4402,7 @@ def check_gen1_kernels(eng, reps, names, fast=False, untimed=(), tag=None):
                 lib = sort_sum_ms(a, reps)
             elif n == "admit_heads":
                 lib = heads_amin_ms(a, reps)
-            nbytes, nops = _gen1_bound(n, a, k, kern)
+            nbytes, nops = _gen1_bound(n, a, k, kern, label)
             rows.append(kernel_row(
                 label, max(errs), ms, plain_ms, nbytes, nops, lib,
                 flops=H100_F32_FLOPS if fast else H100_F64_FLOPS))
@@ -4757,8 +4847,8 @@ def check_gen1_batch_kernels(ctx, reps, batch):
             lib = sort_sum_ms(a, reps)
         elif n == "admit_heads":
             lib = heads_amin_ms(a, reps)
-        nbytes, nops = _gen1_bound(n, a, k, kern)
         label = f"{n}@batch"
+        nbytes, nops = _gen1_bound(n, a, k, kern, label)
         rows.append(kernel_row(label, max(errs), ms, plain_ms, nbytes, nops,
                                lib))
     check_copy_form("gen1-batch", "spawn_slots", *calls["spawn_slots"][0],
@@ -4927,16 +5017,17 @@ def run_gen1_env(cfg_path, batch, warmup, steps, pool):
 
     def one():
         env.step(env.max_pressure_actions())
-    # G4 on every call of one more step, and its funnel
-    g4 = kernels.MODULES["cross_pass"]
-    calls = record_gen1_calls(one, ("cross_pass",))["cross_pass"]
-    assert calls, "cross_pass: no call recorded on [gen1-env]"
-    for a, k in calls:
-        _batch_args_ok("cross_pass", a, k, batch)
-        _check_call("cross_pass", g4.cross_pass, cross_plain_by_envs, a, k,
-                    None)
-    log(f"[kernels] cross_pass: {len(calls)} calls of one more [gen1-env] "
-        f"step at B={batch} equal to the plain version (bitwise)")
+    # G4, G3 and G1 on every call of one more step, and G4's funnel
+    rec = record_gen1_calls(one, ("cross_pass", "notify_cross", "arrange"))
+    for n in ("cross_pass", "notify_cross", "arrange"):
+        mod = kernels.MODULES[n]
+        assert rec[n], f"{n}: no call recorded on [gen1-env]"
+        for a, k in rec[n]:
+            _batch_args_ok(n, a, k, batch)
+            _check_call(n, getattr(mod, n), _gen1_plain(n, mod), a, k, None)
+        log(f"[kernels] {n}: {len(rec[n])} calls of one more [gen1-env] "
+            f"step at B={batch} equal to the plain version (bitwise)")
+    calls = rec["cross_pass"]
     log_cross_funnel("gen1-env", calls)
     res = _gen1_batch_report("gen1-env", one, launches, steps, batch, dt,
                              GEN1_KERNELS + ("lane_counts", "phase_scores"))
@@ -5003,6 +5094,20 @@ def run_gen1_dqn(cfg_path, batch, iters, warm, reps):
         assert launches[k] > 0, f"kernel {k} was not launched on gen1-dqn"
     assert launches["spawn_slots@inplace"] == launches["spawn_slots"], \
         "[gen1-dqn] a G11 call copied the pool (the state is donated)"
+    # G1 and G3 on every call of one more iteration from the final state
+    # (5 steps; recorded apart from the timed run)
+    rec = record_gen1_calls(lambda: dqn.train(
+        cfg_path, iters=1, state=fresh(st)), ("arrange", "notify_cross"))
+    for n in ("arrange", "notify_cross"):
+        mod = kernels.MODULES[n]
+        assert rec[n], f"{n}: no call recorded on [gen1-dqn]"
+        for ca, ck in rec[n]:
+            _batch_args_ok(n, ca, ck, batch)
+            _check_call(n, getattr(mod, n), _gen1_plain(n, mod), ca, ck,
+                        None)
+        log(f"[kernels] {n}: {len(rec[n])} calls of one more [gen1-dqn] "
+            f"iteration at B={batch} equal to the plain version (bitwise)")
+    del rec
     w, net, P, mode = a = feat[0]
     got, want = orig(*a), g14.phase_scores_plain(*a)
     for g_, w_ in zip(_flat(got), _flat(want)):
@@ -5232,11 +5337,16 @@ def check_gen1_lcb_kernels(ctx, reps, batch):
             ms = _time_gen1(n, kern, a, k, reps)
             plain_ms = _time_gen1(n, plain, a, k, reps)
             lib = index_add_ms(a, reps) if n == "hist_window" else None
-            nbytes, nops = _gen1_bound(n, a, k, kern)
+            nbytes, nops = _gen1_bound(n, a, k, kern, label + "@lcbatch")
             rows.append(kernel_row(label + "@lcbatch", max(errs), ms,
                                    plain_ms, nbytes, nops, lib))
     for n in ("spawn_slots", "hist_window"):
         check_copy_form("gen1-lc-batch", n, *calls[n][0], reps)
+    g1 = kernels.MODULES["arrange"]
+    per_call = [round(time_cuda(lambda: g1.arrange(*a, **k), reps), 4)
+                for a, k in calls["arrange"]]
+    log(f"[gen1-lc-batch] arrange: {len(per_call)} calls a step, ms "
+        f"{per_call}, sum {sum(per_call):.4f}")
     return rows
 
 
@@ -5425,7 +5535,8 @@ def main():
     log(f"[gen1-lc] {json.dumps(glc_res)}")
     rows += check_gen1_kernels(eng, REPS, GEN1_LC_KERNELS,
                                untimed=("spawn_slots", "admit_heads",
-                                        "cross_pass", "notify_cross"),
+                                        "cross_pass", "notify_cross",
+                                        "arrange"),
                                tag="gen1-lc")
     # what [gen1-lc-batch] starts from: the warm state, the pool, tables
     glc_ctx = (eng.net, eng._spawn_dev, eng.cfg, glc_warm)

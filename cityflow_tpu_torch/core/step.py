@@ -65,11 +65,6 @@ P_SPEED, P_LEN, P_WIDTH, P_MAXPOSACC, P_MAXNEGACC, P_USUALPOSACC, \
     P_USUALNEGACC, P_MINGAP, P_MAXSPEED, P_HEADWAY, P_YIELD, P_TURNSPEED = \
     range(12)
 
-# float attr pack columns (build_attr_packs)
-A_DIS, A_LEN, A_SPEED, A_MAXNEG, A_YIELD, A_UPA, A_TURNSPD, A_MAXSPD, \
-    A_CYC, A_PREV = range(10)
-NUM_A = 10
-
 def _t(x, like):
     return x if torch.is_tensor(x) else torch.tensor(
         x, dtype=like.dtype, device=like.device)
@@ -231,14 +226,19 @@ def _first_true(mask, n):
     return out.scatter_(-1, dest, src)[..., :n].contiguous()
 
 
-def order_key(x):
-    """Float -> int key in lax.sort's total order (-NaN < -inf < ... < -0.0
-    < +0.0 < ... < +inf < NaN), as an int64 / int32 tensor."""
+def sort_key(x):
+    """The int key of lax.sort's order of a float tensor (int64 / int32):
+    the float's bits made monotone, after JAX's canonicalization (-0.0 to
+    +0.0 and every NaN to +NaN before its total-order compare), so the
+    zeros tie and the NaNs tie after +inf."""
+    x = torch.where(x == 0, torch.zeros_like(x), x)
     if x.dtype == torch.float64:
         b = x.view(torch.int64)
-        return torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
-    b = x.view(torch.int32)
-    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+        k = torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
+    else:
+        b = x.view(torch.int32)
+        k = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return torch.where(torch.isnan(x), torch.iinfo(k.dtype).max, k)
 
 
 def chain_step(net, L, route, pos, cur):
@@ -296,16 +296,13 @@ def _kernel(name):
 # arrangement and leader scan (G1, G2)
 # ---------------------------------------------------------------------------
 
-def arrangement(net, cfg: StepConfig, running, drv, dis, list_seq,
-                fattrs=None, iattrs=None):
+def arrangement(net, cfg: StepConfig, running, drv, dis, list_seq):
     """The reference's per-drivable std::list order (distance desc, ties
     by insertion order), with each vehicle's leader, each drivable's first
-    and last vehicle and, given the attribute packs, the per-lanelink
-    tables of its first k_link vehicles (G1 arrange). Keys: leader,
-    first_of, last_of, sorted_idx, overflow_link, link_veh, link_fattr,
-    link_iattr (the last three None without packs)."""
+    and last vehicle and its first position in that order (G1 arrange).
+    Keys: leader, first_of, last_of, sorted_idx, drv_off, overflow_link."""
     return _kernel("arrange")(running, drv, dis, list_seq, cfg.num_drivables,
-                              cfg.num_lanes, cfg.k_link, fattrs, iattrs)
+                              cfg.num_lanes, cfg.k_link)
 
 
 def leader_scan(net, cfg: StepConfig, st: SimState, arr, mask):
@@ -315,20 +312,6 @@ def leader_scan(net, cfg: StepConfig, st: SimState, arr, mask):
     return _kernel("leader_scan")(
         mask, st.drv, st.route, st.route_pos, st.dis, st.params,
         arr["last_of"], net, cfg.num_lanes, cfg.k_scan, fast=not cfg.exact)
-
-
-def build_attr_packs(cfg: StepConfig, st: SimState, cyc):
-    """Per-vehicle attribute bundles read by the conflict-cross phases:
-    fattrs (..., V, 10) in the A_* columns, iattrs (..., V, 2) =
-    (enter_ll_time, priority)."""
-    f = st.dis.dtype
-    p = st.params
-    fattrs = torch.stack([
-        st.dis, p[..., P_LEN], st.speed, p[..., P_MAXNEGACC],
-        p[..., P_YIELD], p[..., P_USUALPOSACC], p[..., P_TURNSPEED],
-        p[..., P_MAXSPEED], cyc.to(f), st.prev_drv.to(f)], dim=-1)
-    iattrs = torch.stack([st.enter_ll_time, st.priority], dim=-1)
-    return fattrs, iattrs
 
 
 # ---------------------------------------------------------------------------
@@ -361,16 +344,13 @@ def admit_waiting(net, cfg: StepConfig, st: SimState, arr_prev):
                            seq_counter=st.seq_counter + 1)
     # tail == null -> full scan (engine.cpp:512 -> vehicle.cpp:161-196)
     need_scan = h["need_scan"]
-    cyc = blocker_cycles(cfg, st.blocker)
-    fattrs, iattrs = build_attr_packs(cfg, st, cyc)
-    arr_now = arrangement(net, cfg, st.running, st.drv, st.dis,
-                          st.list_seq, fattrs, iattrs)
+    arr_now = arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
     sl, sg = leader_scan(net, cfg, st, arr_now, need_scan)
     st = st.replace_fields(
         leader=torch.where(need_scan, sl, st.leader),
         # a scan miss keeps the stale gap (vehicle.cpp:162-196)
         gap=torch.where(need_scan & (sl >= 0), sg, st.gap))
-    return st, arr_now, fattrs, iattrs
+    return st, arr_now
 
 
 def lanelink_available(net, cfg, st):
@@ -385,13 +365,19 @@ def lanelink_available(net, cfg, st):
 
 
 def notify_cross(net, cfg: StepConfig, st: SimState, arr, veh_next, ll_avail,
-                 fattrs, iattrs):
+                 cyc):
     """Engine::threadNotifyCross (engine.cpp:317-372): for each (link,
     cross slot) the notifier and its Cross::canPass terms (G3), on the own
     side in link-major (..., LL, KC) layout; the foe side is read through
-    net["lnk_cross_foe_pos"] (`foe_view` gives JAX's foe dict)."""
+    net["lnk_cross_foe_pos"] (`foe_view` gives JAX's foe dict). G3 reads
+    each lanelink's vehicles through `arr` (G1's sorted_idx and drv_off)
+    and their attributes from the state's leaves; `cyc` is G9's
+    blocker-cycle flag of the same state."""
+    leaves = dict(dis=st.dis, speed=st.speed, params=st.params, cyc=cyc,
+                  prev_drv=st.prev_drv, enter_ll_time=st.enter_ll_time,
+                  priority=st.priority)
     return _kernel("notify_cross")(
-        net, arr, veh_next, ll_avail, fattrs, iattrs, cfg.num_lanes)
+        net, arr, veh_next, ll_avail, leaves, cfg.num_lanes, cfg.k_link)
 
 
 def foe_view(net, own):
@@ -603,14 +589,12 @@ def lc_commit(cfg: StepConfig, st: SimState, buf, removed):
         "commit", st, removed, buf["finish"], buf["offset"]))
 
 
-def update_leader_and_gap(net, cfg: StepConfig, st: SimState, fattrs=None,
-                          iattrs=None, donate=False):
+def update_leader_and_gap(net, cfg: StepConfig, st: SimState, donate=False):
     """Engine::threadUpdateLeaderAndGap (engine.cpp:429-442), then
     Lane::updateHistory under the DURATION router (on every call, as the
     reference: twice a step with lane change; in place where the state is
     donated)."""
-    arr = arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq,
-                      fattrs, iattrs)
+    arr = arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
     in_leader = arr["leader"]
     has_in = in_leader >= 0
     ila = egat(torch.stack([st.dis, st.params[..., P_LEN]], dim=-1),
@@ -673,25 +657,22 @@ def step_part1(net, cfg: StepConfig, st: SimState, spawn_tbl,
     lists (engine.cpp:574). donate: as `step`."""
     st = spawn_vehicles(net, cfg, st, spawn_tbl, donate)
     # handleWaiting reads the end-of-previous-step lane tails
-    st, arr, fattrs, iattrs = admit_waiting(net, cfg, st,
-                                            dict(last_of=st.last_of_drv))
+    st, arr = admit_waiting(net, cfg, st, dict(last_of=st.last_of_drv))
     if cfg.lane_change:
         from cityflow_tpu_torch.core.lanechange import plan_lane_change
         st = plan_lane_change(net, cfg, st, arr)
-        fattrs, iattrs = build_attr_packs(cfg, st,
-                                          blocker_cycles(cfg, st.blocker))
-        st, arr = update_leader_and_gap(net, cfg, st, fattrs, iattrs,
-                                        donate=donate)
-    return st, arr, fattrs, iattrs
+        st, arr = update_leader_and_gap(net, cfg, st, donate=donate)
+    return st, arr
 
 
-def step_part2a(net, cfg: StepConfig, st: SimState, arr, fattrs, iattrs):
-    """notifyCross: the phase masks, each vehicle's next drivable and G3's
-    own-side notifier tables."""
+def step_part2a(net, cfg: StepConfig, st: SimState, arr):
+    """notifyCross: the phase masks, each vehicle's next drivable, the
+    blocker cycles (G9) and G3's own-side notifier tables."""
     ll_avail = lanelink_available(net, cfg, st)
     veh_next, _ = chain_step(net, cfg.num_lanes, st.route, st.route_pos,
                              st.drv)
-    own = notify_cross(net, cfg, st, arr, veh_next, ll_avail, fattrs, iattrs)
+    cyc = blocker_cycles(cfg, st.blocker)
+    own = notify_cross(net, cfg, st, arr, veh_next, ll_avail, cyc)
     return ll_avail, veh_next, own
 
 
@@ -701,10 +682,9 @@ def step_part2b(net, cfg: StepConfig, st: SimState, arr, ll_avail, veh_next,
     return get_action(net, cfg, st, arr, veh_next, ll_avail, own)
 
 
-def step_part2(net, cfg: StepConfig, st: SimState, arr, fattrs, iattrs):
+def step_part2(net, cfg: StepConfig, st: SimState, arr):
     """notifyCross + getAction."""
-    return step_part2b(net, cfg, st, arr,
-                       *step_part2a(net, cfg, st, arr, fattrs, iattrs))
+    return step_part2b(net, cfg, st, arr, *step_part2a(net, cfg, st, arr))
 
 
 def step_part3(net, cfg: StepConfig, st: SimState, arr, buf, ov_hop,
@@ -731,8 +711,8 @@ def step(net, cfg: StepConfig, st: SimState, spawn_tbl, donate=False):
     donate=True: `st` is the caller's no longer, and its leaves and rings
     are written in place (the batched entries); its leaves must then not
     overlap in memory."""
-    st, arr, fattrs, iattrs = step_part1(net, cfg, st, spawn_tbl, donate)
-    buf, ov_hop = step_part2(net, cfg, st, arr, fattrs, iattrs)
+    st, arr = step_part1(net, cfg, st, spawn_tbl, donate)
+    buf, ov_hop = step_part2(net, cfg, st, arr)
     return step_part3(net, cfg, st, arr, buf, ov_hop, donate)
 
 

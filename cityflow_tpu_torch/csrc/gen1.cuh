@@ -30,10 +30,6 @@ namespace gen1 {
 constexpr int P_LEN = 1, P_MAXNEGACC = 4, P_USUALPOSACC = 5,
               P_USUALNEGACC = 6, P_MAXSPEED = 8, P_YIELD = 10,
               P_TURNSPEED = 11;
-// attribute-pack columns (core/step.py A_*)
-constexpr int A_DIS = 0, A_LEN = 1, A_SPEED = 2, A_MAXNEG = 3, A_YIELD = 4,
-              A_UPA = 5, A_TURNSPD = 6, A_MAXSPD = 7, A_CYC = 8,
-              A_PREV = 9;
 
 __device__ __forceinline__ long long clampll(long long x, long long lo,
                                              long long hi) {
@@ -82,6 +78,16 @@ __device__ __forceinline__ long long order_key(double x) {
 __device__ __forceinline__ long long order_key(float x) {
   int b = __float_as_int(x);
   return (long long)(b < 0 ? (b ^ 0x7FFFFFFF) : b);
+}
+
+// lax.sort's order of a float as a key: JAX canonicalizes -0.0 to +0.0 and
+// every NaN to +NaN before its total-order compare, so the zeros tie and
+// the NaNs tie after +inf (core/step.py sort_key; a float's key fits 32
+// bits)
+template <typename T>
+__device__ __forceinline__ long long sort_key(T x) {
+  if (isnan(x)) return sizeof(T) == 4 ? 0x7FFFFFFFLL : 0x7FFFFFFFFFFFFFFFLL;
+  return order_key(x == T(0) ? T(0) : x);
 }
 
 // ---- speed model (reference vehicle.cpp; core/step.py of the port) ------

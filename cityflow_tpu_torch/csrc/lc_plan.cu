@@ -17,7 +17,9 @@
 //   decide   per slot: the signal it keeps (lc_recv), gap validity and
 //            do_change
 //   yield    per slot: yieldSpeed of a signal receiver (lanechange.cpp:
-//            186-206), 100 otherwise; read by getAction
+//            186-206), 100 otherwise; read by getAction. Four slots a
+//            thread in 16-byte words; a slot that receives no signal
+//            reads its lc_recv only
 //
 // Replaces plan_lane_change (cityflow_tpu/core/lanechange.py:108-226)
 // and yield_speed (:294-318), which the TPU runs as (V,) slabs with
@@ -34,6 +36,7 @@
 //
 // Bound: bytes. Per slot about 30 field reads (several through an index),
 // the route entries of two lanes and k_out rear vehicles; a few outputs.
+// yield: lc_recv in and the cap out per slot, the receivers' reads.
 #include "gen1.cuh"
 
 using namespace gen1;
@@ -343,30 +346,100 @@ __global__ void decide_kernel(const LcPlanArgs a0) {
   }
 }
 
+// YIELD_W adjacent slots a thread: lc_recv read and the caps written in
+// 16-byte words where both rows allow it; only receivers (lc_recv >= 0)
+// read anything else, each stage's loads issued together for the
+// thread's slots: the senders' target leaders; where the sender does not
+// lead the receiver, the sender's speed, maxNegAcc, follower gap and
+// target follower and the receiver's speed and maxNegAcc; then that
+// follower's speed and maxNegAcc. yieldSpeed (lanechange.cpp:186-206):
+// 100 where the sender leads the receiver or the speed is negative.
+constexpr int YIELD_W = 4;
+
 template <typename T>
 __global__ void yield_kernel(const LcPlanArgs a0) {
   const LcPlanArgs a = at_env(a0, blockIdx.y);
   const T* speed = (const T*)a.speed;
   const T* P = (const T*)a.params;
+  const T* fgap = (const T*)a.y_fgap;
+  T* out = (T*)a.yield_v;
+  const int* recv = a.y_recv;
+  const bool wide = (((uintptr_t)recv | (uintptr_t)out) & 15u) == 0;
   const T dt = *(const T*)a.interval;
-  for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       v < a.V; v += (long long)gridDim.x * blockDim.x) {
-    int src = a.y_recv[v];
-    long long ss = clampll(src, 0, a.V - 1);
-    T src_speed = speed[ss];
-    T src_maxneg = P[ss * a.NP + P_MAXNEGACC];
-    T src_fgap = ((const T*)a.y_fgap)[ss];
-    int src_tl = a.y_tleader[ss];
-    int src_tf = a.y_tfollower[ss];
-    long long fs = clampll(src_tf, 0, a.V - 1);
-    T tfs = speed[fs];
-    T src_safe = src_tf >= 0 ? T(0.5) * tfs * tfs / P[fs * a.NP + P_MAXNEGACC]
-                             : T(0);
-    T g = src_fgap - src_safe;
-    T y = no_collision_speed(src_speed, src_maxneg, speed[v],
-                             P[v * a.NP + P_MAXNEGACC], g, dt, T(0));
-    y = y < T(0) ? T(100) : y;
-    ((T*)a.yield_v)[v] = (src >= 0 && src_tl != (int)v) ? y : T(100);
+  constexpr int TW = 16 / sizeof(T);            // T a 16-byte word
+  for (long long v0 = (blockIdx.x * (long long)blockDim.x + threadIdx.x) *
+                      YIELD_W;
+       v0 < a.V; v0 += (long long)gridDim.x * blockDim.x * YIELD_W) {
+    int src[YIELD_W];
+    const bool full = wide && v0 + YIELD_W <= a.V;
+    if (full) {
+#pragma unroll
+      for (int k = 0; k < YIELD_W / 4; ++k) {
+        const int4 q = *reinterpret_cast<const int4*>(recv + v0 + 4 * k);
+        src[4 * k] = q.x;
+        src[4 * k + 1] = q.y;
+        src[4 * k + 2] = q.z;
+        src[4 * k + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < YIELD_W; ++i)
+        src[i] = v0 + i < a.V ? recv[v0 + i] : -1;
+    }
+    int tl[YIELD_W], tf[YIELD_W];
+    long long ss[YIELD_W];
+#pragma unroll
+    for (int i = 0; i < YIELD_W; ++i) {
+      ss[i] = clampll(src[i], 0, a.V - 1);
+      tl[i] = src[i] >= 0 ? a.y_tleader[ss[i]] : -1;
+    }
+    T sv[YIELD_W], sneg[YIELD_W], sgap[YIELD_W], mv[YIELD_W],
+        mneg[YIELD_W];
+    bool cap[YIELD_W];
+#pragma unroll
+    for (int i = 0; i < YIELD_W; ++i) {
+      const long long v = v0 + i;
+      cap[i] = src[i] >= 0 && tl[i] != (int)v;
+      if (cap[i]) {
+        sv[i] = speed[ss[i]];
+        sneg[i] = P[ss[i] * a.NP + P_MAXNEGACC];
+        sgap[i] = fgap[ss[i]];
+        tf[i] = a.y_tfollower[ss[i]];
+        mv[i] = speed[v];
+        mneg[i] = P[v * a.NP + P_MAXNEGACC];
+      }
+    }
+    T y[YIELD_W];
+#pragma unroll
+    for (int i = 0; i < YIELD_W; ++i) {
+      y[i] = T(100);
+      if (!cap[i]) continue;
+      T safe = T(0);
+      if (tf[i] >= 0) {
+        const long long f = clampll(tf[i], 0, a.V - 1);
+        const T fv = speed[f];
+        safe = T(0.5) * fv * fv / P[f * a.NP + P_MAXNEGACC];
+      }
+      const T c = no_collision_speed(sv[i], sneg[i], mv[i], mneg[i],
+                                     sgap[i] - safe, dt, T(0));
+      y[i] = c < T(0) ? T(100) : c;
+    }
+    if (full) {
+#pragma unroll
+      for (int k = 0; k < YIELD_W / TW; ++k) {
+        if (sizeof(T) == 4)
+          *reinterpret_cast<float4*>(out + v0 + 4 * k) =
+              make_float4(y[4 * k], y[4 * k + 1], y[4 * k + 2],
+                          y[4 * k + 3]);
+        else
+          *reinterpret_cast<double2*>(out + v0 + 2 * k) =
+              make_double2(y[2 * k], y[2 * k + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < YIELD_W; ++i)
+        if (v0 + i < a.V) out[v0 + i] = y[i];
+    }
   }
 }
 
@@ -387,9 +460,12 @@ extern "C" int lc_plan(const LcPlanArgs* args, int mode, void* stream) {
     case 2:
       GEN1_LAUNCH(decide_kernel, a, g, threads, 0, s);
       break;
-    case 3:
-      GEN1_LAUNCH(yield_kernel, a, g, threads, 0, s);
+    case 3: {
+      const dim3 gy(grid_blocks((a.V + YIELD_W - 1) / YIELD_W, threads),
+                    (unsigned)a.B);
+      GEN1_LAUNCH(yield_kernel, a, gy, threads, 0, s);
       break;
+    }
     default:
       return -1;
   }

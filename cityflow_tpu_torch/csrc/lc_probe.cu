@@ -13,8 +13,8 @@
 // best candidate under the order the sort induces: the leader has the
 // largest -dis key <= the probe's (ties: the largest slot, as vehicles
 // sort by slot and the probe comes after them), the follower the smallest
-// key > the probe's (ties: the smallest slot). Keys are lax.sort's total
-// order of -dis, so -0.0 and NaN order as there.
+// key > the probe's (ties: the smallest slot). Keys are lax.sort's order
+// of -dis (sort_key: -0.0 ties with +0.0, every NaN ties after +inf).
 //
 // B envs at once: the env is blockIdx.y, and at_env moves every per-env
 // pointer (the slots, last_of, the outputs) to that env's rows; every
@@ -70,7 +70,7 @@ __device__ __forceinline__ void probe(const LcProbeArgs& a, const T* dis,
   int guard = 0;
   for (int u = a.last_of[lane]; u >= 0 && guard < a.V; u = a.leader[u]) {
     ++guard;
-    long long ku = order_key(-dis[u]);
+    long long ku = sort_key(-dis[u]);
     if (ku <= key_p) {
       if (bl < 0 || ku > kl || (ku == kl && u > bl)) {
         bl = u;
@@ -98,7 +98,7 @@ __global__ void lc_probe_kernel(const LcProbeArgs a0) {
     int n_in = a.road_num_lanes[clampll(a.lane_road[ds], 0, a.R - 1)];
     int outer = (on_lane && local + 1 < n_in) ? d + 1 : (int)a.L;
     int inner = (on_lane && local > 0) ? d - 1 : (int)a.L;
-    long long key_p = order_key(-dis[v]);
+    long long key_p = sort_key(-dis[v]);
     int ol = -1, of = -1, il = -1, inf_ = -1;
     if (outer < a.L) probe<T>(a, dis, outer, key_p, &ol, &of);
     if (inner < a.L) probe<T>(a, dis, inner, key_p, &il, &inf_);

@@ -119,14 +119,6 @@ __device__ __forceinline__ bool counted_of(const UpdateLocationArgs& a,
   return rm;
 }
 
-template <typename T>
-__device__ __forceinline__ long long rank_key(T x) {
-  // -0.0 sorts equal to 0.0 and every NaN last, as a stable sort of the
-  // floats orders them
-  if (isnan(x)) return 0x7FFFFFFFFFFFFFFFLL;
-  return order_key(x == T(0) ? T(0) : x);
-}
-
 __global__ void ul_flags(const UpdateLocationArgs a0) {
   const UpdateLocationArgs a = at_env(a0, blockIdx.y);
   uint8_t* trans = a.flags;
@@ -222,11 +214,11 @@ __global__ void ul_rank(const UpdateLocationArgs a0) {
       a.enter_ll_out[v] = a.enter_ll_time[v];
       continue;
     }
-    long long kv = rank_key(-dis[v]);
+    long long kv = sort_key(-dis[v]);
     int r = 0;
     for (int j = 0; j < n; ++j) {
       int u = tlist[j];
-      long long ku = rank_key(-dis[u]);
+      long long ku = sort_key(-dis[u]);
       r += (ku < kv) || (ku == kv && u < v);
     }
     a.list_seq_out[v] = *a.seq_counter + r;

@@ -17,7 +17,7 @@ counter:
   O1 lane_stats      per-lane waiting counts, the lane-history window, the
                      time in flight (observations)
   O2 phase_pressure  MaxPressure pressures and actions, DQN phase features
-  G1 arrange         gen-1 per-drivable order, leaders, lanelink tables
+  G1 arrange         gen-1 per-drivable order, leaders, drivable offsets
   G2 leader_scan     gen-1 leader scan past the drivable's end
   G3 notify_cross    gen-1 cross notifiers and their canPass terms
   G4 cross_pass      gen-1 cross loop of getAction (canPass, first fail)

@@ -29,6 +29,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cityflow_tpu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
+# the entries that take (args, mode, stream); the others (args, stream)
+WITH_MODE = ("lc_plan", "lc_commit", "ring_exits", "front_leaders",
+             "ring_pack", "lc_partner")
+
 _lock = threading.Lock()
 _lib = None
 build_seconds = None     # wall time of the build in this process (None: cached)
@@ -113,8 +117,7 @@ def lib():
             fn = getattr(L, name)
             fn.argtypes = [vp, vp]
             fn.restype = ctypes.c_int
-        for name in ("lc_plan", "lc_commit", "ring_exits", "front_leaders",
-                     "ring_pack", "lc_partner"):       # (args, mode, stream)
+        for name in WITH_MODE:
             fn = getattr(L, name)
             fn.argtypes = [vp, ctypes.c_int, vp]
             fn.restype = ctypes.c_int

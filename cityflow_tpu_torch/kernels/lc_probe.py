@@ -11,15 +11,16 @@ on each,
 <side>_leader (the vehicle with the smallest distance >= the slot's, ties
 to the largest slot) and <side>_follower (the largest distance < the
 slot's, ties to the smallest slot), -1 for none; distances compare in
-lax.sort's total order. This is what the JAX package's stable 3V sort
-gives (vehicles before probes at equal distance, slots ascending).
+lax.sort's order (core/step.sort_key: -0.0 ties with +0.0, every NaN
+ties after +inf). This is what the JAX package's stable 3V sort gives
+(vehicles before probes at equal distance, slots ascending).
 """
 
 import ctypes
 
 import torch
 
-from cityflow_tpu_torch.core.step import egat, gat, order_key
+from cityflow_tpu_torch.core.step import egat, gat, sort_key
 from cityflow_tpu_torch.kernels import _lib
 
 launches = 0
@@ -73,7 +74,7 @@ def lc_probe_plain(running, drv, dis, last_of, leader, net, L):
     """Plain PyTorch version: the kernel's lane walks, vectorised over
     envs and slots."""
     outer, inner = side_lanes(running, drv, net, L)
-    key = order_key(-dis)
+    key = sort_key(-dis)
     out = dict(outer_lane=outer, inner_lane=inner)
     for name, lane in (("outer", outer), ("inner", inner)):
         out[name + "_leader"], out[name + "_follower"] = _probe_plain(

@@ -1473,41 +1473,48 @@ def partner_args(case, device):
 
 # ---- G3 notify_cross -------------------------------------------------------
 
-_NA, _NI = 10, 2
-# a base pack: dis, len, speed, maxNegAcc, yieldDistance, usualPosAcc,
-# turnSpeed, maxSpeed, cyc, prev
-_NC_BASE = (0.0, 5.0, 8.0, 4.5, 5.0, 2.5, 8.0, 16.0, 0.0, 0.0)
+# a base vehicle's params: len 5, maxNegAcc 4.5, usualPosAcc 2.5,
+# maxSpeed 16, yieldDistance 5, turnSpeed 8 (the columns G3 reads), the
+# others as the reference's defaults
+_NC_PRM = (11.11, 5.0, 2.0, 2.0, 4.5, 2.5, 4.5, 2.5, 16.0, 1.5, 5.0, 8.0)
 
 
-def _packs(rng, shape, t):
-    """Random attribute packs (shape + (10,)) around the base vehicle: dis
-    from -5 to 60 with NaN and -0.0, speeds from 0, cyc 0 or 1."""
-    fa = np.array(_NC_BASE) * rng.uniform(0.6, 1.4, shape + (_NA,))
-    fa[..., 0] = rng.uniform(-5.0, 60.0, shape)
-    fa[..., 2] = np.where(rng.random(shape) < 0.2, 0.0,
-                          rng.uniform(0.0, 16.0, shape))
-    fa[..., 8] = rng.random(shape) < 0.3
-    r = rng.random(shape)
-    fa[..., 0][r < 0.03] = np.nan
-    fa[..., 0][(r >= 0.03) & (r < 0.06)] = -0.0
-    return fa.astype(t)
+def _nc_leaves(rng, B, V, L, LL, t):
+    """Random slot leaves around the base vehicle: dis from -5 to 60 with
+    NaN and -0.0, speeds from 0, params jittered, cyc, prev_drv naming
+    some drivable, enter_ll_time and priority 0 to 4."""
+    dis = rng.uniform(-5.0, 60.0, (B, V))
+    r = rng.random((B, V))
+    dis[r < 0.03] = np.nan
+    dis[(r >= 0.03) & (r < 0.06)] = -0.0
+    return dict(
+        dis=dis.astype(t),
+        speed=np.where(rng.random((B, V)) < 0.2, 0.0,
+                       rng.uniform(0.0, 16.0, (B, V))).astype(t),
+        params=(np.array(_NC_PRM) * rng.uniform(0.6, 1.4, (B, V, 12))
+                ).astype(t),
+        cyc=rng.random((B, V)) < 0.3,
+        prev_drv=rng.integers(-1, L + LL, (B, V)).astype(np.int32),
+        enter_ll_time=rng.integers(0, 5, (B, V)).astype(np.int32),
+        priority=rng.integers(0, 5, (B, V)).astype(np.int32))
 
 
-def _notify_case(rng, B, V, L, LL, KC, K, fp, gaps=False, dt=1.0):
+def _notify_case(rng, B, V, L, LL, KC, K, fp, over=False, dt=1.0):
     """One seeded G3 case: B envs of V slots over L lanes and LL
     lanelinks of KC crosses, k_link = K. Random: each link's end and start
     lanes and length, its cross distances (sorted, some equal to a
     candidate's tail), the end lanes' rear and start lanes' front slots
-    (-1 too), whose prev (A_PREV) names the link or not, whose next
-    drivable is the link or not, ll_avail, each link's first n of K table
-    rows (n from 0 to K; with `gaps`, rows left empty in between, which
-    G1 never does), packs with NaN and -0.0 in dis, ties in front
+    (-1 too), whose prev_drv names the link or not, whose next drivable
+    is the link or not, ll_avail, each drivable's count in G1's order
+    (sorted_idx a permutation of the slots, drv_off its offsets; a link
+    holds 0 to K vehicles, with `over` up to K + 3, of which G3 reads the
+    first K), the leaves with NaN and -0.0 in dis, ties in front
     position. Crafted, in every env: link 0 has no candidate (e_ok fails
-    by A_PREV, s_ok by veh_next), link 1's start vehicle fails s_ok by
-    ll_avail alone, link 2's first two table rows tie in front position,
-    link 3's crosses sit at candidate 0's tail (tail < d fails) and at a
-    table row's tail (tail <= d holds), link 4's rows have NaN and -0.0
-    dis."""
+    by prev_drv, s_ok by veh_next), link 1's start vehicle fails s_ok by
+    ll_avail alone, link 2's first two vehicles tie in front position,
+    link 3's crosses sit at candidate 0's tail (tail < d fails) and at
+    its first vehicle's tail (tail <= d holds), link 4's vehicles have NaN
+    and -0.0 dis."""
     t = np.float32 if fp == "f32" else np.float64
     D = L + LL
     drv_len = np.concatenate([rng.uniform(20.0, 300.0, L),
@@ -1516,8 +1523,7 @@ def _notify_case(rng, B, V, L, LL, KC, K, fp, gaps=False, dt=1.0):
     ll_start = rng.integers(0, L, LL).astype(np.int32)
     ll_is_turn = rng.random(LL) < 0.4
     cd = np.sort(rng.uniform(-2.0, 30.0, (LL, KC)), axis=1)
-    fattrs = _packs(rng, (B, V), t)
-    iattrs = rng.integers(0, 5, (B, V, _NI)).astype(np.int32)
+    lv = _nc_leaves(rng, B, V, L, LL, t)
     last_of = rng.integers(-1, V, (B, D)).astype(np.int32)
     first_of = rng.integers(-1, V, (B, D)).astype(np.int32)
     veh_next = rng.integers(-1, D, (B, V)).astype(np.int32)
@@ -1527,49 +1533,74 @@ def _notify_case(rng, B, V, L, LL, KC, K, fp, gaps=False, dt=1.0):
     for l in range(LL):
         s = last_of[:, ll_end[l]]
         on = (s >= 0) & (rng.random(B) < 0.5)
-        fattrs[on, s[on], 9] = L + l
+        lv["prev_drv"][on, s[on]] = L + l
         s = first_of[:, ll_start[l]]
         on = (s >= 0) & (rng.random(B) < 0.5)
         veh_next[on, s[on]] = L + l
-    n = rng.integers(0, K + 1, (B, LL))
-    lv = np.where(np.arange(K) < n[..., None],
-                  rng.integers(0, V, (B, LL, K)), -1).astype(np.int32)
-    if gaps:
-        lv[rng.random((B, LL, K)) < 0.3] = -1
-    lfa = _packs(rng, (B, LL, K), t)
-    lia = rng.integers(0, 5, (B, LL, K, _NI)).astype(np.int32)
-    tie = rng.random((B, LL, K)) < 0.1        # ties with the row before
-    lfa[..., 1:, 0] = np.where(tie[..., 1:], lfa[..., :-1, 0],
-                               lfa[..., 1:, 0])
-    # some crosses exactly at a random candidate's tail in env 0
-    pick = rng.random((LL, KC)) < 0.1
-    rows = lfa[0, :, 0, 0] - lfa[0, :, 0, 1]
-    cd = np.where(pick & ~np.isnan(rows)[:, None], rows[:, None], cd)
-    # crafted links: the end / start lanes of links 0-4 are lanes 0-4 /
-    # 5-9, lane j's vehicle in env b is slot (b + j) % V
-    if LL >= 5 and L >= 10 and V >= 10:
+    # per-drivable counts: lanes 0 to 2, links 0 to K (K + 3 with `over`)
+    cnt = np.zeros((B, D), np.int64)
+    cnt[:, :L] = rng.integers(0, 3, (B, L))
+    cnt[:, L:] = rng.integers(0, K + (4 if over else 1), (B, LL))
+    crafted = LL >= 5 and L >= 10 and V >= 18
+    if crafted:
+        cnt[:, L] = 0                             # link 0: no vehicle
+        cnt[:, L + 1:L + 5] = min(2, K)
+    for b in range(B):                            # fit the pool: cut lanes,
+        while cnt[b].sum() > V:                   # then the last links
+            d = np.nonzero(cnt[b])[0][0 if cnt[b, :L].any() else -1]
+            cnt[b, d] -= 1
+    drv_off = np.concatenate([np.zeros((B, 1), np.int64),
+                              np.cumsum(cnt, 1)], 1).astype(np.int32)
+    sorted_idx = np.stack([rng.permutation(V) for _ in range(B)]
+                          ).astype(np.int32)
+    eb = np.arange(B)
+    slot = lambda j: (eb + j) % V
+    if crafted:
+        # links 1-4's vehicles are slots (b + 10 ...) % V, apart from the
+        # crafted end and start vehicles (b + 0 ... 9) % V
+        for j in range(1, 5):
+            for r in range(min(2, K)):
+                s = slot(10 + 2 * (j - 1) + r)
+                for b in range(B):
+                    pos = drv_off[b, L + j] + r
+                    here = int(np.nonzero(sorted_idx[b] == s[b])[0][0])
+                    sorted_idx[b, [pos, here]] = sorted_idx[b, [here, pos]]
+    # ties with the link's vehicle before, in dis and len
+    for b in range(B):
+        for l in range(LL):
+            lo, n = drv_off[b, L + l], min(cnt[b, L + l], K)
+            for r in range(1, n):
+                if rng.random() < 0.1:
+                    u, w = sorted_idx[b, lo + r - 1], sorted_idx[b, lo + r]
+                    lv["dis"][b, w] = lv["dis"][b, u]
+    # some crosses exactly at a link's first vehicle's tail in env 0
+    first0 = sorted_idx[0, np.minimum(drv_off[0, L:L + LL], V - 1)]
+    tail0 = lv["dis"][0, first0] - lv["params"][0, first0, 1]
+    pick = (rng.random((LL, KC)) < 0.1) & (cnt[0, L:, None] > 0) & (K > 0)
+    cd = np.where(pick & ~np.isnan(tail0)[:, None], tail0[:, None], cd)
+    if crafted:
         ll_end[:5], ll_start[:5] = np.arange(5), np.arange(5, 10)
-        eb = np.arange(B)
-        slot = lambda j: (eb + j) % V
         for j in range(5):
             last_of[:, j], first_of[:, 5 + j] = slot(j), slot(5 + j)
-            fattrs[eb, slot(j), 9] = L + j          # on its link: e_ok
-            veh_next[eb, slot(5 + j)] = L + j       # entering it
-        fattrs[eb, slot(0), 9] = L + 7           # link 0: e_ok fails by
+            lv["prev_drv"][eb, slot(j)] = L + j  # on its link: e_ok
+            veh_next[eb, slot(5 + j)] = L + j    # entering it
+        lv["prev_drv"][eb, slot(0)] = L + 7      # link 0: e_ok fails by
         veh_next[eb, slot(5)] = L + 7            # prev, s_ok by next
-        lv[:, 0] = -1                            # and no table row
         ll_avail[:, 0] = True
         ll_avail[:, 1] = False                   # link 1: s_ok by avail
-        lv[:, 1:5] = np.where(np.arange(K) < 2, (eb % V)[:, None, None],
-                              -1)
-        lfa[:, 2, :2, 0] = 12.0                  # link 2: a tie at 12
-        lfa[:, 2, :2, 1] = 4.0
-        lfa[:, 3, 0, 0], lfa[:, 3, 0, 1] = 9.0, 4.0   # tail 5
+        row = lambda j, r: slot(10 + 2 * (j - 1) + r)
+        for r in range(min(2, K)):               # link 2: a tie at 12
+            lv["dis"][eb, row(2, r)] = 12.0
+            lv["params"][eb, row(2, r), 1] = 4.0
+        lv["dis"][eb, row(3, 0)] = 9.0           # link 3: tail 5
+        lv["params"][eb, row(3, 0), 1] = 4.0
         if K > 1:
-            lfa[:, 4, 0, 0], lfa[:, 4, 1, 0] = np.nan, -0.0
+            lv["dis"][eb, row(4, 0)] = np.nan
+            lv["dis"][eb, row(4, 1)] = -0.0
         # link 3's crosses: at candidate 0's tail (ll_len + dis - len,
-        # strict: not eligible) and at table row 0's tail (eligible)
-        fattrs[eb, slot(3), 0], fattrs[eb, slot(3), 1] = -3.0, 4.0
+        # strict: not eligible) and at its first vehicle's tail (eligible)
+        lv["dis"][eb, slot(3)] = -3.0
+        lv["params"][eb, slot(3), 1] = 4.0
         cd[3, 0] = (drv_len[L + 3] + t(-3.0)) - t(4.0)
         if KC > 1:
             cd[3, 1] = 5.0
@@ -1578,10 +1609,9 @@ def _notify_case(rng, B, V, L, LL, KC, K, fp, gaps=False, dt=1.0):
                  ll_start=ll_start, ll_is_turn=ll_is_turn,
                  cross_ll=np.zeros((1, 2), np.int32),
                  interval=np.array(dt, t)),
-        arr=dict(last_of=last_of, first_of=first_of, link_veh=lv,
-                 link_fattr=lfa, link_iattr=lia),
-        veh_next=veh_next, ll_avail=ll_avail, fattrs=fattrs, iattrs=iattrs,
-        L=L)
+        arr=dict(last_of=last_of, first_of=first_of, sorted_idx=sorted_idx,
+                 drv_off=drv_off),
+        veh_next=veh_next, ll_avail=ll_avail, leaves=lv, L=L, k_link=K)
 
 
 # name -> (B, V, L, LL, KC, K, float type, keywords of _notify_case)
@@ -1591,8 +1621,8 @@ NOTIFY_SPECS = {
     "B128_KC6_K4_f32": (128, 40, 10, 12, 6, 4, "f32", {}),
     "B130_KC3_K1_f64": (130, 20, 10, 8, 3, 1, "f64", dict(dt=0.5)),
     "B3_KC1_K40_f64": (3, 80, 10, 10, 1, 40, "f64", {}),
-    "B1_KC9_K2_f32_gaps": (1, 30, 12, 20, 9, 2, "f32", dict(gaps=True)),
-    "B3_KC20_K8_f64_gaps": (3, 60, 10, 14, 20, 8, "f64", dict(gaps=True)),
+    "B1_KC9_K2_f32_over": (1, 30, 12, 20, 9, 2, "f32", dict(over=True)),
+    "B3_KC20_K8_f64_over": (3, 60, 10, 14, 20, 8, "f64", dict(over=True)),
     # k_link so large that a block holds 2 groups (16 threads) or 1 (8):
     # the crosses of a link take more rounds of the part-warp
     "B3_KC20_K128_f64": (3, 200, 10, 10, 20, 128, "f64", {}),
@@ -1622,8 +1652,187 @@ def notify_args(case, device):
     T = lambda a: torch.as_tensor(a, device=device)
     return ({k: T(v) for k, v in case["net"].items()},
             {k: T(v) for k, v in case["arr"].items()}, T(case["veh_next"]),
-            T(case["ll_avail"]), T(case["fattrs"]), T(case["iattrs"]),
-            case["L"])
+            T(case["ll_avail"]), {k: T(v) for k, v in case["leaves"].items()},
+            case["L"], case["k_link"])
+
+
+# ---- G1 arrange ------------------------------------------------------------
+
+_AR_DIS = (0.0, -0.0, 2.5, 7.0, 7.0, np.nan, 12.25, 30.0, -np.nan, 55.5)
+
+
+def _arrange_case(rng, B, V, L, LL, K, fp, p_run=0.8, long_lane=0,
+                  idle_env=False, exact_k=False):
+    """One seeded G1 case: B envs of V slots over L lanes and LL
+    lanelinks, k_link = K. Random: running flags, drivables, dis from a
+    small set (ties, -0.0 against +0.0, NaN of both signs), list_seq from
+    a small range (ties), so that every key term decides somewhere.
+    `long_lane` running vehicles of env 0 on lane 0 (a bucket longer than
+    a block's 256 positions or a warp), `idle_env`: the last env runs
+    nothing, `exact_k`: in env 0 lanelink 0 holds exactly K vehicles and
+    lanelink 1 K + 1 (overflow), every other lanelink at most K."""
+    t = np.float32 if fp == "f32" else np.float64
+    D = L + LL
+    running = rng.random((B, V)) < p_run
+    drv = rng.integers(0, D, (B, V)).astype(np.int32)
+    dis = rng.choice(np.array(_AR_DIS), (B, V)).astype(t)
+    wild = rng.random((B, V)) < 0.5
+    dis[wild] = rng.uniform(0.0, 60.0, int(wild.sum())).astype(t)
+    list_seq = rng.integers(0, 6, (B, V)).astype(np.int32)
+    if long_lane:
+        running[0, :long_lane] = True
+        drv[0, :long_lane] = 0
+    if exact_k:
+        # at most K vehicles on a lanelink (the extras to lanes), then in
+        # env 0 exactly K on lanelink 0 and K + 1 on lanelink 1
+        for b in range(B):
+            for l in range(LL):
+                on = np.nonzero(running[b] & (drv[b] == L + l))[0][K:]
+                drv[b, on] = rng.integers(0, L, on.size)
+        on = running[0] & ((drv[0] == L) | (drv[0] == L + 1))
+        drv[0, on] = rng.integers(0, L, int(on.sum()))
+        lane = np.nonzero(running[0] & (drv[0] < L))[0]
+        pick = rng.choice(lane, 2 * K + 1, replace=False)
+        drv[0, pick[:K]] = L
+        drv[0, pick[K:]] = L + 1
+    if idle_env:
+        running[-1] = False
+    return dict(running=running, drv=drv, dis=dis, list_seq=list_seq, D=D,
+                L=L, k_link=K)
+
+
+# name -> (B, V, L, LL, K, float type, keywords of _arrange_case)
+ARRANGE_SPECS = {
+    "B1_V64_f64": (1, 64, 6, 10, 4, "f64", {}),
+    "B3_V1000_f32": (3, 1000, 12, 30, 3, "f32", {}),
+    "B128_V200_f32": (128, 200, 10, 20, 2, "f32", {}),
+    "B130_V97_f64": (130, 97, 8, 12, 16, "f64", dict(idle_env=True)),
+    "B1_V3000_f64_long": (1, 3000, 4, 4, 4, "f64",
+                          dict(long_lane=700, p_run=0.3)),
+    "B3_V1030_f32_long": (3, 1030, 5, 9, 2, "f32",
+                          dict(long_lane=300, p_run=0.5)),
+    "B3_V500_f64_exactk": (3, 500, 10, 8, 5, "f64", dict(exact_k=True)),
+    "B1_V777_f32_exactk": (1, 777, 20, 6, 16, "f32", dict(exact_k=True)),
+    "B3_V300_f64_idle": (3, 300, 10, 40, 4, "f64",
+                         dict(idle_env=True, p_run=0.2)),
+    "B1_V5000_f32_wide": (1, 5000, 3000, 6000, 16, "f32", {}),
+}
+ARRANGE_CASES = tuple(ARRANGE_SPECS)
+
+
+def arrange_case(name, seed=0):
+    """The G1 case `name` (one of ARRANGE_CASES), from its own seed."""
+    B, V, L, LL, K, fp, kw = ARRANGE_SPECS[name]
+    return _arrange_case(np.random.default_rng(
+        [seed, 9500 + ARRANGE_CASES.index(name)]), B, V, L, LL, K, fp, **kw)
+
+
+def arrange_cases(seed=0):
+    """(name, case) for each of ARRANGE_CASES."""
+    for name in ARRANGE_CASES:
+        yield name, arrange_case(name, seed)
+
+
+def arrange_args(case, device):
+    """The case as arrange's arguments on `device`."""
+    import torch
+    T = lambda a: torch.as_tensor(a, device=device)
+    return (T(case["running"]), T(case["drv"]), T(case["dis"]),
+            T(case["list_seq"]), case["D"], case["L"], case["k_link"])
+
+
+# ---- G7 lc_plan, yield mode ------------------------------------------------
+
+def _yield_case(rng, B, V, fp, p_recv=0.3, every=False, none=False):
+    """One seeded G7 yield case: B envs of V slots. Random: each slot's
+    lc_recv (a sender slot, or -1), the senders' lc_tleader (some the
+    receiver itself), lc_tfollower (-1 too), lc_fgap (some small, so that
+    the cap goes negative and becomes 100), speeds from 0 and params.
+    `every`: every slot receives, `none`: no slot does. An odd V starts
+    the rows after the first off a 16-byte word (the kernel's narrow
+    path); V not a multiple of 4 leaves a part word at each row's end."""
+    t = np.float32 if fp == "f32" else np.float64
+    recv = np.where(rng.random((B, V)) < p_recv,
+                    rng.integers(0, V, (B, V)), -1).astype(np.int32)
+    if every:
+        recv = rng.integers(0, V, (B, V)).astype(np.int32)
+    if none:
+        recv[:] = -1
+    tleader = rng.integers(-1, V, (B, V)).astype(np.int32)
+    # a sender whose target leader is its receiver: no cap
+    lead = rng.random((B, V)) < 0.2
+    for b, v in zip(*np.nonzero(lead & (recv >= 0))):
+        tleader[b, recv[b, v]] = v
+    return dict(
+        lc_recv=recv, lc_tleader=tleader,
+        lc_tfollower=np.where(rng.random((B, V)) < 0.4, -1,
+                              rng.integers(0, V, (B, V))).astype(np.int32),
+        lc_fgap=np.where(rng.random((B, V)) < 0.3,
+                         rng.uniform(-5.0, 1.0, (B, V)),
+                         rng.uniform(0.0, 80.0, (B, V))).astype(t),
+        speed=np.where(rng.random((B, V)) < 0.2, 0.0,
+                       rng.uniform(0.0, 16.0, (B, V))).astype(t),
+        params=(np.array(_NC_PRM) * rng.uniform(0.6, 1.4, (B, V, 12))
+                ).astype(t),
+        interval=np.array(1.0, t))
+
+
+# name -> (B, V, float type, keywords of _yield_case)
+YIELD_SPECS = {
+    "B1_V64_f64": (1, 64, "f64", {}),
+    "B3_V257_f32_offset": (3, 257, "f32", {}),
+    "B128_V128_f32": (128, 128, "f32", {}),
+    "B130_V40_f64_every": (130, 40, "f64", dict(every=True)),
+    "B3_V100_f64_none": (3, 100, "f64", dict(none=True)),
+    "B1_V999_f32_every": (1, 999, "f32", dict(every=True)),
+}
+YIELD_CASES = tuple(YIELD_SPECS)
+
+
+def yield_case(name, seed=0):
+    """The G7 yield case `name` (one of YIELD_CASES), from its own seed."""
+    B, V, fp, kw = YIELD_SPECS[name]
+    return _yield_case(np.random.default_rng(
+        [seed, 9700 + YIELD_CASES.index(name)]), B, V, fp, **kw)
+
+
+def yield_cases(seed=0):
+    """(name, case) for each of YIELD_CASES."""
+    for name in YIELD_CASES:
+        yield name, yield_case(name, seed)
+
+
+def yield_args(case, device):
+    """The case as (st, net) for lc_plan("yield", st, net, L): a state
+    that holds the leaves the yield mode reads (the others are zeros of
+    their shapes) and the tables it is given."""
+    import torch
+    from cityflow_tpu_torch.core.state import SimState
+    T = lambda a: torch.as_tensor(a, device=device)
+    B, V = case["lc_recv"].shape
+    f = T(case["speed"]).dtype
+    z = lambda dt: torch.zeros((B, V), dtype=dt, device=device)
+    st = SimState(**{k: None for k in SimState.__dataclass_fields__})
+    st = st.replace_fields(
+        running=z(torch.bool), is_shadow=z(torch.bool),
+        lc_changing=z(torch.bool), lc_last_t=z(f), drv=z(torch.int32),
+        dis=z(f), speed=T(case["speed"]), gap=z(f),
+        params=T(case["params"]), route=z(torch.int32),
+        route_pos=z(torch.int32), lc_target=z(torch.int32),
+        priority=z(torch.int32),
+        step=torch.zeros(B, dtype=torch.int32, device=device),
+        lc_recv=T(case["lc_recv"]), lc_fgap=T(case["lc_fgap"]),
+        lc_tleader=T(case["lc_tleader"]),
+        lc_tfollower=T(case["lc_tfollower"]))
+    i1 = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
+    net = dict(drv_len=torch.ones(2, dtype=f, device=device),
+               lane_out=torch.full((1, 1), -1, dtype=torch.int32,
+                                   device=device),
+               lane_local=i1(1), ll_end=i1(1), route_len=i1(1),
+               route_next_ll=torch.full((1, 1, 1), -1, dtype=torch.int32,
+                                        device=device),
+               interval=T(case["interval"]))
+    return st, net
 
 
 # ---- G11 spawn_slots -------------------------------------------------------

@@ -6,7 +6,15 @@ kernels' seeded edge cases (tools/kernel_cases.py).
 
     python -m cityflow_tpu_torch.tools.time_cross_shadow \
         [--paths gen1-lc,gen1-lc-batch,gen1,gen1-batch] [--reps 20] \
-        [--out FILE]
+        [--out FILE] [--parent DIR] [--split]
+
+With --parent DIR (a checkout of another commit, for example the parent
+unpacked by `git archive` into a git-ignored directory), G1, G3 and G7's
+yield mode of the same step are also held against that checkout's
+kernels and timed A B B A beside them (parent_rows): G1 on every call,
+the other's G1 with the attribute packs and G3 on them where that
+checkout reads G1's lanelink tables. With --split, each G1 call's device
+time by launch (memset, count, scan, place, rank) from the profiler.
 
 Run from the root of the repo (it imports chip_smoke.py's timing, compare
 and bound helpers). The paths are chip_smoke.py's: gen1 the exact Engine
@@ -176,12 +184,119 @@ def lc_calls(names=("cross_pass", "shadow_insert")):
                                      names)
 
 
+PARENT_KERNELS = ("arrange", "notify_cross", "lc_plan")
+
+
+def attr_packs(leaves):
+    """The attribute packs a checkout whose G3 reads G1's dense lanelink
+    tables builds twice a lane-change step (once a step without): fattrs
+    (B, V, 10) (dis, length, speed, maxNegAcc, yieldDistance,
+    usualPosAcc, turnSpeed, maxSpeed, cyc, prev_drv) and iattrs (B, V, 2)
+    (enter_ll_time, priority)."""
+    p, f = leaves["params"], leaves["dis"].dtype
+    fattrs = torch.stack([
+        leaves["dis"], p[..., 1], leaves["speed"], p[..., 4], p[..., 10],
+        p[..., 5], p[..., 11], p[..., 8], leaves["cyc"].to(f),
+        leaves["prev_drv"].to(f)], dim=-1)
+    return fattrs, torch.stack([leaves["enter_ll_time"],
+                                leaves["priority"]], dim=-1)
+
+
+def parent_rows(path, calls, other, reps, fast):
+    """G1, G3 and G7's yield mode of one step against another checkout's
+    (other_kernels), A B B A, each pair held equal first. G1: every call,
+    the other's on the same inputs; then the call whose arrangement G3
+    reads, the other's with the attribute packs (it builds its lanelink
+    tables there), and the packs' own build; G3 on that arrangement and
+    the packs; G7 yield on the same inputs."""
+    import chip_smoke as cs
+    from cityflow_tpu_torch.kernels import arrange as g1
+    from cityflow_tpu_torch.kernels import lc_plan as g7
+    from cityflow_tpu_torch.kernels import notify_cross as g3
+    from cityflow_tpu_torch.tools.time_partner_notify import abba
+    flops = cs.H100_F32_FLOPS if fast else cs.H100_F64_FLOPS
+    o1, o3, o7 = (other[n] for n in PARENT_KERNELS)
+    keys = ("leader", "first_of", "last_of", "sorted_idx", "overflow_link")
+    rows = []
+    for i, (a, _) in enumerate(calls["arrange"]):
+        mine, theirs = g1.arrange(*a), o1.arrange(*a)
+        for k in keys:
+            assert cs.bitwise_equal(mine[k], theirs[k]), f"arrange {i}: {k}"
+        other_ms, ms = abba(lambda: o1.arrange(*a), lambda: g1.arrange(*a),
+                            reps)
+        rows.append(dict(call=f"arrange[{i}]", other_ms=other_ms, ms=ms,
+                         bound_ms=bound(*cs.gen1_work("arrange", a, {},
+                                                      mine), flops)))
+    for a, _ in calls["notify_cross"]:
+        net, arr, veh_next, ll_avail, leaves, L, K = a
+        fa, ia = attr_packs(leaves)
+        (fed, _), = [(c, k) for c, k in calls["arrange"] if torch.equal(
+            g1.arrange(*c)["sorted_idx"], arr["sorted_idx"])][:1]
+        tables = o1.arrange(*fed, fa, ia)
+        mine, theirs = g3.notify_cross(*a), o3.notify_cross(
+            net, tables, veh_next, ll_avail, fa, ia, L)
+        _, bad = cs._bitwise("notify_cross", mine, theirs)
+        assert bad == 0, f"[{path}] G3: {bad} values differ from the other"
+        other_ms, ms = abba(lambda: o1.arrange(*fed, fa, ia),
+                            lambda: g1.arrange(*fed), reps)
+        rows.append(dict(call="arrange, the call G3 reads (other: with the "
+                              "packs and tables)", other_ms=other_ms, ms=ms))
+        rows.append(dict(call="attr_packs (other only)", other_ms=[
+            cs.time_cuda(lambda: attr_packs(leaves), reps)]))
+        other_ms, ms = abba(lambda: o3.notify_cross(
+            net, tables, veh_next, ll_avail, fa, ia, L),
+            lambda: g3.notify_cross(*a), reps)
+        rows.append(dict(call="notify_cross", other_ms=other_ms, ms=ms,
+                         bound_ms=bound(*cs.notify_work(a, mine), flops)))
+        del tables, fa, ia
+    for a, k in calls.get("lc_plan", ()):
+        if a[0] != "yield":
+            continue
+        mine, theirs = g7.lc_plan(*a, **k), o7.lc_plan(*a, **k)
+        assert cs.bitwise_equal(mine, theirs), f"[{path}] G7 yield differs"
+        other_ms, ms = abba(lambda: o7.lc_plan(*a, **k),
+                            lambda: g7.lc_plan(*a, **k), reps)
+        st = a[1]
+        rows.append(dict(call="lc_plan@yield", other_ms=other_ms, ms=ms,
+                         receivers=int((st.lc_recv >= 0).sum()),
+                         bound_ms=bound(*cs.yield_work(
+                             st, st.dis.element_size()), flops)))
+    return rows
+
+
+def g1_split_rows(calls, reps):
+    """Each G1 call's device time by launch (the memset and its four
+    kernels), from the torch profiler over `reps` calls."""
+    from cityflow_tpu_torch.kernels import arrange as g1
+    rows = []
+    for i, (a, _) in enumerate(calls):
+        g1.arrange(*a)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                g1.arrange(*a)
+            torch.cuda.synchronize()
+        split = {e.key.split("(")[0].replace("void ", ""):
+                 round(e.self_device_time_total / 1e3 / reps, 4)
+                 for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+        rows.append(dict(call=f"arrange[{i}] split", split=split,
+                         running=int(a[0].sum())))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--paths", default="gen1-lc,gen1-lc-batch,gen1,"
                                        "gen1-batch")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--split", action="store_true",
+                    help="G1's device time by launch on each path call")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the commit to compare G1, G3 and "
+                         "G7's yield mode with (parent_rows)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     if not torch.cuda.is_available():
@@ -197,15 +312,27 @@ def main(argv=None):
         res["calls"].append(row)
         print(f"[cases] {row['call']} ms={row['ms']:.4f}", flush=True)
     paths = [p for p in args.paths.split(",") if p]
+    other = None
+    names = ("cross_pass", "shadow_insert") + (
+        ("arrange",) if args.split else ())
+    if args.parent:
+        from cityflow_tpu_torch.tools.time_partner_notify import other_kernels
+        other = other_kernels(os.path.abspath(args.parent), PARENT_KERNELS)
+        names += tuple(n for n in PARENT_KERNELS if n not in names)
     recorded = {}
     if {"gen1-lc", "gen1-lc-batch"} & set(paths):
-        recorded["gen1-lc"], recorded["gen1-lc-batch"] = lc_calls()
+        recorded["gen1-lc"], recorded["gen1-lc-batch"] = lc_calls(names)
     for path in paths:
-        calls = recorded.pop(path, None) or gen1_calls(path)
+        calls = recorded.pop(path, None) or gen1_calls(
+            path, tuple(n for n in names if n != "shadow_insert"))
         fast = path.endswith("batch")
         rows = g4_rows(path, calls["cross_pass"], args.reps, fast)
-        if "shadow_insert" in calls:
+        if calls.get("shadow_insert"):
             rows += g15_rows(calls["shadow_insert"], args.reps, fast)
+        if other is not None:
+            rows += parent_rows(path, calls, other, args.reps, fast)
+        if args.split:
+            rows += g1_split_rows(calls["arrange"], args.reps)
         for row in rows:
             row["path"] = path
             res["calls"].append(row)

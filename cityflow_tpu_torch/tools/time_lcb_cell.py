@@ -21,10 +21,12 @@ one synchronize at its end; the first window is chip_smoke's) and the
 peak device memory allocated over them.
 Then 3 steps each issued after a synchronize: the host's time to return
 from the step call (the launches queue; the device runs behind), and 3
-steps under torch.profiler: the device's kernel time per step, the host
-syncs per step (aten::_local_scalar_dense: a value read back to the
-host) and the CUDA runtime's allocation, copy and synchronize calls per
-step.
+steps under torch.profiler: the device's kernel time per step, the
+kernels launched per step, the host syncs per step
+(aten::_local_scalar_dense: a value read back to the host), the CUDA
+runtime's allocation, copy and synchronize calls per step, and the TOP
+kernels by their own device time and aten ops by the device time of what
+they launched (ms and calls per step).
 
 `--root` is the checkout whose cityflow_tpu_torch is imported (default:
 the one that holds this file), so that two commits are compared with one
@@ -43,6 +45,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 WARMUP = 1960
 POOL = 131072
 GEN1B_WARMUP = 300
+TOP = 15            # profiler rows kept, by device time
 
 
 def warm_batch(root, cell, batch, horizon):
@@ -131,6 +134,18 @@ def run(root, batch, steps, windows, cell="gen1-lc-batch"):
     device_ms = sum(dev_t(e) for e in ka if e.device_type == cuda) \
         / 1e3 / nprobe
     count = lambda k: sum(e.count for e in ka if e.key == k) / nprobe
+    kernels = sum(e.count for e in ka if e.device_type == cuda) / nprobe
+    # where the device time goes: the kernels by their own time, and the
+    # host ops by the device time of what they launched
+    top = lambda evs, t: [
+        dict(op=e.key[:120], ms=round(t(e) / 1e3 / nprobe, 4),
+             calls=e.count / nprobe)
+        for e in sorted(evs, key=t, reverse=True)[:TOP]]
+    incl = lambda e: (getattr(e, "device_time_total", None)
+                      or getattr(e, "cuda_time_total", 0))
+    top_kernels = top([e for e in ka if e.device_type == cuda], dev_t)
+    top_ops = top([e for e in ka if e.device_type != cuda
+                   and e.key.startswith("aten::")], incl)
     runtime = {e.key: e.count / nprobe for e in ka
                if e.key.startswith("cuda") and any(
                    w in e.key for w in ("Malloc", "Free", "Memcpy",
@@ -143,7 +158,8 @@ def run(root, batch, steps, windows, cell="gen1-lc-batch"):
                 host_syncs_per_step=count("aten::_local_scalar_dense"),
                 runtime_calls_per_step=runtime, vehicles_per_env=veh,
                 pool=cfg.max_vehicles, overflow=overflow, warm_s=warm_s,
-                peak_bytes=peak)
+                peak_bytes=peak, kernels_per_step=kernels,
+                top_kernels=top_kernels, top_ops=top_ops)
 
 
 def main(argv=None):

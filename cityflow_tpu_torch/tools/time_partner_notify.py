@@ -14,7 +14,9 @@ example `git archive` of the parent unpacked into a git-ignored
 directory): its csrc/lc_partner.cu and csrc/notify_cross.cu are built
 into a library of their own under build/, and its kernels/lc_partner.py
 and kernels/notify_cross.py are loaded under other module names with that
-library, so its wrappers run as they stand there.
+library, so its wrappers run as they stand there (other_kernels; the G3
+rows need a checkout whose G3 takes the same arguments: one whose G3
+reads G1's attribute packs is compared by time_cross_shadow --parent).
 
 The paths are chip_smoke.py's. lc: one more step of the 30x30 lane-change
 ring at B = 128 after 1960 warm-up steps; its three L4 calls are timed as
@@ -48,16 +50,23 @@ LC_WARMUP = 1960
 LC_CFG = os.path.join("benchmarks", "config_30x30_lc.json")
 
 
-def other_kernels(root):
-    """The other checkout's L4 and G3 wrapper modules, bound to a library
-    built from its two sources."""
+# the pack columns of core.step in a checkout whose G3 reads G1's
+# attribute packs; its notify_cross.py imports them from core.step
+PACK_COLUMNS = ("A_DIS", "A_LEN", "A_SPEED", "A_MAXNEG", "A_YIELD", "A_UPA",
+                "A_TURNSPD", "A_MAXSPD", "A_CYC", "A_PREV")
+
+
+def other_kernels(root, names=("lc_partner", "notify_cross")):
+    """The other checkout's wrapper modules of the kernels `names`, bound
+    to a library built from their sources there."""
+    from cityflow_tpu_torch.core import step as step_mod
     from cityflow_tpu_torch.kernels import _lib
     csrc = os.path.join(root, "cityflow_tpu_torch", "csrc")
     out = os.path.join(_lib.BUILD_DIR, "other")
     os.makedirs(out, exist_ok=True)
     nvcc = _lib._nvcc()
     objs, procs = [], []
-    for f in ("lc_partner.cu", "notify_cross.cu"):
+    for f in (n + ".cu" for n in names):
         obj = os.path.join(out, f + ".o")
         procs.append(subprocess.Popen([nvcc, *_lib.ARCH_FLAGS, *_lib.CFLAGS,
                                        "-c", os.path.join(csrc, f), "-o",
@@ -65,26 +74,34 @@ def other_kernels(root):
         objs.append(obj)
     for p in procs:
         assert p.wait() == 0, "nvcc failed on the other checkout's sources"
-    so = os.path.join(out, "l4_g3.so")
+    so = os.path.join(out, "_".join(names) + ".so")
     subprocess.run([nvcc, *_lib.ARCH_FLAGS, "-shared", *objs, "-o", so],
                    check=True)
     lib = ctypes.CDLL(so)
-    for n in ("lc_partner", "notify_cross"):
+    for n in names:
         fn = getattr(lib, n)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        mode = [ctypes.c_int] if n in _lib.WITH_MODE else []
+        fn.argtypes = [ctypes.c_void_p] + mode + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     shim = types.SimpleNamespace(
         lib=lambda: lib, **{k: getattr(_lib, k) for k in (
             "check_args", "check", "stream_ptr", "fp32", "FLOATS")})
     mods = {}
-    for n in ("lc_partner", "notify_cross"):
-        spec = importlib.util.spec_from_file_location(
-            f"other_{n}", os.path.join(root, "cityflow_tpu_torch", "kernels",
-                                       n + ".py"))
-        m = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(m)
-        m._lib = shim
-        mods[n] = m
+    lent = [k for k in PACK_COLUMNS if not hasattr(step_mod, k)]
+    for k in lent:
+        setattr(step_mod, k, PACK_COLUMNS.index(k))
+    try:
+        for n in names:
+            spec = importlib.util.spec_from_file_location(
+                f"other_{n}", os.path.join(root, "cityflow_tpu_torch",
+                                           "kernels", n + ".py"))
+            m = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(m)
+            m._lib = shim
+            mods[n] = m
+    finally:
+        for k in lent:
+            delattr(step_mod, k)
     return mods
 
 

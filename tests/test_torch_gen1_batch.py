@@ -122,8 +122,8 @@ def test_split_step_and_rollout_equal_the_monolithic_step():
     a = b = init_batch_state(cfg, st0, B)
     for _ in range(STEPS):
         a = ts.step(net, cfg, a, spawn)
-        b, arr, fa, ia = ts.step_part1(net, cfg, b, spawn)
-        ll_avail, veh_next, own = ts.step_part2a(net, cfg, b, arr, fa, ia)
+        b, arr = ts.step_part1(net, cfg, b, spawn)
+        ll_avail, veh_next, own = ts.step_part2a(net, cfg, b, arr)
         buf, ov_hop = ts.step_part2b(net, cfg, b, arr, ll_avail, veh_next,
                                      own)
         b = ts.step_part3(net, cfg, b, arr, buf, ov_hop)

@@ -234,10 +234,9 @@ def _ul_inputs(config, exact, steps):
     for t in range(1, max(steps) + 1):
         eng.next_step()
         if t in steps:
-            st, arr, fa, ia = ts.step_part1(eng._net_dev, eng.cfg,
-                                            ts.lift(eng.state),
-                                            eng._spawn_dev)
-            buf, _ = ts.step_part2(eng._net_dev, eng.cfg, st, arr, fa, ia)
+            st, arr = ts.step_part1(eng._net_dev, eng.cfg,
+                                    ts.lift(eng.state), eng._spawn_dev)
+            buf, _ = ts.step_part2(eng._net_dev, eng.cfg, st, arr)
             out.append((eng, st, arr, buf))
     return out
 

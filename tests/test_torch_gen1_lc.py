@@ -200,13 +200,13 @@ def _port_state(leaves):
 
 
 def _arr(eng, st):
-    """G1 with the packs on one env's state (run as a batch of one)."""
+    """G1 and G9's blocker cycles on one env's state (run as a batch of
+    one)."""
     st = ts.lift(st)
     cyc = ts.blocker_cycles(eng.cfg, st.blocker)
-    fattrs, iattrs = ts.build_attr_packs(eng.cfg, st, cyc)
     arr = ts.arrangement(eng._net_dev, eng.cfg, st.running, st.drv, st.dis,
-                         st.list_seq, fattrs, iattrs)
-    return ts.squeeze((arr, fattrs, iattrs))
+                         st.list_seq)
+    return ts.squeeze((arr, cyc))
 
 
 def test_recorded_states_reach_every_branch(recorded):
@@ -247,6 +247,40 @@ def test_lc_probe_matches_jax(recorded, case):
     nb = ts.squeeze(tlc.probe_neighbors(eng._net_dev, eng.cfg,
                                         *ts.lift((r["st"], arr))))
     _eq_state("nb", _np(nb), r["jax"]["nb"])
+
+
+def test_lc_probe_orders_signed_zeros_and_nans_as_jax(recorded):
+    """G1 and G6 against JAX's arrangement and _probe_neighbors where lane
+    vehicles stand at -0.0, +0.0 and NaN (of both signs) beside vehicles
+    at other distances: lax.sort ties the two zeros and every NaN (after
+    +inf), so a probe at +0.0 takes a vehicle at -0.0 as its leader."""
+    eng, rec = recorded
+    net, cfg = eng._net_dev, eng.cfg
+    L = cfg.num_lanes
+    c = {k: np.array(v) for k, v in sim_state_to_numpy(
+        rec[STEPS[0], "natural"]["st"]).items()}     # a copy: the fixture's
+    rng = np.random.default_rng(5)                   # state stays as it was
+    lane = np.nonzero(c["running"] & (c["drv"] >= 0) & (c["drv"] < L))[0]
+    c["dis"][lane] = rng.choice(np.array([0.0, -0.0, np.nan, -np.nan, 3.0,
+                                          40.0]), lane.size)
+    st = sim_state_from_numpy(c, "cpu")
+    jst = jstate.SimState(**{k: jnp.asarray(v) for k, v in c.items()})
+    jcfg = jstate.StepConfig(**dataclasses.asdict(cfg))
+    jnet = _net_device_arrays(eng.net, np.float64)
+    jarr, jnb = jax.jit(lambda n, s: (
+        js.arrangement(n, jcfg, s.running, s.drv, s.dis, s.list_seq,
+                       s.params[:, js.P_LEN]),
+        jlc._probe_neighbors(n, jcfg, s)))(jnet, jst)
+    arr = _arr(eng, st)[0]
+    run = c["running"]
+    _eq("leader", arr["leader"].numpy()[run], np.asarray(jarr["leader"])[run])
+    for k in ("first_of", "last_of"):
+        _eq(k, arr[k].numpy(), np.asarray(jarr[k]))
+    nb = ts.squeeze(tlc.probe_neighbors(net, cfg, *ts.lift((st, arr))))
+    _eq_state("nb", _np(nb), _np(jnb))
+    zero = c["dis"][lane] == 0
+    assert (zero & np.signbit(c["dis"][lane])).any() and (
+        zero & ~np.signbit(c["dis"][lane])).any()
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[1]}@{c[0]}")
@@ -318,12 +352,12 @@ def test_lc_yield_and_get_action_tail_match_jax(recorded, case):
     st3 = _port_state(j["st3"])
     _eq("yield", ts.squeeze(tlc.yield_speed(net, cfg, ts.lift(st3))).numpy(),
         j["y"])
-    arr, fattrs, iattrs = _arr(eng, st3)
+    arr, cyc = _arr(eng, st3)
     ll_avail = ts.lanelink_available(net, cfg, st3)
     veh_next, _ = ts.chain_step(net, cfg.num_lanes, st3.route,
                                 st3.route_pos, st3.drv)
     b = ts.lift((st3, arr, veh_next, ll_avail))
-    own = ts.notify_cross(net, cfg, *b, *ts.lift((fattrs, iattrs)))
+    own = ts.notify_cross(net, cfg, *b, ts.lift(cyc))
     buf, ov_hop = ts.squeeze(ts.get_action(net, cfg, *b, own))
     assert set(buf) == set(j["buf"])
     _eq_state("buf", _np(buf), j["buf"])

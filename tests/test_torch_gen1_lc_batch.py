@@ -131,12 +131,10 @@ def recorded():
 
 
 def _arr(net, cfg, st):
-    """G1 with the packs on a batch's state."""
+    """G1 and G9's blocker cycles on a batch's state."""
     cyc = ts.blocker_cycles(cfg, st.blocker)
-    fattrs, iattrs = ts.build_attr_packs(cfg, st, cyc)
-    arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq,
-                         fattrs, iattrs)
-    return arr, fattrs, iattrs
+    arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
+    return arr, cyc
 
 
 def test_the_envs_differ_and_reach_every_branch(recorded):
@@ -205,12 +203,11 @@ def test_yield_tail_and_commit_batched_match_jax(recorded):
     j = recorded["jax"]["batch"]
     st3 = sim_state_from_numpy(j["st3"], "cpu")
     _eq("yield", tlc.yield_speed(net, cfg, st3).numpy(), j["y"])
-    arr, fattrs, iattrs = _arr(net, cfg, st3)
+    arr, cyc = _arr(net, cfg, st3)
     ll_avail = ts.lanelink_available(net, cfg, st3)
     veh_next, _ = ts.chain_step(net, cfg.num_lanes, st3.route,
                                 st3.route_pos, st3.drv)
-    own = ts.notify_cross(net, cfg, st3, arr, veh_next, ll_avail, fattrs,
-                          iattrs)
+    own = ts.notify_cross(net, cfg, st3, arr, veh_next, ll_avail, cyc)
     buf, ov_hop = ts.get_action(net, cfg, st3, arr, veh_next, ll_avail, own)
     assert set(buf) == set(j["buf"])
     _eq_state("buf", _np(buf), j["buf"])

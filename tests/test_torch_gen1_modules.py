@@ -23,6 +23,7 @@ from cityflow_tpu.engine import _net_device_arrays
 from cityflow_tpu_torch.carry import sim_state_to_numpy
 from cityflow_tpu_torch.core import step as ts
 from cityflow_tpu_torch.engine import Engine
+from cityflow_tpu_torch.kernels.arrange import link_rows
 
 torch.set_num_threads(2)
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -52,23 +53,22 @@ def _jax_regions(net, cfg, st):
 
 
 def _port_regions(eng, st):
-    """The port's regions on one env's state, run as a batch of one."""
+    """The port's regions on one env's state, run as a batch of one (G1
+    has no pack or table: `links` is each lanelink's first k_link
+    vehicles read through its sorted_idx and drv_off, `cyc` G9's flags)."""
     net, cfg = eng._net_dev, eng.cfg
     st = ts.lift(st)
     cyc = ts.blocker_cycles(cfg, st.blocker)
-    fattrs, iattrs = ts.build_attr_packs(cfg, st, cyc)
-    arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq,
-                         fattrs, iattrs)
-    arr_bare = ts.arrangement(net, cfg, st.running, st.drv, st.dis,
-                              st.list_seq)
+    arr = ts.arrangement(net, cfg, st.running, st.drv, st.dis, st.list_seq)
     ll_avail = ts.lanelink_available(net, cfg, st)
     veh_next, _ = ts.chain_step(net, cfg.num_lanes, st.route, st.route_pos,
                                 st.drv)
-    own = ts.notify_cross(net, cfg, st, arr, veh_next, ll_avail, fattrs,
-                          iattrs)
+    own = ts.notify_cross(net, cfg, st, arr, veh_next, ll_avail, cyc)
     buf, ov_hop = ts.get_action(net, cfg, st, arr, veh_next, ll_avail, own)
     scan = ts.leader_scan(net, cfg, st, arr, st.running)
-    return ts.squeeze(dict(arr=arr, arr_bare=arr_bare,
+    LL = cfg.num_drivables - cfg.num_lanes
+    links = link_rows(arr, cfg.num_lanes, max(LL, 1), cfg.k_link)
+    return ts.squeeze(dict(arr=arr, links=links, cyc=cyc,
                            foe=ts.foe_view(net, own), buf=buf, ov_hop=ov_hop,
                            scan=scan))
 
@@ -103,7 +103,8 @@ def recorded():
             jst = jstate.SimState(**{k: jnp.asarray(v)
                                      for k, v in leaves.items()})
             jcfg = jstate.StepConfig(**dataclasses.asdict(eng.cfg))
-            out[config, t] = dict(running=leaves["running"],
+            out[config, t] = dict(running=leaves["running"], leaves=leaves,
+                                  L=eng.cfg.num_lanes,
                                   jax=_np(_jax_regions(jnet, jcfg, jst)),
                                   port=_np(_port_regions(eng, st1)))
     return out
@@ -114,7 +115,7 @@ def test_recorded_states_reach_every_branch(recorded):
     scans that hit, and vehicles yielding at a cross (G4's first fail)."""
     port = [r["port"] for r in recorded.values()]
     assert min(int(r["running"].sum()) for r in recorded.values()) > 20
-    assert sum(int((p["arr"]["link_veh"] >= 0).sum()) for p in port) > 20
+    assert sum(int((p["links"] >= 0).sum()) for p in port) > 20
     assert sum(int((p["scan"][0] >= 0).sum()) for p in port) > 50
     assert sum(int((p["buf"]["blocker"] >= 0).sum()) for p in port) > 10
     assert sum(int(p["foe"]["foe_exists"].sum()) for p in port) > 10
@@ -128,8 +129,34 @@ def _eq(name, got, want):
                               f"{[b[:3].tolist() for b in bad]}")
 
 
+def _rebuilt_tables(r):
+    """JAX's three link tables rebuilt from the port's G1 outputs
+    (sorted_idx at drv_off: `links`) and the state's leaves, in the JAX
+    package's pack columns; empty rows as JAX fills them (-1, zeros)."""
+    lv, p = r["leaves"], r["leaves"]["params"]
+    rows = r["port"]["links"]
+    s = np.clip(rows, 0, None)
+    f = lv["dis"].dtype
+    cols = {js.A_DIS: lv["dis"], js.A_LEN: p[:, js.P_LEN],
+            js.A_SPEED: lv["speed"], js.A_MAXNEG: p[:, js.P_MAXNEGACC],
+            js.A_YIELD: p[:, js.P_YIELD], js.A_UPA: p[:, js.P_USUALPOSACC],
+            js.A_TURNSPD: p[:, js.P_TURNSPEED],
+            js.A_MAXSPD: p[:, js.P_MAXSPEED],
+            js.A_CYC: r["port"]["cyc"].astype(f),
+            js.A_PREV: lv["prev_drv"].astype(f)}
+    fattr = np.stack([cols[k][s] for k in range(len(cols))], -1)
+    iattr = np.stack([lv["enter_ll_time"][s], lv["priority"][s]], -1)
+    occ = (rows >= 0)[..., None]
+    return dict(link_veh=rows, link_fattr=np.where(occ, fattr, 0.0),
+                link_iattr=np.where(occ, iattr, 0).astype(np.int32))
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0][7:-5]}@{c[1]}")
 def test_arrange_matches_jax(recorded, case):
+    """G1's leader, first_of, last_of, sorted_idx and overflow equal
+    JAX's arrangement; JAX's link tables (link_veh and, with the packs,
+    link_fattr and link_iattr) rebuilt bitwise from drv_off and the
+    leaves."""
     r = recorded[case]
     run = r["running"]
     j, p = r["jax"]["arr"], r["port"]["arr"]
@@ -137,22 +164,37 @@ def test_arrange_matches_jax(recorded, case):
     # nothing reads those
     _eq("leader", p["leader"][run], j["leader"][run])
     assert (p["leader"][~run] == -1).all()
-    for k in ("first_of", "last_of", "link_veh", "link_fattr", "link_iattr",
-              "overflow_link"):
+    for k in ("first_of", "last_of", "overflow_link"):
         _eq(k, p[k], j[k])
+    for k, t in _rebuilt_tables(r).items():
+        _eq(k, t, j[k])
     n = int(run.sum())
     _eq("sorted_idx", p["sorted_idx"][:n], j["sorted_idx"][:n])
     assert (p["sorted_idx"][n:] == np.nonzero(~run)[0]).all()
+    # drv_off: each drivable's first position in JAX's sorted order
+    D = len(p["first_of"])
+    _eq("drv_off", p["drv_off"], np.searchsorted(
+        j["sorted_drv"][:n], np.arange(D + 1)).astype(np.int32))
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0][7:-5]}@{c[1]}")
 def test_arrange_without_packs_matches_jax(recorded, case):
+    """JAX's arrangement without the packs: its leader, last_of and
+    (vehicle, distance, length) link tables from the port's one G1 call
+    (G1 takes no packs and returns no table)."""
     r = recorded[case]
     run = r["running"]
-    j, p = r["jax"]["arr_bare"], r["port"]["arr_bare"]
+    j, p = r["jax"]["arr_bare"], r["port"]["arr"]
     _eq("leader", p["leader"][run], j["leader"][run])
     _eq("last_of", p["last_of"], j["last_of"])
-    assert p["link_veh"] is None
+    assert not {"link_veh", "link_fattr", "link_iattr"} & set(p)
+    rows = r["port"]["links"]
+    occ = rows >= 0
+    s = np.clip(rows, 0, None)
+    _eq("link_veh", rows, j["link_veh"])
+    _eq("link_dis", np.where(occ, r["leaves"]["dis"][s], 0.0), j["link_dis"])
+    _eq("link_len", np.where(occ, r["leaves"]["params"][s, js.P_LEN], 0.0),
+        j["link_len"])
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0][7:-5]}@{c[1]}")
